@@ -1,0 +1,137 @@
+"""Shared layers: initializer, norms, RoPE, MLP variants (twin of
+``repro.models.layers``)."""
+from __future__ import annotations
+
+import functools
+from typing import Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+
+
+class Initializer:
+    """Creates parameters from one ``torch.Generator`` on one device, drawn
+    in the order the model builds them. ``w`` is truncated-normal fan-in
+    init; ``z`` is zero init (output projections and norm gammas start at
+    zero, as in the JAX package)."""
+
+    def __init__(self, cfg: ModelConfig, generator: torch.Generator,
+                 device):
+        self.cfg = cfg
+        self.gen = generator
+        self.device = torch.device(device)
+        self.dtype = getattr(torch, cfg.param_dtype)
+
+    def w(self, shape, scale: Optional[float] = None) -> torch.Tensor:
+        if scale is None:
+            fan_in = shape[0] if len(shape) >= 2 else shape[-1]
+            scale = 1.0 / np.sqrt(max(1, fan_in))
+        t = torch.empty(shape, dtype=torch.float32, device=self.device)
+        torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0,
+                                    generator=self.gen)
+        return (t * scale).to(self.dtype)
+
+    def z(self, shape) -> torch.Tensor:
+        return torch.zeros(shape, dtype=self.dtype, device=self.device)
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+def rms_norm(x, gamma, eps: float):
+    dt = x.dtype
+    x = x.float()
+    var = x.square().mean(dim=-1, keepdim=True)
+    out = x * torch.rsqrt(var + eps)
+    return (out * (1.0 + gamma.float())).to(dt)
+
+
+def layer_norm(x, gamma, beta, eps: float):
+    dt = x.dtype
+    x = x.float()
+    mu = x.mean(dim=-1, keepdim=True)
+    var = x.var(dim=-1, keepdim=True, unbiased=False)
+    out = (x - mu) * torch.rsqrt(var + eps)
+    return (out * (1.0 + gamma.float()) + beta.float()).to(dt)
+
+
+def init_norm(init: Initializer, cfg: ModelConfig, dim: int):
+    if cfg.norm_type == "layernorm":
+        return {"gamma": init.z((dim,)), "beta": init.z((dim,))}
+    return {"gamma": init.z((dim,))}
+
+
+def apply_norm(params, x, cfg: ModelConfig):
+    if cfg.norm_type == "layernorm":
+        return layer_norm(x, params["gamma"], params["beta"], cfg.norm_eps)
+    return rms_norm(x, params["gamma"], cfg.norm_eps)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=16)
+def rope_frequencies(head_dim: int, theta: float, device=None):
+    """Inverse frequencies in fp32 (computed in float64 on the host, as the
+    JAX package does). Cached per device: a fresh host-to-device copy on
+    every call would block the host on the card twice per layer. Callers
+    must not modify the returned tensor."""
+    exponent = np.arange(0, head_dim, 2, dtype=np.float64) / head_dim
+    return torch.as_tensor(1.0 / (theta ** exponent), dtype=torch.float32,
+                           device=device)
+
+
+def apply_rope(x, positions, theta: float):
+    """x: (..., seq, heads, head_dim); positions: (..., seq). Rotate-half
+    split, computed in fp32."""
+    head_dim = x.shape[-1]
+    inv_freq = rope_frequencies(head_dim, theta, x.device)
+    angles = positions[..., :, None].float() * inv_freq      # (..., s, hd/2)
+    cos = torch.cos(angles)[..., None, :]
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MLP variants
+# ---------------------------------------------------------------------------
+
+def init_mlp(init: Initializer, cfg: ModelConfig,
+             d_ff: Optional[int] = None):
+    d, f = cfg.d_model, (d_ff or cfg.d_ff)
+    if cfg.mlp_type in ("swiglu", "geglu"):
+        return {"wi": init.w((d, 2, f)), "wo": init.z((f, d))}
+    return {"wi": init.w((d, f)), "wo": init.z((f, d))}     # relu2 | gelu
+
+
+def gelu(x):
+    """``jax.nn.gelu``'s default: the tanh approximation (torch's default
+    is the exact erf form)."""
+    return F.gelu(x, approximate="tanh")
+
+
+def apply_mlp(params, x, cfg: ModelConfig):
+    if cfg.mlp_type in ("swiglu", "geglu"):
+        wi = params["wi"]
+        h = (x @ wi.reshape(wi.shape[0], -1)).unflatten(-1, wi.shape[1:])
+        gate, up = h[..., 0, :], h[..., 1, :]
+        act = F.silu(gate) if cfg.mlp_type == "swiglu" else gelu(gate)
+        h = act * up
+    elif cfg.mlp_type == "relu2":
+        h = torch.relu(x @ params["wi"]).square()
+    else:  # gelu
+        h = gelu(x @ params["wi"])
+    return h @ params["wo"]
+
+
+def softcap(logits, cap: float):
+    if not cap:
+        return logits
+    return torch.tanh(logits / cap) * cap

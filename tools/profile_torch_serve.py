@@ -1,0 +1,151 @@
+#!/usr/bin/env python3
+"""Where the time goes in the port's serving path on the card.
+
+    python3 tools/profile_torch_serve.py
+
+Runs the same full-width Gemma-2B workload as ``chip_smoke.py`` (16 seeded
+requests, prompts 128-1024 tokens, 64 new tokens each, ``max_batch=8``,
+``max_len=2048``, ``block_tokens=16``) twice after a warm-up:
+
+1. timed: every admission prefill and every decode pass is bracketed by
+   ``torch.cuda.synchronize()`` on the host clock, which splits the wall
+   time into prefill, decode and the rest (host bookkeeping);
+2. profiled: ``torch.profiler`` over the same run gives device time by
+   kernel name, grouped into the two attention kernels, matrix products
+   and the rest, and the device's idle share of the wall time.
+
+Prints one JSON line with every number; needs one CUDA card and the CUDA
+toolkit (the kernels build at first use).
+"""
+from __future__ import annotations
+
+import json
+import sys
+import time
+from collections import defaultdict
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+sys.path.insert(0, str(ROOT / "src"))
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+import chip_smoke as cs  # noqa: E402
+
+
+def _timed_run(cfg, params, prompts):
+    from repro_torch.engine.core import EngineCore
+    spans = defaultdict(list)
+    originals = {}
+
+    def wrap(name):
+        fn = getattr(EngineCore, name)
+        originals[name] = fn
+
+        def timed(self, *a, **k):
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            out = fn(self, *a, **k)
+            torch.cuda.synchronize()
+            spans[name].append(time.monotonic() - t0)
+            return out
+        setattr(EngineCore, name, timed)
+
+    wrap("_admit_one")
+    wrap("_decode_pass")
+    try:
+        eng = cs._engine(cfg, params)
+        t0 = time.monotonic()
+        done = cs._serve(eng, prompts)
+        wall = time.monotonic() - t0
+    finally:
+        for name, fn in originals.items():
+            setattr(EngineCore, name, fn)
+    pre, dec = spans["_admit_one"], spans["_decode_pass"]
+    toks = sum(len(r.tokens) for r in done)
+    return {
+        "wall_s": wall, "tokens": toks, "tok_per_s": toks / wall,
+        "ttft_mean_ms": float(np.mean([r.ttft for r in done]) * 1e3),
+        "tpot_mean_ms": float(np.mean([r.tpot for r in done]) * 1e3),
+        "prefills": len(pre), "prefill_s": sum(pre),
+        "prefill_mean_ms": float(np.mean(pre) * 1e3),
+        "decode_passes": len(dec), "decode_s": sum(dec),
+        "decode_mean_ms": float(np.mean(dec) * 1e3),
+        "other_s": wall - sum(pre) - sum(dec),
+    }
+
+
+def _group(name: str) -> str:
+    low = name.lower()
+    if "flash_fwd" in low:
+        return "flash_attention kernel"
+    if "paged_decode" in low:
+        return "paged_decode_attention kernel"
+    if any(w in low for w in ("gemm", "gemv", "cutlass", "sm90_xmma",
+                              "nvjet", "matmul", "splitk")):
+        return "matrix products"
+    return "other kernels"
+
+
+def _profiled_run(cfg, params, prompts):
+    from torch.profiler import ProfilerActivity, profile
+    eng = cs._engine(cfg, params)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        cs._serve(eng, prompts)
+        wall = time.monotonic() - t0
+    groups = defaultdict(float)
+    top = []
+    for evt in prof.key_averages():
+        dev = getattr(evt, "self_device_time_total", None)
+        if dev is None:
+            dev = getattr(evt, "self_cuda_time_total", 0)
+        if dev <= 0 or evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        groups[_group(evt.key)] += dev / 1e6
+        top.append((dev / 1e6, evt.count, evt.key[:90]))
+    busy = sum(groups.values())
+    top.sort(reverse=True)
+    return {
+        "profiled_wall_s": wall, "device_busy_s": busy,
+        "device_idle_share": (1 - busy / wall) if busy else None,
+        "device_s_by_group": dict(groups),
+        "top_kernels": [{"device_s": t, "calls": c, "name": n}
+                        for t, c, n in top[:12]],
+    }
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("profile_torch_serve: no CUDA device", file=sys.stderr)
+        return 2
+    from repro_torch.configs import gemma_2b
+    card = cs.card_line()
+    cfg = gemma_2b.CONFIG
+    params = cs.full_width_params(cfg)
+    prompts = cs._requests(cfg)
+    cs._serve(cs._engine(cfg, params), prompts[:2], max_new=4)   # warm-up
+    out = {"card": card, "timed": _timed_run(cfg, params, prompts),
+           "profiled": _profiled_run(cfg, params, prompts)}
+    t, p = out["timed"], out["profiled"]
+    print(f"[timed] wall {t['wall_s']:.3f}s: prefill {t['prefill_s']:.3f}s "
+          f"({t['prefills']} x {t['prefill_mean_ms']:.2f} ms), decode "
+          f"{t['decode_s']:.3f}s ({t['decode_passes']} x "
+          f"{t['decode_mean_ms']:.2f} ms), other {t['other_s']:.3f}s")
+    print(f"[profiled] wall {p['profiled_wall_s']:.3f}s, device busy "
+          f"{p['device_busy_s']:.3f}s, idle share {p['device_idle_share']}")
+    for g, s in sorted(p["device_s_by_group"].items(), key=lambda x: -x[1]):
+        print(f"[profiled] {g}: {s:.4f}s")
+    for k in p["top_kernels"]:
+        print(f"[profiled]   {k['device_s']:.4f}s {k['calls']:6d}x "
+              f"{k['name']}")
+    print(card)
+    print(json.dumps(out))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
