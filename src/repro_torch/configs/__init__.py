@@ -22,7 +22,7 @@ from repro_torch.configs.base import (  # noqa: F401
     applicable_shapes,
 )
 
-ARCH_IDS = ("gemma_2b",)
+ARCH_IDS = ("gemma_2b", "guard_2b")
 
 
 def _norm(arch: str) -> str:

@@ -5,6 +5,7 @@ from repro_torch.engine.core import (      # noqa: F401
     EngineConfig,
     EngineCore,
     EngineRequest,
+    SlotEngine,
     make_engine,
     paged_supported,
 )
@@ -14,6 +15,7 @@ __all__ = [
     "EngineConfig",
     "EngineCore",
     "EngineRequest",
+    "SlotEngine",
     "make_engine",
     "paged_supported",
 ]

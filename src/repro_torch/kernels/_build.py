@@ -6,8 +6,9 @@ Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own with
          -Xcompiler -fPIC -Xptxas -v -o build/kernels/<name>-<hash>.so <name>.cu
 
 into ``build/kernels/`` at the repository root (listed in ``.gitignore``).
-The sources share the device helpers of ``csrc/mma_bf16.cuh``. The file
-name carries a hash of the source, the shared header and the flags, so a
+The sources share the device helpers of ``csrc/mma_bf16.cuh`` and the
+decode body of ``csrc/decode_body.cuh``. The file name carries a hash of
+the source, the shared headers and the flags, so a
 changed source rebuilds and an unchanged one loads what is there. ``build_all``
 starts one ``nvcc`` per source at once. Nothing here runs at import time:
 this module imports on machines without ``nvcc`` or a card.
@@ -29,8 +30,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-SOURCES = ("flash_attention", "paged_attention")
-HEADERS = ("mma_bf16.cuh",)
+SOURCES = ("flash_attention", "paged_attention", "decode_attention")
+HEADERS = ("mma_bf16.cuh", "decode_body.cuh")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -132,3 +132,22 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths, *,
     k = gather_paged_kv(k_pool, block_tables)
     v = gather_paged_kv(v_pool, block_tables)
     return decode_attention(q, k, v, lengths, scale=scale)
+
+
+def paged_verify_attention(q, k_pool, v_pool, block_tables, lengths, *,
+                           scale: Optional[float] = None):
+    """Speculative-verify attention over paged KV: ``s = spec_k + 1`` feed
+    positions per row in one call.
+
+    q: (b, s, nh, dq) — query ``j`` of row ``r`` sits at logical position
+    ``lengths[r] + j`` and attends over pooled positions ``< lengths[r] + j
+    + 1``; the feed's K/V must already be in the pools. Each position is
+    the decode oracle at that length (a Python unroll over ``s``), so
+    position ``j`` equals ``paged_decode_attention`` at ``lengths + j + 1``
+    bit for bit, as the spec == plain contract needs.
+    """
+    k = gather_paged_kv(k_pool, block_tables)
+    v = gather_paged_kv(v_pool, block_tables)
+    outs = [decode_attention(q[:, j:j + 1], k, v, lengths + j + 1, scale=scale)
+            for j in range(q.shape[1])]
+    return torch.cat(outs, dim=1)

@@ -2,12 +2,14 @@
 ``repro.models.attention``).
 
 Prefill is causal full-sequence attention through ``ops.flash_attention``;
-decode reads a paged cache through ``ops.paged_decode_attention``. Caches are
-updated in place: where the JAX package returns a new pool from
-``.at[slot].set(...)``, this module writes the new token's K/V into the
-layer's slice of the pool with ``index_copy_``, which saves a whole-pool
-copy per layer per step. The returned cache dict still names the (same)
-pools, so callers read like the JAX package's.
+decode reads a dense per-slot cache through ``ops.decode_attention`` or a
+paged cache through ``ops.paged_decode_attention``, and the speculative
+verify pass reads a paged cache through ``ops.paged_verify_attention``.
+Caches are updated in place: where the JAX package returns a new cache
+from ``dynamic_update_slice`` or ``.at[slot].set(...)``, this module writes
+the new tokens' K/V into the layer's slice of the cache with index writes,
+which saves a whole-cache copy per layer per step. The returned cache dict
+still names the (same) tensors, so callers read like the JAX package's.
 """
 from __future__ import annotations
 
@@ -75,13 +77,28 @@ def gqa_prefill(params, x, positions, cfg: ModelConfig,
 
 def gqa_decode(params, x, cfg: ModelConfig,
                cache: Dict) -> Tuple[torch.Tensor, Dict]:
-    """One-token decode. Only the paged cache (``k_pool`` present) is
-    served by this slice."""
+    """One-token decode against a dense per-slot cache.
+
+    x: (b, 1, d); cache k/v: (b, S, kvh, hd); cache["length"]: (b,) valid
+    tokens per row. The new token's K/V is written in place at index
+    ``length``, clamped to ``S - 1`` as JAX's ``dynamic_update_slice``
+    clamps it (the ``SlotEngine``'s dead slots keep stale, growing lengths).
+    A paged cache (``k_pool`` present) routes to ``gqa_decode_paged``.
+    """
     if "k_pool" in cache:
         return gqa_decode_paged(params, x, cfg, cache)
-    raise NotImplementedError(
-        "dense (non-paged) decode arrives with the SlotEngine / "
-        "decode_attention slice of the port")
+    hd = cfg.resolved_head_dim
+    lengths = cache["length"]
+    k_cache, v_cache = cache["k"], cache["v"]
+    q, k, v = _qkv(params, x, lengths[:, None], cfg)
+    rows = torch.arange(x.shape[0], device=x.device)
+    at = torch.clamp(lengths, max=k_cache.shape[1] - 1).long()
+    k_cache[rows, at] = k[:, 0].to(k_cache.dtype)
+    v_cache[rows, at] = v[:, 0].to(v_cache.dtype)
+    out = ops.decode_attention(q, k_cache, v_cache, lengths + 1,
+                               scale=hd ** -0.5)
+    return _proj_out(out, params["wo"]), {"k": k_cache, "v": v_cache,
+                                          "length": lengths + 1}
 
 
 def gqa_decode_paged(params, x, cfg: ModelConfig,
@@ -118,6 +135,47 @@ def gqa_decode_paged(params, x, cfg: ModelConfig,
     return _proj_out(out, params["wo"]), {
         "k_pool": k_pool, "v_pool": v_pool, "block_tables": tables,
         "length": lengths + 1}
+
+
+def gqa_verify_paged(params, x, cfg: ModelConfig, cache: Dict,
+                     q_valid: torch.Tensor) -> Tuple[torch.Tensor, Dict]:
+    """Speculative-verify pass against a *paged* cache: row ``r`` carries
+    ``q_valid[r]`` feed tokens (the last committed token plus its draft
+    continuation) at logical positions ``cache["length"][r] + j``.
+
+    Every feed position's K/V is written in place first, through the flat
+    slot ``block * bt + pos % bt``; positions ``j >= q_valid[r]`` (padding,
+    dead rows) go to the trash page, the last pool page, at slot
+    ``j % bt``, so they never touch a live page. Then
+    ``ops.paged_verify_attention`` scores every position, position ``j``
+    bit for bit what a one-token ``gqa_decode_paged`` gives there. The
+    caller must have fork-grown each live row's table to cover ``length +
+    q_valid`` positions with private pages (``PagedKVStore.fork_table``).
+    """
+    hd = cfg.resolved_head_dim
+    lengths = cache["length"]
+    tables = cache["block_tables"]
+    k_pool, v_pool = cache["k_pool"], cache["v_pool"]
+    bt, mb = k_pool.shape[1], tables.shape[1]
+    b, s, _ = x.shape
+    j = torch.arange(s, device=x.device)[None, :]
+    pos = lengths[:, None] + j                          # (b, s) logical pos
+    valid_q = j < q_valid[:, None]
+    q, k, v = _qkv(params, x, pos, cfg)
+
+    blk = torch.gather(tables, 1, torch.clamp(pos // bt, 0, mb - 1).long())
+    trash = k_pool.shape[0] - 1
+    slot = torch.where(valid_q, blk.long() * bt + pos % bt,
+                       trash * bt + j % bt).reshape(-1)
+    k_pool.view(-1, *k_pool.shape[2:]).index_copy_(
+        0, slot, k.reshape(b * s, *k.shape[2:]).to(k_pool.dtype))
+    v_pool.view(-1, *v_pool.shape[2:]).index_copy_(
+        0, slot, v.reshape(b * s, *v.shape[2:]).to(v_pool.dtype))
+    out = ops.paged_verify_attention(q, k_pool, v_pool, tables, lengths,
+                                     scale=hd ** -0.5)
+    return _proj_out(out, params["wo"]), {
+        "k_pool": k_pool, "v_pool": v_pool, "block_tables": tables,
+        "length": lengths + q_valid}
 
 
 def cache_spec(cfg: ModelConfig, batch: int, max_len: int,

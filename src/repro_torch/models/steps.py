@@ -1,6 +1,6 @@
-"""prefill_step / serve_step and the paged-cache page movement (twin of the
-serving half of ``repro.models.steps``). Page movement writes the pools in
-place and returns the same cache dict."""
+"""prefill_step / serve_step / verify_step and the paged-cache page movement
+(twin of the serving half of ``repro.models.steps``). Page movement writes
+the pools in place and returns the same cache dict."""
 from __future__ import annotations
 
 from typing import Dict
@@ -21,10 +21,23 @@ def prefill_step(params, batch: Dict, cfg: ModelConfig, max_len: int):
 
 
 def serve_step(params, tokens, caches, cfg: ModelConfig):
-    """One decode step over paged caches: tokens (b, 1) ->
+    """One decode step over dense or paged caches: tokens (b, 1) ->
     (new_token (b,) int32, logits, caches)."""
     logits, caches = tf.forward(params, cfg, tokens=tokens, mode="decode",
                                 caches=caches)
+    return torch.argmax(logits, dim=-1).to(torch.int32), logits, caches
+
+
+def verify_step(params, tokens, q_valid, caches, cfg: ModelConfig):
+    """One speculative-verify step: tokens (b, s) holds a left-aligned feed
+    per row (the last committed token, then its draft continuation) and
+    q_valid (b,) its length (0 for rows sitting this pass out). Returns
+    (greedy (b, s) int32, logits (b, s, V), caches): ``greedy[:, j]`` is
+    the argmax after feed position j, what sequential one-token decode
+    would emit there. ``caches`` are the paged pools, with fork-grown
+    tables covering ``length + q_valid`` positions per live row."""
+    logits, caches = tf.forward(params, cfg, tokens=tokens, mode="verify",
+                                caches=caches, q_valid=q_valid)
     return torch.argmax(logits, dim=-1).to(torch.int32), logits, caches
 
 
@@ -55,4 +68,13 @@ def scatter_pages(caches, pages, ids):
     for name, g in caches.items():
         g["k_pool"][:, ids] = pages[name]["k"]
         g["v_pool"][:, ids] = pages[name]["v"]
+    return caches
+
+
+def copy_pages(caches, src, dst):
+    """Copy pages ``src`` onto pages ``dst`` within the same pools (the
+    copy-on-write step of a speculative fork)."""
+    for g in caches.values():
+        g["k_pool"][:, dst] = g["k_pool"][:, src]
+        g["v_pool"][:, dst] = g["v_pool"][:, src]
     return caches

@@ -7,10 +7,12 @@ tree map; ``lax.scan`` over the stack becomes a Python loop over layer
 slices. Forward modes of this slice:
 
   * "prefill": last-position logits, K/V written into dense caches;
-  * "decode": one-token logits against paged caches (in place).
+  * "decode": one-token logits against dense or paged caches (in place);
+  * "verify": the speculative draft-and-verify pass over paged caches,
+    logits at every feed position.
 
-Training, chunked prefill, speculative verify and the other families
-arrive with later slices and raise ``NotImplementedError`` here.
+Training, chunked prefill and the other families arrive with later slices
+and raise ``NotImplementedError`` here.
 """
 from __future__ import annotations
 
@@ -80,10 +82,14 @@ def embed_scale(cfg: ModelConfig) -> float:
     return float(torch.tensor(cfg.d_model ** 0.5, dtype=compute))
 
 
-def _block_fwd(p, x, positions, cfg: ModelConfig, mode: str, cache):
+def _block_fwd(p, x, positions, cfg: ModelConfig, mode: str, cache,
+               q_valid=None):
     h = apply_norm(p["ln1"], x, cfg)
     if mode == "decode":
         a, new_cache = attn.gqa_decode(p["attn"], h, cfg, cache)
+    elif mode == "verify":
+        a, new_cache = attn.gqa_verify_paged(p["attn"], h, cfg, cache,
+                                             q_valid)
     else:
         a, new_cache = attn.gqa_prefill(p["attn"], h, positions, cfg, cache)
     x = x + a
@@ -93,18 +99,24 @@ def _block_fwd(p, x, positions, cfg: ModelConfig, mode: str, cache):
 
 
 def forward(params, cfg: ModelConfig, *, tokens, mode: str = "prefill",
-            caches=None):
-    """Returns ``(logits, new_caches)``; logits ``(b, vocab)`` in
-    ``cfg.logits_dtype`` at the last position."""
+            caches=None, q_valid=None):
+    """Returns ``(logits, new_caches)``; logits in ``cfg.logits_dtype``,
+    ``(b, vocab)`` at the last position, except in mode "verify".
+
+    mode="verify": ``tokens`` (b, s) holds a left-aligned feed per row (the
+    last committed token plus draft tokens, ``q_valid`` (b,) valid per row)
+    written through the paged caches; the logits come back un-sliced,
+    ``(b, s, vocab)``, since acceptance needs the argmax at every position.
+    """
     check_family(cfg)
-    if mode not in ("prefill", "decode"):
+    if mode not in ("prefill", "decode", "verify"):
         raise NotImplementedError(
-            f"mode={mode!r}: train/chunk/verify arrive with later slices")
+            f"mode={mode!r}: train/chunk arrive with later slices")
     compute = getattr(torch, cfg.compute_dtype)
     x = params["embed"].to(compute)[tokens]
     x = x * embed_scale(cfg)
     s = tokens.shape[1]
-    positions = (None if mode == "decode" else
+    positions = (None if mode in ("decode", "verify") else
                  torch.arange(s, dtype=torch.int32, device=x.device)[None, :])
 
     c = caches["attn"] if caches is not None else None
@@ -112,7 +124,7 @@ def forward(params, cfg: ModelConfig, *, tokens, mode: str = "prefill",
     for i in range(cfg.num_layers):
         cache_i = None if c is None else layer_slice(c, i)
         x, nc = _block_fwd(layer_slice(params["layers"], i), x, positions,
-                           cfg, mode, cache_i)
+                           cfg, mode, cache_i, q_valid)
         if nc is not None:
             lengths.append(nc["length"])
     new_caches = None
@@ -121,10 +133,22 @@ def forward(params, cfg: ModelConfig, *, tokens, mode: str = "prefill",
         new_caches = {"attn": {**c, "length": torch.stack(lengths, 0)}}
 
     x = apply_norm(params["final_norm"], x, cfg)
-    head = params["embed"].T if cfg.tie_embeddings else params["head"]
-    x = x[:, -1:, :]
-    logits = (x @ head.to(x.dtype)).to(getattr(torch, cfg.logits_dtype))
+    if mode == "prefill":
+        x = x[:, -1:, :]
+    if cfg.tie_embeddings:
+        # (E x^T)^T keeps the embedding in its (vocab, d) layout; on the
+        # CPU x E^T takes another kernel at some row counts, and then a
+        # row's logits depend on how many rows the pass has (verify vs
+        # decode)
+        flat = x.reshape(-1, x.shape[-1])
+        logits = (params["embed"].to(x.dtype) @ flat.T).T.reshape(
+            *x.shape[:-1], -1)
+    else:
+        logits = x @ params["head"].to(x.dtype)
+    logits = logits.to(getattr(torch, cfg.logits_dtype))
     logits = softcap(logits, cfg.logits_softcap)
+    if mode == "verify":
+        return logits, new_caches
     return logits[:, -1, :], new_caches
 
 

@@ -1,8 +1,10 @@
 """PyTorch port, engine: the port's paged ``Engine`` (CPU) against the JAX
 ``Engine`` at fp32 on the same perturbed weights and the same schedule —
 greedy token streams, ``kv_stats()`` and occupancy traces must be equal
-under an ample, a swap-pressured and a recompute-pressured pool — plus the
-copied ``PagedKVStore`` against JAX's on one seeded random walk."""
+under an ample, a swap-pressured and a recompute-pressured pool — the
+port's dense ``SlotEngine`` against JAX's and against the port's paged
+``Engine``, plus the copied ``PagedKVStore`` against JAX's on one seeded
+random walk."""
 import inspect
 
 import jax
@@ -15,15 +17,18 @@ from repro.configs import gemma_2b as jgemma
 from repro.engine.paged_kv import PagedKVStore as JStore
 from repro.engine.paged_kv import prefix_chain as jchain
 from repro.engine.runner import Engine as JEngine
+from repro.engine.runner import SlotEngine as JSlotEngine
 from repro.models import transformer as jtf
 from repro_torch import weights
 from repro_torch.configs import gemma_2b as tgemma
 from repro_torch.engine import core
 from repro_torch.engine.paged_kv import PagedKVStore as TStore
 from repro_torch.engine.paged_kv import prefix_chain as tchain
-from repro_torch.engine.runner import Engine, EngineConfig, make_engine
+from repro_torch.engine.runner import (Engine, EngineConfig, SlotEngine,
+                                       make_engine)
 from repro_torch.launch import serve
 from repro_torch.models import attention as tattn
+from repro_torch.models import steps as tsteps
 from repro_torch.models import transformer as ttf
 
 
@@ -87,6 +92,50 @@ def test_engine_matches_jax_engine(models, prompts, pool):
         assert any(r.preemptions for r in teng.finished)
     teng.store.check_invariants()
     assert teng.store.used_blocks == 0
+
+
+@pytest.fixture(scope="module")
+def slot_streams(models, prompts):
+    """The port's SlotEngine streams (run once, shared by two tests)."""
+    _, _, tcfg, tparams = models
+    eng = SlotEngine(tcfg, params=tparams, max_batch=2, max_len=64,
+                     device="cpu")
+    return _run(eng, prompts, 5)
+
+
+def test_slot_engine_matches_jax_slot_engine(models, prompts, slot_streams):
+    jcfg, jparams, _, _ = models
+    want = _run(JSlotEngine(jcfg, params=jparams, max_batch=2, max_len=64),
+                prompts, 5)
+    assert slot_streams == want
+    assert all(len(t) == 5 for t in want.values())
+
+
+def test_paged_engine_matches_slot_engine(models, prompts, slot_streams):
+    """paged == dense, the JAX package's bit-exactness oracle, inside the
+    port (JAX ``tests/test_paged_engine.py``)."""
+    _, _, tcfg, tparams = models
+    eng = Engine(tcfg, params=tparams, max_batch=2, max_len=64,
+                 block_tokens=16, device="cpu")
+    assert _run(eng, prompts, 5) == slot_streams
+    eng.store.check_invariants()
+    assert eng.store.used_blocks == 0
+
+
+def test_slot_engine_dense_cache_clamps_stale_lengths(models):
+    """A dead slot keeps its stale length and grows it every step; the
+    dense decode writes at ``min(length, S - 1)``, as JAX's
+    ``dynamic_update_slice`` clamps, and its row stays finite."""
+    _, _, tcfg, tparams = models
+    eng = SlotEngine(tcfg, params=tparams, max_batch=2, max_len=16,
+                     device="cpu")
+    eng.caches["attn"]["length"][:, 1] = 15
+    for _ in range(3):
+        tok, logits, eng.caches = tsteps.serve_step(
+            tparams, torch.zeros(2, 1, dtype=torch.int32), eng.caches, tcfg)
+    assert eng.caches["attn"]["length"][:, 1].tolist() == [18, 18]
+    assert torch.isfinite(logits).all() and eng.caches["attn"]["k"][
+        :, 1, 15].abs().sum() > 0
 
 
 def test_prefix_sharing_dedups_like_jax(models):
@@ -176,18 +225,25 @@ def test_store_matches_jax_store_on_random_walk():
 
 
 def test_paths_of_later_slices_raise(models):
+    """Chunked prefill still raises; speculative decoding and dense decode
+    run; MLA and MoE raise naming the other-families slice."""
     _, _, tcfg, tparams = models
     kw = dict(params=tparams, max_batch=1, max_len=64, device="cpu")
     with pytest.raises(NotImplementedError, match="chunked"):
         Engine(tcfg, config=EngineConfig(chunk_size=8), **kw)
-    with pytest.raises(NotImplementedError, match="speculative"):
-        Engine(tcfg, config=EngineConfig(draft_cfg=tcfg, spec_k=2), **kw)
-    with pytest.raises(NotImplementedError, match="SlotEngine"):
+    spec = Engine(tcfg, config=EngineConfig(draft_cfg=tcfg, spec_k=2),
+                  draft_params=tparams, **kw)
+    spec.submit(np.arange(5, dtype=np.int32), max_new_tokens=4)
+    assert len(spec.run()[0].tokens) == 4 and spec.spec_iters > 0
+    with pytest.raises(NotImplementedError, match="other-families"):
         make_engine(tcfg.replace(attn_type="mla"), **kw)
     with pytest.raises(NotImplementedError, match="other-families"):
         make_engine(tcfg.replace(family="moe"), **kw)
-    with pytest.raises(NotImplementedError, match="SlotEngine"):
-        tattn.gqa_decode({}, None, tcfg, {"k": None})
+    cache = ttf.init_cache(tcfg, 1, 8, "cpu")
+    out, new = tattn.gqa_decode(
+        ttf.layer_slice(tparams["layers"], 0)["attn"],
+        torch.ones(1, 1, tcfg.d_model), tcfg, ttf.layer_slice(cache["attn"], 0))
+    assert out.shape == (1, 1, tcfg.d_model) and new["length"].tolist() == [1]
     with pytest.raises(NotImplementedError):
         ttf.forward(tparams, tcfg, tokens=torch.zeros(1, 4, dtype=torch.int32),
                     mode="train")
@@ -195,8 +251,8 @@ def test_paths_of_later_slices_raise(models):
 
 
 def test_entry_points_default_to_cuda():
-    for fn in (core.EngineCore.__init__, ttf.init_model, ttf.init_cache,
-               ttf.init_paged_cache):
+    for fn in (core.EngineCore.__init__, core.SlotEngine.__init__,
+               ttf.init_model, ttf.init_cache, ttf.init_paged_cache):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):          # loud, no CPU fallback

@@ -14,11 +14,13 @@ import pytest
 import torch
 
 from repro.configs import gemma_2b as jgemma
+from repro.configs import guard_2b as jguard
 from repro.models import layers as jlayers
 from repro.models import steps as jsteps
 from repro.models import transformer as jtf
 from repro_torch import weights
 from repro_torch.configs import gemma_2b as tgemma
+from repro_torch.configs import guard_2b as tguard
 from repro_torch.models import layers as tlayers
 from repro_torch.models import steps as tsteps
 from repro_torch.models import transformer as ttf
@@ -156,10 +158,12 @@ def test_init_model_matches_jax_tree():
 
 
 def test_configs_match_jax():
-    assert dataclasses.asdict(tgemma.CONFIG) == dataclasses.asdict(
-        jgemma.CONFIG)
-    assert dataclasses.asdict(tgemma.reduced()) == dataclasses.asdict(
-        jgemma.reduced())
+    for tmod, jmod in ((tgemma, jgemma), (tguard, jguard)):
+        assert dataclasses.asdict(tmod.CONFIG) == dataclasses.asdict(
+            jmod.CONFIG)
+        assert dataclasses.asdict(tmod.reduced()) == dataclasses.asdict(
+            jmod.reduced())
+    assert tguard.reduced().vocab_size == tgemma.reduced().vocab_size
 
 
 # ---------------------------------------------------------------------------
@@ -230,6 +234,21 @@ def test_weight_bridge_roundtrip_is_bit_exact():
         np.asarray(a, np.float32), b), pn, back)
     t32 = weights.from_jax_params(pn, "cpu", torch.float32)
     assert t32["layers"]["attn"]["wq"].dtype == torch.float32
+
+
+def test_guard_draft_tree_crosses_the_bridge():
+    """The speculative draft's tree (reduced Guard-2B, untied head) crosses
+    bit for bit, with the keys and shapes of the port's own init."""
+    p, _ = jtf.init_model(jguard.reduced(), jax.random.PRNGKey(5))
+    pn = jax.tree.map(np.asarray, p)
+    tp = weights.from_jax_params(pn, "cpu")
+    jax.tree.map(lambda a, b: np.testing.assert_array_equal(
+        np.asarray(a, np.float32), b), pn, weights.to_numpy(tp))
+    own = ttf.init_model(tguard.reduced(), torch.Generator().manual_seed(0),
+                         "cpu")
+    shapes = lambda t: {k: shapes(v) if isinstance(v, dict) else
+                        (tuple(v.shape), v.dtype) for k, v in t.items()}
+    assert shapes(tp) == shapes(own) and "head" in own
 
 
 # ---------------------------------------------------------------------------
