@@ -17,26 +17,39 @@ raises on failure:
    decode == paged decode on one logical cache and that verify position j
    == paged decode at lengths + j + 1, and time kernel, plain version and
    one PyTorch library call beside the card's bound;
-4. serve: the paged ``Engine`` at the full width of ``gemma_2b.CONFIG``
+4. rag: the IVF-PQ scan kernel ``pq_scan`` against its plain version at
+   the JAX test's shapes with int32 and uint8 codes, on out-of-range codes
+   (each adds 0) and at the shared-memory limit of its LUT (one column
+   more raises); then the path, ``launch.rag.main`` at its defaults with
+   int32 and with uint8 codes, the launch counter reset just before and
+   read just after, whose top-5 ids must equal the plain version's and
+   whose scan, rerun on the same inputs, is held against it row by row;
+   then one query's scan at
+   ``IVFPQConfig``'s sizes (250,000 rows x 16 uint8 codes, K = 256) timed
+   cold beside the plain version and one ``embedding_bag`` call; then a
+   shard-scale scan of 2^28 rows (4 GiB of codes) with its achieved
+   bandwidth, held against the plain version in chunks;
+5. serve: the paged ``Engine`` at the full width of ``gemma_2b.CONFIG``
    (18 layers, random seeded weights, every weight perturbed) over 16
    requests, with the launch counters reset just before and read just
    after; its logits are held against the same model run through the plain
    attention versions;
-5. preemption: 4 of those requests under a pool small enough to force swaps
+6. preemption: 4 of those requests under a pool small enough to force swaps
    (token streams must equal the unpressured run's) and under recompute;
-6. slot: the dense ``SlotEngine`` over the same 16 requests, through
+7. slot: the dense ``SlotEngine`` over the same 16 requests, through
    ``decode_attention``; its streams must equal the paged ``Engine``'s;
-7. spec: the paged ``Engine`` with a draft model (the target's weights plus
+8. spec: the paged ``Engine`` with a draft model (the target's weights plus
    seeded noise, ``spec_k = 4``) over 8 of the requests, through
    ``paged_verify_attention``; one verify pass is held against sequential
    decode steps, and the streams are compared with plain decode's;
-8. the ``kernels`` JSON line, the card line, and the last line
+9. the ``kernels`` JSON line, the card line, and the last line
    ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import contextlib
 import ctypes
+import itertools
 import json
 import subprocess
 import sys
@@ -53,6 +66,9 @@ import torch  # noqa: E402
 # tensor-core rate; the card's power limit is printed beside every time.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_BF16_FLOPS = 989e12
+# fp32 outside the tensor cores: the scan's adds (bytes bound the scan
+# by ~1000x, but the bound is the larger of the two by definition)
+PEAK_FP32_FLOPS = 67e12
 
 # bf16 outputs: kernel and plain version round P and the output at
 # different points; |err| <= ATOL + RTOL * |plain| elementwise, and per
@@ -74,8 +90,23 @@ LOGIT_TOL = 0.05
 SPEC_NOISE = 1.0
 SPEC_K = 4
 
+# the IVF-PQ scan: fp32 sums of M table entries on both sides, only the
+# summation order differs (the JAX test's tolerance, tests/test_kernels.py)
+PQ_ATOL, PQ_RTOL = 1e-4, 1e-5
+# distinct code arrays cycled between timed launches of one query's scan:
+# 16 x 4 MB > the 50 MB L2, so each launch finds its codes in HBM as a real
+# query finds its probed lists
+COLD_ARRAYS = 16
+# a shard of a billion-vector PQ16 index (a quarter of SIFT1B / Deep1B)
+SHARD_ROWS = 2 ** 28
+SHARD_CHUNK = 2 ** 24            # rows per plain-version comparison
+# host-queue hold before a timed window (cycles of torch.cuda._sleep,
+# ~50 ms): the card waits while the host queues every launch, so the
+# events time the device alone and not the host's launch rate
+HOLD_CYCLES = 100_000_000
+
 KERNELS = ("flash_attention", "paged_decode_attention", "decode_attention",
-           "paged_verify_attention")
+           "paged_verify_attention", "pq_scan")
 SOURCE = {
     "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
     "paged_decode_attention":
@@ -83,12 +114,14 @@ SOURCE = {
     "decode_attention": "src/repro_torch/kernels/csrc/decode_attention.cu",
     "paged_verify_attention":
         "src/repro_torch/kernels/csrc/paged_attention.cu",
+    "pq_scan": "src/repro_torch/kernels/csrc/pq_scan.cu",
 }
 REPLACES = {
     "flash_attention": "src/repro/kernels/flash_attention.py:95",
     "paged_decode_attention": "src/repro/kernels/paged_attention.py:135",
     "decode_attention": "src/repro/kernels/decode_attention.py:105",
     "paged_verify_attention": "src/repro/kernels/paged_attention.py:243",
+    "pq_scan": "src/repro/kernels/pq_scan.py:41",
 }
 
 
@@ -96,12 +129,18 @@ def log(msg: str):
     print(msg, flush=True)
 
 
-def cuda_time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+def cuda_time_ms(fn, iters: int = 20, warmup: int = 3,
+                 hold: bool = False) -> float:
+    """Mean device time of ``fn`` over ``iters`` launches between two CUDA
+    events; ``hold`` first parks the card for HOLD_CYCLES so that the host
+    has queued every launch before the first one runs."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
+    if hold:
+        torch.cuda._sleep(HOLD_CYCLES)
     t0.record()
     for _ in range(iters):
         fn()
@@ -115,6 +154,14 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def bound(nbytes: float, ops: float, peak_ops: float):
+    """(least ms the card could take, "bytes" or "operations"): the larger
+    of the bytes over the HBM rate and the operations over their peak."""
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / peak_ops * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
 def compare(name: str, got, want):
@@ -387,10 +434,7 @@ def phase_kernels():
 
     for name, r in rows.items():
         nbytes, flops = r.pop("bound")
-        t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-        t_ops = flops / PEAK_BF16_FLOPS * 1e3
-        r["bound_ms"] = max(t_bytes, t_ops)
-        r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+        r["bound_ms"], r["bound_by"] = bound(nbytes, flops, PEAK_BF16_FLOPS)
         log(f"[kernels] {name}: kernel {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
             f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
@@ -398,7 +442,194 @@ def phase_kernels():
 
 
 # ---------------------------------------------------------------------------
-# phases 4-5: the paged Engine at full Gemma-2B width
+# phase 4: the RAG retrieval scan
+# ---------------------------------------------------------------------------
+
+def compare_fp32(name: str, got, want):
+    """Max abs error of a pq_scan output against its plain version; raises
+    past PQ_ATOL + PQ_RTOL * |plain| or on a non-finite or misshapen
+    output."""
+    torch.cuda.synchronize()
+    if got.shape != want.shape or got.dtype != torch.float32:
+        raise AssertionError(f"{name}: output {tuple(got.shape)} "
+                             f"{got.dtype}, want {tuple(want.shape)} fp32")
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{name}: non-finite kernel output")
+    err = (got - want).abs()
+    bad = err > PQ_ATOL + PQ_RTOL * want.abs()
+    if bad.any():
+        raise AssertionError(f"{name}: {int(bad.sum())} rows off, max abs "
+                             f"err {float(err.max()):.4g}")
+    return float(err.max())
+
+
+def _pq_inputs(gen, n, m, k, dtype, high=None):
+    codes = torch.randint(0, high or k, (n, m), generator=gen,
+                          device="cuda").to(dtype)
+    return codes, torch.randn(m, k, generator=gen, device="cuda")
+
+
+def _pq_kernel_cases(gen):
+    """(a) the kernel against its plain version at the JAX test's shapes
+    with both code types, on out-of-range codes and at the LUT's limit."""
+    from repro_torch.kernels import pq_scan as pq
+    from repro_torch.kernels import ref
+    for n, m, k in ((1000, 16, 256), (4096, 8, 256), (513, 32, 64)):
+        for dtype in (torch.int32, torch.uint8):
+            codes, lut = _pq_inputs(gen, n, m, k, dtype)
+            e = compare_fp32(f"pq_scan {(n, m, k)} {dtype}",
+                             pq.pq_scan(codes, lut), ref.pq_scan(codes, lut))
+            log(f"[rag] pq_scan (N, M, K) = {(n, m, k)} {dtype}: "
+                f"max_abs_err={e:.3g} (atol {PQ_ATOL}, rtol {PQ_RTOL})")
+    # int32 codes -1, K and 2^30 and uint8 codes >= K = 64 each add 0
+    for dtype, k, bad in ((torch.int32, 256, (-1, 256, 2 ** 30)),
+                          (torch.uint8, 64, (64, 200, 255))):
+        codes, lut = _pq_inputs(gen, 1000, 16, k, dtype)
+        pick = torch.tensor(bad, device="cuda")[torch.randint(
+            0, len(bad), codes.shape, generator=gen, device="cuda")]
+        hit = torch.rand(codes.shape, generator=gen, device="cuda") < 0.3
+        codes = torch.where(hit, pick.to(dtype), codes)
+        codes[0] = bad[0]                          # a row with no code in range
+        got = pq.pq_scan(codes, lut)
+        e = compare_fp32(f"pq_scan out of range {dtype}", got,
+                         ref.pq_scan(codes, lut))
+        if float(got[0]) != 0.0:
+            raise AssertionError("pq_scan: an all-out-of-range row is not 0")
+        log(f"[rag] pq_scan {dtype} K={k} with codes {list(bad)} (30% of "
+            f"codes, one row all): max_abs_err={e:.3g}, that row = 0")
+    codes, lut = _pq_inputs(gen, 2000, 227, 256, torch.uint8)
+    e = compare_fp32("pq_scan at the LUT limit", pq.pq_scan(codes, lut),
+                     ref.pq_scan(codes, lut))
+    log(f"[rag] pq_scan M=227 K=256 (LUT {227 * 256 * 4} B = the "
+        f"{pq.SMEM_LIMIT} B limit): max_abs_err={e:.3g}")
+    codes, lut = _pq_inputs(gen, 10, 227, 257, torch.int32)
+    try:
+        pq.pq_scan(codes, lut)
+    except ValueError as err:
+        log(f"[rag] pq_scan M=227 K=257 raises: {err}")
+    else:
+        raise AssertionError("pq_scan took a LUT past shared memory")
+
+
+def _pq_timed(gen):
+    """(c) one query's scan at IVFPQConfig's sizes, cold: the kernel, the
+    plain version and one embedding_bag call over COLD_ARRAYS code arrays
+    in turn. Returns the kernel row of the kernels line."""
+    from repro_torch.kernels import pq_scan as pq
+    from repro_torch.kernels import ref
+    from repro_torch.perfmodel.rag_model import IVFPQConfig
+    cfg = IVFPQConfig()
+    n, m, k = cfg.n_probe * cfg.points_per_probe, cfg.pq_m, cfg.pq_k
+    arrays = [torch.randint(0, k, (n, m), generator=gen, device="cuda",
+                            dtype=torch.uint8) for _ in range(COLD_ARRAYS)]
+    lut = torch.rand(m, k, generator=gen, device="cuda")
+    got, want = pq.pq_scan(arrays[0], lut), ref.pq_scan(arrays[0], lut)
+    err = compare_fp32("pq_scan one query", got, want)
+    rel = float(((got - want).abs() / want.abs()).max())
+    # the library yardstick: bag n of the flat LUT at code + m * K
+    table = lut.reshape(-1, 1)
+    offs = torch.arange(m, device="cuda") * k
+    idx = [a.long() + offs for a in arrays]
+    lib = torch.nn.functional.embedding_bag(idx[0], table, mode="sum")[:, 0]
+    compare_fp32("embedding_bag yardstick", lib, want)
+    iters = 3 * COLD_ARRAYS
+    turn = itertools.cycle(range(COLD_ARRAYS))
+    ms = cuda_time_ms(lambda: pq.pq_scan(arrays[next(turn)], lut),
+                      iters=iters, hold=True)
+    paced = cuda_time_ms(lambda: pq.pq_scan(arrays[next(turn)], lut),
+                         iters=iters)
+    warm = cuda_time_ms(lambda: pq.pq_scan(arrays[0], lut), iters=iters,
+                        hold=True)
+    plain = cuda_time_ms(lambda: ref.pq_scan(arrays[next(turn)], lut),
+                         iters=iters, hold=True)
+    library = cuda_time_ms(lambda: torch.nn.functional.embedding_bag(
+        idx[next(turn)], table, mode="sum"), iters=iters, hold=True)
+    nbytes = n * m + 4 * n + 4 * m * k
+    bound_ms, bound_by = bound(nbytes, n * m, PEAK_FP32_FLOPS)
+    log(f"[rag] one query's scan, IVFPQConfig n_probe {cfg.n_probe} x "
+        f"points_per_probe {cfg.points_per_probe} = {n} rows x {m} uint8 "
+        f"codes, K={k}: max_abs_err={err:.3g} max_rel_err={rel:.3g}")
+    log(f"[rag] cold ({COLD_ARRAYS} code arrays in turn, host queue held): "
+        f"kernel {ms:.4f} ms, plain {plain:.4f} ms, embedding_bag "
+        f"{library:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}, "
+        f"{nbytes} B); kernel paced by the host's launches {paced:.4f} ms, "
+        f"warm (one array, L2-resident) {warm:.4f} ms")
+    del arrays, idx
+    return dict(max_abs_err=err, max_row_rel_err=rel, ms=ms, plain_ms=plain,
+                library_ms=library, bound_ms=bound_ms, bound_by=bound_by)
+
+
+def _pq_shard(gen):
+    """(d) a shard-scale scan: SHARD_ROWS x 16 uint8 codes, timed, its
+    achieved bandwidth printed, held against the plain version in
+    SHARD_CHUNK-row chunks."""
+    from repro_torch.kernels import pq_scan as pq
+    from repro_torch.kernels import ref
+    m, k = 16, 256
+    codes = torch.empty(SHARD_ROWS, m, device="cuda", dtype=torch.uint8)
+    for i in range(0, SHARD_ROWS, SHARD_CHUNK):
+        codes[i:i + SHARD_CHUNK].random_(0, k, generator=gen)
+    lut = torch.rand(m, k, generator=gen, device="cuda")
+    out = pq.pq_scan(codes, lut)
+    err = max(compare_fp32(f"pq_scan shard rows {i}+",
+                           out[i:i + SHARD_CHUNK],
+                           ref.pq_scan(codes[i:i + SHARD_CHUNK], lut))
+              for i in range(0, SHARD_ROWS, SHARD_CHUNK))
+    del out
+    ms = cuda_time_ms(lambda: pq.pq_scan(codes, lut), iters=5, warmup=1)
+    nbytes = SHARD_ROWS * m + 4 * SHARD_ROWS + 4 * m * k
+    bound_ms, bound_by = bound(nbytes, SHARD_ROWS * m, PEAK_FP32_FLOPS)
+    log(f"[rag] shard scan {SHARD_ROWS} rows x {m} uint8 codes "
+        f"({SHARD_ROWS * m / 2**30:.0f} GiB codes, "
+        f"{4 * SHARD_ROWS / 2**30:.0f} GiB out): kernel {ms:.4f} ms, "
+        f"{nbytes / ms / 1e6:.1f} GB/s = {bound_ms / ms:.4f} of "
+        f"{PEAK_BYTES_PER_S / 1e12:.2f} TB/s (bound {bound_ms:.4f} ms, "
+        f"{bound_by}); max_abs_err={err:.3g} over {SHARD_ROWS // SHARD_CHUNK} "
+        f"plain chunks of {SHARD_CHUNK} rows")
+    del codes, lut
+    torch.cuda.empty_cache()
+
+
+def phase_rag():
+    """The IVF-PQ scan kernel checked, the RAG path driven through it, one
+    query's scan and a shard-scale scan timed. Returns (the pq_scan row of
+    the kernels line, its launches on the path)."""
+    from repro_torch.kernels import pq_scan as pq
+    from repro_torch.kernels import ref
+    from repro_torch.launch import rag
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    _pq_kernel_cases(gen)
+
+    # (b) the path at its defaults (200,000 rows x 16 int32 codes, K = 256,
+    # seed 0) and with the same codes stored as uint8; the plain version on
+    # the same inputs on the card
+    pq.launches = 0
+    ids = {c: rag.main(["--codes", c]) for c in ("int32", "uint8")}
+    torch.cuda.synchronize()
+    launches = pq.launches
+    if launches <= 0:
+        raise AssertionError("rag: pq_scan never launched")
+    for c, got in ids.items():
+        codes, lut = rag.make_inputs(200_000, 16, 256, seed=0, codes=c)
+        want = ref.pq_scan(codes, lut)
+        e = compare_fp32(f"pq_scan main path {c}", pq.pq_scan(codes, lut),
+                         want)
+        log(f"[rag] launch.rag.main --codes {c} on the card: top-5 ids "
+            f"{got}, plain version {rag.nearest(want)}; kernel vs plain on "
+            f"the path's inputs max_abs_err={e:.3g}")
+        if got != rag.nearest(want):
+            raise AssertionError(f"rag: {c} top-5 ids differ from the plain "
+                                 f"version's")
+        del codes, lut, want
+    log(f"[rag] pq_scan launches on the path: {launches}")
+
+    row = _pq_timed(gen)
+    _pq_shard(gen)
+    return row, launches
+
+
+# ---------------------------------------------------------------------------
+# phases 5-6: the paged Engine at full Gemma-2B width
 # ---------------------------------------------------------------------------
 
 def _perturb(params, cfg, gen, share: float = 1.0):
@@ -759,12 +990,14 @@ def main() -> int:
     line = phase_device()
     phase_build()
     rows = phase_kernels()
+    rows["pq_scan"], rag_launches = phase_rag()
     cfg = gemma_2b.CONFIG
     params = full_width_params(cfg)
     log(f"[params] {sum(v.numel() for v in _leaves(params)) / 1e9:.3f}B "
         f"parameters on the card")
     phase_logits(cfg, params)
     launches, prompts, streams = phase_serve(cfg, params)
+    launches["pq_scan"] = rag_launches
     phase_preemption(cfg, params, prompts)
     launches["decode_attention"] = phase_slot(cfg, params, prompts, streams)
     launches["paged_verify_attention"] = phase_spec(cfg, params, prompts,

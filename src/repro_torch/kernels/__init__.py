@@ -1,1 +1,2 @@
-"""Attention kernels: hand-written CUDA for Hopper, plain PyTorch versions, dispatch."""
+"""Hand-written CUDA kernels for Hopper (attention and the IVF-PQ scan),
+their plain PyTorch versions, and the dispatch between them."""

@@ -1,18 +1,22 @@
-"""Public attention entry points, dispatched on the tensor's device.
+"""Public kernel entry points (attention and the IVF-PQ scan), dispatched
+on the tensor's device.
 
 A CUDA tensor launches the hand-written kernel (``flash_attention.py``,
-``decode_attention.py``, ``paged_attention.py``), which raises on a shape or dtype it does not take;
-there is no fallback. A CPU tensor takes the plain PyTorch version in
-``ref.py``, including the chunked form for long sequences that
-``repro.kernels.ops`` takes off-TPU.
+``decode_attention.py``, ``paged_attention.py``, ``pq_scan.py``), which
+raises on a shape or dtype it does not take; there is no fallback. A CPU
+tensor takes the plain PyTorch version in ``ref.py``, including the chunked
+form for long sequences that ``repro.kernels.ops`` takes off-TPU.
 """
 from __future__ import annotations
 
 from typing import Optional
 
+import torch
+
 from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import paged_attention as _pa
+from repro_torch.kernels import pq_scan as _pq
 from repro_torch.kernels import ref as _ref
 
 
@@ -59,3 +63,20 @@ def paged_verify_attention(q, k_pool, v_pool, block_tables, lengths, *,
                                           lengths, scale=scale)
     return _ref.paged_verify_attention(q, k_pool, v_pool, block_tables,
                                        lengths, scale=scale)
+
+
+def pq_scan(codes, lut):
+    """IVF-PQ asymmetric-distance scan: codes (N, M), lut (M, K) -> (N,)
+    fp32 (see ``pq_scan.py`` for the contract). As the JAX wrapper does,
+    integer codes other than uint8 and int32 (``torch.randint`` gives int64)
+    are cast to int32 and the LUT to fp32, on either device, so the card and
+    the CPU scan the same values."""
+    if codes.dtype.is_floating_point or codes.dtype.is_complex \
+            or codes.dtype == torch.bool:
+        raise ValueError(f"pq_scan takes integer codes, got {codes.dtype}")
+    if codes.dtype not in (torch.uint8, torch.int32):
+        codes = codes.to(torch.int32)
+    lut = lut.float()
+    if codes.is_cuda:
+        return _pq.pq_scan(codes, lut)
+    return _ref.pq_scan(codes, lut)

@@ -1,4 +1,5 @@
-"""Plain PyTorch versions of the attention kernels on the serving path.
+"""Plain PyTorch versions of the kernels: attention on the serving path and
+the IVF-PQ scan on the retrieval path.
 
 Each function has the numerics of its twin in ``repro.kernels.ref``: the CPU
 path runs them, the tests hold them against the JAX oracles, and
@@ -151,3 +152,24 @@ def paged_verify_attention(q, k_pool, v_pool, block_tables, lengths, *,
     outs = [decode_attention(q[:, j:j + 1], k, v, lengths + j + 1, scale=scale)
             for j in range(q.shape[1])]
     return torch.cat(outs, dim=1)
+
+
+def pq_scan(codes, lut):
+    """IVF-PQ asymmetric-distance (ADC) scan, the RAG retrieval hot loop.
+
+    codes: (N, M) PQ codes of any integer type; lut: (M, K) per-subquantizer
+    distance table of one query. Returns (N,) float32, ``out[n] = sum_m
+    lut[m, codes[n, m]]`` summed in fp32. A code outside ``[0, K)`` adds
+    exactly 0: that is what the Pallas kernel computes (its one-hot compare
+    matches no column), so the card and the CPU agree on it. The JAX
+    reference ``repro.kernels.ref.pq_scan`` differs there: its
+    ``take_along_axis`` gives NaN for a code at or past K and wraps a
+    negative one. In range the two agree.
+    """
+    lut = lut.float()
+    m, k = lut.shape
+    c = codes.long()
+    inside = (c >= 0) & (c < k)
+    rows = torch.arange(m, device=lut.device)
+    gathered = lut[rows, c.clamp(0, k - 1)]                      # (N, M)
+    return (gathered * inside).sum(dim=-1)

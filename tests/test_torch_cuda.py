@@ -1,6 +1,7 @@
 """PyTorch port on the card: each CUDA kernel against its plain PyTorch
 version, the two bitwise contracts between the decode-shaped kernels, and
-the engines' paths through the kernels (paged, dense slot, speculative).
+the paths through the kernels (the paged, dense slot and speculative
+engines, and the RAG retrieval scan).
 
 Every test here needs an NVIDIA card and carries the ``cuda`` marker; it
 skips (in a fixture) without one. The file imports neither JAX nor
@@ -18,7 +19,9 @@ from repro_torch.kernels import decode_attention as tda
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import ops
 from repro_torch.kernels import paged_attention as tpa
+from repro_torch.kernels import pq_scan as tpq
 from repro_torch.kernels import ref
+from repro_torch.launch import rag
 
 pytestmark = pytest.mark.cuda
 
@@ -28,6 +31,8 @@ pytestmark = pytest.mark.cuda
 # are far below the elementwise atol.
 BF16 = dict(atol=2e-2, rtol=2e-2)
 ROW_RTOL = 1e-2
+# the IVF-PQ scan: fp32 on both sides, only the summation order differs
+FP32 = dict(atol=1e-4, rtol=1e-5)
 
 
 @pytest.fixture
@@ -237,3 +242,68 @@ def test_spec_engine_runs_through_verify_kernel(cuda):
     assert len(done) == 3 and all(len(r.tokens) == 6 for r in done)
     assert tpa.verify_launches > n0 and eng.spec_stats()["row_steps"] > 0
     assert not eng.store.forks and eng.store.used_blocks == 0
+
+
+def _pq_case(rng, cuda, n, m, k, dtype):
+    codes = torch.tensor(rng.integers(0, k, (n, m)), dtype=dtype,
+                         device=cuda)
+    lut = torch.tensor(rng.standard_normal((m, k)).astype(np.float32),
+                       device=cuda)
+    return codes, lut
+
+
+def _pq_assert(codes, lut):
+    n0 = tpq.launches
+    got = ops.pq_scan(codes, lut)
+    torch.cuda.synchronize()
+    assert tpq.launches == n0 + 1
+    np.testing.assert_allclose(_np(got), _np(ref.pq_scan(codes, lut)), **FP32)
+    return got
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.uint8])
+@pytest.mark.parametrize("n,m,k", [
+    (1000, 16, 256),            # uint8: one 16-byte load per row
+    (4096, 8, 256),             # uint8: 8-byte rows, code by code
+    (513, 32, 64),
+    (1, 16, 256),               # N = 1
+    (200_000, 16, 256),         # more rows than the grid has threads
+])
+def test_pq_scan_kernel_matches_plain(cuda, n, m, k, dtype):
+    _pq_assert(*_pq_case(np.random.default_rng(35), cuda, n, m, k, dtype))
+
+
+@pytest.mark.parametrize("dtype,k,bad", [
+    (torch.int32, 256, [-1, 256, 2 ** 30]),
+    (torch.uint8, 64, [64, 200, 255]),
+])
+def test_pq_scan_kernel_out_of_range_codes_add_zero(cuda, dtype, k, bad):
+    rng = np.random.default_rng(36)
+    codes, lut = _pq_case(rng, cuda, 777, 16, k, dtype)
+    hit = torch.tensor(rng.random((777, 16)) < 0.3, device=cuda)
+    pick = torch.tensor(rng.choice(bad, (777, 16)), dtype=dtype, device=cuda)
+    codes = torch.where(hit, pick, codes)
+    got = _pq_assert(codes, lut)
+    only_bad = torch.tensor([bad[:1] * 16], dtype=dtype, device=cuda)
+    assert float(ops.pq_scan(only_bad, lut)[0]) == 0.0
+    assert torch.isfinite(got).all()
+
+
+def test_pq_scan_kernel_shared_memory_limit(cuda):
+    """M * K * 4 = 232,448 bytes (M = 227, K = 256) runs; one column more
+    raises in the wrapper."""
+    rng = np.random.default_rng(37)
+    _pq_assert(*_pq_case(rng, cuda, 2000, 227, 256, torch.uint8))
+    codes, lut = _pq_case(rng, cuda, 10, 227, 257, torch.int32)
+    with pytest.raises(ValueError, match="shared memory"):
+        ops.pq_scan(codes, lut)
+
+
+def test_launch_rag_on_the_card_runs_through_the_kernel(cuda):
+    """The default path: the top-5 ids equal the plain version's on the
+    same inputs on the card."""
+    n0 = tpq.launches
+    ids = rag.main(["--n", "20000"])
+    assert tpq.launches == n0 + 1
+    codes, lut = rag.make_inputs(20000, 16, 256, seed=0, device=cuda)
+    assert ids == rag.nearest(ref.pq_scan(codes, lut))
