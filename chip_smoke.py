@@ -11,12 +11,15 @@ raises on failure:
 2. build: compile the kernels from ``src/repro_torch/kernels/csrc`` (one
    nvcc per source, started together) and print each one's registers,
    shared memory and spills;
-3. kernels: run each of the four kernels (flash, paged decode, dense
-   decode, paged verify) at its path's shapes and at head dim 16, hold it
-   against its plain PyTorch version, check with ``torch.equal`` that dense
-   decode == paged decode on one logical cache and that verify position j
-   == paged decode at lengths + j + 1, and time kernel, plain version and
-   one PyTorch library call beside the card's bound;
+3. kernels: run each of the four attention kernels (flash, paged decode,
+   dense decode, paged verify) at its path's shapes and at head dim 16,
+   hold it against its plain PyTorch version, check with ``torch.equal``
+   that dense decode == paged decode on one logical cache and that verify
+   position j == paged decode at lengths + j + 1, and time kernel, plain
+   version and one PyTorch library call beside the card's bound; flash is
+   also held over an edge product (lengths 1-1000, 1-8 kv heads, head dims
+   16-256, causal and not) and timed over the path's prefill lengths
+   128-2048 beside ``scaled_dot_product_attention`` (``phase_flash``);
 4. rag: the IVF-PQ scan kernel ``pq_scan`` against its plain version at
    the JAX test's shapes with int32 and uint8 codes, on out-of-range codes
    (each adds 0) and at the shared-memory limit of its LUT (one column
@@ -104,6 +107,14 @@ SHARD_CHUNK = 2 ** 24            # rows per plain-version comparison
 # ~50 ms): the card waits while the host queues every launch, so the
 # events time the device alone and not the host's launch rate
 HOLD_CYCLES = 100_000_000
+
+# flash_attention's edge cases (b = 2, 8 query heads, every combination,
+# causal and not) and the timed sweep over the path's prefill lengths
+# (prompts of 128-1024 tokens, and 2048) at (1, s, 8 heads, 1 kv head, 256)
+FLASH_S = (1, 64, 65, 1000)
+FLASH_KVH = (1, 2, 8)
+FLASH_D = (16, 64, 128, 256)
+FLASH_SWEEP = (128, 256, 512, 1024, 2048)
 
 KERNELS = ("flash_attention", "paged_decode_attention", "decode_attention",
            "paged_verify_attention", "pq_scan")
@@ -282,17 +293,33 @@ def _dense_case(gen, b, S, nh, kvh, d, lengths):
                                     device="cuda")
 
 
-def phase_kernels():
-    """Hold each kernel against its plain version and time the three."""
-    from repro_torch.kernels import decode_attention as da
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import paged_attention as pa
-    from repro_torch.kernels import ref
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    rng = np.random.default_rng(0)
-    rows = {}
+def _flash_work(b, s, nh, kvh, d):
+    """(bytes, operations) of causal flash attention: q, k, v read and o
+    written once; 4·d operations per (query, key) pair the mask keeps and
+    head."""
+    nbytes = 2 * (2 * b * s * nh * d + 2 * b * s * kvh * d)
+    return nbytes, 4 * d * nh * b * (s * (s + 1) // 2)
 
-    # flash: the main path's prefill shape (1, 1024, 8 heads, 1 kv head, 256)
+
+def _sdpa_flash(q, k, v):
+    """The yardstick: one causal scaled_dot_product_attention call, the one
+    kv head broadcast to the query heads."""
+    b, s, nh, d = q.shape
+    qt = q.permute(0, 2, 1, 3)
+    kt = k.permute(0, 2, 1, 3).expand(b, nh, s, d)
+    vt = v.permute(0, 2, 1, 3).expand(b, nh, s, d)
+    return lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True)
+
+
+def phase_flash(gen):
+    """flash_attention against its plain version at the path's prefill
+    shape, at earlier slices' shapes and over the edge product FLASH_S x
+    FLASH_KVH x FLASH_D x causal; kernel, plain version and the library call
+    timed on the device (host queue held) at the path shape, kernel and
+    library call over FLASH_SWEEP. Returns the kernels-line row."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
     b, s, nh, kvh, d = 1, 1024, 8, 1, 256
     q, k, v = _flash_case(gen, b, s, nh, kvh, d)
     err, rel = compare("flash_attention d=256",
@@ -307,23 +334,63 @@ def phase_kernels():
                        ref.flash_attention(qs, ks, vs, causal=causal))
         log(f"[kernels] flash_attention {shape} causal={causal}: "
             f"max_abs_err={e:.3g} max_row_rel_err={r:.3g}")
-    qt = q.permute(0, 2, 1, 3)
-    kt = k.permute(0, 2, 1, 3).expand(b, nh, s, d)
-    vt = v.permute(0, 2, 1, 3).expand(b, nh, s, d)
-    pairs = s * (s + 1) // 2                      # causal (query, key) pairs
-    flops = 4 * d * nh * b * pairs
-    nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
-    rows["flash_attention"] = dict(
+    egen = torch.Generator(device="cuda").manual_seed(15)
+    worst = {}
+    for d_e, s_e, kvh_e, causal in itertools.product(
+            FLASH_D, FLASH_S, FLASH_KVH, (True, False)):
+        shape = (2, s_e, 8, kvh_e, d_e)
+        qs, ks, vs = _flash_case(egen, *shape)
+        e, r = compare(f"flash_attention {shape} causal={causal}",
+                       fa.flash_attention(qs, ks, vs, causal=causal),
+                       ref.flash_attention(qs, ks, vs, causal=causal))
+        w = worst.setdefault(d_e, [0.0, 0.0])
+        w[0], w[1] = max(w[0], e), max(w[1], r)
+    for d_e, (e, r) in worst.items():
+        log(f"[kernels] flash_attention b=2 nh=8 d={d_e}, s in {FLASH_S}, "
+            f"kvh in {FLASH_KVH}, causal and not "
+            f"({2 * len(FLASH_S) * len(FLASH_KVH)} cases): "
+            f"max_abs_err={e:.3g} max_row_rel_err={r:.3g}")
+    # device time (host queue held): at short lengths the wrapper's host
+    # work per call outlasts the kernel
+    row = dict(
         max_abs_err=err, max_row_rel_err=rel,
-        ms=cuda_time_ms(lambda: fa.flash_attention(q, k, v)),
-        plain_ms=cuda_time_ms(lambda: ref.flash_attention(q, k, v)),
-        library_ms=cuda_time_ms(
-            lambda: torch.nn.functional.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True)),
-        bound=(nbytes, flops))
+        ms=cuda_time_ms(lambda: fa.flash_attention(q, k, v), hold=True),
+        plain_ms=cuda_time_ms(lambda: ref.flash_attention(q, k, v),
+                              hold=True),
+        library_ms=cuda_time_ms(_sdpa_flash(q, k, v), hold=True),
+        bound=_flash_work(b, s, nh, kvh, d))
     log(f"[kernels] flash_attention (1,1024,8,256) kvh=1 causal: "
         f"max_abs_err={err:.3g} (atol {ATOL}, rtol {RTOL}) "
         f"max_row_rel_err={rel:.3g} (limit {ROW_RTOL})")
+    for s_w in FLASH_SWEEP:
+        qw, kw, vw = _flash_case(egen, 1, s_w, nh, kvh, d)
+        run = lambda: fa.flash_attention(qw, kw, vw)  # noqa: E731
+        compare(f"flash_attention sweep s={s_w}", run(),
+                ref.flash_attention(qw, kw, vw))
+        ms = cuda_time_ms(run, hold=True)
+        paced = cuda_time_ms(run)
+        lib = cuda_time_ms(_sdpa_flash(qw, kw, vw), hold=True)
+        bound_ms, bound_by = bound(*_flash_work(1, s_w, nh, kvh, d),
+                                   PEAK_BF16_FLOPS)
+        log(f"[kernels] flash sweep (1, {s_w}, 8, 1, 256) causal, host "
+            f"queue held: kernel {ms:.4f} ms, sdpa {lib:.4f} ms, bound "
+            f"{bound_ms:.4f} ms ({bound_by}); kernel / sdpa {ms / lib:.2f}, "
+            f"bound / kernel {bound_ms / ms:.3f}; kernel paced by the "
+            f"host's launches {paced:.4f} ms")
+    return row
+
+
+def phase_kernels():
+    """Hold each kernel against its plain version and time the three."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import ref
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rng = np.random.default_rng(0)
+    rows = {}
+
+    rows["flash_attention"] = phase_flash(gen)
 
     # paged decode: b = 8, ragged lengths up to 2048, bt = 16, shuffled table
     b, nh, kvh, d, bt, mb = 8, 8, 1, 256, 16, 128

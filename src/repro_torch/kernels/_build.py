@@ -6,12 +6,15 @@ Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own with
          -Xcompiler -fPIC -Xptxas -v -o build/kernels/<name>-<hash>.so <name>.cu
 
 into ``build/kernels/`` at the repository root (listed in ``.gitignore``).
-The attention sources share the device helpers of ``csrc/mma_bf16.cuh``
-and the decode body of ``csrc/decode_body.cuh``; ``csrc/pq_scan.cu`` stands
-alone. The file name carries a hash of the source, the shared headers and
-the flags, so a changed source rebuilds and an unchanged one loads what is
-there. ``build_all`` starts one ``nvcc`` per source at once. Nothing here runs at import time:
-this module imports on machines without ``nvcc`` or a card.
+The decode-shaped attention sources share the ``mma.sync`` helpers of
+``csrc/mma_bf16.cuh`` and the decode body of ``csrc/decode_body.cuh``;
+``csrc/flash_attention.cu`` takes its ``wgmma``, TMA and ``mbarrier``
+helpers from ``csrc/wgmma_bf16.cuh``; ``csrc/pq_scan.cu`` stands alone.
+The file name carries a hash of the source, the shared headers and the
+flags, so a changed source rebuilds and an unchanged one loads what is
+there. ``build_all`` starts one ``nvcc`` per source at once. Nothing here
+runs at import time: this module imports on machines without ``nvcc`` or a
+card.
 """
 from __future__ import annotations
 
@@ -32,7 +35,7 @@ FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 SOURCES = ("flash_attention", "paged_attention", "decode_attention",
            "pq_scan")
-HEADERS = ("mma_bf16.cuh", "decode_body.cuh")
+HEADERS = ("mma_bf16.cuh", "decode_body.cuh", "wgmma_bf16.cuh")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

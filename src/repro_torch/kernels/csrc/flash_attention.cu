@@ -10,135 +10,171 @@
 //
 // What bounds it on the H100: at prefill shapes (s = t >= 512, d = 256) the
 // work is ~4·s·t·d/2 tensor-core operations against ~3·s·d·2 bytes, far above
-// the card's ~295 operations per byte, so it is bound by operations. The
-// design feeds the tensor cores with `mma.sync.m16n8k16` (bf16 operands,
-// fp32 accumulation): each of the 4 warps owns 16 query rows, keeps its
-// 16 x d fp32 output accumulator and its softmax state in registers, reuses
-// the S = QK^T accumulator registers directly as the A operand of P·V (the
-// FlashAttention-2 layout trick), and masks only the diagonal tile. Q, K and
-// V tiles sit in dynamic shared memory (3 x 64 x (d + 8) bf16, ~101 KB at
-// d = 256, above the 48 KB static limit, hence cudaFuncSetAttribute); the
-// 8-element row pad keeps the fragment loads free of bank conflicts. The K/V
-// of one kv head are re-read by the g query heads that share it through L2,
-// not shared memory, and loads are not yet overlapped with the mma work
-// (wgmma, TMA and pipelining are later work).
+// the card's ~295 operations per byte, so it is bound by operations: the
+// tensor cores have to be fed, and each kv tile's load has to hide behind
+// the products on the tile before it.
 //
-// Numerics: scores and softmax in fp32 like the reference; P is rounded to
-// bf16 for the P·V product (the reference keeps it fp32), so the two agree
-// to bf16 rounding, not bitwise.
-#include "mma_bf16.cuh"
+// The design, per block (one warpgroup of consumers and one producer warp):
+// - Both products are `wgmma.mma_async` (wgmma_bf16.cuh). S = Q K^T is
+//   m64n64k16 with Q and K K-major in shared memory; P V is m64n{D}k16 with
+//   D the head dim rounded up to 64, P taken straight from the S
+//   accumulator registers packed to bf16 pairs (no trip through shared
+//   memory) and V read MN-major (the transpose flag). The 64 x D fp32
+//   output accumulator lives in registers (128 a thread at d = 256).
+// - K and V arrive by TMA (one 4-d tensor map each, encoded on the host per
+//   call and passed as __grid_constant__) into a ring of kStages stages in
+//   128-byte-swizzle layout; one thread of the producer warp keeps the ring
+//   full, `mbarrier`s report each stage full (TMA byte count) and empty (the
+//   128 consumer threads), so the next tile's copy runs under this tile's
+//   products. Rows past t and columns past d arrive as TMA's zero fill:
+//   nothing outside the tensors is read, zero columns add exactly 0 to
+//   Q K^T and are never stored.
+// - Only the diagonal tile and the ragged last tile are masked. The block
+//   order puts the q tiles with the most kv tiles first.
+//
+// Numerics: scores and softmax in fp32 like the reference, with the scale
+// folded into log2(e) so the exponentials are exp2f; P is rounded to bf16
+// for the P·V product (the reference keeps it fp32) while the row sums use
+// the fp32 P; the denominator is floored at 1e-30. Masked keys take -1e30
+// and so probability exactly 0. The kernel agrees with the reference to
+// bf16 rounding, not bitwise.
+#include <cuda.h>
 
-using namespace repro_attn;
+#include "wgmma_bf16.cuh"
+
+using namespace repro_wgmma;
 
 namespace {
 
-constexpr int kBlockQ = 64;
-constexpr int kBlockK = 64;
-constexpr int kWarps = 4;
+typedef __nv_bfloat16 bf16;
 
-// Copy `rows` rows of width d (row r at src + r * stride) into smem rows of
-// width ld; rows at or past `valid` are zero-filled, so masked keys multiply
-// zeros, never stale shared memory.
-__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src,
-                                          int rows, int valid, long stride,
-                                          int d, int ld) {
-  const int chunks = d / 8;
-  for (int i = threadIdx.x; i < rows * chunks; i += blockDim.x) {
-    const int r = i / chunks, c = i - r * chunks;
-    const bool ok = r < valid;
-    const bf16* g = ok ? src + r * stride + c * 8 : src;
-    cp_async16(dst + r * ld + c * 8, g, ok ? 16 : 0);
-  }
+constexpr int kBlock = 64;                      // q rows and kv rows a tile
+constexpr int kStages = 2;                      // K/V ring depth
+constexpr int kConsumers = 128;                 // one warpgroup
+constexpr int kThreads = kConsumers + 32;       // + the producer warp
+constexpr uint32_t kAtomBytes = kBlock * 64 * 2;  // 64 rows x 128 bytes
+constexpr float kNegInf = -1e30f;                 // the reference's NEG_INF
+
+// Bytes of dynamic shared memory for DA swizzle atoms of head dim: Q, the
+// K and V ring, 2 * kStages + 1 barriers, and 1 KB to align the tiles.
+constexpr int smem_bytes(int da) {
+  return 1024 + (1 + 2 * kStages) * da * (int)kAtomBytes +
+         8 * (2 * kStages + 1);
 }
 
-__global__ void __launch_bounds__(kWarps * 32)
-    flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, bf16* __restrict__ o, int s,
-                     int t, int nh, int kvh, int d, int causal, float scale) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int ld = d + kPad;
-  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sK = sQ + kBlockQ * ld;
-  bf16* sV = sK + kBlockK * ld;
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
 
-  const int q0 = blockIdx.x * kBlockQ;
-  const int h = blockIdx.y;
-  const int bi = blockIdx.z;
+// DA = head dim rounded up to 64, in 64-column swizzle atoms (1..4).
+template <int DA>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
+                     const __grid_constant__ CUtensorMap tk,
+                     const __grid_constant__ CUtensorMap tv,
+                     bf16* __restrict__ o, int b, int s, int t, int nh,
+                     int kvh, int d, int causal, float scale_log2) {
+  constexpr int kN = 64 * DA;                     // P·V output width
+  constexpr uint32_t kTile = DA * kAtomBytes;     // one 64-row tile
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t sQ = (raw + 1023u) & ~1023u;  // atoms are 1 KB aligned
+  const uint32_t sK = sQ + kTile;                 // + stage * kTile
+  const uint32_t sV = sK + kStages * kTile;
+  const uint32_t bars = sV + kStages * kTile;
+  const uint32_t full = bars;                     // + 8 * stage
+  const uint32_t empty = bars + 8 * kStages;
+  const uint32_t qbar = bars + 16 * kStages;
+
+  // heaviest q tiles first: the slowest-varying part of the block index
+  // walks the q tiles from the last (most kv tiles under causal) down
+  const int rows = nh * b;
+  const int n_qt = (s + kBlock - 1) / kBlock;
+  const int qt = n_qt - 1 - (int)(blockIdx.x / rows);
+  const int h = blockIdx.x % rows % nh, bi = blockIdx.x % rows / nh;
   const int kh = h / (nh / kvh);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int gid = lane >> 2, tig = lane & 3;
-  const int n_dt = d / 8;   // n8 tiles of the output width
-  const int n_ks = d / 16;  // k16 steps of the QK^T contraction
+  const int q0 = qt * kBlock;
+  const int kend = causal ? min(t, q0 + kBlock) : t;
+  const int n_kt = (kend + kBlock - 1) / kBlock;
 
-  const bf16* qbase = q + ((long)bi * s * nh + h) * d;
-  const bf16* kbase = k + ((long)bi * t * kvh + kh) * d;
-  const bf16* vbase = v + ((long)bi * t * kvh + kh) * d;
-  const long q_stride = (long)nh * d, kv_stride = (long)kvh * d;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kStages; ++i) {
+      mbar_init(full + 8 * i, 1);
+      mbar_init(empty + 8 * i, kConsumers);
+    }
+    mbar_init(qbar, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
 
-  load_rows(sQ, qbase + q0 * q_stride, kBlockQ, min(kBlockQ, s - q0),
-            q_stride, d, ld);
-
-  float acc[kMaxD / 8][4];
-#pragma unroll
-  for (int j = 0; j < kMaxD / 8; ++j)
-    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-  float m_run[2] = {kNegInf, kNegInf};
-  float l_run[2] = {0.f, 0.f};  // this thread's share of the row sums
-  const int row_a = q0 + warp * 16 + gid;  // query positions of c0/c1, c2/c3
-  const int row_b = row_a + 8;
-
-  const int kend = causal ? min(t, q0 + kBlockQ) : t;
-  const int n_kt = (kend + kBlockK - 1) / kBlockK;
-  const bf16* qw = sQ + warp * 16 * ld;
-
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * kBlockK;
-    __syncthreads();  // every warp is done with the previous K/V tile
-    load_rows(sK, kbase + k0 * kv_stride, kBlockK, min(kBlockK, t - k0),
-              kv_stride, d, ld);
-    load_rows(sV, vbase + k0 * kv_stride, kBlockK, min(kBlockK, t - k0),
-              kv_stride, d, ld);
-    cp_async_wait_all();
-    __syncthreads();
-
-    // S = Q K^T for this warp's 16 rows x 64 keys (8 n8 tiles)
-    float sc[kBlockK / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < kBlockK / 8; ++nt)
-      sc[nt][0] = sc[nt][1] = sc[nt][2] = sc[nt][3] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < kMaxD / 16; ++ks) {
-      if (ks < n_ks) {
-        const int c = ks * 16 + tig * 2;
-        uint32_t a[4];
-        a[0] = ld32(qw + gid * ld + c);
-        a[1] = ld32(qw + (gid + 8) * ld + c);
-        a[2] = ld32(qw + gid * ld + c + 8);
-        a[3] = ld32(qw + (gid + 8) * ld + c + 8);
-#pragma unroll
-        for (int nt = 0; nt < kBlockK / 8; ++nt) {
-          const bf16* kr = sK + (nt * 8 + gid) * ld + c;
-          uint32_t b[2] = {ld32(kr), ld32(kr + 8)};
-          mma_bf16(sc[nt], a, b);
+  if (threadIdx.x >= kConsumers) {
+    // producer: one thread issues every copy, the rest of the warp idles
+    if (threadIdx.x == kConsumers) {
+      mbar_expect_tx(qbar, kTile);
+      for (int a = 0; a < DA; ++a)
+        tma_load_4d(sQ + a * kAtomBytes, &tq, qbar, a * 64, h, q0, bi);
+      for (int kt = 0; kt < n_kt; ++kt) {
+        const int st = kt % kStages;
+        const uint32_t ph = (kt / kStages) & 1;
+        mbar_wait(empty + 8 * st, ph ^ 1);          // stage free again
+        mbar_expect_tx(full + 8 * st, 2 * kTile);
+        for (int a = 0; a < DA; ++a) {
+          tma_load_4d(sK + st * kTile + a * kAtomBytes, &tk, full + 8 * st,
+                      a * 64, kh, kt * kBlock, bi);
+          tma_load_4d(sV + st * kTile + a * kAtomBytes, &tv, full + 8 * st,
+                      a * 64, kh, kt * kBlock, bi);
         }
       }
     }
+    return;
+  }
 
-    // scale, mask, online softmax (rows row_a / row_b; a row's 64 scores
-    // are spread over the 4 lanes of one quad)
-    const bool diag = causal && (k0 + kBlockK - 1 > q0);
+  // consumers: the warpgroup's 64 q rows
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int row_a = q0 + warp * 16 + gid;        // rows of acc[4j + 0/1]
+  const int row_b = row_a + 8;                   // rows of acc[4j + 2/3]
+
+  float acc[kN / 2];
+#pragma unroll
+  for (int i = 0; i < kN / 2; ++i) acc[i] = 0.f;
+  float m_run[2] = {kNegInf, kNegInf};           // log2 units
+  float l_run[2] = {0.f, 0.f};                   // this thread's share
+
+  mbar_wait(qbar, 0);
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int st = kt % kStages;
+    const int k0 = kt * kBlock;
+    mbar_wait(full + 8 * st, (kt / kStages) & 1);
+    const uint32_t kbase = sK + st * kTile, vbase = sV + st * kTile;
+
+    // S = Q K^T: 4 k16 steps per atom; steps past d multiply zero fill
+    float sc[32];
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < 4 * DA; ++ks) {
+      const uint32_t off = (ks >> 2) * kAtomBytes + (ks & 3) * 32;
+      wgmma_ss_m64n64k16(sc, desc_sw128(sQ + off, 16, 1024),
+                         desc_sw128(kbase + off, 16, 1024), ks > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+
+    // scale into log2 units, mask, online softmax; a row's 64 scores lie
+    // on the 4 lanes of one quad
+    const bool edge = (causal && k0 + kBlock - 1 > q0) || k0 + kBlock > t;
     float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
-    for (int nt = 0; nt < kBlockK / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = k0 + nt * 8 + tig * 2 + (e & 1);
-        const int row = (e < 2) ? row_a : row_b;
-        float x = sc[nt][e] * scale;
-        if (col >= t || (diag && col > row)) x = kNegInf;
-        sc[nt][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+    for (int i = 0; i < 32; ++i) {
+      float x = sc[i] * scale_log2;
+      if (edge) {
+        const int col = k0 + (i >> 2) * 8 + tig * 2 + (i & 1);
+        const int row = (i & 2) ? row_b : row_a;
+        if (col >= t || (causal && col > row)) x = kNegInf;
       }
+      sc[i] = x;
+      mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], x);
     }
     float alpha[2];
 #pragma unroll
@@ -146,101 +182,160 @@ __global__ void __launch_bounds__(kWarps * 32)
       mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
       mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
       const float m_new = fmaxf(m_run[r], mx[r]);
-      alpha[r] = expf(m_run[r] - m_new);
+      alpha[r] = exp2f(m_run[r] - m_new);
       m_run[r] = m_new;
     }
     float rs[2] = {0.f, 0.f};
 #pragma unroll
-    for (int nt = 0; nt < kBlockK / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = expf(sc[nt][e] - m_run[e >> 1]);
-        sc[nt][e] = p;
-        rs[e >> 1] += p;
-      }
+    for (int i = 0; i < 32; ++i) {
+      const float p = exp2f(sc[i] - m_run[(i >> 1) & 1]);
+      sc[i] = p;
+      rs[(i >> 1) & 1] += p;
     }
     l_run[0] = l_run[0] * alpha[0] + rs[0];
     l_run[1] = l_run[1] * alpha[1] + rs[1];
 #pragma unroll
-    for (int j = 0; j < kMaxD / 8; ++j) {
-      if (j < n_dt) {
-        acc[j][0] *= alpha[0];
-        acc[j][1] *= alpha[0];
-        acc[j][2] *= alpha[1];
-        acc[j][3] *= alpha[1];
-      }
-    }
+    for (int i = 0; i < kN / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
 
-    // O += P V: the S accumulators of two adjacent n8 tiles are exactly the
-    // A fragment of one k16 step
+    // O += P V: n8 groups 2kk and 2kk + 1 of S are the A operand of k16
+    // step kk; V's step kk is its rows 16kk..16kk+15 (two 1 KB row groups)
+    uint32_t pa[4][4];
 #pragma unroll
-    for (int kk = 0; kk < kBlockK / 16; ++kk) {
-      uint32_t a[4];
-      a[0] = pack_f32(sc[2 * kk][0], sc[2 * kk][1]);
-      a[1] = pack_f32(sc[2 * kk][2], sc[2 * kk][3]);
-      a[2] = pack_f32(sc[2 * kk + 1][0], sc[2 * kk + 1][1]);
-      a[3] = pack_f32(sc[2 * kk + 1][2], sc[2 * kk + 1][3]);
-      const int kr = kk * 16 + tig * 2;
-#pragma unroll
-      for (int j = 0; j < kMaxD / 8; ++j) {
-        if (j < n_dt) {
-          const bf16* vc = sV + j * 8 + gid;
-          uint32_t b[2] = {pack_cols(vc + kr * ld, vc + (kr + 1) * ld),
-                           pack_cols(vc + (kr + 8) * ld, vc + (kr + 9) * ld)};
-          mma_bf16(acc[j], a, b);
-        }
-      }
+    for (int kk = 0; kk < 4; ++kk) {
+      pa[kk][0] = pack_bf16(sc[8 * kk + 0], sc[8 * kk + 1]);
+      pa[kk][1] = pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
+      pa[kk][2] = pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
+      pa[kk][3] = pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
     }
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs<kN>(acc, pa[kk],
+                   desc_sw128(vbase + kk * 2048, kAtomBytes, 1024));
+    wgmma_commit();
+    wgmma_wait<0>();
+    mbar_arrive(empty + 8 * st);                 // K and V of this stage read
   }
 
-  // finalize: full row sums, divide, store bf16 pairs
+  // finalize: full row sums, divide, store bf16 pairs of the d real columns
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
     l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
   }
-  const float inv_a = 1.f / fmaxf(l_run[0], 1e-30f);
-  const float inv_b = 1.f / fmaxf(l_run[1], 1e-30f);
-  bf16* oa = o + (((long)bi * s + row_a) * nh + h) * d + tig * 2;
-  bf16* ob = o + (((long)bi * s + row_b) * nh + h) * d + tig * 2;
+  const float inv[2] = {1.f / fmaxf(l_run[0], 1e-30f),
+                        1.f / fmaxf(l_run[1], 1e-30f)};
 #pragma unroll
-  for (int j = 0; j < kMaxD / 8; ++j) {
-    if (j < n_dt) {
-      if (row_a < s)
-        *reinterpret_cast<uint32_t*>(oa + j * 8) =
-            pack_f32(acc[j][0] * inv_a, acc[j][1] * inv_a);
-      if (row_b < s)
-        *reinterpret_cast<uint32_t*>(ob + j * 8) =
-            pack_f32(acc[j][2] * inv_b, acc[j][3] * inv_b);
+  for (int j = 0; j < kN / 8; ++j) {
+    const int col = j * 8 + tig * 2;
+    if (col >= d) continue;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = r ? row_b : row_a;
+      if (row < s)
+        *reinterpret_cast<uint32_t*>(o + (((long)bi * s + row) * nh + h) * d +
+                                     col) =
+            pack_bf16(acc[4 * j + 2 * r] * inv[r],
+                      acc[4 * j + 2 * r + 1] * inv[r]);
     }
   }
 }
 
-}  // namespace
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
 
-// Dynamic shared memory of one block at head dim d (Q, K, V tiles).
-extern "C" int flash_attention_smem_bytes(int d) {
-  return (kBlockQ + 2 * kBlockK) * (d + kPad) * (int)sizeof(bf16);
+// cuTensorMapEncodeTiled of libcuda, found once through the CUDA runtime
+// (no link against libcuda).
+EncodeTiled encode_fn() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
 }
 
-// q (b, s, nh, d), k/v (b, t, kvh, d), o (b, s, nh, d); all bf16, contiguous.
-// d % 16 == 0, d <= 256, nh % kvh == 0 (the Python wrapper checks).
-// Returns the CUDA error of the launch (0 = cudaSuccess).
+// Tensor map of a contiguous bf16 (n, len, heads, d) tensor: boxes of 64
+// columns x 1 head x 64 positions x 1 batch row, 128-byte swizzle, zero fill
+// outside the tensor.
+bool encode(CUtensorMap* map, const void* ptr, int n, int len, int heads,
+            int d) {
+  EncodeTiled fn = encode_fn();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)heads,
+                              (cuuint64_t)len, (cuuint64_t)n};
+  const cuuint64_t strides[3] = {(cuuint64_t)d * 2, (cuuint64_t)heads * d * 2,
+                                 (cuuint64_t)len * heads * d * 2};
+  const cuuint32_t box[4] = {64, 1, kBlock, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int DA>
+int launch(const void* q, const void* k, const void* v, void* o, int b, int s,
+           int t, int nh, int kvh, int d, int causal, float scale,
+           cudaStream_t stream) {
+  CUtensorMap tq, tk, tv;
+  if (!encode(&tq, q, b, s, nh, d) || !encode(&tk, k, b, t, kvh, d) ||
+      !encode(&tv, v, b, t, kvh, d))
+    return (int)cudaErrorInvalidValue;
+  const int smem = smem_bytes(DA);
+  static int smem_granted = 0;  // raise the opt-in limit once per instance
+  if (smem > smem_granted) {
+    cudaError_t err = cudaFuncSetAttribute(
+        flash_fwd_kernel<DA>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (err != cudaSuccess) return (int)err;
+    smem_granted = smem;
+  }
+  const long blocks = (long)((s + kBlock - 1) / kBlock) * nh * b;
+  flash_fwd_kernel<DA><<<(unsigned)blocks, kThreads, smem, stream>>>(
+      tq, tk, tv, (bf16*)o, b, s, t, nh, kvh, d, causal,
+      scale * 1.4426950408889634f);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Dynamic shared memory of one block at head dim d (Q, the K/V ring, the
+// barriers and the alignment slack).
+extern "C" int flash_attention_smem_bytes(int d) {
+  return smem_bytes((d + 63) / 64);
+}
+
+// q (b, s, nh, d), k/v (b, t, kvh, d), o (b, s, nh, d); all bf16, contiguous,
+// 16-byte aligned. d % 16 == 0, d <= 256, nh % kvh == 0 (the Python wrapper
+// checks). Returns the CUDA error of the launch (0 = cudaSuccess).
 extern "C" int flash_attention_bf16(const void* q, const void* k,
                                     const void* v, void* o, int b, int s,
                                     int t, int nh, int kvh, int d, int causal,
                                     float scale, void* stream) {
-  const int smem = flash_attention_smem_bytes(d);
-  static int smem_granted = 0;  // raise the opt-in limit once per size
-  if (smem > smem_granted) {
-    cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return (int)err;
-    smem_granted = smem;
+  cudaStream_t st = (cudaStream_t)stream;
+  switch ((d + 63) / 64) {
+    case 1:
+      return launch<1>(q, k, v, o, b, s, t, nh, kvh, d, causal, scale, st);
+    case 2:
+      return launch<2>(q, k, v, o, b, s, t, nh, kvh, d, causal, scale, st);
+    case 3:
+      return launch<3>(q, k, v, o, b, s, t, nh, kvh, d, causal, scale, st);
+    case 4:
+      return launch<4>(q, k, v, o, b, s, t, nh, kvh, d, causal, scale, st);
   }
-  dim3 grid((s + kBlockQ - 1) / kBlockQ, nh, b);
-  flash_fwd_kernel<<<grid, kWarps * 32, smem, (cudaStream_t)stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, s, t, nh, kvh,
-      d, causal, scale);
-  return (int)cudaGetLastError();
+  return (int)cudaErrorInvalidValue;
 }

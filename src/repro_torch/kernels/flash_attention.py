@@ -52,8 +52,8 @@ def flash_attention(q, k, v, *, causal: bool = True,
     scale = d ** -0.5 if scale is None else scale
     q, k, v = _build.aligned(q), _build.aligned(k), _build.aligned(v)
     out = torch.empty_like(q)
-    if b == 0 or s == 0:
-        return out
+    if b == 0 or s == 0 or t == 0:       # no keys: the plain version's 0
+        return out.zero_()
     err = _entry()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                    b, s, t, nh, kvh, d, int(causal), float(scale),
                    torch.cuda.current_stream(q.device).cuda_stream)

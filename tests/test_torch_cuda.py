@@ -60,11 +60,20 @@ def _assert_close(got, want):
     assert rel.max() <= ROW_RTOL, rel.max()
 
 
+# the kernel's edges: one, one tile, one row past it and a ragged 1000
+# rows; 1, 2 and 8 kv heads under 8 query heads; head dims of 16 (one k16
+# step, 48 zero columns), 64, 128 and 256 (one to four swizzle atoms)
+FLASH_EDGES = [((2, s, 8, kvh, d), causal)
+               for s in (1, 64, 65, 1000) for kvh in (1, 2, 8)
+               for d in (16, 64, 128, 256) for causal in (True, False)]
+
+
 @pytest.mark.parametrize("shape,causal", [
     ((1, 300, 8, 1, 256), True),
     ((2, 100, 4, 1, 16), True),
     ((2, 65, 4, 2, 64), False),
-])
+    ((1, 1024, 8, 1, 256), True),           # the path's prefill shape
+] + FLASH_EDGES)
 def test_flash_kernel_matches_plain(cuda, shape, causal):
     b, s, nh, kvh, d = shape
     rng = np.random.default_rng(30)
