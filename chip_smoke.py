@@ -13,13 +13,19 @@ raises on failure:
    shared memory and spills;
 3. kernels: run each of the four attention kernels (flash, paged decode,
    dense decode, paged verify) at its path's shapes and at head dim 16,
-   hold it against its plain PyTorch version, check with ``torch.equal``
-   that dense decode == paged decode on one logical cache and that verify
-   position j == paged decode at lengths + j + 1, and time kernel, plain
-   version and one PyTorch library call beside the card's bound; flash is
-   also held over an edge product (lengths 1-1000, 1-8 kv heads, head dims
-   16-256, causal and not) and timed over the path's prefill lengths
-   128-2048 beside ``scaled_dot_product_attention`` (``phase_flash``);
+   hold it against its plain PyTorch version, and time kernel, plain
+   version and one PyTorch library call on the device with the host queue
+   held, beside the card's bound and the kernel paced by the host's
+   launches. Flash is also held over an edge product (lengths 1-1000, 1-8
+   kv heads, head dims 16-256, causal and not) and timed over the path's
+   prefill lengths 128-2048 beside ``scaled_dot_product_attention``
+   (``phase_flash``). The three decode kernels share one body split over
+   the sequence every ``DECODE_SPLIT`` tokens (``phase_decode``): each is
+   also held at lengths that straddle the split boundaries (and a dead
+   length-0 row), ``torch.equal`` checks that dense decode == paged decode
+   on one logical cache, that verify position j == paged decode at lengths
+   + j + 1 and that two calls agree, at the path's and the straddling
+   lengths, and paged decode is timed at batch 1, 8 and 32;
 4. rag: the IVF-PQ scan kernel ``pq_scan`` against its plain version at
    the JAX test's shapes with int32 and uint8 codes, on out-of-range codes
    (each adds 0) and at the shared-memory limit of its LUT (one column
@@ -380,128 +386,215 @@ def phase_flash(gen):
     return row
 
 
-def phase_kernels():
-    """Hold each kernel against its plain version and time the three."""
+# the decode kernels: b = 8 rows, 8 heads, 1 kv head, head dim 256, lengths
+# up to 2048 (verify: 2043, so that lengths + s fits the 2048-token table)
+DEC_LENGTHS = [2048, 1, 17, 300, 1024, 1537, 640, 2000]
+VER_LENGTHS = [2043, 1, 17, 300, 1024, 1537, 640, 2000]
+DEC_BATCHES = (1, 8, 32)      # paged decode's batch sweep
+
+
+def straddle_lengths(split: int):
+    """Row lengths across the decode body's split boundaries: split - 1,
+    split, split + 1, 2·split + 3, split - 3 (verify's lengths + j + 1
+    cross the boundary for some j of 5) and a dead length-0 row."""
+    return [split - 1, split, split + 1, 2 * split + 3, split - 3, 0]
+
+
+def _decode_times(name, run, plain, library, work):
+    """The kernel, its plain version and the library call on the device
+    with the host queue held, the kernel also paced by the host's
+    launches; logged beside the bound. Returns the kernels-line times."""
+    ms = cuda_time_ms(run, iters=50, hold=True)
+    paced = cuda_time_ms(run, iters=50)
+    plain_ms = cuda_time_ms(plain, hold=True)
+    lib = cuda_time_ms(library, iters=50, hold=True)
+    bound_ms, bound_by = bound(*work, PEAK_BF16_FLOPS)
+    log(f"[kernels] {name}, host queue held: kernel {ms:.4f} ms, library "
+        f"{lib:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+        f"({bound_by}); kernel / library {ms / lib:.2f}, bound / kernel "
+        f"{bound_ms / ms:.3f}; kernel paced by the host's launches "
+        f"{paced:.4f} ms")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib, bound=work)
+
+
+def _decode_work(lengths, nh, kvh, d, cap, table_ints=0, s=1):
+    """(bytes, operations) of decode-shaped attention: K/V of each row's
+    read tokens (verify: lengths + s) once, q and out once, table and
+    lengths; 4·d operations per (query, key) pair and head."""
+    b = len(lengths)
+    read = sum(min(n + (s if s > 1 else 0), cap) for n in lengths)
+    pairs = sum(min(n + (j + 1 if s > 1 else 0), cap) for n in lengths
+                for j in range(s))
+    nbytes = (2 * (2 * read * kvh * d + 2 * b * s * nh * d)
+              + 4 * (table_ints + b))
+    return nbytes, 4 * nh * d * pairs
+
+
+def _check_rows(name, got, want, lengths, s=1):
+    """compare() over the rows whose attended length is > 0 (a length-0
+    decode row must only be finite). Returns (max abs, max row rel)."""
+    live = [i for i, n in enumerate(lengths) if n > 0 or s > 1]
+    torch.cuda.synchronize()
+    if not torch.isfinite(got.float()).all():
+        raise AssertionError(f"{name}: non-finite kernel output")
+    return compare(name, got[live], want[live])
+
+
+def phase_decode(gen, rng):
+    """The three decode-shaped kernels (one shared body, split over the
+    sequence every DECODE_SPLIT tokens): each against its plain version at
+    the path shape, at head dim 16 and at lengths straddling the split
+    boundaries; the two bitwise contracts (dense == paged decode, verify
+    position j == paged decode at lengths + j + 1) and two calls' equality
+    at the path's and the straddling lengths; kernel, plain version and
+    library call timed with the host queue held; paged decode's batch
+    sweep. Returns the three kernels-line rows."""
+    from repro_torch.kernels import _build
     from repro_torch.kernels import decode_attention as da
-    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import ref
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    rng = np.random.default_rng(0)
+    split = _build.DECODE_SPLIT
+    b, nh, kvh, d, bt, mb = 8, 8, 1, 256, 16, 128
+    cap = mb * bt
+    strad = straddle_lengths(split) + [2048, 1537]
+    vstrad = straddle_lengths(split) + [2043, 1000]
     rows = {}
 
-    rows["flash_attention"] = phase_flash(gen)
+    def small(fn, want_fn, case, label, lengths, s=1):
+        out = fn(*case)
+        e, r = _check_rows(f"{label} d=16", out, want_fn(*case), lengths, s)
+        log(f"[kernels] {label} d=16 g=4 lens {lengths}: max_abs_err={e:.3g} "
+            f"max_row_rel_err={r:.3g} (length-0 row finite)")
 
-    # paged decode: b = 8, ragged lengths up to 2048, bt = 16, shuffled table
-    b, nh, kvh, d, bt, mb = 8, 8, 1, 256, 16, 128
-    lengths = [2048, 1, 17, 300, 1024, 1537, 640, 2000]
-    case = _paged_case(gen, rng, b, nh, kvh, d, bt, mb, lengths)
+    # paged decode
+    case = _paged_case(gen, rng, b, nh, kvh, d, bt, mb, DEC_LENGTHS)
     err, rel = compare("paged_decode_attention d=256",
                        pa.paged_decode_attention(*case),
                        ref.paged_decode_attention(*case))
-    small = _paged_case(gen, rng, 3, 4, 1, 16, 8, 6, [0, 5, 37])
-    out = pa.paged_decode_attention(*small)
-    torch.cuda.synchronize()
-    if not torch.isfinite(out[0].float()).all():
-        raise AssertionError("paged_decode_attention: length-0 row not finite")
-    e, r = compare("paged_decode_attention d=16", out[1:],
-                   ref.paged_decode_attention(*small)[1:])
-    log(f"[kernels] paged_decode_attention d=16 g=4 bt=8 lens [0,5,37]: "
-        f"max_abs_err={e:.3g} max_row_rel_err={r:.3g} (length-0 row "
-        f"finite)")
-    live = sum(lengths)
-    nbytes = 2 * (2 * live * kvh * d + 2 * b * nh * d) + 4 * (b * mb + b)
-    flops = 4 * nh * d * live
-    rows["paged_decode_attention"] = dict(
-        max_abs_err=err, max_row_rel_err=rel,
-        ms=cuda_time_ms(lambda: pa.paged_decode_attention(*case), iters=50),
-        plain_ms=cuda_time_ms(lambda: ref.paged_decode_attention(*case)),
-        library_ms=cuda_time_ms(_sdpa_paged(*case), iters=50),
-        bound=(nbytes, flops))
+    small(pa.paged_decode_attention, ref.paged_decode_attention,
+          _paged_case(gen, rng, 3, 4, 1, 16, 8, 6, [0, 5, 37]),
+          "paged_decode_attention", [0, 5, 37])
+    sc = _paged_case(gen, rng, b, nh, kvh, d, bt, mb, strad)
+    e, r = _check_rows("paged_decode_attention straddling",
+                       pa.paged_decode_attention(*sc),
+                       ref.paged_decode_attention(*sc), strad)
     log(f"[kernels] paged_decode_attention b=8 lens<=2048 bt=16 d=256: "
         f"max_abs_err={err:.3g} (atol {ATOL}, rtol {RTOL}) "
-        f"max_row_rel_err={rel:.3g} (limit {ROW_RTOL})")
+        f"max_row_rel_err={rel:.3g} (limit {ROW_RTOL}); straddling lens "
+        f"{strad}: max_abs_err={e:.3g} max_row_rel_err={r:.3g}")
+    scratch = 4 * b * nh * -(-cap // split) * (d + 2)
+    log(f"[kernels] decode body split {split} tokens: {-(-cap // split)} "
+        f"splits of a {cap}-token row, scratch {scratch} B for paged and "
+        f"dense decode at b=8, {5 * scratch} B for verify (s=5)")
+    rows["paged_decode_attention"] = dict(
+        max_abs_err=err, max_row_rel_err=rel, **_decode_times(
+            "paged_decode_attention b=8 lens<=2048 bt=16 d=256",
+            lambda: pa.paged_decode_attention(*case),
+            lambda: ref.paged_decode_attention(*case), _sdpa_paged(*case),
+            _decode_work(DEC_LENGTHS, nh, kvh, d, cap, b * mb)))
+    for bs in DEC_BATCHES:
+        lens = (DEC_LENGTHS * 4)[:bs]
+        bc = _paged_case(gen, rng, bs, nh, kvh, d, bt, mb, lens)
+        compare(f"paged_decode_attention b={bs}",
+                pa.paged_decode_attention(*bc),
+                ref.paged_decode_attention(*bc))
+        _decode_times(f"paged decode batch sweep b={bs} lens {lens[:8]}"
+                      f"{'...' if bs > 8 else ''}",
+                      lambda: pa.paged_decode_attention(*bc),
+                      lambda: ref.paged_decode_attention(*bc),
+                      _sdpa_paged(*bc),
+                      _decode_work(lens, nh, kvh, d, cap, bs * mb))
+        del bc
 
-    # dense decode: the slot path's shape, b = 8, S = max_len = 2048
-    S = 2048
-    case = _dense_case(gen, b, S, nh, kvh, d, lengths)
-    err, rel = compare("decode_attention d=256",
-                       da.decode_attention(*case),
+    # dense decode: the slot path's shape, S = max_len = 2048
+    S = cap
+    case = _dense_case(gen, b, S, nh, kvh, d, DEC_LENGTHS)
+    err, rel = compare("decode_attention d=256", da.decode_attention(*case),
                        ref.decode_attention(*case))
-    small = _dense_case(gen, 4, 48, 4, 1, 16, [0, 5, 37, 100])
-    out = da.decode_attention(*small)
-    torch.cuda.synchronize()
-    if not torch.isfinite(out[0].float()).all():
-        raise AssertionError("decode_attention: length-0 row not finite")
-    e, r = compare("decode_attention d=16", out[1:],
-                   ref.decode_attention(*small)[1:])
-    log(f"[kernels] decode_attention d=16 g=4 S=48 lens [0,5,37,100]: "
-        f"max_abs_err={e:.3g} max_row_rel_err={r:.3g} (length-0 row "
-        f"finite, length past S read as S)")
-    live = sum(min(n, S) for n in lengths)
-    nbytes = 2 * (2 * live * kvh * d + 2 * b * nh * d) + 4 * b
-    rows["decode_attention"] = dict(
-        max_abs_err=err, max_row_rel_err=rel,
-        ms=cuda_time_ms(lambda: da.decode_attention(*case), iters=50),
-        plain_ms=cuda_time_ms(lambda: ref.decode_attention(*case)),
-        library_ms=cuda_time_ms(_sdpa_dense(*case), iters=50),
-        bound=(nbytes, 4 * nh * d * live))
+    small(da.decode_attention, ref.decode_attention,
+          _dense_case(gen, 4, 48, 4, 1, 16, [0, 5, 37, 100]),
+          "decode_attention (S=48, a length past S read as S)",
+          [0, 5, 37, 100])
+    sc = _dense_case(gen, b, S, nh, kvh, d, strad)
+    e, r = _check_rows("decode_attention straddling",
+                       da.decode_attention(*sc), ref.decode_attention(*sc),
+                       strad)
     log(f"[kernels] decode_attention b=8 S=2048 lens<=2048 d=256: "
         f"max_abs_err={err:.3g} (atol {ATOL}, rtol {RTOL}) "
-        f"max_row_rel_err={rel:.3g} (limit {ROW_RTOL})")
-    paged = _paged_case(gen, rng, b, nh, kvh, d, 16, 128, lengths)
-    qp, kp, vp, tab, lp = paged
-    same = torch.equal(
-        da.decode_attention(qp, ref.gather_paged_kv(kp, tab),
-                            ref.gather_paged_kv(vp, tab), lp),
-        pa.paged_decode_attention(*paged))
-    log(f"[kernels] decode_attention == paged_decode_attention on one "
-        f"logical cache (torch.equal): {same}")
-    if not same:
-        raise AssertionError("dense decode differs from paged decode")
+        f"max_row_rel_err={rel:.3g} (limit {ROW_RTOL}); straddling lens "
+        f"{strad}: max_abs_err={e:.3g} max_row_rel_err={r:.3g}")
+    rows["decode_attention"] = dict(
+        max_abs_err=err, max_row_rel_err=rel, **_decode_times(
+            "decode_attention b=8 S=2048 lens<=2048 d=256",
+            lambda: da.decode_attention(*case),
+            lambda: ref.decode_attention(*case), _sdpa_dense(*case),
+            _decode_work(DEC_LENGTHS, nh, kvh, d, S)))
 
-    # paged verify: b = 8, s = spec_k + 1 = 5 feed positions, lengths up
-    # to 2043 so every row's lengths + s fits the 2048-token table
+    # paged verify: s = spec_k + 1 = 5 feed positions
     s_ver = SPEC_K + 1
-    vlens = [2043, 1, 17, 300, 1024, 1537, 640, 2000]
-    case = _paged_case(gen, rng, b, nh, kvh, d, 16, 128, vlens, s=s_ver)
+    case = _paged_case(gen, rng, b, nh, kvh, d, bt, mb, VER_LENGTHS, s=s_ver)
     err, rel = compare("paged_verify_attention d=256",
                        pa.paged_verify_attention(*case),
                        ref.paged_verify_attention(*case))
-    small = _paged_case(gen, rng, 3, 4, 1, 16, 8, 6, [0, 5, 37], s=s_ver)
-    e, r = compare("paged_verify_attention d=16",
-                   pa.paged_verify_attention(*small),
-                   ref.paged_verify_attention(*small))
-    log(f"[kernels] paged_verify_attention d=16 g=4 s=5 (20 query rows) "
-        f"bt=8 lens [0,5,37]: max_abs_err={e:.3g} max_row_rel_err={r:.3g}")
-    q, kp, vp, tab, vl = case
-    out = pa.paged_verify_attention(*case)
-    same = all(torch.equal(out[:, j:j + 1], pa.paged_decode_attention(
-        q[:, j:j + 1].contiguous(), kp, vp, tab, vl + j + 1))
-        for j in range(s_ver))
-    log(f"[kernels] paged_verify_attention position j == "
-        f"paged_decode_attention at lengths + j + 1 for every j "
-        f"(torch.equal): {same}")
-    if not same:
-        raise AssertionError("verify differs from sequential paged decode")
-    read = sum(min(n + s_ver, 128 * 16) for n in vlens)
-    pairs = sum(min(n + j + 1, 128 * 16) for n in vlens
-                for j in range(s_ver))
-    nbytes = (2 * (2 * read * kvh * d + 2 * b * s_ver * nh * d)
-              + 4 * (b * 128 + b))
-    rows["paged_verify_attention"] = dict(
-        max_abs_err=err, max_row_rel_err=rel,
-        ms=cuda_time_ms(lambda: pa.paged_verify_attention(*case), iters=50),
-        plain_ms=cuda_time_ms(lambda: ref.paged_verify_attention(*case)),
-        library_ms=cuda_time_ms(_sdpa_paged(*case), iters=50),
-        bound=(nbytes, 4 * nh * d * pairs))
+    small(pa.paged_verify_attention, ref.paged_verify_attention,
+          _paged_case(gen, rng, 3, 4, 1, 16, 8, 6, [0, 5, 37], s=s_ver),
+          "paged_verify_attention (s=5, 20 query rows)", [0, 5, 37], s_ver)
+    sc = _paged_case(gen, rng, b, nh, kvh, d, bt, mb, vstrad, s=s_ver)
+    e, r = _check_rows("paged_verify_attention straddling",
+                       pa.paged_verify_attention(*sc),
+                       ref.paged_verify_attention(*sc), vstrad, s_ver)
     log(f"[kernels] paged_verify_attention b=8 s=5 lens<=2043 bt=16 d=256: "
         f"max_abs_err={err:.3g} (atol {ATOL}, rtol {RTOL}) "
-        f"max_row_rel_err={rel:.3g} (limit {ROW_RTOL})")
+        f"max_row_rel_err={rel:.3g} (limit {ROW_RTOL}); straddling lens "
+        f"{vstrad}: max_abs_err={e:.3g} max_row_rel_err={r:.3g}")
+    rows["paged_verify_attention"] = dict(
+        max_abs_err=err, max_row_rel_err=rel, **_decode_times(
+            "paged_verify_attention b=8 s=5 lens<=2043 bt=16 d=256",
+            lambda: pa.paged_verify_attention(*case),
+            lambda: ref.paged_verify_attention(*case), _sdpa_paged(*case),
+            _decode_work(VER_LENGTHS, nh, kvh, d, cap, b * mb, s_ver)))
 
+    # the bitwise contracts and determinism, at the path's and the
+    # straddling lengths
+    for tag, dl, vl in (("path", DEC_LENGTHS, VER_LENGTHS),
+                        ("straddling", strad, vstrad)):
+        qp, kp, vp, tab, lp = _paged_case(gen, rng, b, nh, kvh, d, bt, mb,
+                                          dl)
+        paged = pa.paged_decode_attention(qp, kp, vp, tab, lp)
+        kd, vd = ref.gather_paged_kv(kp, tab), ref.gather_paged_kv(vp, tab)
+        dense = da.decode_attention(qp, kd, vd, lp)
+        same = torch.equal(dense, paged)
+        again = (torch.equal(paged, pa.paged_decode_attention(
+            qp, kp, vp, tab, lp))
+            and torch.equal(dense, da.decode_attention(qp, kd, vd, lp)))
+        q, kp, vp, tab, vlen = _paged_case(gen, rng, b, nh, kvh, d, bt, mb,
+                                           vl, s=s_ver)
+        out = pa.paged_verify_attention(q, kp, vp, tab, vlen)
+        ver = all(torch.equal(out[:, j:j + 1], pa.paged_decode_attention(
+            q[:, j:j + 1].contiguous(), kp, vp, tab, vlen + j + 1))
+            for j in range(s_ver))
+        again = again and torch.equal(
+            out, pa.paged_verify_attention(q, kp, vp, tab, vlen))
+        log(f"[kernels] {tag} lengths {dl} / verify {vl} (torch.equal): "
+            f"decode_attention == paged_decode_attention on one logical "
+            f"cache: {same}; paged_verify_attention position j == "
+            f"paged_decode_attention at lengths + j + 1 for every j: {ver}; "
+            f"two calls equal for each kernel: {again}")
+        if not (same and ver and again):
+            raise AssertionError(f"{tag} lengths: a bitwise contract fails")
+        del kd, vd
+    return rows
+
+
+def phase_kernels():
+    """Hold each attention kernel against its plain version and time it."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rng = np.random.default_rng(0)
+    rows = {"flash_attention": phase_flash(gen)}
+    rows.update(phase_decode(gen, rng))
     for name, r in rows.items():
-        nbytes, flops = r.pop("bound")
-        r["bound_ms"], r["bound_by"] = bound(nbytes, flops, PEAK_BF16_FLOPS)
+        r["bound_ms"], r["bound_by"] = bound(*r.pop("bound"),
+                                             PEAK_BF16_FLOPS)
         log(f"[kernels] {name}: kernel {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
             f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")

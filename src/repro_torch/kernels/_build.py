@@ -10,11 +10,12 @@ The decode-shaped attention sources share the ``mma.sync`` helpers of
 ``csrc/mma_bf16.cuh`` and the decode body of ``csrc/decode_body.cuh``;
 ``csrc/flash_attention.cu`` takes its ``wgmma``, TMA and ``mbarrier``
 helpers from ``csrc/wgmma_bf16.cuh``; ``csrc/pq_scan.cu`` stands alone.
-The file name carries a hash of the source, the shared headers and the
-flags, so a changed source rebuilds and an unchanged one loads what is
-there. ``build_all`` starts one ``nvcc`` per source at once. Nothing here
-runs at import time: this module imports on machines without ``nvcc`` or a
-card.
+The file name carries a hash of the source, the shared headers, the flags
+and any ``-D`` defines (``tools/decode_split.py`` builds the decode body at
+other split widths that way), so a changed source rebuilds and an unchanged
+one loads what is there. ``build_all`` starts one ``nvcc`` per source at
+once. Nothing here runs at import time: this module imports on machines
+without ``nvcc`` or a card.
 """
 from __future__ import annotations
 
@@ -25,7 +26,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, List
+from typing import Dict, List, Sequence
 
 import torch
 
@@ -36,6 +37,9 @@ FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 SOURCES = ("flash_attention", "paged_attention", "decode_attention",
            "pq_scan")
 HEADERS = ("mma_bf16.cuh", "decode_body.cuh", "wgmma_bf16.cuh")
+# Tokens per sequence split of the decode body: mirrors DECODE_SPLIT
+# (kSplit) in csrc/decode_body.cuh and sizes the decode wrappers' scratch.
+DECODE_SPLIT = 64
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -56,31 +60,34 @@ def _nvcc() -> str:
     return found
 
 
-def _target(name: str) -> Path:
+def _target(name: str, defines: Sequence[str] = ()) -> Path:
     src = b"".join((CSRC / f).read_bytes() for f in (f"{name}.cu", *HEADERS))
-    h = hashlib.sha256(src + " ".join(FLAGS).encode()).hexdigest()[:16]
+    flags = " ".join([*FLAGS, *defines]).encode()
+    h = hashlib.sha256(src + flags).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{h}.so"
 
 
-def build_all(names=SOURCES) -> Dict[str, Path]:
+def build_all(names=SOURCES, defines: Sequence[str] = ()) -> Dict[str, Path]:
     """Compile every missing library, one ``nvcc`` per source, all started
-    together. Raises with the compiler's output if any build fails."""
+    together, with ``defines`` (``-DNAME=value``) added to the flags.
+    Raises with the compiler's output if any build fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs: List = []
     out: Dict[str, Path] = {}
     for name in names:
-        target = _target(name)
+        target = _target(name, defines)
         out[name] = target
         if target.exists():
             continue
         tmp = target.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [_nvcc(), *FLAGS, *defines, "-o", str(tmp),
+               str(CSRC / f"{name}.cu")]
         procs.append((name, target, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     failed = []
     for name, target, tmp, proc in procs:
         log, _ = proc.communicate()
-        ptxas_reports[name] = log
+        ptxas_reports[" ".join((name, *defines))] = log
         if proc.returncode != 0:
             failed.append(f"--- {name}.cu (exit {proc.returncode})\n{log}")
             continue
@@ -99,6 +106,24 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(path))
             _libs[name] = lib
         return lib
+
+
+def decode_scratch(rows: int, cap: int, d: int, device,
+                   split: int = DECODE_SPLIT) -> torch.Tensor:
+    """fp32 scratch of the decode body's partials: for each of ``rows``
+    output rows and each of its ceil(cap / split) splits, the unnormalised
+    accumulator (d values), then the (m, l) pair."""
+    n = -(-cap // split)
+    return torch.empty(rows * n * (d + 2), dtype=torch.float32, device=device)
+
+
+def check_split(lib: ctypes.CDLL, what: str):
+    """Raise unless ``lib`` was built with the split width DECODE_SPLIT."""
+    fn = lib.decode_split_tokens
+    fn.argtypes, fn.restype = [], ctypes.c_int
+    if fn() != DECODE_SPLIT:
+        raise RuntimeError(f"{what}: library built with split {fn()}, the "
+                           f"wrapper sizes its scratch for {DECODE_SPLIT}")
 
 
 def aligned(x: torch.Tensor) -> torch.Tensor:

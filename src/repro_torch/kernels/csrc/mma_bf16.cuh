@@ -1,6 +1,7 @@
-// Device helpers shared by the port's attention kernels: the bf16
-// `mma.sync.m16n8k16` tensor-core product (fp32 accumulation), its fragment
-// loads and packs, and 16-byte `cp.async` copies into shared memory.
+// Device helpers of the decode-shaped attention kernels (decode_body.cuh):
+// the bf16 `mma.sync.m16n8k16` tensor-core product (fp32 accumulation), its
+// fragment loads (`ldmatrix`) and packs, and 16-byte `cp.async` copies into
+// shared memory.
 //
 // Fragment layout of m16n8k16 (per lane; gid = lane / 4, tig = lane % 4;
 // each 32-bit register holds two bf16 of adjacent k, low half first):
@@ -32,15 +33,26 @@ __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// Two adjacent bf16 values of one row.
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+// Four 8 x 8 bf16 matrices from shared memory, one 32-bit register each:
+// lane t gives the address of row t % 8 of matrix t / 8 (16 bytes, 16-byte
+// aligned). Plain: register i of lane t holds row t / 4, elements
+// (t % 4)·2..+1 of matrix i (an A or a k-contiguous B fragment). `_trans`:
+// it holds element column t / 4, rows (t % 4)·2..+1 (a B fragment from a
+// k-major, n-contiguous tile).
+__device__ __forceinline__ void ldsm_x4(uint32_t* r, const bf16* p) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
 }
 
-// Two bf16 values of one column pair, low half = lower index.
-__device__ __forceinline__ uint32_t pack_cols(const bf16* lo, const bf16* hi) {
-  return uint32_t(*reinterpret_cast<const uint16_t*>(lo)) |
-         (uint32_t(*reinterpret_cast<const uint16_t*>(hi)) << 16);
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t* r, const bf16* p) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
 }
 
 // Two fp32 values rounded to a bf16 pair, low half = lo.
@@ -57,10 +69,16 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
                "l"(gmem), "r"(src_bytes));
 }
 
-// Commit the copies issued so far and wait for all of them (this thread's).
-__device__ __forceinline__ void cp_async_wait_all() {
+// Close the group of copies this thread has issued since the last commit.
+__device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
-  asm volatile("cp.async.wait_group 0;\n" ::);
+}
+
+// Wait until at most `kPending` of this thread's committed groups are still
+// in flight.
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
 }
 
 }  // namespace repro_attn

@@ -7,11 +7,15 @@ row, ``k_cache``/``v_cache`` ``(b, S, kvh, d)`` per-row caches padded to a
 common ``S``, ``lengths`` ``(b,)`` int32 live tokens per row (mask
 ``pos < lengths``; a length past ``S`` reads as ``S``). Content at or past
 a row's length gets probability exactly 0 and is not read; a length-0 row
-gives a finite garbage row. ``dv != d`` is refused (the JAX package, too,
-takes its Pallas path only when ``dq == dv``). On the same logical cache the
-output equals ``paged_decode_attention``'s bit for bit. The wrapper checks
-what the kernel takes, launches on PyTorch's current stream and counts the
-launch in ``launches``.
+gives a finite row (the plain version's is the mean of the padding, the
+kernel's zeros). ``dv != d`` is refused (the JAX package, too, takes its
+Pallas path only when ``dq == dv``). On the same logical cache the output
+equals ``paged_decode_attention``'s bit for bit: the same split points
+(every ``_build.DECODE_SPLIT`` tokens) and the same merge. The wrapper
+checks what the kernel takes, allocates the fp32 scratch of the per-split
+partials (``_build.decode_scratch``), launches the split kernel and its
+merge on PyTorch's current stream through one C call and counts it once in
+``launches``.
 """
 from __future__ import annotations
 
@@ -29,8 +33,10 @@ _fn = None
 def _entry():
     global _fn
     if _fn is None:
-        fn = _build.load("decode_attention").decode_attention_bf16
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
+        lib = _build.load("decode_attention")
+        _build.check_split(lib, "decode_attention")
+        fn = lib.decode_attention_bf16
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
             ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fn = fn
@@ -68,9 +74,11 @@ def decode_attention(q, k_cache, v_cache, lengths, *,
     out = torch.empty_like(q)
     if b == 0:
         return out
+    scratch = _build.decode_scratch(b * nh, S, d, dev)
     err = _entry()(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-                   lengths.data_ptr(), out.data_ptr(), b, S, nh, kvh, d,
-                   float(scale), torch.cuda.current_stream(dev).cuda_stream)
+                   lengths.data_ptr(), out.data_ptr(), scratch.data_ptr(), b,
+                   S, nh, kvh, d, float(scale),
+                   torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "decode_attention")
     launches += 1
     return out

@@ -10,9 +10,13 @@ feed positions for verify), pools ``(num_pages, bt, kvh, d)``,
 ``i`` attends to positions ``< lengths[i]``; verify position ``j`` to
 positions ``< lengths[i] + j + 1``, bit for bit what decode gives at that
 length. Masked positions get probability exactly 0. A decode row with length
-0 gives a finite garbage row. Each wrapper checks what its kernel takes,
-launches on PyTorch's current stream and counts the launch in its own
-counter: ``launches`` (decode) and ``verify_launches``.
+0 gives a finite row (the plain version's is the mean of the padding, the
+kernel's zeros). Each wrapper checks what its kernel takes, allocates the
+fp32 scratch of the per-split partials (``_build.decode_scratch``: rows x
+ceil(max_blocks·bt / ``_build.DECODE_SPLIT``) splits x (d + 2)), launches
+the split kernel and its merge on PyTorch's current stream through one C
+call and counts it once in its own counter: ``launches`` (decode) and
+``verify_launches``.
 """
 from __future__ import annotations
 
@@ -31,8 +35,10 @@ _fns = {}
 def _entry(name: str, n_ints: int):
     fn = _fns.get(name)
     if fn is None:
-        fn = getattr(_build.load("paged_attention"), name)
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * n_ints + [
+        lib = _build.load("paged_attention")
+        _build.check_split(lib, "paged_attention")
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * n_ints + [
             ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fns[name] = fn
@@ -83,10 +89,12 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths, *,
     if b == 0:
         return out
     scale = d ** -0.5 if scale is None else scale
+    bt, mb = k_pool.shape[1], tabs.shape[1]
+    scratch = _build.decode_scratch(b * nh, mb * bt, d, q.device)
     err = _entry("paged_decode_attention_bf16", 6)(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), tabs.data_ptr(),
-        lens.data_ptr(), out.data_ptr(), b, nh, k_pool.shape[2], d,
-        k_pool.shape[1], tabs.shape[1], float(scale),
+        lens.data_ptr(), out.data_ptr(), scratch.data_ptr(), b, nh,
+        k_pool.shape[2], d, bt, mb, float(scale),
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "paged_decode_attention")
     launches += 1
@@ -105,10 +113,12 @@ def paged_verify_attention(q, k_pool, v_pool, block_tables, lengths, *,
     if b == 0:
         return out
     scale = d ** -0.5 if scale is None else scale
+    bt, mb = k_pool.shape[1], tabs.shape[1]
+    scratch = _build.decode_scratch(b * s * nh, mb * bt, d, q.device)
     err = _entry("paged_verify_attention_bf16", 7)(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), tabs.data_ptr(),
-        lens.data_ptr(), out.data_ptr(), b, s, nh, k_pool.shape[2], d,
-        k_pool.shape[1], tabs.shape[1], float(scale),
+        lens.data_ptr(), out.data_ptr(), scratch.data_ptr(), b, s, nh,
+        k_pool.shape[2], d, bt, mb, float(scale),
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "paged_verify_attention")
     verify_launches += 1

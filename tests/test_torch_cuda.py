@@ -15,6 +15,7 @@ import torch
 
 from repro_torch.configs import gemma_2b, guard_2b
 from repro_torch.engine.core import Engine, EngineConfig, SlotEngine
+from repro_torch.kernels import _build
 from repro_torch.kernels import decode_attention as tda
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import ops
@@ -60,6 +61,24 @@ def _assert_close(got, want):
     assert rel.max() <= ROW_RTOL, rel.max()
 
 
+def _assert_live_close(got, want, lengths):
+    """_assert_close over the rows with length > 0; a length-0 decode row
+    (the kernel merges no split) must only be finite."""
+    assert torch.isfinite(got.float()).all()
+    live = [i for i, n in enumerate(lengths) if n > 0]
+    _assert_close(got[live], want[live])
+
+
+# the decode body splits each row every DECODE_SPLIT tokens: lengths one
+# short of, at, one past a boundary and past the second; from SPLIT - 3,
+# verify's lengths + j + 1 (s = 5) cross it; a dead length-0 row
+SPLIT = _build.DECODE_SPLIT
+STRADDLE = [SPLIT - 1, SPLIT, SPLIT + 1, 2 * SPLIT + 3, SPLIT - 3, 0]
+# a capacity (max_blocks · bt = 4096) far past every length: most split
+# blocks exit at once
+SHORT = [63, 1, 40, 0, 17]
+
+
 # the kernel's edges: one, one tile, one row past it and a ragged 1000
 # rows; 1, 2 and 8 kv heads under 8 query heads; head dims of 16 (one k16
 # step, 48 zero columns), 64, 128 and 256 (one to four swizzle atoms)
@@ -85,14 +104,17 @@ def test_flash_kernel_matches_plain(cuda, shape, causal):
     _assert_close(got, ref.flash_attention(q, k, v, causal=causal))
 
 
-@pytest.mark.parametrize("d,g,bt,lengths", [
-    (256, 8, 16, [2048, 1, 300, 17]),
-    (16, 4, 8, [5, 37, 1]),
+@pytest.mark.parametrize("d,g,bt,lengths,mb", [
+    (256, 8, 16, [2048, 1, 300, 17], None),
+    (16, 4, 8, [5, 37, 1], None),
+    (256, 8, 16, STRADDLE + [2048], None),
+    (16, 4, 8, STRADDLE, None),
+    (256, 8, 16, SHORT, 256),
 ])
-def test_paged_decode_kernel_matches_plain(cuda, d, g, bt, lengths):
+def test_paged_decode_kernel_matches_plain(cuda, d, g, bt, lengths, mb):
     """Shuffled block table, trash-padded tails full of large garbage."""
     rng = np.random.default_rng(31)
-    b, mb = len(lengths), max(lengths) // bt + 1
+    b, mb = len(lengths), mb or max(lengths) // bt + 1
     nb = b * mb + 1
     q = _bf16(rng, cuda, b, 1, g, d)
     kp, vp = _bf16(rng, cuda, nb, bt, 1, d), _bf16(rng, cuda, nb, bt, 1, d)
@@ -107,15 +129,16 @@ def test_paged_decode_kernel_matches_plain(cuda, d, g, bt, lengths):
     got = ops.paged_decode_attention(q, kp, vp, tab, lens)
     torch.cuda.synchronize()
     assert tpa.launches == n0 + 1
-    _assert_close(got, ref.paged_decode_attention(q, kp, vp, tab, lens))
+    _assert_live_close(got, ref.paged_decode_attention(q, kp, vp, tab, lens),
+                       lengths)
 
 
-def _pool(rng, cuda, d, g, bt, lengths, s):
-    """q (b, s, g, d), pools with a shuffled table covering the lengths + s
-    positions verify reads per row, and a trash page (the last) of large
-    garbage."""
+def _pool(rng, cuda, d, g, bt, lengths, s, mb=None):
+    """q (b, s, g, d), pools with a shuffled table of ``mb`` pages a row
+    (default: enough for the lengths + s positions verify reads) covering
+    those positions, and a trash page (the last) of large garbage."""
     b = len(lengths)
-    mb = (max(lengths) + s) // bt + 1
+    mb = mb or (max(lengths) + s) // bt + 1
     nb = b * mb + 1
     q = _bf16(rng, cuda, b, s, g, d)
     kp, vp = _bf16(rng, cuda, nb, bt, 1, d), _bf16(rng, cuda, nb, bt, 1, d)
@@ -132,6 +155,9 @@ def _pool(rng, cuda, d, g, bt, lengths, s):
 @pytest.mark.parametrize("d,g,S,lengths", [
     (256, 8, 2048, [2048, 1, 300, 17]),
     (16, 4, 48, [5, 37, 1, 100]),          # a length past S reads as S
+    (256, 8, 2048, STRADDLE + [2048]),
+    (16, 4, 4 * SPLIT, STRADDLE),
+    (256, 8, 4096, SHORT),
 ])
 def test_decode_kernel_matches_plain(cuda, d, g, S, lengths):
     """Padded cache whose content past each row's length is large garbage;
@@ -147,17 +173,20 @@ def test_decode_kernel_matches_plain(cuda, d, g, S, lengths):
     got = ops.decode_attention(q, k, v, lens)
     torch.cuda.synchronize()
     assert tda.launches == n0 + 1
-    assert torch.isfinite(got[b].float()).all()
-    _assert_close(got[:b], ref.decode_attention(q, k, v, lens)[:b])
+    _assert_live_close(got, ref.decode_attention(q, k, v, lens),
+                       lengths + [0])
 
 
-@pytest.mark.parametrize("d,g,s,bt,lengths", [
-    (256, 8, 5, 16, [2043, 1, 300, 17]),   # 40 query rows: three tiles
-    (16, 4, 5, 8, [0, 5, 37]),             # 20 rows; a dead length-0 row
+@pytest.mark.parametrize("d,g,s,bt,lengths,mb", [
+    (256, 8, 5, 16, [2043, 1, 300, 17], None),  # 40 query rows: 3 tiles
+    (16, 4, 5, 8, [0, 5, 37], None),     # 20 rows; a dead length-0 row
+    (256, 8, 5, 16, STRADDLE + [2043], None),
+    (16, 4, 5, 8, STRADDLE, None),
+    (256, 8, 5, 16, SHORT, 256),
 ])
-def test_verify_kernel_matches_plain(cuda, d, g, s, bt, lengths):
+def test_verify_kernel_matches_plain(cuda, d, g, s, bt, lengths, mb):
     rng = np.random.default_rng(33)
-    case = _pool(rng, cuda, d, g, bt, lengths, s=s)
+    case = _pool(rng, cuda, d, g, bt, lengths, s=s, mb=mb)
     n0 = tpa.verify_launches
     got = ops.paged_verify_attention(*case)
     torch.cuda.synchronize()
@@ -165,14 +194,19 @@ def test_verify_kernel_matches_plain(cuda, d, g, s, bt, lengths):
     _assert_close(got, ref.paged_verify_attention(*case))
 
 
+@pytest.mark.parametrize("lengths,mb", [
+    ([700, 1, 130, 64], None),
+    (STRADDLE + [700], None),
+    (SHORT, 256),
+])
 @pytest.mark.parametrize("d,g", [(256, 8), (16, 4)])
-def test_decode_shaped_kernels_agree_bitwise(cuda, d, g):
+def test_decode_shaped_kernels_agree_bitwise(cuda, d, g, lengths, mb):
     """verify position j == paged decode at lengths + j + 1, and dense
-    decode == paged decode on the same logical cache, with torch.equal."""
+    decode == paged decode on the same logical cache, with torch.equal,
+    across the split boundaries."""
     rng = np.random.default_rng(34)
     s, bt = 5, 16
-    q, kp, vp, tab, lens = _pool(rng, cuda, d, g, bt, [700, 1, 130, 64],
-                                 s=s)
+    q, kp, vp, tab, lens = _pool(rng, cuda, d, g, bt, lengths, s=s, mb=mb)
     out = ops.paged_verify_attention(q, kp, vp, tab, lens)
     for j in range(s):
         dec = ops.paged_decode_attention(q[:, j:j + 1].contiguous(), kp, vp,
@@ -182,6 +216,23 @@ def test_decode_shaped_kernels_agree_bitwise(cuda, d, g):
     q0 = q[:, :1].contiguous()
     assert torch.equal(ops.decode_attention(q0, k, v, lens + 3),
                        ops.paged_decode_attention(q0, kp, vp, tab, lens + 3))
+    assert torch.equal(ops.decode_attention(q0, k, v, lens),
+                       ops.paged_decode_attention(q0, kp, vp, tab, lens))
+
+
+@pytest.mark.parametrize("d,g", [(256, 8), (16, 4)])
+def test_decode_shaped_kernels_are_deterministic(cuda, d, g):
+    """No atomics in the merge: two calls on the same inputs give
+    torch.equal outputs, for each of the three kernels."""
+    rng = np.random.default_rng(38)
+    q, kp, vp, tab, lens = _pool(rng, cuda, d, g, 16, STRADDLE + [700],
+                                 s=5)
+    q0 = q[:, :1].contiguous()
+    k, v = ref.gather_paged_kv(kp, tab), ref.gather_paged_kv(vp, tab)
+    for run in (lambda: ops.paged_decode_attention(q0, kp, vp, tab, lens),
+                lambda: ops.decode_attention(q0, k, v, lens),
+                lambda: ops.paged_verify_attention(q, kp, vp, tab, lens)):
+        assert torch.equal(run(), run())
 
 
 def test_kernels_raise_on_what_they_do_not_take(cuda):

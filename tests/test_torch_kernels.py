@@ -2,6 +2,8 @@
 (``repro.kernels.ref``) and the Pallas kernels in interpret mode on the same
 numpy inputs. The CUDA kernels are held against the plain versions on the
 card in ``test_torch_cuda.py``."""
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -14,6 +16,7 @@ from repro.kernels.paged_attention import \
     paged_decode_attention as pallas_paged
 from repro.kernels.paged_attention import \
     paged_verify_attention as pallas_verify
+from repro_torch.kernels import _build
 from repro_torch.kernels import decode_attention as tda
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import ops
@@ -253,3 +256,139 @@ def test_plain_verify_and_dense_equal_paged_decode_bitwise(dtype):
     assert torch.equal(ops.decode_attention(q[:, :1], k, v, lens + 2),
                        ops.paged_decode_attention(q[:, :1], kp, vp, tab,
                                                   lens + 2))
+
+
+# ---------------------------------------------------------------------------
+# the decode body's split over the sequence (csrc/decode_body.cuh): its
+# width, and a torch emulation of split-then-merge against the plain versions
+# ---------------------------------------------------------------------------
+
+SPLIT = _build.DECODE_SPLIT
+# across the split boundaries; verify's lengths + j + 1 (s = 5) cross one
+# from SPLIT - 3; a dead length-0 row
+STRADDLE = [SPLIT - 1, SPLIT, SPLIT + 1, 2 * SPLIT + 3, SPLIT - 3, 0]
+
+
+def test_decode_split_width_is_mirrored_by_the_wrappers():
+    """The split width in the CUDA header is a multiple of the 64-token
+    chunk and equals the mirror that sizes the wrappers' scratch."""
+    text = (_build.CSRC / "decode_body.cuh").read_text()
+    (width,) = re.findall(r"^#define DECODE_SPLIT (\d+)$", text, re.M)
+    (chunk,) = re.findall(r"constexpr int kChunk = (\d+);", text)
+    assert int(chunk) == 64
+    assert int(width) % 64 == 0 and int(width) == SPLIT
+    rows, cap, d = 3 * 5 * 4, 2 * SPLIT + 1, 32
+    scratch = _build.decode_scratch(rows, cap, d, "cpu")
+    assert scratch.dtype == torch.float32
+    assert scratch.numel() == rows * 3 * (d + 2)
+    assert _build._target("decode_attention") != _build._target(
+        "decode_attention", ("-DDECODE_SPLIT=128",))
+
+
+def _split_partials(qr, k, v, length, len_max, scale):
+    """One query row's per-split (m, l, acc) as the decode body computes
+    them, fp32: split i starts from (-inf, 0, 0) and walks its 64-token
+    chunks up to the block's longest row ``len_max`` (>= ``length``;
+    tokens past it zero-filled) with an online softmax, masking positions
+    >= ``length``. Only the splits that the row reaches are kept."""
+    d = qr.shape[0]
+    parts = []
+    for s0 in range(0, length, SPLIT):
+        m = torch.tensor(ref.NEG_INF)
+        l, acc = torch.tensor(0.0), torch.zeros(d)
+        for c0 in range(s0, min(s0 + SPLIT, len_max), 64):
+            n = min(c0 + 64, len_max) - c0
+            kc, vc = torch.zeros(64, d), torch.zeros(64, d)
+            kc[:n], vc[:n] = k[c0:c0 + n], v[c0:c0 + n]
+            sc = torch.where(torch.arange(c0, c0 + 64) < length,
+                             (kc @ qr) * scale, torch.tensor(ref.NEG_INF))
+            m_new = torch.maximum(m, sc.max())
+            p = torch.exp(sc - m_new)
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + p.sum()
+            acc = acc * alpha + p @ vc
+            m = m_new
+        parts.append((m, l, acc))
+    return parts
+
+
+def _merge(parts, d):
+    """The merge: splits in order, M = max m_i, sum acc_i·e^(m_i - M) over
+    sum l_i·e^(m_i - M); no split gives zeros."""
+    if not parts:
+        return torch.zeros(d)
+    big = max(m for m, _, _ in parts)
+    o, l_sum = torch.zeros(d), torch.tensor(0.0)
+    for m, l, acc in parts:
+        w = torch.exp(m - big)
+        o = o + acc * w
+        l_sum = l_sum + l * w
+    return o / l_sum
+
+
+def _emulate(q, k, v, lengths, verify=False):
+    """Split-then-merge over a dense logical cache k/v (b, S, kvh, d), fp32:
+    q (b, s, nh, d); query row r = j·g + h of kv head kh sits in 16-row
+    tile r // 16, whose longest row sets ``len_max``; position j attends to
+    tokens < lengths + j + 1 (verify) or < lengths (decode, s = 1)."""
+    b, s, nh, d = q.shape
+    S, kvh = k.shape[1], k.shape[2]
+    g = nh // kvh
+    out = torch.zeros(b, s, nh, d)
+    for bi in range(b):
+        for kh in range(kvh):
+            def len_of(r):
+                j = r // g
+                return max(min(int(lengths[bi]) + (j + 1 if verify else 0),
+                               S), 0)
+            for r in range(s * g):
+                tile_end = min((r // 16 + 1) * 16, s * g)
+                j, h = r // g, kh * g + r % g
+                parts = _split_partials(q[bi, j, h], k[bi, :, kh],
+                                        v[bi, :, kh], len_of(r),
+                                        len_of(tile_end - 1), d ** -0.5)
+                out[bi, j, h] = _merge(parts, d)
+    return out
+
+
+@pytest.mark.parametrize("kernel", ["paged_decode", "decode", "verify"])
+def test_split_merge_emulation_matches_plain_versions(kernel):
+    """At lengths straddling the split boundaries (and length 0), the split
+    points and merge of the CUDA decode body compute what the plain
+    versions compute, to fp32 summation order."""
+    rng = np.random.default_rng(70)
+    bt, s = 16, (5 if kernel == "verify" else 1)
+    lengths = STRADDLE + [3 * SPLIT + 7]
+    mb = (max(lengths) + s) // bt + 1
+    q, kp, vp, tab, lens = (torch.tensor(a) for a in _pool_case(
+        rng, len(lengths), 1, 4, 16, bt, mb, lengths, s=s,
+        cover=s if s > 1 else 0))
+    k, v = ref.gather_paged_kv(kp, tab), ref.gather_paged_kv(vp, tab)
+    got = _emulate(q, k, v, lens, verify=kernel == "verify")
+    if kernel == "verify":
+        want = ref.paged_verify_attention(q, kp, vp, tab, lens)
+    elif kernel == "paged_decode":
+        want = ref.paged_decode_attention(q, kp, vp, tab, lens)
+    else:
+        want = ref.decode_attention(q, k, v, lens)
+    live = [i for i, n in enumerate(lengths) if n > 0 or s > 1]
+    np.testing.assert_allclose(_np(got[live]), _np(want[live]), **FP32)
+    assert torch.equal(got[[i for i in range(len(lengths)) if i not in live]],
+                       torch.zeros_like(got[:len(lengths) - len(live)]))
+
+
+def test_split_merge_emulation_verify_equals_decode_exactly():
+    """Verify position j == decode at lengths + j + 1, bit for bit in fp32:
+    a tile's longer rows make a split walk chunks wholly past a shorter
+    row's length, and those leave its (m, l, acc) exactly as they were."""
+    rng = np.random.default_rng(71)
+    bt, s = 16, 5
+    lengths = STRADDLE + [2 * SPLIT - 2]
+    mb = (max(lengths) + s) // bt + 1
+    q, kp, vp, tab, lens = (torch.tensor(a) for a in _pool_case(
+        rng, len(lengths), 1, 4, 16, bt, mb, lengths, s=s, cover=s))
+    k, v = ref.gather_paged_kv(kp, tab), ref.gather_paged_kv(vp, tab)
+    ver = _emulate(q, k, v, lens, verify=True)
+    for j in range(s):
+        assert torch.equal(ver[:, j:j + 1],
+                           _emulate(q[:, j:j + 1], k, v, lens + j + 1)), j

@@ -11,8 +11,9 @@ requests, prompts 128-1024 tokens, 64 new tokens each, ``max_batch=8``,
    ``torch.cuda.synchronize()`` on the host clock, which splits the wall
    time into prefill, decode and the rest (host bookkeeping);
 2. profiled: ``torch.profiler`` over the same run gives device time by
-   kernel name, grouped into the two attention kernels, matrix products
-   and the rest, and the device's idle share of the wall time.
+   kernel name, grouped into the two attention kernels (paged decode's
+   split kernel and its merge together), matrix products and the rest,
+   and the device's idle share of the wall time.
 
 Prints one JSON line with every number; needs one CUDA card and the CUDA
 toolkit (the kernels build at first use).
@@ -81,8 +82,8 @@ def _group(name: str) -> str:
     low = name.lower()
     if "flash_fwd" in low:
         return "flash_attention kernel"
-    if "paged_decode" in low:
-        return "paged_decode_attention kernel"
+    if "paged_decode" in low or "decode_merge" in low:
+        return "paged_decode_attention kernels (split + merge)"
     if any(w in low for w in ("gemm", "gemv", "cutlass", "sm90_xmma",
                               "nvjet", "matmul", "splitk")):
         return "matrix products"
