@@ -26,18 +26,22 @@ raises on failure:
    on one logical cache, that verify position j == paged decode at lengths
    + j + 1 and that two calls agree, at the path's and the straddling
    lengths, and paged decode is timed at batch 1, 8 and 32;
-4. rag: the IVF-PQ scan kernel ``pq_scan`` against its plain version at
-   the JAX test's shapes with int32 and uint8 codes, on out-of-range codes
-   (each adds 0) and at the shared-memory limit of its LUT (one column
-   more raises); then the path, ``launch.rag.main`` at its defaults with
-   int32 and with uint8 codes, the launch counter reset just before and
-   read just after, whose top-5 ids must equal the plain version's and
-   whose scan, rerun on the same inputs, is held against it row by row;
-   then one query's scan at
-   ``IVFPQConfig``'s sizes (250,000 rows x 16 uint8 codes, K = 256) timed
-   cold beside the plain version and one ``embedding_bag`` call; then a
-   shard-scale scan of 2^28 rows (4 GiB of codes) with its achieved
-   bandwidth, held against the plain version in chunks;
+4. rag: the kernel's registers and spills; the
+   IVF-PQ scan kernel ``pq_scan`` against its plain version at the JAX
+   test's shapes with int32 and uint8 codes, on out-of-range codes (each
+   adds 0) and at the shared-memory limit of its LUT (one column more
+   raises), and equal bit for bit (``torch.equal``) to the in-order plain
+   version ``ref.pq_scan_in_order`` throughout, each with its launch plan
+   (grid, row loads, LUT fill); then the path, ``launch.rag.main`` at
+   its defaults with int32 and with uint8 codes, the launch counter reset
+   just before and read just after, whose top-5 ids must equal the plain
+   version's and whose scan, rerun on the same inputs, is held against it
+   row by row and bit for bit; then one query's scan at ``IVFPQConfig``'s
+   sizes (250,000 rows x 16 uint8 codes, K = 256) timed cold beside the
+   plain version and one ``embedding_bag`` call, and warm, and cold with
+   int32 codes; then a shard-scale scan of 2^28 rows (4 GiB of codes) with
+   its achieved bandwidth, held against the plain version in chunks and
+   bit for bit on its last chunk;
 5. serve: the paged ``Engine`` at the full width of ``gemma_2b.CONFIG``
    (18 layers, random seeded weights, every weight perturbed) over 16
    requests, with the launch counters reset just before and read just
@@ -629,18 +633,32 @@ def _pq_inputs(gen, n, m, k, dtype, high=None):
     return codes, torch.randn(m, k, generator=gen, device="cuda")
 
 
+def equal_in_order(name: str, got, codes, lut):
+    """Raise unless a pq_scan output equals the in-order plain version bit
+    for bit (the kernel's contract: each row summed m = 0 … M-1 in fp32)."""
+    from repro_torch.kernels import ref
+    if not torch.equal(got, ref.pq_scan_in_order(codes, lut)):
+        raise AssertionError(f"{name}: differs from the in-order plain "
+                             f"version")
+
+
 def _pq_kernel_cases(gen):
     """(a) the kernel against its plain version at the JAX test's shapes
-    with both code types, on out-of-range codes and at the LUT's limit."""
+    with both code types, on out-of-range codes and at the LUT's limit;
+    equal to the in-order plain version bit for bit throughout."""
     from repro_torch.kernels import pq_scan as pq
     from repro_torch.kernels import ref
     for n, m, k in ((1000, 16, 256), (4096, 8, 256), (513, 32, 64)):
         for dtype in (torch.int32, torch.uint8):
             codes, lut = _pq_inputs(gen, n, m, k, dtype)
-            e = compare_fp32(f"pq_scan {(n, m, k)} {dtype}",
-                             pq.pq_scan(codes, lut), ref.pq_scan(codes, lut))
+            got = pq.pq_scan(codes, lut)
+            e = compare_fp32(f"pq_scan {(n, m, k)} {dtype}", got,
+                             ref.pq_scan(codes, lut))
+            equal_in_order(f"pq_scan {(n, m, k)} {dtype}", got, codes, lut)
             log(f"[rag] pq_scan (N, M, K) = {(n, m, k)} {dtype}: "
-                f"max_abs_err={e:.3g} (atol {PQ_ATOL}, rtol {PQ_RTOL})")
+                f"max_abs_err={e:.3g} (atol {PQ_ATOL}, rtol {PQ_RTOL}), "
+                f"equal to the in-order plain version; plan "
+                f"{_plan_line(codes, lut)}")
     # int32 codes -1, K and 2^30 and uint8 codes >= K = 64 each add 0
     for dtype, k, bad in ((torch.int32, 256, (-1, 256, 2 ** 30)),
                           (torch.uint8, 64, (64, 200, 255))):
@@ -653,15 +671,18 @@ def _pq_kernel_cases(gen):
         got = pq.pq_scan(codes, lut)
         e = compare_fp32(f"pq_scan out of range {dtype}", got,
                          ref.pq_scan(codes, lut))
+        equal_in_order(f"pq_scan out of range {dtype}", got, codes, lut)
         if float(got[0]) != 0.0:
             raise AssertionError("pq_scan: an all-out-of-range row is not 0")
         log(f"[rag] pq_scan {dtype} K={k} with codes {list(bad)} (30% of "
             f"codes, one row all): max_abs_err={e:.3g}, that row = 0")
     codes, lut = _pq_inputs(gen, 2000, 227, 256, torch.uint8)
-    e = compare_fp32("pq_scan at the LUT limit", pq.pq_scan(codes, lut),
-                     ref.pq_scan(codes, lut))
+    got = pq.pq_scan(codes, lut)
+    e = compare_fp32("pq_scan at the LUT limit", got, ref.pq_scan(codes, lut))
+    equal_in_order("pq_scan at the LUT limit", got, codes, lut)
     log(f"[rag] pq_scan M=227 K=256 (LUT {227 * 256 * 4} B = the "
-        f"{pq.SMEM_LIMIT} B limit): max_abs_err={e:.3g}")
+        f"{pq.SMEM_LIMIT} B limit): max_abs_err={e:.3g}, equal to the "
+        f"in-order plain version; plan {_plan_line(codes, lut)}")
     codes, lut = _pq_inputs(gen, 10, 227, 257, torch.int32)
     try:
         pq.pq_scan(codes, lut)
@@ -671,10 +692,24 @@ def _pq_kernel_cases(gen):
         raise AssertionError("pq_scan took a LUT past shared memory")
 
 
+def _plan_line(codes, lut) -> str:
+    """The kernel's launch plan for these inputs, as its C entry makes it."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import pq_scan as pq
+    p = pq.plan(codes, _build.aligned(lut))
+    rows = (f"rows of {p['vectors']} x 16 bytes" if p["vectors"]
+            else "row by row")
+    return (f"grid {p['grid']} x {p['threads']} threads, {rows} in batches "
+            f"of {p['batch']}, LUT by "
+            f"{'bulk copy' if p['lut_bulk'] else 'plain fill'}, {p['smem']} B "
+            f"of shared memory")
+
+
 def _pq_timed(gen):
     """(c) one query's scan at IVFPQConfig's sizes, cold: the kernel, the
     plain version and one embedding_bag call over COLD_ARRAYS code arrays
-    in turn. Returns the kernel row of the kernels line."""
+    in turn; the kernel also warm and with int32 codes. Returns the kernel
+    row of the kernels line (uint8, cold)."""
     from repro_torch.kernels import pq_scan as pq
     from repro_torch.kernels import ref
     from repro_torch.perfmodel.rag_model import IVFPQConfig
@@ -685,6 +720,7 @@ def _pq_timed(gen):
     lut = torch.rand(m, k, generator=gen, device="cuda")
     got, want = pq.pq_scan(arrays[0], lut), ref.pq_scan(arrays[0], lut)
     err = compare_fp32("pq_scan one query", got, want)
+    equal_in_order("pq_scan one query", got, arrays[0], lut)
     rel = float(((got - want).abs() / want.abs()).max())
     # the library yardstick: bag n of the flat LUT at code + m * K
     table = lut.reshape(-1, 1)
@@ -708,13 +744,26 @@ def _pq_timed(gen):
     bound_ms, bound_by = bound(nbytes, n * m, PEAK_FP32_FLOPS)
     log(f"[rag] one query's scan, IVFPQConfig n_probe {cfg.n_probe} x "
         f"points_per_probe {cfg.points_per_probe} = {n} rows x {m} uint8 "
-        f"codes, K={k}: max_abs_err={err:.3g} max_rel_err={rel:.3g}")
+        f"codes, K={k}: max_abs_err={err:.3g} max_rel_err={rel:.3g}, equal "
+        f"to the in-order plain version; plan {_plan_line(arrays[0], lut)}")
     log(f"[rag] cold ({COLD_ARRAYS} code arrays in turn, host queue held): "
         f"kernel {ms:.4f} ms, plain {plain:.4f} ms, embedding_bag "
         f"{library:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}, "
         f"{nbytes} B); kernel paced by the host's launches {paced:.4f} ms, "
         f"warm (one array, L2-resident) {warm:.4f} ms")
     del arrays, idx
+    arrays = [torch.randint(0, k, (n, m), generator=gen, device="cuda",
+                            dtype=torch.int32) for _ in range(COLD_ARRAYS)]
+    equal_in_order("pq_scan one query int32", pq.pq_scan(arrays[0], lut),
+                   arrays[0], lut)
+    ms32 = cuda_time_ms(lambda: pq.pq_scan(arrays[next(turn)], lut),
+                        iters=iters, hold=True)
+    nbytes32 = 4 * n * m + 4 * n + 4 * m * k
+    log(f"[rag] the same query with int32 codes, cold: kernel {ms32:.4f} ms, "
+        f"bound {bound(nbytes32, n * m, PEAK_FP32_FLOPS)[0]:.4f} ms "
+        f"({nbytes32} B), equal to the in-order plain version; plan "
+        f"{_plan_line(arrays[0], lut)}")
+    del arrays
     return dict(max_abs_err=err, max_row_rel_err=rel, ms=ms, plain_ms=plain,
                 library_ms=library, bound_ms=bound_ms, bound_by=bound_by)
 
@@ -735,6 +784,8 @@ def _pq_shard(gen):
                            out[i:i + SHARD_CHUNK],
                            ref.pq_scan(codes[i:i + SHARD_CHUNK], lut))
               for i in range(0, SHARD_ROWS, SHARD_CHUNK))
+    last = slice(SHARD_ROWS - SHARD_CHUNK, SHARD_ROWS)
+    equal_in_order("pq_scan shard's last chunk", out[last], codes[last], lut)
     del out
     ms = cuda_time_ms(lambda: pq.pq_scan(codes, lut), iters=5, warmup=1)
     nbytes = SHARD_ROWS * m + 4 * SHARD_ROWS + 4 * m * k
@@ -745,7 +796,8 @@ def _pq_shard(gen):
         f"{nbytes / ms / 1e6:.1f} GB/s = {bound_ms / ms:.4f} of "
         f"{PEAK_BYTES_PER_S / 1e12:.2f} TB/s (bound {bound_ms:.4f} ms, "
         f"{bound_by}); max_abs_err={err:.3g} over {SHARD_ROWS // SHARD_CHUNK} "
-        f"plain chunks of {SHARD_CHUNK} rows")
+        f"plain chunks of {SHARD_CHUNK} rows, the last equal to the in-order "
+        f"plain version; plan {_plan_line(codes, lut)}")
     del codes, lut
     torch.cuda.empty_cache()
 
@@ -757,7 +809,16 @@ def phase_rag():
     from repro_torch.kernels import pq_scan as pq
     from repro_torch.kernels import ref
     from repro_torch.launch import rag
+    from repro_torch.kernels import _build
     gen = torch.Generator(device="cuda").manual_seed(13)
+    for key, report in _build.ptxas_reports.items():
+        if key.startswith("pq_scan"):
+            fn = ""
+            for ln in report.splitlines():
+                if "entry function" in ln:
+                    fn = ln.split("'")[1] if "'" in ln else ln
+                elif "registers" in ln or "spill" in ln:
+                    log(f"[rag] ptxas {fn}: {ln.strip()}")
     _pq_kernel_cases(gen)
 
     # (b) the path at its defaults (200,000 rows x 16 int32 codes, K = 256,
@@ -772,11 +833,13 @@ def phase_rag():
     for c, got in ids.items():
         codes, lut = rag.make_inputs(200_000, 16, 256, seed=0, codes=c)
         want = ref.pq_scan(codes, lut)
-        e = compare_fp32(f"pq_scan main path {c}", pq.pq_scan(codes, lut),
-                         want)
+        scan = pq.pq_scan(codes, lut)
+        e = compare_fp32(f"pq_scan main path {c}", scan, want)
+        equal_in_order(f"pq_scan main path {c}", scan, codes, lut)
         log(f"[rag] launch.rag.main --codes {c} on the card: top-5 ids "
             f"{got}, plain version {rag.nearest(want)}; kernel vs plain on "
-            f"the path's inputs max_abs_err={e:.3g}")
+            f"the path's inputs max_abs_err={e:.3g}, equal to the in-order "
+            f"plain version; plan {_plan_line(codes, lut)}")
         if got != rag.nearest(want):
             raise AssertionError(f"rag: {c} top-5 ids differ from the plain "
                                  f"version's")

@@ -9,11 +9,12 @@ into ``build/kernels/`` at the repository root (listed in ``.gitignore``).
 The decode-shaped attention sources share the ``mma.sync`` helpers of
 ``csrc/mma_bf16.cuh`` and the decode body of ``csrc/decode_body.cuh``;
 ``csrc/flash_attention.cu`` takes its ``wgmma``, TMA and ``mbarrier``
-helpers from ``csrc/wgmma_bf16.cuh``; ``csrc/pq_scan.cu`` stands alone.
-The file name carries a hash of the source, the shared headers, the flags
-and any ``-D`` defines (``tools/decode_split.py`` builds the decode body at
-other split widths that way), so a changed source rebuilds and an unchanged
-one loads what is there. ``build_all`` starts one ``nvcc`` per source at
+helpers from ``csrc/wgmma_bf16.cuh``, and ``csrc/pq_scan.cu`` its
+``mbarrier`` helpers. The file name carries a hash of the source, the
+shared headers, the flags and any ``-D`` defines (``tools/decode_split.py``
+and ``tools/pq_scan_design.py`` build variants that way, into a directory
+of their own), so a changed source rebuilds and an unchanged one loads what
+is there. ``build_all`` starts one ``nvcc`` per source at
 once. Nothing here runs at import time: this module imports on machines
 without ``nvcc`` or a card.
 """
@@ -43,8 +44,8 @@ DECODE_SPLIT = 64
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
-# nvcc's -Xptxas -v report per source (registers, shared memory, spills);
-# empty for a library that was already built
+# nvcc's -Xptxas -v report per source and defines (registers, shared
+# memory, spills), kept beside each library as <library>.log
 ptxas_reports: Dict[str, str] = {}
 
 
@@ -60,24 +61,29 @@ def _nvcc() -> str:
     return found
 
 
-def _target(name: str, defines: Sequence[str] = ()) -> Path:
+def _target(name: str, defines: Sequence[str] = (),
+            out_dir: Path = BUILD_DIR) -> Path:
     src = b"".join((CSRC / f).read_bytes() for f in (f"{name}.cu", *HEADERS))
     flags = " ".join([*FLAGS, *defines]).encode()
     h = hashlib.sha256(src + flags).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{h}.so"
+    return out_dir / f"{name}-{h}.so"
 
 
-def build_all(names=SOURCES, defines: Sequence[str] = ()) -> Dict[str, Path]:
-    """Compile every missing library, one ``nvcc`` per source, all started
-    together, with ``defines`` (``-DNAME=value``) added to the flags.
-    Raises with the compiler's output if any build fails."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+def build_all(names=SOURCES, defines: Sequence[str] = (),
+              out_dir: Path = BUILD_DIR) -> Dict[str, Path]:
+    """Compile every missing library into ``out_dir``, one ``nvcc`` per
+    source, all started together, with ``defines`` (``-DNAME=value``) added
+    to the flags. Raises with the compiler's output if any build fails."""
+    out_dir.mkdir(parents=True, exist_ok=True)
     procs: List = []
     out: Dict[str, Path] = {}
     for name in names:
-        target = _target(name, defines)
+        target = _target(name, defines, out_dir)
         out[name] = target
         if target.exists():
+            log = target.with_suffix(".log")
+            if log.exists():
+                ptxas_reports[" ".join((name, *defines))] = log.read_text()
             continue
         tmp = target.with_suffix(f".{os.getpid()}.tmp")
         cmd = [_nvcc(), *FLAGS, *defines, "-o", str(tmp),
@@ -91,6 +97,7 @@ def build_all(names=SOURCES, defines: Sequence[str] = ()) -> Dict[str, Path]:
         if proc.returncode != 0:
             failed.append(f"--- {name}.cu (exit {proc.returncode})\n{log}")
             continue
+        target.with_suffix(".log").write_text(log)
         os.replace(tmp, target)
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))

@@ -173,3 +173,21 @@ def pq_scan(codes, lut):
     rows = torch.arange(m, device=lut.device)
     gathered = lut[rows, c.clamp(0, k - 1)]                      # (N, M)
     return (gathered * inside).sum(dim=-1)
+
+
+def pq_scan_in_order(codes, lut):
+    """``pq_scan`` summed as the CUDA kernel sums it: from 0, m = 0 … M-1,
+    one fp32 add at a time, an out-of-range code adding 0 through ``where``
+    (not a product, so a NaN in the LUT cannot leak in through 0). The
+    kernel equals it bit for bit; ``pq_scan``'s ``sum`` may take another
+    order."""
+    lut = lut.float()
+    m, k = lut.shape
+    c = codes.long()
+    acc = torch.zeros(c.shape[0], dtype=torch.float32, device=lut.device)
+    zero = torch.zeros((), dtype=torch.float32, device=lut.device)
+    for j in range(m):
+        cj = c[:, j]
+        acc = acc + torch.where((cj >= 0) & (cj < k),
+                                lut[j, cj.clamp(0, k - 1)], zero)
+    return acc

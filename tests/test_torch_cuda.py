@@ -313,12 +313,38 @@ def _pq_case(rng, cuda, n, m, k, dtype):
 
 
 def _pq_assert(codes, lut):
+    """The kernel through ``ops``: counted, within FP32 of ``ref.pq_scan``
+    and equal to the in-order plain version bit for bit."""
     n0 = tpq.launches
     got = ops.pq_scan(codes, lut)
     torch.cuda.synchronize()
     assert tpq.launches == n0 + 1
     np.testing.assert_allclose(_np(got), _np(ref.pq_scan(codes, lut)), **FP32)
+    assert torch.equal(got, ref.pq_scan_in_order(codes, lut))
     return got
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.int32])
+@pytest.mark.parametrize("m", [8, 16, 32, 227])
+@pytest.mark.parametrize("n", [1, 31, 513, 1037, 250_000])
+def test_pq_scan_kernel_equals_in_order_plain_version(cuda, n, m, dtype,
+                                                      offset):
+    """Every path of the launch plan equals the in-order sum bit for bit:
+    aligned rows of 1, 2 or 4 16-byte vectors loaded in batches (uint8 at
+    M = 16 and 32, int32 at M = 8 and 16); row by row otherwise (uint8 at
+    M = 8, int32 at M = 32, M = 227, and codes one element past a 16-byte
+    boundary, one byte for uint8); the plain LUT fill at M = 227, where
+    the LUT takes all of shared memory. N = 1037 leaves a short last batch
+    whose rows are not a multiple of 16."""
+    rng = np.random.default_rng(38)
+    buf = torch.tensor(rng.integers(0, 256, n * m + 16), dtype=dtype,
+                       device=cuda)
+    codes = buf[offset:offset + n * m].view(n, m)
+    assert (codes.data_ptr() % 16 == 0) == (offset == 0)
+    lut = torch.tensor(rng.standard_normal((m, 256)).astype(np.float32),
+                       device=cuda)
+    _pq_assert(codes, lut)
 
 
 @pytest.mark.parametrize("dtype", [torch.int32, torch.uint8])
@@ -345,7 +371,8 @@ def test_pq_scan_kernel_out_of_range_codes_add_zero(cuda, dtype, k, bad):
     codes = torch.where(hit, pick, codes)
     got = _pq_assert(codes, lut)
     only_bad = torch.tensor([bad[:1] * 16], dtype=dtype, device=cuda)
-    assert float(ops.pq_scan(only_bad, lut)[0]) == 0.0
+    assert torch.equal(ops.pq_scan(only_bad, lut),
+                       torch.zeros(1, device=cuda))
     assert torch.isfinite(got).all()
 
 

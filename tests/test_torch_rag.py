@@ -140,3 +140,110 @@ def test_kernel_wrapper_refuses_before_it_builds(monkeypatch):
     with pytest.raises(ValueError, match="shapes"):
         tpq.pq_scan(codes[:0], lut)                              # N = 0
     assert tpq.launches == n0
+
+
+# --- the in-order contract of the CUDA kernel, and its launch plan --------
+
+@pytest.mark.parametrize("dtype", [np.int32, np.uint8])
+@pytest.mark.parametrize("N,M,K,block", [
+    (1000, 16, 256, 256),
+    (4096, 8, 256, 1024),
+    (513, 32, 64, 128),
+])
+def test_in_order_plain_version_matches_jax_ref_and_pallas(N, M, K, block,
+                                                           dtype):
+    """The kernel's bitwise contract, ``ref.pq_scan_in_order``, against
+    ``ref.pq_scan``, the JAX reference and the Pallas kernel at the JAX
+    test's shapes and tolerance."""
+    codes, lut = _case(44, N, M, K, dtype)
+    c, l = torch.from_numpy(codes), torch.from_numpy(lut)
+    got = ref.pq_scan_in_order(c, l)
+    assert got.dtype == torch.float32 and got.shape == (N,)
+    np.testing.assert_allclose(got.numpy(), ref.pq_scan(c, l).numpy(),
+                               **FP32)
+    np.testing.assert_allclose(
+        got.numpy(), np.asarray(jref.pq_scan(jnp.asarray(codes),
+                                             jnp.asarray(lut))), **FP32)
+    np.testing.assert_allclose(
+        got.numpy(), np.asarray(pallas_pq_scan(
+            jnp.asarray(codes), jnp.asarray(lut), interpret=True,
+            block_n=block)), **FP32)
+
+
+@pytest.mark.parametrize("dtype,K,bad", [
+    (np.int32, 64, [-1, 64, 2 ** 30, -2 ** 31]),
+    (np.uint8, 64, [64, 200, 255]),
+])
+def test_in_order_out_of_range_codes_add_zero_as_in_pallas(dtype, K, bad):
+    n, m = 300, 8
+    codes, lut = _case(45, n, m, K, dtype)
+    rng = np.random.default_rng(46)
+    hit = rng.random((n, m)) < 0.3
+    codes[hit] = rng.choice(np.asarray(bad, dtype), int(hit.sum()))
+    codes[0] = bad[0]                              # a row with no code in range
+    c, l = torch.from_numpy(codes), torch.from_numpy(lut)
+    got = ref.pq_scan_in_order(c, l)
+    assert float(got[0]) == 0.0
+    want = pallas_pq_scan(jnp.asarray(codes), jnp.asarray(lut),
+                          interpret=True, block_n=128)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **FP32)
+    np.testing.assert_allclose(got.numpy(), ref.pq_scan(c, l).numpy(),
+                               **FP32)
+
+
+def test_in_order_plain_version_adds_in_order_and_masks_nan():
+    """Row by row: ((0 + lut[0, c0]) + lut[1, c1]) + ..., in fp32; a NaN in
+    a LUT column that only out-of-range codes reach (through the clamp)
+    stays out, one that an in-range code reads comes in."""
+    lut = np.zeros((3, 4), np.float32)
+    lut[:, 0] = [1e8, 1.0, -1e8]     # in order 0; summed otherwise often 1
+    lut[:, 3] = np.nan
+    codes = np.array([[0, 0, 0], [9, 0, -1], [0, 3, 0]], np.int32)
+    got = ref.pq_scan_in_order(torch.from_numpy(codes), torch.from_numpy(lut))
+    acc = np.zeros(3, np.float32)
+    for j in range(3):
+        c = codes[:, j]
+        inside = (c >= 0) & (c < 4)
+        acc = acc + np.where(inside, lut[j, np.clip(c, 0, 3)],
+                             np.float32(0))
+    assert got[0] == 0.0 and got[1] == 1.0 and np.isnan(got[2].item())
+    np.testing.assert_array_equal(got.numpy(), acc)
+
+
+def _dealt_batches(batches, grid):
+    """The batch indices the blocks of ``pq_scan.cu`` walk: block b takes
+    ``mine`` of them, its i-th starting at row (i * grid + b) * batch."""
+    mine = (batches - np.arange(grid) + grid - 1) // grid
+    block = np.repeat(np.arange(grid), mine)
+    turn = np.arange(mine.sum()) - np.repeat(np.cumsum(mine) - mine, mine)
+    return turn * grid + block
+
+
+def _rows_in_batch(start, n, threads, per_thread):
+    """The rows the threads take in the batch at ``start``: thread t its
+    rows start + j * threads + t, j < per_thread, if below n."""
+    rows = start + (np.arange(per_thread)[:, None] * threads
+                    + np.arange(threads)[None, :]).ravel()
+    return rows[rows < n]
+
+
+@pytest.mark.parametrize("grid", [1, 132, 528, "batches"])
+@pytest.mark.parametrize("threads,per_thread", [(256, 1), (256, 4),
+                                                (1024, 1)])
+@pytest.mark.parametrize("n", [1, 31, 513, 250_000, 2 ** 28])
+def test_kernel_deals_every_row_once(n, threads, per_thread, grid):
+    """The kernel's batches, dealt to a grid of at most one block a batch
+    (the C entry caps it so), cover rows 0 … n-1 exactly once, whatever
+    the grid: each batch index is walked once, a full batch covers its
+    rows once and the last, short one stops at n. The row-by-row path's
+    grid-stride loop is the case of one row a thread."""
+    batch = threads * per_thread
+    batches = -(-n // batch)
+    grid = batches if grid == "batches" else min(grid, batches)
+    walked = _dealt_batches(batches, grid)
+    np.testing.assert_array_equal(np.sort(walked), np.arange(batches))
+    for b in {0, batches - 1}:
+        rows = _rows_in_batch(b * batch, n, threads, per_thread)
+        want = np.arange(b * batch, min(n, (b + 1) * batch))
+        assert rows.size == want.size
+        np.testing.assert_array_equal(np.sort(rows), want)
