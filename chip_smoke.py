@@ -25,7 +25,12 @@ raises on failure:
    length-0 row), ``torch.equal`` checks that dense decode == paged decode
    on one logical cache, that verify position j == paged decode at lengths
    + j + 1 and that two calls agree, at the path's and the straddling
-   lengths, and paged decode is timed at batch 1, 8 and 32;
+   lengths, and paged decode is timed at batch 1, 8 and 32. The chunk
+   kernel ``paged_chunk_attention`` (``phase_chunk_kernel``, the flash body
+   with a paged K/V loader) is held against its plain version at the
+   chunked path's contexts with chunks of 256 and 100, two calls equal,
+   each chunk's rows ``torch.equal`` to the flash kernel's rows of one
+   1024-token prompt prefilled in chunks of 64, 100 and 256, and timed;
 4. rag: the kernel's registers and spills; the
    IVF-PQ scan kernel ``pq_scan`` against its plain version at the JAX
    test's shapes with int32 and uint8 codes, on out-of-range codes (each
@@ -55,7 +60,13 @@ raises on failure:
    seeded noise, ``spec_k = 4``) over 8 of the requests, through
    ``paged_verify_attention``; one verify pass is held against sequential
    decode steps, and the streams are compared with plain decode's;
-9. the ``kernels`` JSON line, the card line, and the last line
+9. chunked: a 1024-token prompt prefilled in chunks of 256 against whole
+   prefill (logits, written K/V); the chunked ``Engine`` (``chunk_size =
+   256``) over the 16 requests through ``paged_chunk_attention``, its
+   streams equal to the whole-prefill ``Engine``'s, its TTFT and TPOT
+   beside them; a swap-pressured chunked run; a 3000-token prompt under
+   ``max_context = 4096`` against the ``SlotEngine``;
+10. the ``kernels`` JSON line, the card line, and the last line
    ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -127,9 +138,11 @@ FLASH_D = (16, 64, 128, 256)
 FLASH_SWEEP = (128, 256, 512, 1024, 2048)
 
 KERNELS = ("flash_attention", "paged_decode_attention", "decode_attention",
-           "paged_verify_attention", "pq_scan")
+           "paged_verify_attention", "pq_scan", "paged_chunk_attention")
 SOURCE = {
     "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
+    "paged_chunk_attention":
+        "src/repro_torch/kernels/csrc/flash_attention.cu",
     "paged_decode_attention":
         "src/repro_torch/kernels/csrc/paged_attention.cu",
     "decode_attention": "src/repro_torch/kernels/csrc/decode_attention.cu",
@@ -143,6 +156,8 @@ REPLACES = {
     "decode_attention": "src/repro/kernels/decode_attention.py:105",
     "paged_verify_attention": "src/repro/kernels/paged_attention.py:243",
     "pq_scan": "src/repro/kernels/pq_scan.py:41",
+    # no Pallas kernel: the JAX chunk pass runs its jnp version everywhere
+    "paged_chunk_attention": "src/repro/kernels/ops.py:83",
 }
 
 
@@ -283,8 +298,8 @@ def _sdpa_dense(q, k, v, lens):
 
 
 def _sdpa_paged(q, kp, vp, tab, lens):
-    """The yardstick on the gathered dense cache; for verify (s > 1)
-    position j sees positions <= lens + j."""
+    """The yardstick on the gathered dense cache; for verify and chunk
+    attention (s > 1) position j sees positions <= lens + j."""
     from repro_torch.kernels import ref
     see = lens if q.shape[1] == 1 else lens + 1
     return _sdpa_dense(q, ref.gather_paged_kv(kp, tab),
@@ -422,9 +437,11 @@ def _decode_times(name, run, plain, library, work):
 
 
 def _decode_work(lengths, nh, kvh, d, cap, table_ints=0, s=1):
-    """(bytes, operations) of decode-shaped attention: K/V of each row's
-    read tokens (verify: lengths + s) once, q and out once, table and
-    lengths; 4·d operations per (query, key) pair and head."""
+    """(bytes, operations) of decode-shaped and chunk attention: K/V of
+    each row's read tokens (verify, chunk: lengths + s) once, q and out
+    once, table and lengths; 4·d operations per (query, key) pair the mask
+    keeps (position j of a row of length n sees n + j + 1 keys when s > 1)
+    and head."""
     b = len(lengths)
     read = sum(min(n + (s if s > 1 else 0), cap) for n in lengths)
     pairs = sum(min(n + (j + 1 if s > 1 else 0), cap) for n in lengths
@@ -590,12 +607,125 @@ def phase_decode(gen, rng):
     return rows
 
 
+# the chunk kernel: b = 8 rows at the decode kernels' contexts, capped so
+# that context + chunk fits the 2048-token table, chunks of 256 (timed) and
+# an unaligned 100; the flash comparison's chunks over one 1024-token prompt
+CHUNK_S = (256, 100)
+CHUNK_FLASH = (64, 100, 256)
+
+
+def _chunk_case(gen, rng, s, b=8, nh=8, kvh=1, d=256, bt=16, mb=128):
+    """q (b, s, nh, d) and pools with a shuffled table covering each row's
+    context + s positions; unused and trash pages hold large finite
+    garbage the kernel must never weigh."""
+    lengths = [min(n, mb * bt - s) for n in DEC_LENGTHS[:b]]
+    nb = b * mb + 1
+    mk = lambda *shape: torch.randn(*shape, generator=gen, device="cuda",
+                                    dtype=torch.float32).to(torch.bfloat16)
+    q = mk(b, s, nh, d)
+    kp, vp = mk(nb, bt, kvh, d), mk(nb, bt, kvh, d)
+    perm = rng.permutation(nb - 1)
+    tab = np.full((b, mb), nb - 1, np.int32)
+    for i, n in enumerate(lengths):
+        live = -(-(n + s) // bt)
+        tab[i, :live] = perm[i * mb:i * mb + live]
+        unused = torch.as_tensor(perm[i * mb + live:(i + 1) * mb],
+                                 device="cuda")
+        kp[unused], vp[unused] = 1e4, -1e4
+    kp[nb - 1], vp[nb - 1] = 1e4, -1e4
+    return (q, kp, vp, torch.as_tensor(tab, device="cuda"),
+            torch.as_tensor(np.asarray(lengths, np.int32), device="cuda"))
+
+
+def _ptxas_lines(lib: str, mangled: str):
+    """The ptxas report lines (registers, spills) of one kernel of
+    ``lib`` whose mangled name contains ``mangled``."""
+    from repro_torch.kernels import _build
+    out, on = [], False
+    for ln in _build.ptxas_reports.get(lib, "").splitlines():
+        if "entry function" in ln:
+            on = mangled in ln
+        elif on and ("registers" in ln or "spill" in ln):
+            out.append(ln.strip())
+    return out
+
+
+def phase_chunk_kernel(gen, rng):
+    """paged_chunk_attention against its plain version at the chunked
+    path's contexts (s = 256 and 100), two calls equal, each chunk's rows
+    bit for bit the flash kernel's rows at the same positions of one
+    1024-token prompt, and kernel, plain version and the library call timed
+    with the host queue held at s = 256. Returns the kernels-line row."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_chunk_attention as pca
+    from repro_torch.kernels import ref
+    nh, kvh, d, bt, mb = 8, 1, 256, 16, 128
+    for ln in _ptxas_lines("flash_attention", "ILi4ELb1E"):
+        log(f"[kernels] paged_chunk_attention ptxas (head dim 256): {ln}")
+    row = None
+    for s in CHUNK_S:
+        case = _chunk_case(gen, rng, s)
+        got = pca.paged_chunk_attention(*case)
+        err, rel = compare(f"paged_chunk_attention s={s}", got,
+                           ref.paged_chunk_attention(*case))
+        again = torch.equal(got, pca.paged_chunk_attention(*case))
+        log(f"[kernels] paged_chunk_attention b=8 s={s} contexts "
+            f"{case[4].tolist()} bt=16 d=256: max_abs_err={err:.3g} (atol "
+            f"{ATOL}, rtol {RTOL}) max_row_rel_err={rel:.3g} (limit "
+            f"{ROW_RTOL}); two calls equal (torch.equal): {again}")
+        if not again:
+            raise AssertionError("paged_chunk_attention: two calls differ")
+        if s == CHUNK_S[0]:
+            lens = case[4].tolist()
+            row = dict(max_abs_err=err, max_row_rel_err=rel,
+                       **_decode_times(
+                           f"paged_chunk_attention b=8 s={s} bt=16 d=256",
+                           lambda: pca.paged_chunk_attention(*case),
+                           lambda: ref.paged_chunk_attention(*case),
+                           _sdpa_paged(*case),
+                           _decode_work(lens, nh, kvh, d, mb * bt, 8 * mb,
+                                        s)))
+        del case, got
+    # chunk rows == flash rows: one prompt's q, k, v, the K/V paged through
+    # a shuffled table, prefilled chunk by chunk
+    P = 1024
+    q, k, v = _flash_case(gen, 1, P, nh, kvh, d)
+    whole = fa.flash_attention(q, k, v)
+    ids = torch.as_tensor(rng.permutation(mb), device="cuda")
+    kp = torch.zeros(mb + 1, bt, kvh, d, device="cuda", dtype=torch.bfloat16)
+    vp = torch.zeros_like(kp)
+    n = P // bt
+    kp[ids[:n]] = k[0].reshape(n, bt, kvh, d)
+    vp[ids[:n]] = v[0].reshape(n, bt, kvh, d)
+    tab = ids.to(torch.int32)[None]
+    same = {}
+    for chunk in CHUNK_FLASH:
+        ok = True
+        for L in range(0, P, chunk):
+            take = min(chunk, P - L)
+            qc = torch.zeros(1, chunk, nh, d, device="cuda",
+                             dtype=torch.bfloat16)
+            qc[0, :take] = q[0, L:L + take]
+            out = pca.paged_chunk_attention(
+                qc, kp, vp, tab,
+                torch.tensor([L], dtype=torch.int32, device="cuda"))
+            ok = ok and torch.equal(out[0, :take], whole[0, L:L + take])
+        same[chunk] = ok
+    log(f"[kernels] paged_chunk_attention rows == flash_attention rows of "
+        f"one {P}-token prompt (torch.equal), by chunk size: {same}")
+    if not all(same.values()):
+        raise AssertionError("paged_chunk_attention rows differ from the "
+                             "flash kernel's")
+    return row
+
+
 def phase_kernels():
     """Hold each attention kernel against its plain version and time it."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     rng = np.random.default_rng(0)
     rows = {"flash_attention": phase_flash(gen)}
     rows.update(phase_decode(gen, rng))
+    rows["paged_chunk_attention"] = phase_chunk_kernel(gen, rng)
     for name, r in rows.items():
         r["bound_ms"], r["bound_by"] = bound(*r.pop("bound"),
                                              PEAK_BF16_FLOPS)
@@ -1047,7 +1177,7 @@ def phase_serve(cfg, params):
         "256), bf16, max_batch=8, max_len=2048, block_tokens=16")
     _serve_line("serve", done, prompts, wall, eng.steps)
     log(f"[serve] launches on the main path: {launches}")
-    return launches, prompts, _streams(done)
+    return launches, prompts, _streams(done), (done, wall)
 
 
 def phase_preemption(cfg, params, prompts):
@@ -1188,6 +1318,192 @@ def phase_spec(cfg, params, prompts, paged_streams):
     return launches
 
 
+# chunked prefill: the chunk size of the chunked Engine, and the long
+# prompt served past max_len = 2048 under max_context = 4096
+CHUNK = 256
+LONG_PROMPT, LONG_CONTEXT = 3000, 4096
+
+
+def _chunked_prefill(params, cfg, prompt, chunk, bt=16, max_len=2048,
+                     batch=8):
+    """Prefill one prompt chunk by chunk through chunk_step into row 0 of a
+    ``batch``-row paged cache whose table covers ``max_len`` (the other rows
+    ride along with q_valid 0, as decode rows do in the engine). Returns
+    (the last pass's logits of row 0, the caches, row 0's table)."""
+    from repro_torch.models import steps
+    from repro_torch.models import transformer as tf
+    mb = max_len // bt
+    nb = batch * mb
+    caches = tf.init_paged_cache(cfg, batch, nb, bt, mb, "cuda")
+    tabs = torch.full((batch, mb), nb, dtype=torch.int32, device="cuda")
+    tabs[0] = torch.arange(mb, dtype=torch.int32, device="cuda")
+    got = 0
+    while got < len(prompt):
+        take = min(chunk, len(prompt) - got)
+        toks = torch.zeros(batch, chunk, dtype=torch.int32, device="cuda")
+        toks[0, :take] = torch.as_tensor(prompt[got:got + take],
+                                         device="cuda")
+        lens = torch.zeros(batch, dtype=torch.int32, device="cuda")
+        lens[0] = got
+        _set_rows(cfg, caches, tabs, lens)
+        q_valid = torch.zeros(batch, dtype=torch.int32, device="cuda")
+        q_valid[0] = take
+        _, logits, caches = steps.chunk_step(params, toks, q_valid, caches,
+                                             cfg)
+        got += take
+    return logits[0].float(), caches, tabs[0]
+
+
+def _whole_prefill(params, cfg, prompt, max_len=2048):
+    from repro_torch.models import steps
+    logits, dense = steps.prefill_step(
+        params, {"tokens": torch.as_tensor(prompt[None], device="cuda")},
+        cfg, max_len)
+    return logits[0].float(), dense
+
+
+def _top2_gap(logits) -> float:
+    top = torch.topk(logits.float(), 2).values
+    return float(top[0] - top[1])
+
+
+def phase_chunked_logits(cfg, params):
+    """A 1024-token prompt prefilled in chunks of CHUNK against one whole
+    prefill, both through the kernels: last-position logits within
+    LOGIT_TOL of max |logit| with equal argmax; the written K/V's largest
+    difference printed."""
+    prompt = np.random.default_rng(1).integers(0, cfg.vocab_size, 1024
+                                               ).astype(np.int32)
+    want, dense = _whole_prefill(params, cfg, prompt)
+    got, caches, tab = _chunked_prefill(params, cfg, prompt, CHUNK)
+    torch.cuda.synchronize()
+    if got.shape != (cfg.vocab_size,) or not torch.isfinite(got).all():
+        raise AssertionError("chunked logits: bad shape or non-finite")
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    argmax = int(got.argmax()) == int(want.argmax())
+    kv = []
+    for pk, dk in (("k_pool", "k"), ("v_pool", "v")):
+        pool = caches["attn"][pk][:, tab[:1024 // 16].long()]
+        paged = pool.reshape(pool.shape[0], 1024, *pool.shape[3:])
+        kv.append(float((paged.float()
+                         - dense["attn"][dk][:, 0, :1024].float()
+                         ).abs().max()))
+    log(f"[chunked] 1024-token prompt in chunks of {CHUNK} vs whole "
+        f"prefill: max|logit diff| = {err:.4g} (max|logit| {scale:.4g}), "
+        f"argmax equal: {argmax}, bitwise equal: {torch.equal(got, want)}; "
+        f"written K/V largest difference over 18 layers: K {kv[0]:.4g}, "
+        f"V {kv[1]:.4g}")
+    if err > LOGIT_TOL * scale or not argmax:
+        raise AssertionError(f"chunked logits off by {err}")
+
+
+def _first_divergence(cfg, params, prompt, a, b):
+    """(step, top-2 logit gap of the whole-prefill run, of the chunked run)
+    at the first step where streams ``a`` (whole) and ``b`` (chunked)
+    differ, each path's gap recomputed by prefilling the prompt and the
+    shared tokens before that step through it."""
+    i = next(j for j, (x, y) in enumerate(zip(a, b)) if x != y)
+    ctx = np.concatenate([prompt, np.asarray(a[:i], np.int32)])
+    whole = _whole_prefill(params, cfg, ctx, LONG_CONTEXT)[0]
+    chunked = _chunked_prefill(params, cfg, ctx, CHUNK,
+                               max_len=LONG_CONTEXT)[0]
+    return i, _top2_gap(whole), _top2_gap(chunked)
+
+
+def phase_chunked(cfg, params, prompts, paged_streams, whole):
+    """The chunked Engine (chunk_size = CHUNK) over the 16 requests,
+    through paged_chunk_attention, against the whole-prefill Engine's
+    streams and its (finished requests, wall) ``whole`` from phase_serve;
+    a swap-pressured chunked run; a LONG_PROMPT-token prompt under
+    max_context LONG_CONTEXT against the SlotEngine. Returns the chunk
+    kernel's launches on the path."""
+    from repro_torch.engine.core import EngineConfig, SlotEngine
+    from repro_torch.kernels import paged_chunk_attention as pca
+    phase_chunked_logits(cfg, params)
+    chunked = lambda **kw: _engine(  # noqa: E731
+        cfg, params, config=EngineConfig(chunk_size=CHUNK, **kw))
+    _serve(chunked(), prompts[:1], max_new=2)                 # warm-up
+    eng = chunked()
+    torch.cuda.reset_peak_memory_stats()
+    pca.launches = 0
+    t0 = time.monotonic()
+    done = _serve(eng, prompts)
+    wall = time.monotonic() - t0
+    launches = pca.launches
+    if len(done) != len(prompts) or any(len(r.tokens) != 64 for r in done):
+        raise AssertionError("chunked: not every request finished with 64 "
+                             "tokens")
+    if launches <= 0:
+        raise AssertionError("chunked: paged_chunk_attention never launched")
+    log(f"[chunked] Engine(config=EngineConfig(chunk_size={CHUNK})), "
+        f"max_batch=8, max_len=2048, block_tokens=16, token budget "
+        f"{eng.max_batch + CHUNK}")
+    _serve_line("chunked", done, prompts, wall, eng.steps)
+    whole, whole_wall = whole
+    mean = lambda rs, f: np.mean([f(r) for r in rs]) * 1e3  # noqa: E731
+    toks = sum(len(r.tokens) for r in done)
+    log(f"[chunked] side by side, chunked | whole prefill: tok/s "
+        f"{toks / wall:.2f} | {toks / whole_wall:.2f}; TTFT mean "
+        f"{mean(done, lambda r: r.ttft):.2f} | "
+        f"{mean(whole, lambda r: r.ttft):.2f} ms; TPOT mean "
+        f"{mean(done, lambda r: r.tpot):.2f} | "
+        f"{mean(whole, lambda r: r.tpot):.2f} ms; "
+        f"paged_chunk_attention launches {launches}")
+    got = _streams(done)
+    diff = [rid for rid in got if got[rid] != paged_streams[rid]]
+    log(f"[chunked] {len(got) - len(diff)} of {len(got)} streams identical "
+        f"to the whole-prefill Engine's")
+    for rid in diff:
+        step, gw, gc = _first_divergence(cfg, params, prompts[rid],
+                                         paged_streams[rid], got[rid])
+        log(f"[chunked] request {rid} differs first at step {step}: top-2 "
+            f"logit gap there {gw:.4g} (whole prefill), {gc:.4g} (chunked)")
+    if diff:
+        raise AssertionError(f"chunked streams differ: requests {diff}")
+
+    four = prompts[:4]
+    base = _streams(_serve(chunked(), four))
+    pages = sum(-(-len(p) // 16) for p in four) + 4
+    swap = _engine(cfg, params, num_blocks=pages, preemption="swap",
+                   config=EngineConfig(chunk_size=CHUNK))
+    got = _streams(_serve(swap, four))
+    st = swap.kv_stats()
+    log(f"[chunked] swap, {pages} pages: swap_outs={st['swap_outs']} "
+        f"swap_ins={st['swap_ins']} page_faults={st['page_faults']}, "
+        f"streams identical to the unpressured chunked run: {got == base}")
+    if st["swap_outs"] < 1 or got != base:
+        raise AssertionError("chunked swap pressure: no swap or streams "
+                             "differ")
+
+    long_p = np.random.default_rng(5).integers(0, cfg.vocab_size,
+                                               LONG_PROMPT).astype(np.int32)
+    try:
+        _engine(cfg, params).submit(long_p)
+    except ValueError as err:
+        log(f"[chunked] whole prefill rejects the {LONG_PROMPT}-token prompt "
+            f"at submit: {err}")
+    else:
+        raise AssertionError("whole prefill took a prompt past max_len")
+    eng = chunked(max_context=LONG_CONTEXT)
+    got = _serve(eng, [long_p], max_new=16)[0].tokens
+    slot = SlotEngine(cfg, params=params, max_batch=8, max_len=LONG_CONTEXT,
+                      device="cuda")
+    want = _serve(slot, [long_p], max_new=16)[0].tokens
+    log(f"[chunked] {LONG_PROMPT}-token prompt, max_context={LONG_CONTEXT}: "
+        f"16 tokens equal to SlotEngine(max_len={LONG_CONTEXT})'s: "
+        f"{got == want}")
+    if got != want:
+        step, gw, gc = _first_divergence(cfg, params, long_p, want, got)
+        log(f"[chunked] the long prompt differs first at step {step}: top-2 "
+            f"logit gap there {gw:.4g} (whole prefill), {gc:.4g} (chunked)")
+        raise AssertionError("long-context chunked stream differs from the "
+                             "SlotEngine's")
+    del eng, slot
+    torch.cuda.empty_cache()
+    return launches
+
+
 def kernels_line(rows, launches):
     out = []
     for name in KERNELS:
@@ -1219,12 +1535,14 @@ def main() -> int:
     log(f"[params] {sum(v.numel() for v in _leaves(params)) / 1e9:.3f}B "
         f"parameters on the card")
     phase_logits(cfg, params)
-    launches, prompts, streams = phase_serve(cfg, params)
+    launches, prompts, streams, whole = phase_serve(cfg, params)
     launches["pq_scan"] = rag_launches
     phase_preemption(cfg, params, prompts)
     launches["decode_attention"] = phase_slot(cfg, params, prompts, streams)
     launches["paged_verify_attention"] = phase_spec(cfg, params, prompts,
                                                     streams)
+    launches["paged_chunk_attention"] = phase_chunked(cfg, params, prompts,
+                                                      streams, whole)
     log(f"[done] all phases in {time.monotonic() - t0:.1f}s")
     log(json.dumps(kernels_line(rows, launches)))
     log(line)

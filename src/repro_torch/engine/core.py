@@ -1,17 +1,22 @@
-"""The serving engines of the PyTorch port (twin of the whole-prefill and
-speculative paths of ``repro.engine.core``, and of its dense ``SlotEngine``).
+"""The serving engines of the PyTorch port (twin of the single-device
+paths of ``repro.engine.core``: whole-prompt and chunked prefill, speculative
+decoding, and the dense ``SlotEngine``).
 
 ``EngineCore`` holds the ``PagedKVStore``, the physical K/V pools, the
 host mirrors of the block tables and lengths, admission, growth and
-preemption; ``Engine`` drives the legacy whole-prompt iteration: admit (one
-blocking prefill per admission), then one ``(max_batch, 1)`` decode pass,
-or with a draft model one speculative iteration (draft, fork, verify,
-accept). ``SlotEngine`` is the dense per-slot engine the paged one is held
-against. The interface contract is the JAX engine's:
+preemption, and the decode and chunk passes; ``Engine`` drives one of three
+iterations: the legacy whole-prompt one (admit with one blocking prefill
+per admission, then one ``(max_batch, 1)`` decode pass), the mixed one of
+chunked prefill (one decode pass, then one ``(max_batch, chunk_size)``
+chunk pass, sharing a token budget), or with a draft model one speculative
+iteration (draft, fork, verify, accept). ``SlotEngine`` is the dense
+per-slot engine the paged one is held against. The interface contract is
+the JAX engine's:
 
-* ``max_len`` is a multiple of ``block_tokens``; ``max_blocks = max_len //
-  block_tokens``; the pool holds ``num_blocks`` pages plus one trash page
-  (index ``num_blocks``) that dead rows point at.
+* ``max_len`` is a multiple of ``block_tokens``; ``max_context`` (default
+  ``max_len``; above it only with chunked prefill) is too, and ``max_blocks
+  = max_context // block_tokens``; the pool holds ``num_blocks`` pages plus
+  one trash page (index ``num_blocks``) that dead rows point at.
 * The model masks positions ``>= length`` to probability exactly 0, so stale
   page content cannot leak into live rows.
 * Full block-aligned prompt blocks register in the store's radix index; a
@@ -20,15 +25,21 @@ against. The interface contract is the JAX engine's:
   (``.cpu()``) and back (``.to(device)``) on resume; ``recompute`` drops them
   and re-prefills ``prompt + generated[:-1]``. Both keep every token
   generated so far; victims requeue FIFO-fairly.
-* Speculative decoding (``EngineConfig(draft_cfg=..., spec_k=...)``): each
-  iteration drafts up to ``spec_k`` greedy tokens per row with the draft
-  model (its own paged pool, never short of pages), COW-forks the target
-  tables (``PagedKVStore.fork_table``), scores every draft position in one
-  target pass (``paged_verify_attention``) and commits the longest agreeing
-  prefix plus the bonus token; greedy streams equal plain decode's.
-
-Chunked prefill (``EngineConfig.chunk_size > 0``) arrives with a later
-slice of the port and raises ``NotImplementedError`` here.
+* Chunked prefill (``EngineConfig(chunk_size=...)``): admission reserves
+  pages for the first chunk only and runs no forward pass; each mixed
+  iteration decodes the decode-phase rows (chunk-phase rows seen as
+  trash/0) and then advances every chunk-phase row's fill front by up to
+  ``chunk_size`` tokens within the token budget, growing its table as it
+  goes (``paged_chunk_attention``). A prompt whose last chunk completes
+  streams its first token from that pass; greedy streams equal whole
+  prefill's.
+* Speculative decoding (``EngineConfig(draft_cfg=..., spec_k=...)``, whole
+  prefill only): each iteration drafts up to ``spec_k`` greedy tokens per
+  row with the draft model (its own paged pool, never short of pages),
+  COW-forks the target tables (``PagedKVStore.fork_table``), scores every
+  draft position in one target pass (``paged_verify_attention``) and
+  commits the longest agreeing prefix plus the bonus token; greedy streams
+  equal plain decode's.
 
 Every entry point runs on ``device="cuda"`` unless the caller passes another
 device (the CPU tests pass ``device="cpu"``); without a card, CUDA fails
@@ -52,15 +63,30 @@ from repro_torch.models import transformer as tf
 
 @dataclass
 class EngineConfig:
-    """Scheduling policy of the paged ``Engine``. The port serves
-    whole-prompt admission (``chunk_size == 0``, ``max_context`` 0 or
-    ``max_len``); the chunked-prefill fields keep the JAX package's names
-    and raise ``NotImplementedError`` when set.
+    """Scheduling policy of the paged ``Engine``: the TTFT-vs-ITL knob.
 
-    Speculative decoding (``draft_cfg`` + ``spec_k``): every iteration runs
-    the draft model for up to ``spec_k`` greedy tokens per row, verifies
-    them in one target pass and commits the longest matching prefix plus
-    the bonus token.
+    ``chunk_size == 0`` keeps whole-prompt admission (one blocking prefill
+    per admission). With ``chunk_size > 0`` every iteration is a mixed one:
+    running decodes take their ``(b, 1)`` step and waiting or partial
+    prefills advance by up to one ``(b, chunk_size)`` chunk pass in the same
+    iteration, so a long prompt never stalls running decodes for its whole
+    length.
+
+    * ``chunk_size`` — prompt tokens per request per iteration.
+    * ``token_budget`` — forward tokens an iteration may spend across both
+      passes; 0 means ``max_batch + chunk_size``.
+    * ``decode_share`` — share of ``token_budget`` reserved for decode rows
+      while any run; the rest is the chunk budget. 0 reserves exactly the
+      running decodes; 1.0 starves prefill until every decode finishes.
+    * ``max_context`` — logical KV tokens one request may span; 0 means
+      ``max_len``. Above ``max_len`` (a multiple of ``block_tokens``) only
+      with chunked prefill, whose per-pass working set stays ``chunk_size``
+      wide.
+
+    Speculative decoding (``draft_cfg`` + ``spec_k``, needs ``chunk_size ==
+    0``): every iteration runs the draft model for up to ``spec_k`` greedy
+    tokens per row, verifies them in one target pass and commits the
+    longest matching prefix plus the bonus token.
 
     * ``draft_cfg`` — config of the draft model (dense GQA, the target's
       vocabulary). None disables speculation.
@@ -69,6 +95,8 @@ class EngineConfig:
       handed ``draft_params``.
     """
     chunk_size: int = 0
+    token_budget: int = 0
+    decode_share: float = 0.0
     max_context: int = 0
     draft_cfg: Optional[ModelConfig] = None
     spec_k: int = 0
@@ -89,8 +117,10 @@ class EngineRequest:
     slot: Optional[int] = None
     state: str = "new"            # new | running | swapped | preempted | done
     preemptions: int = 0
-    # ``ctx`` is the context this admission wrote to KV (prompt, or prompt +
-    # generated[:-1] on a recompute resume); ``prefilled`` counts it
+    # ``ctx`` is the context this admission must write to KV (prompt, or
+    # prompt + generated[:-1] on a recompute resume); ``prefilled`` counts
+    # how much of it is written, ``prefilled == len(ctx)`` marks the request
+    # decode-phase
     ctx: Optional[np.ndarray] = None
     prefilled: int = 0
 
@@ -107,21 +137,32 @@ class EngineRequest:
                 / max(1, len(self.tokens) - 1))
 
 
-def _check_config(config: EngineConfig, cfg: ModelConfig, max_len: int):
-    if config.chunk_size or (config.max_context
-                             and config.max_context != max_len):
-        raise NotImplementedError(
-            "chunked prefill (EngineConfig.chunk_size / max_context) arrives "
-            "with the chunked-prefill slice of the PyTorch port")
+def _check_config(config: EngineConfig, cfg: ModelConfig, max_len: int,
+                  block_tokens: int) -> int:
+    """Raise on an inconsistent configuration; returns ``max_context``."""
+    if config.chunk_size < 0:
+        raise ValueError(f"chunk_size={config.chunk_size} < 0")
+    max_context = config.max_context or max_len
+    if not config.chunk_size and max_context != max_len:
+        raise ValueError(
+            "max_context > max_len needs chunked prefill (chunk_size > 0): "
+            "the whole-prompt path prefills through a (1, max_len) cache")
+    if max_context % block_tokens or max_context < max_len:
+        raise ValueError("max_context must be a multiple of block_tokens "
+                         "and >= max_len")
     if config.draft_cfg is not None and config.spec_k > 0:
+        if config.chunk_size:
+            raise ValueError("speculative decoding needs the whole-prefill "
+                             "path (EngineConfig.chunk_size == 0)")
         tf.check_family(config.draft_cfg)
         if config.draft_cfg.vocab_size != cfg.vocab_size:
             raise ValueError("draft and target must share a vocabulary")
+    return max_context
 
 
 class EngineCore:
     """Store + cache pool + block tables + admission/preemption/growth and
-    the decode pass, on one device."""
+    the decode and chunk passes, on one device."""
 
     def __init__(self, cfg: ModelConfig, params=None, max_batch: int = 4,
                  max_len: int = 512, seed: int = 0, block_tokens: int = 16,
@@ -134,13 +175,19 @@ class EngineCore:
         if preemption not in ("swap", "recompute"):
             raise ValueError(f"preemption={preemption!r}")
         self.config = config or EngineConfig()
-        _check_config(self.config, cfg, max_len)
+        max_context = _check_config(self.config, cfg, max_len, block_tokens)
+        self.chunk_size = self.config.chunk_size
         self.cfg = cfg
         self.device = torch.device(device)
         self.max_batch = max_batch
         self.max_len = max_len
+        self.max_context = max_context
+        # generation stop bound and submit()'s validation bound: chunked
+        # rows may span max_context, whole-prefill rows stop at max_len as
+        # the dense oracle does
+        self._len_limit = max_context if self.chunk_size else max_len
         self.block_tokens = block_tokens
-        self.max_blocks = max_len // block_tokens
+        self.max_blocks = max_context // block_tokens
         self.num_blocks = (max_batch * self.max_blocks if num_blocks is None
                            else num_blocks)
         self.preemption = preemption
@@ -206,11 +253,17 @@ class EngineCore:
     def _validate_submit(self, prompt: np.ndarray, max_new_tokens: int):
         """A prompt must leave room for at least one generated token under
         the stop bound, and the request must fit the pool."""
-        limit = self.max_len
+        limit = self._len_limit
         if len(prompt) > limit - 2:
+            if self.chunk_size:
+                raise ValueError(
+                    f"prompt of {len(prompt)} tokens exceeds max_context - 2 "
+                    f"= {limit - 2}; raise EngineConfig.max_context")
             raise ValueError(
                 f"prompt of {len(prompt)} tokens exceeds max_len - 2 = "
-                f"{limit - 2}")
+                f"{limit - 2}; enable chunked prefill "
+                f"(EngineConfig(chunk_size=..., max_context=...)) to serve "
+                f"prompts past max_len")
         need = self.store.blocks_for_tokens(
             min(len(prompt) + max_new_tokens, limit - 1))
         if need > self.num_blocks:
@@ -248,10 +301,14 @@ class EngineCore:
         self._tables_np[slot] = self.store.trash_block
         self._lengths_np[slot] = 0
 
-    def _push_rows(self):
-        """Sync the host mirrors of the block tables and lengths into the
-        target's cache groups."""
-        self._push(self.caches, self._tables_np, self._lengths_np)
+    def _push_rows(self, tables: Optional[np.ndarray] = None,
+                   lengths: Optional[np.ndarray] = None):
+        """Sync block-table/length rows into the target's cache groups:
+        the host mirrors by default; the mixed iteration's decode pass
+        pushes a view instead, in which chunk-phase rows are trash/0."""
+        self._push(self.caches,
+                   self._tables_np if tables is None else tables,
+                   self._lengths_np if lengths is None else lengths)
 
     def _push(self, caches, tables: np.ndarray, lengths: np.ndarray):
         """Sync block-table/length rows into every cache group of
@@ -295,8 +352,26 @@ class EngineCore:
                                 self._tensor(np.asarray(blocks, np.int64)))
             t.host_pages = None
             self._set_row(slot, blocks, t.tokens)
+            # mid-prefill swap victims resume chunking where the fill front
+            # stopped; mid-decode victims have prefilled == len(ctx)
             r.ctx = self._resume_ctx(r)
             r.prefilled = t.tokens
+        elif self.chunk_size:
+            # chunked admission: reserve KV for the first chunk only (plus
+            # any resident matched prefix); the mixed iteration prefills
+            # chunk by chunk, growing the table at the fill front. No
+            # forward pass runs here, so admission never stalls decodes.
+            ctx = self._resume_ctx(r)
+            chain = prefix_chain(r.prompt, self.block_tokens)
+            got = self.store.allocate(r.rid, min(self.chunk_size, len(ctx)),
+                                      chain, filled=0,
+                                      context_tokens=len(ctx))
+            if got is None:
+                return False
+            blocks, _ = got
+            r.ctx = ctx
+            r.prefilled = 0
+            self._set_row(slot, blocks, 0)
         else:
             ctx = self._resume_ctx(r)
             chain = prefix_chain(r.prompt, self.block_tokens)
@@ -411,12 +486,18 @@ class EngineCore:
         return True
 
     # -- decode ---------------------------------------------------------
+    def _is_decoding(self, r: EngineRequest) -> bool:
+        """Decode-phase rows have their whole context in KV; chunk-phase
+        rows are still filling it (chunked prefill only)."""
+        return r.prefilled >= len(r.ctx)
+
     def _grow_active(self):
-        """Fault in pages so every active row's table covers the KV slot its
-        next decode write lands in; exhaustion preempts victims."""
+        """Fault in pages so every active decode row's table covers the KV
+        slot its next decode write lands in; exhaustion preempts victims."""
         for slot in range(self.max_batch):
             r = self.active[slot]      # re-read: _make_room may evict slots
-            if r is None or not self.store.needs_block(r.rid):
+            if r is None or not self._is_decoding(r) \
+                    or not self.store.needs_block(r.rid):
                 continue
             while True:
                 b = self.store.grow(r.rid)
@@ -427,6 +508,20 @@ class EngineCore:
                 if not self._make_room(r.rid):
                     raise RuntimeError(
                         "KV pool exhausted with no preemptable victim")
+
+    def _grow_to(self, r: EngineRequest, target_tokens: int):
+        """Fault pages until ``r``'s table covers ``target_tokens`` KV slots
+        (chunk-phase growth at the fill front); exhaustion preempts victims,
+        never ``r`` itself."""
+        t = self.store.tables[r.rid]
+        while len(t.blocks) * self.block_tokens < target_tokens:
+            b = self.store.grow(r.rid)
+            if b is not None:
+                self._tables_np[r.slot, len(t.blocks) - 1] = b
+                continue
+            if not self._make_room(r.rid):
+                raise RuntimeError(
+                    "KV pool exhausted with no preemptable victim")
 
     def _finish(self, r: EngineRequest, now: float):
         r.finish_time = now
@@ -452,37 +547,113 @@ class EngineCore:
             })
 
     def _decode_bookkeeping(self, new_tok: np.ndarray):
-        """Stream the token, advance the store, finish rows that hit a stop
-        condition."""
+        """Per decode row: stream the token, advance the store, finish rows
+        that hit a stop condition. Chunk-phase rows are skipped."""
         now = time.monotonic()
         for s, r in enumerate(self.active):
-            if r is None:
+            if r is None or not self._is_decoding(r):
                 continue
             self.store.advance(r.rid)
             self._lengths_np[s] = min(self._lengths_np[s] + 1,
-                                      self.max_len - 1)
+                                      self._len_limit - 1)
             t = int(new_tok[s])
             r.tokens.append(t)
             r.token_times.append(now)
             done = (len(r.tokens) >= r.max_new_tokens
                     or (r.eos_id is not None and t == r.eos_id)
-                    or len(r.prompt) + len(r.tokens) >= self.max_len - 1)
+                    or len(r.prompt) + len(r.tokens) >= self._len_limit - 1)
             if done:
                 self._finish(r, now)
 
     def _decode_pass(self):
-        """One ``(max_batch, 1)`` decode pass over the active rows; dead
-        rows ride along on the trash page."""
-        if all(r is None for r in self.active):
+        """One ``(max_batch, 1)`` decode pass over the decode-phase rows,
+        with chunk-phase rows seen as trash/0 so the pass's write at
+        position ``length`` can never land in a live page; dead rows ride
+        along on the trash page. A no-op when no row is decode-phase."""
+        dec = [r for r in self.active
+               if r is not None and self._is_decoding(r)]
+        if not dec:
             return
-        last = np.zeros((self.max_batch, 1), np.int32)
+        tabs = self._tables_np.copy()
+        lens = self._lengths_np.copy()
         for r in self.active:
-            if r is not None:
-                last[r.slot, 0] = r.tokens[-1]
-        self._push_rows()
+            if r is not None and not self._is_decoding(r):
+                tabs[r.slot] = self.store.trash_block
+                lens[r.slot] = 0
+        last = np.zeros((self.max_batch, 1), np.int32)
+        for r in dec:
+            last[r.slot, 0] = r.tokens[-1]
+        self._push_rows(tabs, lens)
         new_tok, _, self.caches = steps.serve_step(
             self.params, self._tensor(last), self.caches, self.cfg)
         self._decode_bookkeeping(new_tok.cpu().numpy())
+
+    # -- chunked prefill pass -------------------------------------------
+    def _chunk_budget(self, n_dec: int) -> int:
+        """Chunk tokens this iteration may spend after the decode
+        reservation (the TTFT-vs-ITL split of the token budget)."""
+        budget = self.config.token_budget or (self.max_batch + self.chunk_size)
+        if n_dec == 0:
+            return max(budget, 1)
+        reserved = max(n_dec,
+                       int(np.ceil(self.config.decode_share * budget)))
+        return max(0, budget - reserved)
+
+    def _chunk_pass(self):
+        """One ``(max_batch, chunk_size)`` chunked-prefill pass advancing
+        each chunk-phase row's fill front by up to ``chunk_size`` tokens
+        within the iteration's token budget, rows taken in admit order. A
+        prompt completing its last chunk streams its first token from this
+        pass. ``_grow_to`` may preempt victims (most recently admitted),
+        including rows already scheduled this pass: takes are re-checked
+        after."""
+        chunkers = sorted(
+            (r for r in self.active
+             if r is not None and not self._is_decoding(r)),
+            key=lambda r: self._admit_order[r.rid])
+        budget = self._chunk_budget(sum(1 for r in self.active
+                                        if r is not None
+                                        and self._is_decoding(r)))
+        takes: Dict[int, int] = {}
+        for r in chunkers:
+            if r.slot is None or self.active[r.slot] is not r:
+                continue                       # evicted by a peer's growth
+            take = min(self.chunk_size, len(r.ctx) - r.prefilled, budget)
+            if take <= 0:
+                continue
+            self._grow_to(r, r.prefilled + take)
+            takes[r.rid] = take
+            budget -= take
+        alive = {r.rid for r in self.active if r is not None}
+        takes = {rid: tk for rid, tk in takes.items() if rid in alive}
+        if takes:
+            toks = np.zeros((self.max_batch, self.chunk_size), np.int32)
+            q_valid = np.zeros((self.max_batch,), np.int32)
+            rows = [r for r in self.active
+                    if r is not None and r.rid in takes]
+            for r in rows:
+                tk = takes[r.rid]
+                toks[r.slot, :tk] = r.ctx[r.prefilled:r.prefilled + tk]
+                q_valid[r.slot] = tk
+            self._push_rows()                  # real tables for every row
+            new_tok, _, self.caches = steps.chunk_step(
+                self.params, self._tensor(toks), self._tensor(q_valid),
+                self.caches, self.cfg)
+            new_tok = new_tok.cpu().numpy()
+            now = time.monotonic()
+            for r in rows:
+                tk = takes[r.rid]
+                self.store.advance(r.rid, tk)
+                r.prefilled += tk
+                self._lengths_np[r.slot] = r.prefilled
+                if r.prefilled == len(r.ctx) and not r.tokens:
+                    # prompt complete: stream the first token (resumes keep
+                    # their stream and re-enter decode by feeding tokens[-1])
+                    tok = int(new_tok[r.slot])
+                    r.first_token_time = now
+                    r.tokens.append(tok)
+                    r.token_times.append(now)
+        self._trace_step()
 
     def kv_stats(self) -> Dict[str, float]:
         return self.store.stats()
@@ -496,6 +667,14 @@ class Engine(EngineCore):
         self._grow_active()
         self._decode_pass()
         self._trace_step()
+
+    def _step_mixed(self):
+        """One mixed iteration: the decode pass for decode-phase rows (the
+        legacy iteration's shape and numerics), then the chunked-prefill
+        pass for chunk-phase rows, sharing the iteration's token budget."""
+        self._grow_active()
+        self._decode_pass()
+        self._chunk_pass()
 
     # -- speculative iteration (draft k, verify in one target pass) -----
     def _step_spec(self):
@@ -520,7 +699,7 @@ class Engine(EngineCore):
         numerics, and acceptance only decides how many of those tokens
         commit per pass (1..k_eff + 1, never 0)."""
         live = [r for r in self.active if r is not None]
-        limit = self.max_len
+        limit = self._len_limit
         k_eff: Dict[int, int] = {}
         for r in live:
             # k_eff caps so the verify feed never proposes past the stop
@@ -691,7 +870,10 @@ class Engine(EngineCore):
         }
 
     def run(self, max_steps: int = 100_000) -> List[EngineRequest]:
-        step = self._step_spec if self.spec else self._step_decode
+        if self.spec:
+            step = self._step_spec
+        else:
+            step = self._step_mixed if self.chunk_size else self._step_decode
         while (self.waiting or any(a is not None for a in self.active)) \
                 and self.steps < max_steps:
             self._admit()

@@ -8,9 +8,10 @@ Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own with
 into ``build/kernels/`` at the repository root (listed in ``.gitignore``).
 The decode-shaped attention sources share the ``mma.sync`` helpers of
 ``csrc/mma_bf16.cuh`` and the decode body of ``csrc/decode_body.cuh``;
-``csrc/flash_attention.cu`` takes its ``wgmma``, TMA and ``mbarrier``
-helpers from ``csrc/wgmma_bf16.cuh``, and ``csrc/pq_scan.cu`` its
-``mbarrier`` helpers. The file name carries a hash of the source, the
+``csrc/flash_attention.cu`` (flash attention and, on the same body, the
+paged chunk attention of chunked prefill) takes its ``wgmma``, TMA and
+``mbarrier`` helpers from ``csrc/wgmma_bf16.cuh``, and ``csrc/pq_scan.cu``
+its ``mbarrier`` helpers. The file name carries a hash of the source, the
 shared headers, the flags and any ``-D`` defines (``tools/decode_split.py``
 and ``tools/pq_scan_design.py`` build variants that way, into a directory
 of their own), so a changed source rebuilds and an unchanged one loads what

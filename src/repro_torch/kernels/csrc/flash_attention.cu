@@ -38,6 +38,26 @@
 // the fp32 P; the denominator is floored at 1e-30. Masked keys take -1e30
 // and so probability exactly 0. The kernel agrees with the reference to
 // bf16 rounding, not bitwise.
+//
+// The paged variant (kPaged, entry paged_chunk_attention_bf16) is the
+// chunked-prefill attention, which the JAX package runs as jnp on every
+// backend (src/repro/kernels/ref.py, `paged_chunk_attention`): query j of
+// row bi sits at position lengths[bi] + j and sees every pooled position up
+// to it through the row's block table. Only two things change, so the
+// consumer code, and with it the accumulation order, is flash's:
+// - the producer loads each 64-row kv tile as 64 / bt TMA boxes of one page
+//   each (page id from block_tables, read by the producer thread), into the
+//   same swizzle atoms; box i lands at i * bt * 128 bytes, a multiple of
+//   the 128-byte swizzle's 1024-byte period for bt = 8..64, so the atom's
+//   swizzle is that of one 64-row box;
+// - the causal test and the walk's end carry the row's offset lengths[bi].
+// Every output row depends only on its Q row, the kv tiles it walks and
+// its mask, and both variants walk tiles at absolute multiples of 64 from
+// position 0; a tile past a row's position is fully masked and leaves
+// (m, l, acc) bit for bit as they were (alpha = exp2f(0) = 1, p = 0, V
+// finite). So a chunk row equals the whole-prefill row at the same position
+// on the same K/V, bit for bit. Keys past max_blocks * bt are masked like
+// keys past t, read from the row's last table entry.
 #include <cuda.h>
 
 #include "wgmma_bf16.cuh"
@@ -68,13 +88,18 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 }
 
 // DA = head dim rounded up to 64, in 64-column swizzle atoms (1..4).
-template <int DA>
+// kPaged: tk/tv map the pools (num_pages, bt, kvh, d), `tables` (b, t / bt)
+// and `lengths` (b,) are read, t = max_blocks * bt and causal is 1; else
+// tables, lengths and bt are unused.
+template <int DA, bool kPaged>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
                      const __grid_constant__ CUtensorMap tk,
                      const __grid_constant__ CUtensorMap tv,
-                     bf16* __restrict__ o, int b, int s, int t, int nh,
-                     int kvh, int d, int causal, float scale_log2) {
+                     bf16* __restrict__ o, const int* __restrict__ tables,
+                     const int* __restrict__ lengths, int b, int s, int t,
+                     int nh, int kvh, int d, int causal, int bt,
+                     float scale_log2) {
   constexpr int kN = 64 * DA;                     // P·V output width
   constexpr uint32_t kTile = DA * kAtomBytes;     // one 64-row tile
   extern __shared__ unsigned char smem_raw[];
@@ -95,7 +120,9 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int h = blockIdx.x % rows % nh, bi = blockIdx.x % rows / nh;
   const int kh = h / (nh / kvh);
   const int q0 = qt * kBlock;
-  const int kend = causal ? min(t, q0 + kBlock) : t;
+  // logical position of query row 0: the row's cached length when paged
+  const int qoff = kPaged ? lengths[bi] : 0;
+  const int kend = causal ? min(t, qoff + q0 + kBlock) : t;
   const int n_kt = (kend + kBlock - 1) / kBlock;
 
   if (threadIdx.x == 0) {
@@ -114,16 +141,37 @@ __global__ void __launch_bounds__(kThreads, 1)
       mbar_expect_tx(qbar, kTile);
       for (int a = 0; a < DA; ++a)
         tma_load_4d(sQ + a * kAtomBytes, &tq, qbar, a * 64, h, q0, bi);
+      const int per = kPaged ? kBlock / bt : 0;     // pages a kv tile
+      const int mb = kPaged ? t / bt : 0;
       for (int kt = 0; kt < n_kt; ++kt) {
         const int st = kt % kStages;
         const uint32_t ph = (kt / kStages) & 1;
+        // the tile's page ids, read before the wait so that their latency
+        // hides behind it; bt >= 8, so at most 8 (fixed indices: registers)
+        int page[kBlock / 8];
+#pragma unroll
+        for (int i = 0; i < kBlock / 8; ++i)
+          page[i] = kPaged && i < per
+                        ? tables[(long)bi * mb + min(kt * per + i, mb - 1)]
+                        : 0;
         mbar_wait(empty + 8 * st, ph ^ 1);          // stage free again
         mbar_expect_tx(full + 8 * st, 2 * kTile);
         for (int a = 0; a < DA; ++a) {
-          tma_load_4d(sK + st * kTile + a * kAtomBytes, &tk, full + 8 * st,
-                      a * 64, kh, kt * kBlock, bi);
-          tma_load_4d(sV + st * kTile + a * kAtomBytes, &tv, full + 8 * st,
-                      a * 64, kh, kt * kBlock, bi);
+          const uint32_t ka = sK + st * kTile + a * kAtomBytes;
+          const uint32_t va = sV + st * kTile + a * kAtomBytes;
+          if (kPaged) {
+#pragma unroll
+            for (int i = 0; i < kBlock / 8; ++i) {
+              if (i >= per) break;
+              tma_load_4d(ka + i * bt * 128, &tk, full + 8 * st, a * 64, kh,
+                          0, page[i]);
+              tma_load_4d(va + i * bt * 128, &tv, full + 8 * st, a * 64, kh,
+                          0, page[i]);
+            }
+          } else {
+            tma_load_4d(ka, &tk, full + 8 * st, a * 64, kh, kt * kBlock, bi);
+            tma_load_4d(va, &tv, full + 8 * st, a * 64, kh, kt * kBlock, bi);
+          }
         }
       }
     }
@@ -163,7 +211,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 
     // scale into log2 units, mask, online softmax; a row's 64 scores lie
     // on the 4 lanes of one quad
-    const bool edge = (causal && k0 + kBlock - 1 > q0) || k0 + kBlock > t;
+    const bool edge =
+        (causal && k0 + kBlock - 1 > qoff + q0) || k0 + kBlock > t;
     float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
     for (int i = 0; i < 32; ++i) {
@@ -171,7 +220,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       if (edge) {
         const int col = k0 + (i >> 2) * 8 + tig * 2 + (i & 1);
         const int row = (i & 2) ? row_b : row_a;
-        if (col >= t || (causal && col > row)) x = kNegInf;
+        if (col >= t || (causal && col > qoff + row)) x = kNegInf;
       }
       sc[i] = x;
       mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], x);
@@ -269,17 +318,17 @@ EncodeTiled encode_fn() {
 }
 
 // Tensor map of a contiguous bf16 (n, len, heads, d) tensor: boxes of 64
-// columns x 1 head x 64 positions x 1 batch row, 128-byte swizzle, zero fill
-// outside the tensor.
+// columns x 1 head x `rows` positions x 1 batch row (or page), 128-byte
+// swizzle, zero fill outside the tensor.
 bool encode(CUtensorMap* map, const void* ptr, int n, int len, int heads,
-            int d) {
+            int d, int rows) {
   EncodeTiled fn = encode_fn();
   if (fn == nullptr) return false;
   const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)heads,
                               (cuuint64_t)len, (cuuint64_t)n};
   const cuuint64_t strides[3] = {(cuuint64_t)d * 2, (cuuint64_t)heads * d * 2,
                                  (cuuint64_t)len * heads * d * 2};
-  const cuuint32_t box[4] = {64, 1, kBlock, 1};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
@@ -287,28 +336,47 @@ bool encode(CUtensorMap* map, const void* ptr, int n, int len, int heads,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int DA>
-int launch(const void* q, const void* k, const void* v, void* o, int b, int s,
-           int t, int nh, int kvh, int d, int causal, float scale,
-           cudaStream_t stream) {
-  CUtensorMap tq, tk, tv;
-  if (!encode(&tq, q, b, s, nh, d) || !encode(&tk, k, b, t, kvh, d) ||
-      !encode(&tv, v, b, t, kvh, d))
-    return (int)cudaErrorInvalidValue;
+template <int DA, bool kPaged>
+int launch_da(const CUtensorMap& tq, const CUtensorMap& tk,
+              const CUtensorMap& tv, void* o, const int* tables,
+              const int* lengths, int b, int s, int t, int nh, int kvh, int d,
+              int causal, int bt, float scale, cudaStream_t stream) {
   const int smem = smem_bytes(DA);
   static int smem_granted = 0;  // raise the opt-in limit once per instance
   if (smem > smem_granted) {
     cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_kernel<DA>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
+        flash_fwd_kernel<DA, kPaged>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
     smem_granted = smem;
   }
   const long blocks = (long)((s + kBlock - 1) / kBlock) * nh * b;
-  flash_fwd_kernel<DA><<<(unsigned)blocks, kThreads, smem, stream>>>(
-      tq, tk, tv, (bf16*)o, b, s, t, nh, kvh, d, causal,
+  flash_fwd_kernel<DA, kPaged><<<(unsigned)blocks, kThreads, smem, stream>>>(
+      tq, tk, tv, (bf16*)o, tables, lengths, b, s, t, nh, kvh, d, causal, bt,
       scale * 1.4426950408889634f);
   return (int)cudaGetLastError();
+}
+
+template <bool kPaged>
+int launch(const CUtensorMap& tq, const CUtensorMap& tk,
+           const CUtensorMap& tv, void* o, const int* tables,
+           const int* lengths, int b, int s, int t, int nh, int kvh, int d,
+           int causal, int bt, float scale, cudaStream_t stream) {
+  switch ((d + 63) / 64) {
+    case 1:
+      return launch_da<1, kPaged>(tq, tk, tv, o, tables, lengths, b, s, t, nh,
+                                  kvh, d, causal, bt, scale, stream);
+    case 2:
+      return launch_da<2, kPaged>(tq, tk, tv, o, tables, lengths, b, s, t, nh,
+                                  kvh, d, causal, bt, scale, stream);
+    case 3:
+      return launch_da<3, kPaged>(tq, tk, tv, o, tables, lengths, b, s, t, nh,
+                                  kvh, d, causal, bt, scale, stream);
+    case 4:
+      return launch_da<4, kPaged>(tq, tk, tv, o, tables, lengths, b, s, t, nh,
+                                  kvh, d, causal, bt, scale, stream);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -326,16 +394,32 @@ extern "C" int flash_attention_bf16(const void* q, const void* k,
                                     const void* v, void* o, int b, int s,
                                     int t, int nh, int kvh, int d, int causal,
                                     float scale, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  switch ((d + 63) / 64) {
-    case 1:
-      return launch<1>(q, k, v, o, b, s, t, nh, kvh, d, causal, scale, st);
-    case 2:
-      return launch<2>(q, k, v, o, b, s, t, nh, kvh, d, causal, scale, st);
-    case 3:
-      return launch<3>(q, k, v, o, b, s, t, nh, kvh, d, causal, scale, st);
-    case 4:
-      return launch<4>(q, k, v, o, b, s, t, nh, kvh, d, causal, scale, st);
-  }
-  return (int)cudaErrorInvalidValue;
+  CUtensorMap tq, tk, tv;
+  if (!encode(&tq, q, b, s, nh, d, kBlock) ||
+      !encode(&tk, k, b, t, kvh, d, kBlock) ||
+      !encode(&tv, v, b, t, kvh, d, kBlock))
+    return (int)cudaErrorInvalidValue;
+  return launch<false>(tq, tk, tv, o, nullptr, nullptr, b, s, t, nh, kvh, d,
+                       causal, 0, scale, (cudaStream_t)stream);
+}
+
+// Chunked-prefill attention over paged K/V: q (b, s, nh, d), pools k/v
+// (num_pages, bt, kvh, d), tables (b, mb) int32 of valid page ids, lengths
+// (b,) int32, o (b, s, nh, d); query j of row i sees pooled positions
+// <= lengths[i] + j. bf16, contiguous, 16-byte aligned; d % 16 == 0,
+// d <= 256, nh % kvh == 0, bt in {8, 16, 32, 64} (the Python wrapper
+// checks). Returns the CUDA error of the launch (0 = cudaSuccess).
+extern "C" int paged_chunk_attention_bf16(const void* q, const void* k,
+                                          const void* v, const int* tables,
+                                          const int* lengths, void* o, int b,
+                                          int s, int nh, int kvh, int d,
+                                          int bt, int mb, int num_pages,
+                                          float scale, void* stream) {
+  CUtensorMap tq, tk, tv;
+  if (!encode(&tq, q, b, s, nh, d, kBlock) ||
+      !encode(&tk, k, num_pages, bt, kvh, d, bt) ||
+      !encode(&tv, v, num_pages, bt, kvh, d, bt))
+    return (int)cudaErrorInvalidValue;
+  return launch<true>(tq, tk, tv, o, tables, lengths, b, s, mb * bt, nh, kvh,
+                      d, 1, bt, scale, (cudaStream_t)stream);
 }

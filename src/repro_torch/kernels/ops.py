@@ -2,7 +2,8 @@
 on the tensor's device.
 
 A CUDA tensor launches the hand-written kernel (``flash_attention.py``,
-``decode_attention.py``, ``paged_attention.py``, ``pq_scan.py``), which
+``decode_attention.py``, ``paged_attention.py``,
+``paged_chunk_attention.py``, ``pq_scan.py``), which
 raises on a shape or dtype it does not take; there is no fallback. A CPU
 tensor takes the plain PyTorch version in ``ref.py``, including the chunked
 form for long sequences that ``repro.kernels.ops`` takes off-TPU.
@@ -16,6 +17,7 @@ import torch
 from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import paged_attention as _pa
+from repro_torch.kernels import paged_chunk_attention as _pca
 from repro_torch.kernels import pq_scan as _pq
 from repro_torch.kernels import ref as _ref
 
@@ -63,6 +65,20 @@ def paged_verify_attention(q, k_pool, v_pool, block_tables, lengths, *,
                                           lengths, scale=scale)
     return _ref.paged_verify_attention(q, k_pool, v_pool, block_tables,
                                        lengths, scale=scale)
+
+
+def paged_chunk_attention(q, k_pool, v_pool, block_tables, lengths, *,
+                          scale: Optional[float] = None):
+    """Chunked-prefill attention over pooled KV pages: query j of row r
+    sits at logical position ``lengths[r] + j`` and attends over every
+    pooled position ``<= lengths[r] + j``, with flash attention's numerics
+    (see ``paged_chunk_attention.py``). The JAX package has no Pallas
+    kernel for it and runs its jnp version on every backend."""
+    if q.is_cuda:
+        return _pca.paged_chunk_attention(q, k_pool, v_pool, block_tables,
+                                          lengths, scale=scale)
+    return _ref.paged_chunk_attention(q, k_pool, v_pool, block_tables,
+                                      lengths, scale=scale)
 
 
 def pq_scan(codes, lut):

@@ -135,6 +135,38 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths, *,
     return decode_attention(q, k, v, lengths, scale=scale)
 
 
+def paged_chunk_attention(q, k_pool, v_pool, block_tables, lengths, *,
+                          scale: Optional[float] = None):
+    """Chunked-prefill attention over paged KV.
+
+    q: (b, s, nh, dq) — query ``j`` of row ``r`` sits at logical position
+    ``lengths[r] + j`` and attends over every pooled position ``<=
+    lengths[r] + j``: the cached context and the causal part of its own
+    chunk, whose K/V the caller has already written into the pools. The
+    numerics are ``flash_attention``'s (fp32 scores, softmax and P·V), not
+    decode's, so that a chunk row equals the same row of a whole-prompt
+    prefill. Masked positions get probability exactly 0, so the content of
+    dead table entries (the trash page) cannot perturb the output. Rows past
+    a row's valid chunk, and dead rows, give garbage the caller ignores.
+    """
+    k = gather_paged_kv(k_pool, block_tables)          # (b, S, kvh, dq)
+    v = gather_paged_kv(v_pool, block_tables)          # (b, S, kvh, dv)
+    b, s, nh, dq = q.shape
+    S, kvh = k.shape[1], k.shape[2]
+    g = nh // kvh
+    scale = dq ** -0.5 if scale is None else scale
+    qr = q.reshape(b, s, kvh, g, dq)
+    scores = torch.einsum("bskgh,btkh->bkgst", qr.float(), k.float()) * scale
+    qpos = (lengths.to(q.device).long()[:, None]
+            + torch.arange(s, device=q.device)[None, :])       # (b, s)
+    mask = torch.arange(S, device=q.device)[None, None, :] <= qpos[:, :, None]
+    scores = torch.where(mask[:, None, None], scores,
+                         torch.tensor(NEG_INF, device=q.device))
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgst,btkh->bskgh", probs, v.float())
+    return out.reshape(b, s, nh, v.shape[-1]).to(q.dtype)
+
+
 def paged_verify_attention(q, k_pool, v_pool, block_tables, lengths, *,
                            scale: Optional[float] = None):
     """Speculative-verify attention over paged KV: ``s = spec_k + 1`` feed

@@ -3,8 +3,9 @@
 
 Prefill is causal full-sequence attention through ``ops.flash_attention``;
 decode reads a dense per-slot cache through ``ops.decode_attention`` or a
-paged cache through ``ops.paged_decode_attention``, and the speculative
-verify pass reads a paged cache through ``ops.paged_verify_attention``.
+paged cache through ``ops.paged_decode_attention``; the chunked-prefill
+pass reads a paged cache through ``ops.paged_chunk_attention`` and the
+speculative verify pass through ``ops.paged_verify_attention``.
 Caches are updated in place: where the JAX package returns a new cache
 from ``dynamic_update_slice`` or ``.at[slot].set(...)``, this module writes
 the new tokens' K/V into the layer's slice of the cache with index writes,
@@ -137,16 +138,66 @@ def gqa_decode_paged(params, x, cfg: ModelConfig,
         "length": lengths + 1}
 
 
+def _write_feed(k_pool, v_pool, tables, pos, valid_q, k, v):
+    """Write a left-aligned feed's K/V ``(b, s, kvh, hd)`` in place at
+    logical positions ``pos`` ``(b, s)`` through the flat slot ``block * bt
+    + pos % bt``; positions where ``valid_q`` is False (padding, dead rows)
+    go to the trash page, the last pool page, at slot ``j % bt``, so they
+    never touch a live page."""
+    bt, mb = k_pool.shape[1], tables.shape[1]
+    b, s = pos.shape
+    j = torch.arange(s, device=pos.device)[None, :]
+    blk = torch.gather(tables, 1, torch.clamp(pos // bt, 0, mb - 1).long())
+    trash = k_pool.shape[0] - 1
+    slot = torch.where(valid_q, blk.long() * bt + pos % bt,
+                       trash * bt + j % bt).reshape(-1)
+    k_pool.view(-1, *k_pool.shape[2:]).index_copy_(
+        0, slot, k.reshape(b * s, *k.shape[2:]).to(k_pool.dtype))
+    v_pool.view(-1, *v_pool.shape[2:]).index_copy_(
+        0, slot, v.reshape(b * s, *v.shape[2:]).to(v_pool.dtype))
+
+
+def gqa_prefill_paged(params, x, cfg: ModelConfig, cache: Dict,
+                      q_valid: torch.Tensor) -> Tuple[torch.Tensor, Dict]:
+    """Prefill a chunk of each request against a *paged* cache (the
+    continuation path of chunked prefill).
+
+    x: (b, s, d) — row ``r`` carries ``q_valid[r]`` valid chunk tokens
+    (left-aligned, the rest padding) starting at logical position
+    ``cache["length"][r]``; everything before it is already in the pools.
+    The chunk's K/V is written in place first (``_write_feed``: padding,
+    decode rows riding along with ``q_valid == 0`` and dead rows go to the
+    trash page), then every query attends over the cached context and the
+    causal part of its own chunk through ``ops.paged_chunk_attention``.
+    Valid positions may land on prefix-shared pages: sharers rewrite
+    matched blocks with identical content. The projections and rope are
+    whole prefill's, per position, and the chunk attention has flash
+    attention's numerics, so a chunk row equals the whole-prompt row.
+    """
+    hd = cfg.resolved_head_dim
+    lengths = cache["length"]
+    tables = cache["block_tables"]
+    k_pool, v_pool = cache["k_pool"], cache["v_pool"]
+    s = x.shape[1]
+    j = torch.arange(s, device=x.device)[None, :]
+    pos = lengths[:, None] + j                          # (b, s) logical pos
+    q, k, v = _qkv(params, x, pos, cfg)
+    _write_feed(k_pool, v_pool, tables, pos, j < q_valid[:, None], k, v)
+    out = ops.paged_chunk_attention(q, k_pool, v_pool, tables, lengths,
+                                    scale=hd ** -0.5)
+    return _proj_out(out, params["wo"]), {
+        "k_pool": k_pool, "v_pool": v_pool, "block_tables": tables,
+        "length": lengths + q_valid}
+
+
 def gqa_verify_paged(params, x, cfg: ModelConfig, cache: Dict,
                      q_valid: torch.Tensor) -> Tuple[torch.Tensor, Dict]:
     """Speculative-verify pass against a *paged* cache: row ``r`` carries
     ``q_valid[r]`` feed tokens (the last committed token plus its draft
     continuation) at logical positions ``cache["length"][r] + j``.
 
-    Every feed position's K/V is written in place first, through the flat
-    slot ``block * bt + pos % bt``; positions ``j >= q_valid[r]`` (padding,
-    dead rows) go to the trash page, the last pool page, at slot
-    ``j % bt``, so they never touch a live page. Then
+    Every feed position's K/V is written in place first (``_write_feed``:
+    positions ``j >= q_valid[r]`` go to the trash page). Then
     ``ops.paged_verify_attention`` scores every position, position ``j``
     bit for bit what a one-token ``gqa_decode_paged`` gives there. The
     caller must have fork-grown each live row's table to cover ``length +
@@ -156,21 +207,11 @@ def gqa_verify_paged(params, x, cfg: ModelConfig, cache: Dict,
     lengths = cache["length"]
     tables = cache["block_tables"]
     k_pool, v_pool = cache["k_pool"], cache["v_pool"]
-    bt, mb = k_pool.shape[1], tables.shape[1]
-    b, s, _ = x.shape
+    s = x.shape[1]
     j = torch.arange(s, device=x.device)[None, :]
     pos = lengths[:, None] + j                          # (b, s) logical pos
-    valid_q = j < q_valid[:, None]
     q, k, v = _qkv(params, x, pos, cfg)
-
-    blk = torch.gather(tables, 1, torch.clamp(pos // bt, 0, mb - 1).long())
-    trash = k_pool.shape[0] - 1
-    slot = torch.where(valid_q, blk.long() * bt + pos % bt,
-                       trash * bt + j % bt).reshape(-1)
-    k_pool.view(-1, *k_pool.shape[2:]).index_copy_(
-        0, slot, k.reshape(b * s, *k.shape[2:]).to(k_pool.dtype))
-    v_pool.view(-1, *v_pool.shape[2:]).index_copy_(
-        0, slot, v.reshape(b * s, *v.shape[2:]).to(v_pool.dtype))
+    _write_feed(k_pool, v_pool, tables, pos, j < q_valid[:, None], k, v)
     out = ops.paged_verify_attention(q, k_pool, v_pool, tables, lengths,
                                      scale=hd ** -0.5)
     return _proj_out(out, params["wo"]), {

@@ -1,6 +1,6 @@
-"""prefill_step / serve_step / verify_step and the paged-cache page movement
-(twin of the serving half of ``repro.models.steps``). Page movement writes
-the pools in place and returns the same cache dict."""
+"""prefill_step / serve_step / chunk_step / verify_step and the paged-cache
+page movement (twin of the serving half of ``repro.models.steps``). Page
+movement writes the pools in place and returns the same cache dict."""
 from __future__ import annotations
 
 from typing import Dict
@@ -25,6 +25,18 @@ def serve_step(params, tokens, caches, cfg: ModelConfig):
     (new_token (b,) int32, logits, caches)."""
     logits, caches = tf.forward(params, cfg, tokens=tokens, mode="decode",
                                 caches=caches)
+    return torch.argmax(logits, dim=-1).to(torch.int32), logits, caches
+
+
+def chunk_step(params, tokens, q_valid, caches, cfg: ModelConfig):
+    """One chunked-prefill step: tokens (b, s) holds a left-aligned chunk
+    per row and q_valid (b,) its valid length (0 for rows not chunking this
+    pass). Returns (new_token (b,) int32, logits (b, V), caches):
+    ``new_token`` is the greedy continuation after each row's last valid
+    chunk position, meaningful only for rows whose chunk completes the
+    prompt. ``caches`` are the paged pools."""
+    logits, caches = tf.forward(params, cfg, tokens=tokens, mode="chunk",
+                                caches=caches, q_valid=q_valid)
     return torch.argmax(logits, dim=-1).to(torch.int32), logits, caches
 
 

@@ -8,11 +8,13 @@ slices. Forward modes of this slice:
 
   * "prefill": last-position logits, K/V written into dense caches;
   * "decode": one-token logits against dense or paged caches (in place);
+  * "chunk": the chunked-prefill continuation over paged caches, logits at
+    each row's last valid chunk position;
   * "verify": the speculative draft-and-verify pass over paged caches,
     logits at every feed position.
 
-Training, chunked prefill and the other families arrive with later slices
-and raise ``NotImplementedError`` here.
+Training and the other families arrive with later slices and raise
+``NotImplementedError`` here.
 """
 from __future__ import annotations
 
@@ -87,6 +89,9 @@ def _block_fwd(p, x, positions, cfg: ModelConfig, mode: str, cache,
     h = apply_norm(p["ln1"], x, cfg)
     if mode == "decode":
         a, new_cache = attn.gqa_decode(p["attn"], h, cfg, cache)
+    elif mode == "chunk":
+        a, new_cache = attn.gqa_prefill_paged(p["attn"], h, cfg, cache,
+                                              q_valid)
     elif mode == "verify":
         a, new_cache = attn.gqa_verify_paged(p["attn"], h, cfg, cache,
                                              q_valid)
@@ -103,20 +108,26 @@ def forward(params, cfg: ModelConfig, *, tokens, mode: str = "prefill",
     """Returns ``(logits, new_caches)``; logits in ``cfg.logits_dtype``,
     ``(b, vocab)`` at the last position, except in mode "verify".
 
+    mode="chunk": ``tokens`` (b, s) holds one left-aligned chunk per row,
+    ``q_valid`` (b,) its valid token count, over paged caches; each chunk
+    continues the row's cached context at position ``length``. The logits
+    are taken at each row's last valid chunk position (rows with ``q_valid
+    == 0`` read position 0: garbage the caller ignores).
+
     mode="verify": ``tokens`` (b, s) holds a left-aligned feed per row (the
     last committed token plus draft tokens, ``q_valid`` (b,) valid per row)
     written through the paged caches; the logits come back un-sliced,
     ``(b, s, vocab)``, since acceptance needs the argmax at every position.
     """
     check_family(cfg)
-    if mode not in ("prefill", "decode", "verify"):
+    if mode not in ("prefill", "decode", "chunk", "verify"):
         raise NotImplementedError(
-            f"mode={mode!r}: train/chunk arrive with later slices")
+            f"mode={mode!r}: training arrives with a later slice")
     compute = getattr(torch, cfg.compute_dtype)
     x = params["embed"].to(compute)[tokens]
     x = x * embed_scale(cfg)
     s = tokens.shape[1]
-    positions = (None if mode in ("decode", "verify") else
+    positions = (None if mode in ("decode", "chunk", "verify") else
                  torch.arange(s, dtype=torch.int32, device=x.device)[None, :])
 
     c = caches["attn"] if caches is not None else None
@@ -135,6 +146,9 @@ def forward(params, cfg: ModelConfig, *, tokens, mode: str = "prefill",
     x = apply_norm(params["final_norm"], x, cfg)
     if mode == "prefill":
         x = x[:, -1:, :]
+    elif mode == "chunk":
+        idx = torch.clamp(q_valid.long() - 1, min=0)
+        x = x[torch.arange(x.shape[0], device=x.device), idx][:, None]
     if cfg.tie_embeddings:
         # (E x^T)^T keeps the embedding in its (vocab, d) layout; on the
         # CPU x E^T takes another kernel at some row counts, and then a

@@ -1,7 +1,8 @@
 """PyTorch port on the card: each CUDA kernel against its plain PyTorch
-version, the two bitwise contracts between the decode-shaped kernels, and
-the paths through the kernels (the paged, dense slot and speculative
-engines, and the RAG retrieval scan).
+version, the two bitwise contracts between the decode-shaped kernels, the
+chunk kernel's rows against the flash kernel's, and the paths through the
+kernels (the paged, chunked, dense slot and speculative engines, and the
+RAG retrieval scan).
 
 Every test here needs an NVIDIA card and carries the ``cuda`` marker; it
 skips (in a fixture) without one. The file imports neither JAX nor
@@ -20,6 +21,7 @@ from repro_torch.kernels import decode_attention as tda
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import ops
 from repro_torch.kernels import paged_attention as tpa
+from repro_torch.kernels import paged_chunk_attention as tpca
 from repro_torch.kernels import pq_scan as tpq
 from repro_torch.kernels import ref
 from repro_torch.launch import rag
@@ -235,6 +237,76 @@ def test_decode_shaped_kernels_are_deterministic(cuda, d, g):
         assert torch.equal(run(), run())
 
 
+# chunk attention: the path's contexts (capped so that context + chunk fits
+# the 2048-token table) at chunks of 256 and 100; head dim 16 at bt 8 and
+# 64, a dead length-0 row; head dim 64 with two kv heads at bt 32
+CHUNK_CASES = [
+    (256, 8, 1, 16, 256, [1792, 1, 17, 300, 1024, 1537, 640, 1792], 128),
+    (256, 8, 1, 16, 100, [1948, 1, 17, 300, 1024, 1537, 640, 1948], 128),
+    (16, 4, 1, 8, 37, [0, 5, 37, 100], None),
+    (16, 4, 1, 64, 70, [0, 5, 130, 63], None),
+    (64, 8, 2, 32, 65, [3, 64, 500], None),
+]
+
+
+@pytest.mark.parametrize("d,nh,kvh,bt,s,lengths,mb", CHUNK_CASES)
+def test_chunk_kernel_matches_plain(cuda, d, nh, kvh, bt, s, lengths, mb):
+    """Shuffled block table covering lengths + s, unused and trash pages
+    full of large garbage; every query row against the plain version, and
+    two calls equal."""
+    rng = np.random.default_rng(35)
+    b = len(lengths)
+    mb = mb or (max(lengths) + s) // bt + 1
+    nb = b * mb + 1
+    q = _bf16(rng, cuda, b, s, nh, d)
+    kp, vp = (_bf16(rng, cuda, nb, bt, kvh, d) for _ in range(2))
+    perm = rng.permutation(nb - 1)
+    tab = np.full((b, mb), nb - 1, np.int32)
+    for i, n in enumerate(lengths):
+        live = -(-(n + s) // bt)
+        tab[i, :live] = perm[i * mb:i * mb + live]
+        unused = torch.tensor(perm[i * mb + live:(i + 1) * mb], device=cuda)
+        kp[unused], vp[unused] = 1e4, -1e4
+    kp[nb - 1], vp[nb - 1] = 1e4, -1e4
+    tab = torch.tensor(tab, device=cuda)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    n0 = tpca.launches
+    got = ops.paged_chunk_attention(q, kp, vp, tab, lens)
+    torch.cuda.synchronize()
+    assert tpca.launches == n0 + 1
+    _assert_close(got, ref.paged_chunk_attention(q, kp, vp, tab, lens))
+    assert torch.equal(got, ops.paged_chunk_attention(q, kp, vp, tab, lens))
+
+
+@pytest.mark.parametrize("chunk", [64, 100, 256])
+@pytest.mark.parametrize("d", [256, 16])
+def test_chunk_kernel_rows_equal_flash_rows(cuda, chunk, d):
+    """One 1000-token prompt's q, k, v, the K/V also paged through a
+    shuffled table: prefilled chunk by chunk, every chunk's rows equal the
+    flash kernel's rows at the same positions bit for bit."""
+    rng = np.random.default_rng(36)
+    P, bt, nh = 1000, 16, 8
+    q, k, v = (_bf16(rng, cuda, 1, P, n, d) for n in (nh, 1, 1))
+    whole = ops.flash_attention(q, k, v)
+    mb = 2048 // bt
+    ids = torch.tensor(rng.permutation(mb), device=cuda)
+    kp = torch.zeros(mb + 1, bt, 1, d, device=cuda, dtype=torch.bfloat16)
+    vp = torch.zeros_like(kp)
+    n = -(-P // bt)
+    pad = lambda x: torch.cat([x[0], x.new_zeros(n * bt - P, 1, d)])
+    kp[ids[:n]] = pad(k).reshape(n, bt, 1, d)
+    vp[ids[:n]] = pad(v).reshape(n, bt, 1, d)
+    tab = ids.to(torch.int32)[None]
+    for L in range(0, P, chunk):
+        take = min(chunk, P - L)
+        qc = torch.zeros(1, chunk, nh, d, device=cuda, dtype=torch.bfloat16)
+        qc[0, :take] = q[0, L:L + take]
+        out = ops.paged_chunk_attention(
+            qc, kp, vp, tab, torch.tensor([L], dtype=torch.int32,
+                                          device=cuda))
+        assert torch.equal(out[0, :take], whole[0, L:L + take]), L
+
+
 def test_kernels_raise_on_what_they_do_not_take(cuda):
     q = torch.zeros(1, 8, 2, 16, device=cuda)                 # fp32
     with pytest.raises(ValueError):
@@ -254,6 +326,17 @@ def test_kernels_raise_on_what_they_do_not_take(cuda):
         ops.paged_verify_attention(
             torch.zeros(2, 3, 32, 32, device=cuda, dtype=torch.bfloat16),
             kc, kc, tab, lens)
+    qc = torch.zeros(2, 8, 4, 32, device=cuda, dtype=torch.bfloat16)
+    for bt in (12, 4):                       # 64 % bt != 0, bt < 8
+        pool = torch.zeros(3, bt, 1, 32, device=cuda, dtype=torch.bfloat16)
+        with pytest.raises(ValueError):
+            ops.paged_chunk_attention(qc, pool, pool, tab, lens)
+    pool = torch.zeros(3, 16, 1, 32, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):                           # dv != dq
+        ops.paged_chunk_attention(qc, pool, pool[..., :16], tab, lens)
+    with pytest.raises(ValueError):                           # fp32
+        ops.paged_chunk_attention(qc.float(), pool.float(), pool.float(),
+                                  tab, lens)
 
 
 def test_engine_main_path_runs_through_both_kernels(cuda):
@@ -269,6 +352,33 @@ def test_engine_main_path_runs_through_both_kernels(cuda):
     assert len(done) == 3 and all(len(r.tokens) == 5 for r in done)
     assert tfa.launches > n0[0] and tpa.launches > n0[1]
     assert eng.caches["attn"]["k_pool"].is_cuda
+
+
+def test_chunked_engine_runs_through_chunk_kernel(cuda):
+    """Reduced Gemma-2B in bf16 on the card: the chunked Engine prefills
+    through paged_chunk_attention, a prompt past max_len included, and its
+    streams equal the whole-prefill Engine's."""
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, 512, n).astype(np.int32) for n in (12, 30, 7)]
+    streams = []
+    n0 = tpca.launches
+    for cfg in (EngineConfig(), EngineConfig(chunk_size=8)):
+        eng = Engine(gemma_2b.reduced(), max_batch=2, max_len=64, seed=5,
+                     block_tokens=16, device=cuda, config=cfg)
+        for p in prompts:
+            eng.submit(p, max_new_tokens=6)
+        streams.append({r.rid: r.tokens for r in eng.run()})
+    assert tpca.launches > n0
+    assert streams[0] == streams[1] and len(streams[0]) == 3
+    long_p = rng.integers(0, 512, 100).astype(np.int32)
+    eng = Engine(gemma_2b.reduced(), max_batch=2, max_len=64, seed=5,
+                 block_tokens=16, device=cuda,
+                 config=EngineConfig(chunk_size=16, max_context=128))
+    eng.submit(long_p, max_new_tokens=6)
+    want = SlotEngine(gemma_2b.reduced(), max_batch=2, max_len=128, seed=5,
+                      device=cuda)
+    want.submit(long_p, max_new_tokens=6)
+    assert eng.run()[0].tokens == want.run()[0].tokens
 
 
 def test_slot_engine_runs_through_decode_kernel(cuda):

@@ -225,12 +225,13 @@ def test_store_matches_jax_store_on_random_walk():
 
 
 def test_paths_of_later_slices_raise(models):
-    """Chunked prefill still raises; speculative decoding and dense decode
-    run; MLA and MoE raise naming the other-families slice."""
+    """Chunked prefill, speculative decoding and dense decode run; MLA and
+    MoE raise naming the other-families slice, training raises."""
     _, _, tcfg, tparams = models
     kw = dict(params=tparams, max_batch=1, max_len=64, device="cpu")
-    with pytest.raises(NotImplementedError, match="chunked"):
-        Engine(tcfg, config=EngineConfig(chunk_size=8), **kw)
+    chunked = Engine(tcfg, config=EngineConfig(chunk_size=8), **kw)
+    chunked.submit(np.arange(21, dtype=np.int32), max_new_tokens=4)
+    assert len(chunked.run()[0].tokens) == 4 and chunked.store.used_blocks == 0
     spec = Engine(tcfg, config=EngineConfig(draft_cfg=tcfg, spec_k=2),
                   draft_params=tparams, **kw)
     spec.submit(np.arange(5, dtype=np.int32), max_new_tokens=4)
