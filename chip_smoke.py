@@ -47,26 +47,36 @@ raises on failure:
    int32 codes; then a shard-scale scan of 2^28 rows (4 GiB of codes) with
    its achieved bandwidth, held against the plain version in chunks and
    bit for bit on its last chunk;
-5. serve: the paged ``Engine`` at the full width of ``gemma_2b.CONFIG``
+5. graphs: every compiled pass of the engines (decode and chunk of the
+   chunked ``Engine``, draft decode and verify of the speculative one, the
+   ``SlotEngine``'s decode) at full width and the engines' shapes, its
+   CUDA graph replayed against the same function run eagerly over the same
+   static inputs: logits, tokens and written K/V ``torch.equal``, at
+   seeded inputs and after rewriting the inputs; warm-up and capture time;
+6. serve: the paged ``Engine`` at the full width of ``gemma_2b.CONFIG``
    (18 layers, random seeded weights, every weight perturbed) over 16
    requests, with the launch counters reset just before and read just
-   after; its logits are held against the same model run through the plain
-   attention versions;
-6. preemption: 4 of those requests under a pool small enough to force swaps
+   after. Every engine run from here on runs twice, its passes replayed as
+   CUDA graphs and then eagerly (``cuda_graphs=False``), on the same
+   requests: the streams and the launch counts (the graphs' replays
+   added) must be equal and every pass replayed; tok/s, TTFT, TPOT and peak
+   memory are printed side by side. The kernels line reads the graphed
+   runs;
+7. preemption: 4 of those requests under a pool small enough to force swaps
    (token streams must equal the unpressured run's) and under recompute;
-7. slot: the dense ``SlotEngine`` over the same 16 requests, through
+8. slot: the dense ``SlotEngine`` over the same 16 requests, through
    ``decode_attention``; its streams must equal the paged ``Engine``'s;
-8. spec: the paged ``Engine`` with a draft model (the target's weights plus
+9. spec: the paged ``Engine`` with a draft model (the target's weights plus
    seeded noise, ``spec_k = 4``) over 8 of the requests, through
    ``paged_verify_attention``; one verify pass is held against sequential
    decode steps, and the streams are compared with plain decode's;
-9. chunked: a 1024-token prompt prefilled in chunks of 256 against whole
+10. chunked: a 1024-token prompt prefilled in chunks of 256 against whole
    prefill (logits, written K/V); the chunked ``Engine`` (``chunk_size =
    256``) over the 16 requests through ``paged_chunk_attention``, its
    streams equal to the whole-prefill ``Engine``'s, its TTFT and TPOT
    beside them; a swap-pressured chunked run; a 3000-token prompt under
    ``max_context = 4096`` against the ``SlotEngine``;
-10. the ``kernels`` JSON line, the card line, and the last line
+11. the ``kernels`` JSON line, the card line, and the last line
    ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -1118,6 +1128,116 @@ def phase_logits(cfg, params):
     return worst
 
 
+def _pass_inputs(eng, p, rng, gen):
+    """Random inputs for compiled pass ``p`` of ``eng`` at its shape:
+    seeded pools (the dense engine: caches), per-row tables over a random
+    permutation of the pages, lengths that leave room for the pass's ``s``
+    positions, tokens and q_valid. Returns (the pass's arrays, the tensors
+    it writes)."""
+    from repro_torch.engine.core import SlotEngine, _push
+    b, s = p.inputs.dev["tokens"].shape
+    arrays = {"tokens": rng.integers(0, eng.cfg.vocab_size, (b, s)
+                                     ).astype(np.int32)}
+    if "q_valid" in p.inputs.dev:
+        arrays["q_valid"] = rng.integers(0, s + 1, b).astype(np.int32)
+    rand = lambda t: t.copy_(torch.randn(  # noqa: E731
+        t.shape, generator=gen, device="cuda"))
+    if isinstance(eng, SlotEngine):
+        g = eng.caches["attn"]
+        rand(g["k"]), rand(g["v"])
+        g["length"].copy_(torch.as_tensor(
+            rng.integers(0, eng.max_len - 2, b), device="cuda")[None])
+        return arrays, [g["k"], g["v"], g["length"]]
+    caches, rows = ((eng.draft_caches, eng._draft_rows)
+                    if p.name == "draft_decode" else (eng.caches, eng._rows))
+    g = caches["attn"]
+    rand(g["k_pool"]), rand(g["v_pool"])
+    pages = g["k_pool"].shape[1] - 1                # the last is trash
+    mb = rows.host["tables"].shape[1]
+    per_row = min(mb, pages // b)
+    tabs = np.full((b, mb), pages, np.int32)
+    tabs[:, :per_row] = rng.permutation(pages)[:b * per_row].reshape(b, -1)
+    lens = rng.integers(0, per_row * eng.block_tokens - s, b)
+    _push(rows, tabs, lens.astype(np.int32))
+    return arrays, [g["k_pool"], g["v_pool"]]
+
+
+def _pass_work(eng, p, b, s):
+    """(bytes, operations) of a pass's matrix products: every weight it
+    multiplies by read once (the tied embedding as the head), two
+    operations per weight and token row; the head's rows are the logits'
+    (every position for verify, one a row otherwise)."""
+    params = eng.draft_params if p.name == "draft_decode" else eng.params
+    layers = sum(t.numel() for t in _leaves(params["layers"]))
+    head = params["embed"].numel()
+    rows = b * s if p.name == "verify" else b
+    return 2 * (layers + head), 2 * (layers * b * s + head * rows)
+
+
+def phase_graphs(cfg, params):
+    """Every compiled pass at the engines' shapes (chunked Engine: decode
+    (8, 1) and chunk (8, CHUNK); spec Engine: draft decode (8, 1) and
+    verify (8, SPEC_K + 1); SlotEngine: decode (8, 1)), replayed against
+    the same function run eagerly over the same static inputs: logits and
+    tokens ``torch.equal`` and the written K/V ``torch.equal`` (every pool
+    page but the trash page, where rows write their padding in no fixed
+    order), at seeded inputs and again after rewriting the static inputs to
+    new tables, lengths and tokens."""
+    from repro_torch.engine.core import EngineConfig, SlotEngine
+    draft = noisy_draft_params(params, cfg, SPEC_NOISE)
+    makers = (
+        ("chunked", lambda: _engine(cfg, params,
+                                    config=EngineConfig(chunk_size=CHUNK))),
+        ("spec", lambda: _engine(cfg, params, draft_params=draft,
+                                 config=EngineConfig(draft_cfg=cfg,
+                                                     spec_k=SPEC_K))),
+        ("slot", lambda: SlotEngine(cfg, params=params, max_batch=8,
+                                    max_len=2048, device="cuda")))
+    rng = np.random.default_rng(19)
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    seen = []
+    for tag, make in makers:
+        eng = make()
+        trim = slice(None) if tag == "slot" else slice(None, -1)
+        for name, p in eng.passes().items():
+            if p.graph is None:
+                raise AssertionError(f"{tag}.{name}: not captured")
+            for _ in range(2):
+                arrays, state = _pass_inputs(eng, p, rng, gen)
+                saved = [t.clone() for t in state]
+                tok, logits = (t.clone() for t in p.run(**arrays))
+                after = [t.clone() for t in state]
+                for t, v in zip(state, saved):
+                    t.copy_(v)
+                tok_e, logits_e = p.fn()
+                torch.cuda.synchronize()
+                if logits.shape[0] != 8 or not torch.isfinite(logits).all():
+                    raise AssertionError(f"{tag}.{name}: bad logits")
+                equal = (torch.equal(logits, logits_e)
+                         and torch.equal(tok, tok_e)
+                         and all(torch.equal(t[:, trim], a[:, trim])
+                                 for t, a in zip(state, after)))
+                if not equal:
+                    diff = float((logits - logits_e).abs().max())
+                    raise AssertionError(
+                        f"{tag}.{name}: graphed != eager (max logit "
+                        f"difference {diff:.4g})")
+            b, s = p.inputs.dev["tokens"].shape
+            ms = cuda_time_ms(p.graph.replay, iters=10, warmup=2, hold=True)
+            bound_ms, by = bound(*_pass_work(eng, p, b, s), PEAK_BF16_FLOPS)
+            log(f"[graphs] {tag}.{name} ({b}, {s}): warm-up "
+                f"{p.warm_up_s:.3f} s, capture {p.capture_s:.3f} s, one "
+                f"replay launches {p.launches}; logits, tokens and written "
+                f"K/V torch.equal eager at two input sets; one replay "
+                f"{ms:.3f} ms of device time (host queue held), bound of its "
+                f"matrix products {bound_ms:.3f} ms ({by})")
+            seen.append(f"{tag}.{name}")
+        del eng
+        torch.cuda.empty_cache()
+    del draft
+    log(f"[graphs] {len(seen)} passes graphed == eager: {seen}")
+
+
 def _requests(cfg, n=16):
     rng = np.random.default_rng(0)
     return [rng.integers(0, cfg.vocab_size, int(p)).astype(np.int32)
@@ -1142,64 +1262,127 @@ def _streams(done):
     return {r.rid: list(r.tokens) for r in done}
 
 
-def _serve_line(tag, done, prompts, wall, steps):
+def _serve_line(tag, done, prompts, wall, steps, peak):
     toks = sum(len(r.tokens) for r in done)
     log(f"[{tag}] {len(done)} requests, prompts {min(map(len, prompts))}-"
         f"{max(map(len, prompts))} tokens, {toks} tokens generated; wall "
         f"{wall:.3f}s, {toks / wall:.2f} tok/s, TTFT mean "
         f"{np.mean([r.ttft for r in done]) * 1e3:.2f} ms, TPOT mean "
         f"{np.mean([r.tpot for r in done]) * 1e3:.2f} ms, engine steps "
-        f"{steps}, peak allocated "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        f"{steps}, peak allocated {peak[0] / 2**30:.2f} GiB, reserved "
+        f"{peak[1] / 2**30:.2f} GiB")
+
+
+def _means_ms(done):
+    return (np.mean([r.ttft for r in done]) * 1e3,
+            np.mean([r.tpot for r in done]) * 1e3)
+
+
+def _arms(tag, make, prompts, max_new=64):
+    """Serve ``prompts`` through ``make(cuda_graphs=True)`` (passes
+    replayed as CUDA graphs), then ``make(cuda_graphs=False)`` (the same
+    passes eagerly), each engine built before its launch counters are set
+    to 0 and its peak memory reset, and freed before the next. Holds the
+    graphed arm to the eager one: equal streams, equal launch counts (the
+    graphs' replays added), every pass replayed. Prints both side by side;
+    returns {"graphed": run, "eager": run}, each a dict of the finished
+    requests, wall time, launch counts, replays, peak memory (allocated,
+    reserved), the engine's kv/spec stats and steps."""
+    from repro_torch.kernels import ops
+    runs = {}
+    for arm, flag in (("graphed", True), ("eager", False)):
+        torch.cuda.empty_cache()
+        eng = make(cuda_graphs=flag)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        t0 = time.monotonic()
+        done = _serve(eng, prompts, max_new)
+        wall = time.monotonic() - t0
+        passes = eng.passes()
+        runs[arm] = dict(
+            done=done, wall=wall, launches=ops.launch_counts(),
+            replays={n: p.replays for n, p in passes.items()},
+            capture_s={n: round(p.capture_s, 3) for n, p in passes.items()},
+            peak=(torch.cuda.max_memory_allocated(),
+                  torch.cuda.max_memory_reserved()),
+            steps=eng.steps,
+            kv=eng.kv_stats() if hasattr(eng, "kv_stats") else None,
+            spec=eng.spec_stats() if getattr(eng, "spec", False) else None)
+        if not (all(t.is_cuda for t in _leaves(eng.caches))
+                and eng.params["embed"].is_cuda):
+            raise AssertionError(f"{tag}: caches or params not on the card")
+        del eng, passes
+    g, e = runs["graphed"], runs["eager"]
+    _serve_line(f"{tag}", g["done"], prompts, g["wall"], g["steps"],
+                g["peak"])
+    toks = sum(len(r.tokens) for r in g["done"])
+    (gt, gp), (et, ep) = _means_ms(g["done"]), _means_ms(e["done"])
+    same = _streams(g["done"]) == _streams(e["done"])
+    log(f"[{tag}] graphed | eager: tok/s {toks / g['wall']:.2f} | "
+        f"{toks / e['wall']:.2f}; TTFT mean {gt:.2f} | {et:.2f} ms; TPOT "
+        f"mean {gp:.2f} | {ep:.2f} ms; peak allocated "
+        f"{g['peak'][0] / 2**30:.2f} | {e['peak'][0] / 2**30:.2f} GiB, "
+        f"reserved {g['peak'][1] / 2**30:.2f} | {e['peak'][1] / 2**30:.2f} "
+        f"GiB; wall {g['wall']:.3f} | {e['wall']:.3f} s; replays "
+        f"{g['replays']}, capture s {g['capture_s']}; streams equal: {same}; "
+        f"launch counts equal: {g['launches'] == e['launches']}")
+    if not same:
+        raise AssertionError(f"{tag}: graphed streams differ from eager")
+    if g["launches"] != e["launches"]:
+        raise AssertionError(f"{tag}: graphed launches {g['launches']} != "
+                             f"eager {e['launches']}")
+    if not all(n > 0 for n in g["replays"].values()) \
+            or any(e["replays"].values()):
+        raise AssertionError(f"{tag}: replays graphed {g['replays']}, "
+                             f"eager {e['replays']}")
+    return runs
+
+
+def _finished(tag, done, n, max_new=64):
+    if len(done) != n or any(len(r.tokens) != max_new for r in done):
+        raise AssertionError(f"{tag}: not every request finished with "
+                             f"{max_new} tokens")
 
 
 def phase_serve(cfg, params):
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import paged_attention as pa
     prompts = _requests(cfg)
     _serve(_engine(cfg, params), prompts[:1], max_new=2)        # warm-up
-    eng = _engine(cfg, params)
-    torch.cuda.reset_peak_memory_stats()
-    fa.launches = pa.launches = 0
-    t0 = time.monotonic()
-    done = _serve(eng, prompts)
-    wall = time.monotonic() - t0
-    launches = {"flash_attention": fa.launches,
-                "paged_decode_attention": pa.launches}
-    if len(done) != len(prompts) or any(len(r.tokens) != 64 for r in done):
-        raise AssertionError("not every request finished with 64 tokens")
+    runs = _arms("serve", lambda **kw: _engine(cfg, params, **kw), prompts)
+    g = runs["graphed"]
+    done = g["done"]
+    launches = {k: g["launches"][k]
+                for k in ("flash_attention", "paged_decode_attention")}
+    _finished("serve", done, len(prompts))
     if min(launches.values()) <= 0:
         raise AssertionError(f"a kernel never launched: {launches}")
-    if not (eng.caches["attn"]["k_pool"].is_cuda
-            and eng.params["embed"].is_cuda):
-        raise AssertionError("pool or params not on the card")
     log("[serve] gemma_2b full width (18 layers, d_model 2048, head dim "
         "256), bf16, max_batch=8, max_len=2048, block_tokens=16")
-    _serve_line("serve", done, prompts, wall, eng.steps)
     log(f"[serve] launches on the main path: {launches}")
-    return launches, prompts, _streams(done), (done, wall)
+    return launches, prompts, _streams(done), (done, g["wall"])
 
 
 def phase_preemption(cfg, params, prompts):
     four = prompts[:4]
     base = {r.rid: r.tokens for r in _serve(_engine(cfg, params), four)}
     pages = sum(-(-len(p) // 16) for p in four) + 4
-    swap = _engine(cfg, params, num_blocks=pages, preemption="swap")
-    got = {r.rid: r.tokens for r in _serve(swap, four)}
-    st = swap.kv_stats()
+    runs = _arms("preempt swap", lambda **kw: _engine(
+        cfg, params, num_blocks=pages, preemption="swap", **kw), four)
+    got = _streams(runs["graphed"]["done"])
+    st = runs["graphed"]["kv"]
     log(f"[preempt] swap, {pages} pages: swap_outs={st['swap_outs']} "
         f"swap_ins={st['swap_ins']} page_faults={st['page_faults']}, "
         f"streams identical to the unpressured run: {got == base}")
     if st["swap_outs"] < 1 or got != base:
         raise AssertionError("swap pressure: no swap or streams differ")
-    rec = _engine(cfg, params, num_blocks=pages, preemption="recompute")
-    done = _serve(rec, four)
-    st = rec.kv_stats()
+    runs = _arms("preempt recompute", lambda **kw: _engine(
+        cfg, params, num_blocks=pages, preemption="recompute", **kw), four)
+    done, st = runs["graphed"]["done"], runs["graphed"]["kv"]
     log(f"[preempt] recompute, {pages} pages: "
         f"recompute_drops={st['recompute_drops']}, finished {len(done)}/4")
-    if st["recompute_drops"] < 1 or len(done) != 4 \
-            or any(len(r.tokens) != 64 for r in done):
-        raise AssertionError("recompute pressure: no drop or unfinished")
+    if st["recompute_drops"] < 1:
+        raise AssertionError("recompute pressure: no drop")
+    _finished("recompute pressure", done, 4)
 
 
 def phase_slot(cfg, params, prompts, paged_streams):
@@ -1207,26 +1390,17 @@ def phase_slot(cfg, params, prompts, paged_streams):
     decode_attention; both engines decode at (8, 1), so the streams must be
     equal."""
     from repro_torch.engine.core import SlotEngine
-    from repro_torch.kernels import decode_attention as da
 
-    def slot():
+    def slot(**kw):
         return SlotEngine(cfg, params=params, max_batch=8, max_len=2048,
-                          device="cuda")
+                          device="cuda", **kw)
     _serve(slot(), prompts[:1], max_new=2)                    # warm-up
-    eng = slot()
-    torch.cuda.reset_peak_memory_stats()
-    da.launches = 0
-    t0 = time.monotonic()
-    done = _serve(eng, prompts)
-    wall = time.monotonic() - t0
-    launches = da.launches
-    if len(done) != len(prompts) or any(len(r.tokens) != 64 for r in done):
-        raise AssertionError("slot: not every request finished with 64 "
-                             "tokens")
+    g = _arms("slot", slot, prompts)["graphed"]
+    launches = g["launches"]["decode_attention"]
+    _finished("slot", g["done"], len(prompts))
     if launches <= 0:
         raise AssertionError("slot: decode_attention never launched")
-    _serve_line("slot", done, prompts, wall, eng.steps)
-    same = _streams(done) == paged_streams
+    same = _streams(g["done"]) == paged_streams
     log(f"[slot] decode_attention launches {launches}; 16 streams equal to "
         f"the paged Engine's: {same}")
     if not same:
@@ -1279,26 +1453,19 @@ def phase_spec(cfg, params, prompts, paged_streams):
     """The paged Engine with a noisy copy of the target as draft, over 8 of
     the requests x 64 tokens, verifying through paged_verify_attention."""
     from repro_torch.engine.core import EngineConfig
-    from repro_torch.kernels import paged_attention as pa
     eight = prompts[:8]
     draft = noisy_draft_params(params, cfg, SPEC_NOISE)
-    eng = _engine(cfg, params, draft_params=draft, config=EngineConfig(
-        draft_cfg=cfg, spec_k=SPEC_K))
-    torch.cuda.reset_peak_memory_stats()
-    pa.verify_launches = 0
-    t0 = time.monotonic()
-    done = _serve(eng, eight)
-    wall = time.monotonic() - t0
-    launches = pa.verify_launches
-    if len(done) != 8 or any(len(r.tokens) != 64 for r in done):
-        raise AssertionError("spec: not every request finished with 64 "
-                             "tokens")
+    runs = _arms("spec", lambda **kw: _engine(
+        cfg, params, draft_params=draft,
+        config=EngineConfig(draft_cfg=cfg, spec_k=SPEC_K), **kw), eight)
+    g = runs["graphed"]
+    done, st = g["done"], g["spec"]
+    launches = g["launches"]["paged_verify_attention"]
+    _finished("spec", done, 8)
     if launches <= 0:
         raise AssertionError("spec: paged_verify_attention never launched")
-    st = eng.spec_stats()
     log(f"[spec] draft = target + noise of {SPEC_NOISE} of each weight's "
         f"scale, spec_k={SPEC_K}")
-    _serve_line("spec", done, eight, wall, eng.steps)
     rounded = lambda key: [round(float(a), 4) for a in st[key]]
     log(f"[spec] paged_verify_attention launches {launches}; tokens_per_step "
         f"{st['tokens_per_step']:.4f}, acceptance per position "
@@ -1314,6 +1481,7 @@ def phase_spec(cfg, params, prompts, paged_streams):
             for rid, t in got.items() if t != paged_streams[rid]}
     log(f"[spec] {8 - len(diff)} of 8 streams identical to the plain "
         f"Engine's; first differing step by request: {diff}")
+    del draft
     phase_spec_logits(cfg, params)
     return launches
 
@@ -1419,36 +1587,25 @@ def phase_chunked(cfg, params, prompts, paged_streams, whole):
     max_context LONG_CONTEXT against the SlotEngine. Returns the chunk
     kernel's launches on the path."""
     from repro_torch.engine.core import EngineConfig, SlotEngine
-    from repro_torch.kernels import paged_chunk_attention as pca
     phase_chunked_logits(cfg, params)
     chunked = lambda **kw: _engine(  # noqa: E731
-        cfg, params, config=EngineConfig(chunk_size=CHUNK, **kw))
+        cfg, params, config=EngineConfig(chunk_size=CHUNK), **kw)
     _serve(chunked(), prompts[:1], max_new=2)                 # warm-up
-    eng = chunked()
-    torch.cuda.reset_peak_memory_stats()
-    pca.launches = 0
-    t0 = time.monotonic()
-    done = _serve(eng, prompts)
-    wall = time.monotonic() - t0
-    launches = pca.launches
-    if len(done) != len(prompts) or any(len(r.tokens) != 64 for r in done):
-        raise AssertionError("chunked: not every request finished with 64 "
-                             "tokens")
+    g = _arms("chunked", chunked, prompts)["graphed"]
+    done, wall = g["done"], g["wall"]
+    launches = g["launches"]["paged_chunk_attention"]
+    _finished("chunked", done, len(prompts))
     if launches <= 0:
         raise AssertionError("chunked: paged_chunk_attention never launched")
     log(f"[chunked] Engine(config=EngineConfig(chunk_size={CHUNK})), "
         f"max_batch=8, max_len=2048, block_tokens=16, token budget "
-        f"{eng.max_batch + CHUNK}")
-    _serve_line("chunked", done, prompts, wall, eng.steps)
+        f"{8 + CHUNK}")
     whole, whole_wall = whole
-    mean = lambda rs, f: np.mean([f(r) for r in rs]) * 1e3  # noqa: E731
     toks = sum(len(r.tokens) for r in done)
-    log(f"[chunked] side by side, chunked | whole prefill: tok/s "
-        f"{toks / wall:.2f} | {toks / whole_wall:.2f}; TTFT mean "
-        f"{mean(done, lambda r: r.ttft):.2f} | "
-        f"{mean(whole, lambda r: r.ttft):.2f} ms; TPOT mean "
-        f"{mean(done, lambda r: r.tpot):.2f} | "
-        f"{mean(whole, lambda r: r.tpot):.2f} ms; "
+    (ct, cp), (wt, wp) = _means_ms(done), _means_ms(whole)
+    log(f"[chunked] side by side (both graphed), chunked | whole prefill: "
+        f"tok/s {toks / wall:.2f} | {toks / whole_wall:.2f}; TTFT mean "
+        f"{ct:.2f} | {wt:.2f} ms; TPOT mean {cp:.2f} | {wp:.2f} ms; "
         f"paged_chunk_attention launches {launches}")
     got = _streams(done)
     diff = [rid for rid in got if got[rid] != paged_streams[rid]]
@@ -1465,10 +1622,10 @@ def phase_chunked(cfg, params, prompts, paged_streams, whole):
     four = prompts[:4]
     base = _streams(_serve(chunked(), four))
     pages = sum(-(-len(p) // 16) for p in four) + 4
-    swap = _engine(cfg, params, num_blocks=pages, preemption="swap",
-                   config=EngineConfig(chunk_size=CHUNK))
-    got = _streams(_serve(swap, four))
-    st = swap.kv_stats()
+    runs = _arms("chunked swap", lambda **kw: _engine(
+        cfg, params, num_blocks=pages, preemption="swap",
+        config=EngineConfig(chunk_size=CHUNK), **kw), four)
+    got, st = _streams(runs["graphed"]["done"]), runs["graphed"]["kv"]
     log(f"[chunked] swap, {pages} pages: swap_outs={st['swap_outs']} "
         f"swap_ins={st['swap_ins']} page_faults={st['page_faults']}, "
         f"streams identical to the unpressured chunked run: {got == base}")
@@ -1485,7 +1642,8 @@ def phase_chunked(cfg, params, prompts, paged_streams, whole):
             f"at submit: {err}")
     else:
         raise AssertionError("whole prefill took a prompt past max_len")
-    eng = chunked(max_context=LONG_CONTEXT)
+    eng = _engine(cfg, params, config=EngineConfig(
+        chunk_size=CHUNK, max_context=LONG_CONTEXT))
     got = _serve(eng, [long_p], max_new=16)[0].tokens
     slot = SlotEngine(cfg, params=params, max_batch=8, max_len=LONG_CONTEXT,
                       device="cuda")
@@ -1535,6 +1693,7 @@ def main() -> int:
     log(f"[params] {sum(v.numel() for v in _leaves(params)) / 1e9:.3f}B "
         f"parameters on the card")
     phase_logits(cfg, params)
+    phase_graphs(cfg, params)
     launches, prompts, streams, whole = phase_serve(cfg, params)
     launches["pq_scan"] = rag_launches
     phase_preemption(cfg, params, prompts)

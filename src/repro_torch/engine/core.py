@@ -44,10 +44,24 @@ the JAX engine's:
 Every entry point runs on ``device="cuda"`` unless the caller passes another
 device (the CPU tests pass ``device="cpu"``); without a card, CUDA fails
 loudly, nothing falls back.
+
+The fixed-shape passes (``_decode`` at ``(max_batch, 1)``, ``_chunk`` at
+``(max_batch, chunk_size)``, ``_draft_decode``, ``_verify`` at ``(max_batch,
+spec_k + 1)``, and the ``SlotEngine``'s ``_decode``) are ``CompiledPass``es
+(``graphs.py``), the twins of the JAX engine's jitted functions: built with
+the engine, captured as CUDA graphs on the card and replayed every pass
+(``cuda_graphs=False`` runs them eagerly over the same static buffers).
+Their inputs go through static buffers: tokens and ``q_valid`` per pass,
+and one block-table and one length buffer per cache dict, which the
+caches' ``(L, ...)`` views point at for the engine's life. The pools are
+written in place and never rebound (admission, swap and COW copies
+included); the lengths come from the host mirrors. Whole prefill stays
+eager: its shape varies.
 """
 from __future__ import annotations
 
 import bisect
+import functools
 import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
@@ -56,6 +70,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.engine.graphs import CompiledPass, StaticInputs
 from repro_torch.engine.paged_kv import PagedKVStore, prefix_chain
 from repro_torch.models import steps
 from repro_torch.models import transformer as tf
@@ -169,7 +184,7 @@ class EngineCore:
                  num_blocks: Optional[int] = None, preemption: str = "swap",
                  trace_occupancy: bool = False,
                  config: Optional[EngineConfig] = None, draft_params=None,
-                 device="cuda"):
+                 device="cuda", cuda_graphs: bool = True):
         if max_len % block_tokens:
             raise ValueError("max_len must be a multiple of block_tokens")
         if preemption not in ("swap", "recompute"):
@@ -199,6 +214,7 @@ class EngineCore:
         self.caches = tf.init_paged_cache(cfg, max_batch, self.num_blocks,
                                           block_tokens, self.max_blocks,
                                           self.device)
+        self._rows = self._static_rows(self.caches)
         trash = self.store.trash_block
         self._tables_np = np.full((max_batch, self.max_blocks), trash,
                                   np.int32)
@@ -232,6 +248,7 @@ class EngineCore:
             self.draft_caches = tf.init_paged_cache(
                 dcfg, max_batch, self.draft_store.num_blocks, block_tokens,
                 self.max_blocks, self.device)
+            self._draft_rows = self._static_rows(self.draft_caches)
             self._draft_tables_np = np.full(
                 (max_batch, self.max_blocks), self.draft_store.trash_block,
                 np.int32)
@@ -246,8 +263,69 @@ class EngineCore:
             self._spec_pos_proposed = np.zeros((self.spec_k,), np.int64)
             self._spec_pos_accepted = np.zeros((self.spec_k,), np.int64)
 
+        # -- compiled passes (built last: they capture over the buffers);
+        # a speculative engine never runs the plain decode pass --
+        self.cuda_graphs = cuda_graphs
+        if not self.spec:
+            self._decode = self._compile("decode", steps.serve_step,
+                                         self.params, cfg, self.caches,
+                                         self._rows, 1)
+        if self.chunk_size:
+            self._chunk = self._compile(
+                "chunk", steps.chunk_step, self.params, cfg, self.caches,
+                self._rows, self.chunk_size, q_valid=True)
+        if self.spec:
+            self._draft_decode = self._compile(
+                "draft_decode", steps.serve_step, self.draft_params,
+                self.draft_cfg, self.draft_caches, self._draft_rows, 1)
+            self._verify = self._compile(
+                "verify", steps.verify_step, self.params, cfg, self.caches,
+                self._rows, self.spec_k + 1, q_valid=True)
+
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(a, device=self.device)
+
+    def _static_rows(self, caches) -> StaticInputs:
+        """The static block-table and length buffers of ``caches``, every
+        layer's view pointing at them from now on (all-trash / 0)."""
+        b, mb = self.max_batch, self.max_blocks
+        rows = StaticInputs({"tables": (b, mb), "lengths": (b,)},
+                            self.device)
+        _push_trash(rows, _trash_page(caches))
+        for g in caches.values():
+            L = g["block_tables"].shape[0]
+            g["block_tables"] = rows.dev["tables"][None].expand(L, b, mb)
+            g["length"] = rows.dev["lengths"][None].expand(L, b)
+        return rows
+
+    def _compile(self, name: str, step, params, cfg: ModelConfig, caches,
+                 rows: StaticInputs, s: int,
+                 q_valid: bool = False) -> CompiledPass:
+        """The pass ``step`` at ``(max_batch, s)`` over ``caches`` (and
+        ``q_valid`` for chunk and verify). Its warm-up sees every row of
+        ``rows`` on the trash page at length 0 (the host mirrors are not
+        touched; every pass pushes its rows first). Outputs: (tokens,
+        logits). The closures hold the buffers, not the engine."""
+        b = self.max_batch
+        shapes = {"tokens": (b, s)}
+        if q_valid:
+            shapes["q_valid"] = (b,)
+
+            def body(tokens, q_valid):
+                return step(params, tokens, q_valid, caches, cfg)[:2]
+        else:
+            def body(tokens):
+                return step(params, tokens, caches, cfg)[:2]
+
+        return CompiledPass(
+            name, body, shapes, self.device, capture=self.cuda_graphs,
+            trash=functools.partial(_push_trash, rows, _trash_page(caches)))
+
+    def passes(self) -> Dict[str, CompiledPass]:
+        """The engine's compiled passes by name."""
+        return {n: getattr(self, f"_{n}") for n in
+                ("decode", "chunk", "draft_decode", "verify")
+                if hasattr(self, f"_{n}")}
 
     # ------------------------------------------------------------------
     def _validate_submit(self, prompt: np.ndarray, max_new_tokens: int):
@@ -303,22 +381,12 @@ class EngineCore:
 
     def _push_rows(self, tables: Optional[np.ndarray] = None,
                    lengths: Optional[np.ndarray] = None):
-        """Sync block-table/length rows into the target's cache groups:
+        """Sync block-table/length rows into the target's static buffers:
         the host mirrors by default; the mixed iteration's decode pass
         pushes a view instead, in which chunk-phase rows are trash/0."""
-        self._push(self.caches,
-                   self._tables_np if tables is None else tables,
-                   self._lengths_np if lengths is None else lengths)
-
-    def _push(self, caches, tables: np.ndarray, lengths: np.ndarray):
-        """Sync block-table/length rows into every cache group of
-        ``caches`` (identical across layers: one device copy, broadcast as
-        a view)."""
-        tabs, lens = self._tensor(tables), self._tensor(lengths)
-        for g in caches.values():
-            L = g["block_tables"].shape[0]
-            g["block_tables"] = tabs[None].expand(L, *tabs.shape)
-            g["length"] = lens[None].expand(L, *lens.shape)
+        _push(self._rows,
+              self._tables_np if tables is None else tables,
+              self._lengths_np if lengths is None else lengths)
 
     # -- admission ------------------------------------------------------
     def _resume_ctx(self, r: EngineRequest) -> np.ndarray:
@@ -584,8 +652,7 @@ class EngineCore:
         for r in dec:
             last[r.slot, 0] = r.tokens[-1]
         self._push_rows(tabs, lens)
-        new_tok, _, self.caches = steps.serve_step(
-            self.params, self._tensor(last), self.caches, self.cfg)
+        new_tok, _ = self._decode.run(tokens=last)
         self._decode_bookkeeping(new_tok.cpu().numpy())
 
     # -- chunked prefill pass -------------------------------------------
@@ -636,9 +703,7 @@ class EngineCore:
                 toks[r.slot, :tk] = r.ctx[r.prefilled:r.prefilled + tk]
                 q_valid[r.slot] = tk
             self._push_rows()                  # real tables for every row
-            new_tok, _, self.caches = steps.chunk_step(
-                self.params, self._tensor(toks), self._tensor(q_valid),
-                self.caches, self.cfg)
+            new_tok, _ = self._chunk.run(tokens=toks, q_valid=q_valid)
             new_tok = new_tok.cpu().numpy()
             now = time.monotonic()
             for r in rows:
@@ -741,10 +806,8 @@ class Engine(EngineCore):
                     self._draft_tables_np[r.slot, len(dt.blocks) - 1] = b
                 tabs[r.slot] = self._draft_tables_np[r.slot]
                 lens[r.slot] = D
-            self._push(self.draft_caches, tabs, lens)
-            out, _, self.draft_caches = steps.serve_step(
-                self.draft_params, self._tensor(feed), self.draft_caches,
-                self.draft_cfg)
+            _push(self._draft_rows, tabs, lens)
+            out, _ = self._draft_decode.run(tokens=feed)
             out = out.cpu().numpy()
             nxt = []
             for r in part:
@@ -796,9 +859,7 @@ class Engine(EngineCore):
             toks[r.slot, 1:1 + k] = drafts[r.rid][:k]
             q_valid[r.slot] = k + 1
         self._push_rows()
-        greedy, _, self.caches = steps.verify_step(
-            self.params, self._tensor(toks), self._tensor(q_valid),
-            self.caches, self.cfg)
+        greedy, _ = self._verify.run(tokens=toks, q_valid=q_valid)
         greedy = greedy.cpu().numpy()
 
         # -- 4. accept, emit, commit -----------------------------------
@@ -882,6 +943,24 @@ class Engine(EngineCore):
         return self.finished
 
 
+def _trash_page(caches) -> int:
+    """The trash page of paged ``caches``: the pools' last page."""
+    return caches["attn"]["k_pool"].shape[1] - 1
+
+
+def _push(rows: StaticInputs, tables: np.ndarray, lengths: np.ndarray):
+    """Write block-table/length rows into ``rows``' static buffers (one
+    non-blocking copy from the pinned staging)."""
+    rows.host["tables"][...] = tables
+    rows.host["lengths"][...] = lengths
+    rows.push()
+
+
+def _push_trash(rows: StaticInputs, trash: int):
+    """Every row of ``rows`` on the trash page at length 0."""
+    _push(rows, trash, 0)
+
+
 def _to_device(tree, device):
     if isinstance(tree, dict):
         return {k: _to_device(v, device) for k, v in tree.items()}
@@ -920,10 +999,17 @@ class SlotEngine:
     oracle the paged ``Engine`` is held against (same admission policy,
     same greedy decode, so token streams must match). Its preemption keeps
     the JAX package's seed behaviour: it discards progress past the first
-    streamed token."""
+    streamed token.
+
+    Its ``(max_batch, 1)`` decode pass ``_decode`` is a ``CompiledPass``
+    over the dense caches, written in place: each row's K/V at its length,
+    and ``lengths + 1`` back into the caches' ``length`` buffer inside the
+    pass (the device holds the lengths; admission writes a slot's row,
+    length included, in place)."""
 
     def __init__(self, cfg: ModelConfig, params=None, max_batch: int = 4,
-                 max_len: int = 512, seed: int = 0, device="cuda"):
+                 max_len: int = 512, seed: int = 0, device="cuda",
+                 cuda_graphs: bool = True):
         tf.check_family(cfg)
         self.cfg = cfg
         self.device = torch.device(device)
@@ -939,6 +1025,33 @@ class SlotEngine:
         self.finished: List[EngineRequest] = []
         self.steps = 0
         self._next_rid = 0
+        self.cuda_graphs = cuda_graphs
+        self._decode = self._compile_decode()
+
+    def _compile_decode(self) -> CompiledPass:
+        """The decode pass. Its warm-up runs every row at length
+        ``max_len - 1`` (the trash position: a live row stops before its
+        writes or reads reach it) and then restores the lengths."""
+        params, caches, cfg = self.params, self.caches, self.cfg
+        lengths = caches["attn"]["length"]
+        trash_at = self.max_len - 1
+
+        def body(tokens):
+            tok, logits, new = steps.serve_step(params, tokens, caches, cfg)
+            lengths.copy_(new["attn"]["length"])
+            return tok, logits
+
+        def all_trash():
+            saved = lengths.clone()
+            lengths.fill_(trash_at)
+            return lambda: lengths.copy_(saved)
+        return CompiledPass("decode", body, {"tokens": (self.max_batch, 1)},
+                            self.device, capture=self.cuda_graphs,
+                            trash=all_trash)
+
+    def passes(self) -> Dict[str, CompiledPass]:
+        """The engine's compiled passes by name."""
+        return {"decode": self._decode}
 
     def submit(self, prompt: np.ndarray, max_new_tokens: int = 32,
                eos_id: Optional[int] = None) -> EngineRequest:
@@ -981,9 +1094,7 @@ class SlotEngine:
         for s, r in enumerate(self.active):
             if r is not None:
                 last[s, 0] = r.tokens[-1]
-        new_tok, _, self.caches = steps.serve_step(
-            self.params, torch.as_tensor(last, device=self.device),
-            self.caches, self.cfg)
+        new_tok, _ = self._decode.run(tokens=last)
         new_tok = new_tok.cpu().numpy()
         now = time.monotonic()
         for s, r in enumerate(self.active):

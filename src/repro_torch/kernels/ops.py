@@ -7,10 +7,14 @@ A CUDA tensor launches the hand-written kernel (``flash_attention.py``,
 raises on a shape or dtype it does not take; there is no fallback. A CPU
 tensor takes the plain PyTorch version in ``ref.py``, including the chunked
 form for long sequences that ``repro.kernels.ops`` takes off-TPU.
+
+Each wrapper counts its launches in a module counter; ``launch_counts``,
+``add_launches`` and ``reset_launches`` read and move all of them by kernel
+name (the engine's compiled passes add a graph's launches at each replay).
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
@@ -20,6 +24,36 @@ from repro_torch.kernels import paged_attention as _pa
 from repro_torch.kernels import paged_chunk_attention as _pca
 from repro_torch.kernels import pq_scan as _pq
 from repro_torch.kernels import ref as _ref
+
+# kernel name -> (wrapper module, its counter)
+_COUNTERS = {
+    "flash_attention": (_fa, "launches"),
+    "paged_decode_attention": (_pa, "launches"),
+    "paged_verify_attention": (_pa, "verify_launches"),
+    "decode_attention": (_da, "launches"),
+    "paged_chunk_attention": (_pca, "launches"),
+    "pq_scan": (_pq, "launches"),
+}
+
+
+def launch_counts() -> Dict[str, int]:
+    """Every kernel's launch counter, by kernel name."""
+    return {name: getattr(mod, attr)
+            for name, (mod, attr) in _COUNTERS.items()}
+
+
+def add_launches(counts: Dict[str, int], sign: int = 1):
+    """Add ``sign`` x ``counts`` (kernel name -> launches) to the
+    counters."""
+    for name, n in counts.items():
+        mod, attr = _COUNTERS[name]
+        setattr(mod, attr, getattr(mod, attr) + sign * n)
+
+
+def reset_launches():
+    """Set every launch counter to 0."""
+    for mod, attr in _COUNTERS.values():
+        setattr(mod, attr, 0)
 
 
 def flash_attention(q, k, v, *, causal: bool = True,

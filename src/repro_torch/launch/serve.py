@@ -3,8 +3,9 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma_2b
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
 
-Runs on the card by default; ``--device cpu`` runs the plain attention
-versions on the host.
+Runs on the card by default, its fixed-shape passes replayed as CUDA
+graphs (``--eager`` runs them without capture); ``--device cpu`` runs the
+plain attention versions on the host.
 """
 from __future__ import annotations
 
@@ -26,13 +27,16 @@ def main(argv=None):
     ap.add_argument("--max-len", type=int, default=256)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--eager", action="store_true",
+                    help="run the passes without CUDA graphs")
     args = ap.parse_args(argv)
 
     cfg = get_reduced_config(args.arch)
     if not cfg.supports_decode:
         raise SystemExit(f"{args.arch} is encoder-only; no serving path")
     eng = make_engine(cfg, max_batch=args.max_batch, max_len=args.max_len,
-                      seed=args.seed, device=args.device)
+                      seed=args.seed, device=args.device,
+                      cuda_graphs=not args.eager)
     rng = np.random.default_rng(args.seed)
     t0 = time.monotonic()
     for _ in range(args.requests):

@@ -18,6 +18,7 @@ Training and the other families arrive with later slices and raise
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict
 
 import torch
@@ -80,8 +81,14 @@ def embed_scale(cfg: ModelConfig) -> float:
     JAX package multiplies by the scale already rounded to the compute
     dtype; PyTorch keeps a Python-float operand in fp32, so rounding it
     here first gives JAX's products without a device tensor."""
-    compute = getattr(torch, cfg.compute_dtype)
-    return float(torch.tensor(cfg.d_model ** 0.5, dtype=compute))
+    return _rounded_sqrt(cfg.d_model, cfg.compute_dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _rounded_sqrt(n: int, dtype: str) -> float:
+    # cached: the rounding reads a host tensor back, which a pass's
+    # sync-free check would see on every call
+    return float(torch.tensor(n ** 0.5, dtype=getattr(torch, dtype)))
 
 
 def _block_fwd(p, x, positions, cfg: ModelConfig, mode: str, cache,

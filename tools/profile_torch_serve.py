@@ -1,24 +1,31 @@
 #!/usr/bin/env python3
-"""Where the time goes in the port's serving path on the card.
+"""Where the time goes in the port's serving paths on the card.
 
-    python3 tools/profile_torch_serve.py [--chunk-size N]
+    python3 tools/profile_torch_serve.py [--engine paged chunked slot spec]
+                                         [--eager]
 
-Runs the same full-width Gemma-2B workload as ``chip_smoke.py`` (16 seeded
+Runs the full-width Gemma-2B workloads of ``chip_smoke.py`` (16 seeded
 requests, prompts 128-1024 tokens, 64 new tokens each, ``max_batch=8``,
-``max_len=2048``, ``block_tokens=16``; with ``--chunk-size`` the chunked
-``Engine``, as phase ``chunked`` runs it at 256) twice after a warm-up:
+``max_len=2048``, ``block_tokens=16``) through each named engine: the paged
+``Engine`` with whole prefill, the chunked one (chunk 256), the dense
+``SlotEngine`` and the speculative ``Engine`` (8 of the requests, the
+target plus seeded noise as draft, ``spec_k = 4``). The engines' passes
+replay as CUDA graphs; ``--eager`` builds them with ``cuda_graphs=False``
+(run both in one call to compare). For each engine, after a warm-up:
 
-1. timed: every admission, decode pass and chunk pass is bracketed by
-   ``torch.cuda.synchronize()`` on the host clock, which splits the wall
-   time into prefill (whole-prompt admissions), decode, chunk passes and
-   the rest (host bookkeeping);
+1. timed: every whole prefill (``steps.prefill_step``, the draft's
+   included; chunked admissions run none) and every compiled pass is
+   bracketed by ``torch.cuda.synchronize()`` on the host clock, which
+   splits the wall time into prefill, each pass kind (passes counted as
+   run, and their graph replays) and the rest (host bookkeeping, page
+   writes, swaps);
 2. profiled: ``torch.profiler`` over the same run gives device time by
-   kernel name, grouped into the attention kernels (paged decode's split
-   kernel and its merge together), matrix products and the rest, and the
-   device's idle share of the wall time.
+   kernel name, grouped into the attention kernels (a decode-shaped
+   kernel's split and merge together), matrix products and the rest, and
+   the device's idle share of the wall time.
 
-Prints one JSON line with every number; needs one CUDA card and the CUDA
-toolkit (the kernels build at first use).
+Prints one JSON line per engine with every number; needs one CUDA card and
+the CUDA toolkit (the kernels build at first use).
 """
 from __future__ import annotations
 
@@ -38,67 +45,72 @@ import torch  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
 
-
-def _engine(cfg, params, chunk_size: int):
-    from repro_torch.engine.core import EngineConfig
-    return cs._engine(cfg, params,
-                      config=EngineConfig(chunk_size=chunk_size))
+ENGINES = ("paged", "chunked", "slot", "spec")
 
 
-def _timed_run(cfg, params, prompts, chunk_size):
-    from repro_torch.engine.core import EngineCore
+def _maker(kind, cfg, params):
+    """(engine factory taking cuda_graphs, the prompts it serves)."""
+    from repro_torch.engine.core import EngineConfig, SlotEngine
+    prompts = cs._requests(cfg)
+    if kind == "slot":
+        return (lambda **kw: SlotEngine(cfg, params=params, max_batch=8,
+                                        max_len=2048, device="cuda", **kw),
+                prompts)
+    if kind == "spec":
+        draft = cs.noisy_draft_params(params, cfg, cs.SPEC_NOISE)
+        config = EngineConfig(draft_cfg=cfg, spec_k=cs.SPEC_K)
+        return (lambda **kw: cs._engine(cfg, params, draft_params=draft,
+                                        config=config, **kw), prompts[:8])
+    config = EngineConfig(chunk_size=cs.CHUNK if kind == "chunked" else 0)
+    return lambda **kw: cs._engine(cfg, params, config=config, **kw), prompts
+
+
+def _timed_run(make, prompts, graphs):
+    from repro_torch.engine.graphs import CompiledPass
     from repro_torch.models import steps
     spans = defaultdict(list)
-    originals = {}
-    forwards = [0]                     # chunk passes that ran the model
-    chunk_step = steps.chunk_step
+    originals = []
 
-    def counted(*a, **k):
-        forwards[0] += 1
-        return chunk_step(*a, **k)
+    def wrap(owner, attr, key):
+        fn = getattr(owner, attr)
+        originals.append((owner, attr, fn))
 
-    def wrap(name):
-        fn = getattr(EngineCore, name)
-        originals[name] = fn
-
-        def timed(self, *a, **k):
+        def timed(*a, **k):
             torch.cuda.synchronize()
             t0 = time.monotonic()
-            out = fn(self, *a, **k)
+            out = fn(*a, **k)
             torch.cuda.synchronize()
-            spans[name].append(time.monotonic() - t0)
+            spans[key(a)].append(time.monotonic() - t0)
             return out
-        setattr(EngineCore, name, timed)
+        setattr(owner, attr, timed)
 
-    wrap("_admit_one")
-    wrap("_decode_pass")
-    wrap("_chunk_pass")
-    steps.chunk_step = counted
+    eng = make(cuda_graphs=graphs)
+    wrap(steps, "prefill_step", lambda a: "prefill")
+    wrap(CompiledPass, "run", lambda a: a[0].name)
     try:
-        eng = _engine(cfg, params, chunk_size)
         t0 = time.monotonic()
         done = cs._serve(eng, prompts)
         wall = time.monotonic() - t0
     finally:
-        for name, fn in originals.items():
-            setattr(EngineCore, name, fn)
-        steps.chunk_step = chunk_step
-    pre, dec = spans["_admit_one"], spans["_decode_pass"]
-    chunk = spans["_chunk_pass"]
+        for owner, attr, fn in originals:
+            setattr(owner, attr, fn)
     toks = sum(len(r.tokens) for r in done)
-    return {
+    out = {
         "wall_s": wall, "tokens": toks, "tok_per_s": toks / wall,
         "ttft_mean_ms": float(np.mean([r.ttft for r in done]) * 1e3),
         "tpot_mean_ms": float(np.mean([r.tpot for r in done]) * 1e3),
-        "prefills": len(pre), "prefill_s": sum(pre),
-        "prefill_mean_ms": float(np.mean(pre) * 1e3),
-        "decode_passes": len(dec), "decode_s": sum(dec),
-        "decode_mean_ms": float(np.mean(dec) * 1e3),
-        "chunk_passes": forwards[0], "chunk_s": sum(chunk),
-        "chunk_mean_ms": (float(sum(chunk) / forwards[0] * 1e3)
-                          if forwards[0] else None),
-        "other_s": wall - sum(pre) - sum(dec) - sum(chunk),
+        "capture_s": {n: p.capture_s for n, p in eng.passes().items()},
+        "warm_up_s": {n: p.warm_up_s for n, p in eng.passes().items()},
+        "steps": eng.steps,
     }
+    replays = {n: p.replays for n, p in eng.passes().items()}
+    for name, t in spans.items():
+        out[name] = {"count": len(t), "replays": replays.get(name),
+                     "s": sum(t), "mean_ms": float(np.mean(t) * 1e3)}
+    out["other_s"] = wall - sum(sum(t) for t in spans.values())
+    if getattr(eng, "spec", False):
+        out["tokens_per_step"] = eng.spec_stats()["tokens_per_step"]
+    return out
 
 
 def _group(name: str) -> str:
@@ -107,17 +119,23 @@ def _group(name: str) -> str:
         paged = ", true>" in low or "lb1e" in low
         return ("paged_chunk_attention kernel" if paged
                 else "flash_attention kernel")
-    if "paged_decode" in low or "decode_merge" in low:
+    if "paged_verify" in low:
+        return "paged_verify_attention kernels (split + merge)"
+    if "paged_decode" in low:
         return "paged_decode_attention kernels (split + merge)"
+    if "decode_kernel" in low:
+        return "decode_attention kernels (split + merge)"
+    if "decode_merge" in low:
+        return "decode-shaped merge kernel (all three)"
     if any(w in low for w in ("gemm", "gemv", "cutlass", "sm90_xmma",
                               "nvjet", "matmul", "splitk")):
         return "matrix products"
     return "other kernels"
 
 
-def _profiled_run(cfg, params, prompts, chunk_size):
+def _profiled_run(make, prompts, graphs):
     from torch.profiler import ProfilerActivity, profile
-    eng = _engine(cfg, params, chunk_size)
+    eng = make(cuda_graphs=graphs)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.monotonic()
@@ -146,8 +164,10 @@ def _profiled_run(cfg, params, prompts, chunk_size):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--chunk-size", type=int, default=0,
-                    help="EngineConfig.chunk_size (0: whole prefill)")
+    ap.add_argument("--engine", nargs="+", choices=ENGINES,
+                    default=list(ENGINES), help="engines to profile")
+    ap.add_argument("--eager", action="store_true",
+                    help="build the engines with cuda_graphs=False")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_torch_serve: no CUDA device", file=sys.stderr)
@@ -156,32 +176,37 @@ def main(argv=None) -> int:
     card = cs.card_line()
     cfg = gemma_2b.CONFIG
     params = cs.full_width_params(cfg)
-    prompts = cs._requests(cfg)
-    cs._serve(_engine(cfg, params, args.chunk_size), prompts[:2],
-              max_new=4)                                        # warm-up
-    out = {"card": card, "chunk_size": args.chunk_size,
-           "timed": _timed_run(cfg, params, prompts, args.chunk_size),
-           "profiled": _profiled_run(cfg, params, prompts,
-                                     args.chunk_size)}
-    t, p = out["timed"], out["profiled"]
-    print(f"[timed] chunk_size {args.chunk_size}, wall {t['wall_s']:.3f}s "
-          f"({t['tok_per_s']:.2f} tok/s, TTFT mean {t['ttft_mean_ms']:.2f} "
-          f"ms, TPOT mean {t['tpot_mean_ms']:.2f} ms): prefill "
-          f"{t['prefill_s']:.3f}s ({t['prefills']} admissions x "
-          f"{t['prefill_mean_ms']:.2f} ms), decode {t['decode_s']:.3f}s "
-          f"({t['decode_passes']} x {t['decode_mean_ms']:.2f} ms), chunk "
-          f"passes {t['chunk_s']:.3f}s ({t['chunk_passes']} that ran the "
-          f"model, {t['chunk_mean_ms'] or 0:.2f} ms each), other "
-          f"{t['other_s']:.3f}s")
-    print(f"[profiled] wall {p['profiled_wall_s']:.3f}s, device busy "
-          f"{p['device_busy_s']:.3f}s, idle share {p['device_idle_share']}")
-    for g, s in sorted(p["device_s_by_group"].items(), key=lambda x: -x[1]):
-        print(f"[profiled] {g}: {s:.4f}s")
-    for k in p["top_kernels"]:
-        print(f"[profiled]   {k['device_s']:.4f}s {k['calls']:6d}x "
-              f"{k['name']}")
+    graphs = not args.eager
+    arm = "graphed" if graphs else "eager"
+    for kind in args.engine:
+        make, prompts = _maker(kind, cfg, params)
+        cs._serve(make(cuda_graphs=graphs), prompts[:2],
+                  max_new=4)                                    # warm-up
+        out = {"card": card, "engine": kind, "arm": arm,
+               "timed": _timed_run(make, prompts, graphs),
+               "profiled": _profiled_run(make, prompts, graphs)}
+        t, p = out["timed"], out["profiled"]
+        passes = ", ".join(
+            f"{n} {v['s']:.3f}s ({v['count']} x {v['mean_ms']:.2f} ms, "
+            f"{v['replays']} replays)" for n, v in t.items()
+            if isinstance(v, dict) and "count" in v)
+        print(f"[timed] {kind} {arm}: wall {t['wall_s']:.3f}s "
+              f"({t['tok_per_s']:.2f} tok/s, TTFT mean "
+              f"{t['ttft_mean_ms']:.2f} ms, TPOT mean {t['tpot_mean_ms']:.2f}"
+              f" ms): {passes}; other {t['other_s']:.3f}s")
+        print(f"[profiled] {kind} {arm}: wall {p['profiled_wall_s']:.3f}s, "
+              f"device busy {p['device_busy_s']:.3f}s, idle share "
+              f"{p['device_idle_share']}")
+        for g, sec in sorted(p["device_s_by_group"].items(),
+                             key=lambda x: -x[1]):
+            print(f"[profiled]   {g}: {sec:.4f}s")
+        for k in p["top_kernels"]:
+            print(f"[profiled]     {k['device_s']:.4f}s {k['calls']:6d}x "
+                  f"{k['name']}")
+        print(json.dumps(out))
+        del make
+        torch.cuda.empty_cache()
     print(card)
-    print(json.dumps(out))
     return 0
 
 
