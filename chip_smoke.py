@@ -76,7 +76,17 @@ raises on failure:
    streams equal to the whole-prefill ``Engine``'s, its TTFT and TPOT
    beside them; a swap-pressured chunked run; a 3000-token prompt under
    ``max_context = 4096`` against the ``SlotEngine``;
-11. the ``kernels`` JSON line, the card line, and the last line
+11. disagg: the disaggregated engine (``DisaggEngine``, one prefill and
+   one decode worker on the card, each request's KV pages handed over
+   through host memory as a timed transfer) over the 16 requests, graphed
+   and eagerly, its streams equal to the paged ``Engine``'s and its bytes
+   pages x one page's; one prefill and two decode workers with layerwise
+   handoffs; a chunked prefill worker; decode-side swap and recompute;
+   handoff bytes and seconds, the host link fitted to them, the largest
+   handoff staged through the host four ways, TTFT, TPOT and tok/s beside
+   the single engine's; with two cards or more, the roles on cards of
+   their own;
+12. the ``kernels`` JSON line, the card line, and the last line
    ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -1287,7 +1297,7 @@ def _arms(tag, make, prompts, max_new=64):
     graphs' replays added), every pass replayed. Prints both side by side;
     returns {"graphed": run, "eager": run}, each a dict of the finished
     requests, wall time, launch counts, replays, peak memory (allocated,
-    reserved), the engine's kv/spec stats and steps."""
+    reserved), the engine's kv/spec/transfer stats and steps."""
     from repro_torch.kernels import ops
     runs = {}
     for arm, flag in (("graphed", True), ("eager", False)):
@@ -1308,9 +1318,12 @@ def _arms(tag, make, prompts, max_new=64):
                   torch.cuda.max_memory_reserved()),
             steps=eng.steps,
             kv=eng.kv_stats() if hasattr(eng, "kv_stats") else None,
-            spec=eng.spec_stats() if getattr(eng, "spec", False) else None)
-        if not (all(t.is_cuda for t in _leaves(eng.caches))
-                and eng.params["embed"].is_cuda):
+            spec=eng.spec_stats() if getattr(eng, "spec", False) else None,
+            transfer=(eng.transfer_stats()
+                      if hasattr(eng, "transfer_stats") else None))
+        cores = getattr(eng, "prefill", []) + getattr(eng, "decode", [])
+        if not all(all(t.is_cuda for t in _leaves(c.caches))
+                   and c.params["embed"].is_cuda for c in cores or [eng]):
             raise AssertionError(f"{tag}: caches or params not on the card")
         del eng, passes
     g, e = runs["graphed"], runs["eager"]
@@ -1662,6 +1675,251 @@ def phase_chunked(cfg, params, prompts, paged_streams, whole):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 11: disaggregated prefill/decode workers
+# ---------------------------------------------------------------------------
+
+def _disagg(cfg, params, own_cards=False, n_prefill=1, n_decode=1, **kw):
+    """The ``DisaggEngine`` at the serving phases' geometry. Both roles on
+    the one card the script holds (handoffs staged through host memory),
+    unless ``own_cards``: then ``handoff_devices`` gives each role cards of
+    its own."""
+    from repro_torch.engine.workers import DisaggEngine
+    devices = None if own_cards else ([None] * n_prefill, [None] * n_decode)
+    return DisaggEngine(cfg, params, n_prefill=n_prefill, n_decode=n_decode,
+                        max_batch=8, max_len=2048, block_tokens=16,
+                        device="cuda", devices=devices, **kw)
+
+
+def _page_bytes(cfg, block_tokens=16) -> int:
+    """Bytes of one KV page: every layer's K and V of ``block_tokens``
+    positions, bf16 (the pools' dtype)."""
+    return block_tokens * cfg.num_layers * 2 * cfg.num_kv_heads \
+        * cfg.head_dim * 2
+
+
+def _handoff_line(tag, ts, largest=None):
+    mb_s = ts["bytes"] / ts["total_s"] / 1e6 if ts["total_s"] else 0.0
+    big = (f", largest handoff {largest[0]} pages = {largest[1]} B"
+           if largest else "")
+    log(f"[{tag}] handoffs {ts['handoffs']} ({ts['granularity']}, "
+        f"{ts['mode']}): {ts['pages']} pages, {ts['bytes']} B{big}; "
+        f"transfer total {ts['total_s'] * 1e3:.3f} ms, exposed "
+        f"{ts['exposed_s'] * 1e3:.3f} ms, {mb_s:.1f} MB/s over "
+        f"{len(ts['samples'])} timed transfers; dedup blocks "
+        f"{ts['dedup_blocks']}; cross_device {ts['cross_device']}")
+
+
+def _check_streams(tag, cfg, params, prompts, want, got):
+    """Raise unless every stream of ``got`` equals ``want``; for each one
+    that differs, print the first differing step and the top-2 logit gap
+    there, through the kernels and through the plain attention versions."""
+    diff = [rid for rid in want if got.get(rid) != want[rid]]
+    log(f"[{tag}] {len(want) - len(diff)} of {len(want)} streams equal to "
+        f"the paged Engine's")
+    for rid in diff:
+        a, b = want[rid], got.get(rid, [])
+        i = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y),
+                 min(len(a), len(b)))
+        ctx = np.concatenate([prompts[rid], np.asarray(a[:i], np.int32)])
+        gap = _top2_gap(_whole_prefill(params, cfg, ctx, LONG_CONTEXT)[0])
+        with plain_attention():
+            plain = _top2_gap(_whole_prefill(params, cfg, ctx,
+                                             LONG_CONTEXT)[0])
+        log(f"[{tag}] request {rid} differs first at step {i}: top-2 logit "
+            f"gap there {gap:.4g} (kernels), {plain:.4g} (plain attention)")
+    if diff:
+        raise AssertionError(f"{tag}: streams differ: requests {diff}")
+
+
+def _launched(tag, launches, names):
+    got = {n: launches[n] for n in names}
+    log(f"[{tag}] launches: {got}")
+    if min(got.values()) <= 0:
+        raise AssertionError(f"{tag}: a kernel never launched: {got}")
+
+
+def _staging_probe(cfg, n_pages, reps=6):
+    """One handoff's payload of ``n_pages`` pages (K and V, every layer)
+    staged through the host five ways, each run ``reps`` times: the first
+    run and the median of the others: ``.cpu()``, what ``move_pages``
+    does (new pageable memory, which the host allocator may take from
+    pages freed before); ``.cpu()`` with every result kept, so each run
+    writes pages the process has never touched (as handoffs that wait in
+    a decode worker's queue do); a copy into pageable memory already
+    touched; a copy into pinned memory; and the admission's ``.to`` back
+    from pageable memory."""
+    shape = (cfg.num_layers, n_pages, 16, cfg.num_kv_heads, cfg.head_dim)
+    src = [torch.randn(shape, device="cuda").to(torch.bfloat16)
+           for _ in range(2)]
+    touched = [torch.zeros(shape, dtype=torch.bfloat16) for _ in range(2)]
+    pinned = [torch.zeros(shape, dtype=torch.bfloat16, pin_memory=True)
+              for _ in range(2)]
+    nbytes = sum(t.numel() * t.element_size() for t in src)
+    kept = []
+    ways = (
+        (".cpu() (move_pages)", lambda: [t.cpu() for t in src]),
+        (".cpu(), every result kept",
+         lambda: kept.extend(t.cpu() for t in src)),
+        ("copy into touched pageable",
+         lambda: [d.copy_(t) for d, t in zip(touched, src)]),
+        ("copy into pinned",
+         lambda: [d.copy_(t, non_blocking=True)
+                  for d, t in zip(pinned, src)]),
+        ("pageable to the card (admission)",
+         lambda: [t.to("cuda") for t in touched]),
+    )
+    for name, fn in ways:
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        kept.clear()
+        med = float(np.median(times[1:]))
+        log(f"[disagg staging] {n_pages} pages = {nbytes} B, {name}: "
+            f"first {times[0] * 1e3:.3f} ms, {nbytes / times[0] / 1e9:.3f} "
+            f"GB/s; then {med * 1e3:.3f} ms, {nbytes / med / 1e9:.3f} GB/s")
+
+
+def phase_disagg(cfg, params, prompts, paged_streams, whole):
+    """The disaggregated engine over the serving phase's requests, each arm
+    with its launch counters reset just before and read just after:
+
+    1. one prefill and one decode worker, local, full handoffs, through
+       ``_arms`` (graphed, then eager), against the paged Engine's streams
+       and its graphed run ``whole`` side by side; bytes == pages x one
+       page's bytes;
+    2. two decode workers (two pools and two decode graphs on the card),
+       global, layerwise: one sample per layer per handoff;
+    3. a chunked prefill worker (chunk CHUNK), layerwise, through
+       ``paged_chunk_attention``;
+    4. the first 4 requests under a decode pool of phase_preemption's size:
+       swap (streams equal) and recompute (victims hand off again);
+    5. the host link fitted to every host-staged sample (``fit_link_spec``),
+       and the largest handoff staged through the host four ways
+       (``_staging_probe``);
+    6. with two cards or more, arm 1 with cards of their own for the roles.
+    """
+    from repro_torch.engine.core import EngineConfig
+    from repro_torch.kernels import ops
+    from repro_torch.perfmodel.regression import fit_link_spec
+    page = _page_bytes(cfg)
+    _serve(_disagg(cfg, params), prompts[:1], max_new=2)       # warm-up
+    runs = _arms("disagg", lambda **kw: _disagg(cfg, params, **kw), prompts)
+    g = runs["graphed"]
+    _finished("disagg", g["done"], len(prompts))
+    _check_streams("disagg", cfg, params, prompts, paged_streams,
+                   _streams(g["done"]))
+    _launched("disagg", g["launches"],
+              ("flash_attention", "paged_decode_attention"))
+    samples = []
+    for arm in ("graphed", "eager"):
+        ts = runs[arm]["transfer"]
+        largest = max(b for b, _ in ts["samples"])     # one per handoff
+        _handoff_line(f"disagg {arm}", ts, (largest // page, largest))
+        log(f"[disagg {arm}] GB/s of each handoff in turn: "
+            f"{[round(b / t / 1e9, 2) for b, t in ts['samples']]}")
+        if ts["handoffs"] != len(prompts) or ts["bytes"] != ts["pages"] \
+                * page or ts["cross_device"]:
+            raise AssertionError(f"disagg {arm}: {ts['handoffs']} handoffs, "
+                                 f"{ts['bytes']} B for {ts['pages']} pages "
+                                 f"of {page} B, cross_device "
+                                 f"{ts['cross_device']}")
+        samples += ts["samples"]
+    whole, whole_wall = whole
+    toks = sum(len(r.tokens) for r in g["done"])
+    (dt, dp), (wt, wp) = _means_ms(g["done"]), _means_ms(whole)
+    log(f"[disagg] side by side (both graphed), disaggregated 1+1 | single "
+        f"paged Engine: tok/s {toks / g['wall']:.2f} | "
+        f"{toks / whole_wall:.2f}; TTFT mean {dt:.2f} | {wt:.2f} ms; TPOT "
+        f"mean {dp:.2f} | {wp:.2f} ms")
+
+    arms = (
+        ("disagg 1+2 global layerwise", dict(n_decode=2, mode="global",
+                                             granularity="layerwise"),
+         ("flash_attention", "paged_decode_attention")),
+        ("disagg chunked", dict(granularity="layerwise",
+                                config=EngineConfig(chunk_size=CHUNK)),
+         ("paged_chunk_attention", "paged_decode_attention")),
+    )
+    for tag, kw, names in arms:
+        torch.cuda.empty_cache()
+        eng = _disagg(cfg, params, **kw)
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t0 = time.monotonic()
+        done = _serve(eng, prompts)
+        wall = time.monotonic() - t0
+        launches = ops.launch_counts()
+        _finished(tag, done, len(prompts))
+        _check_streams(tag, cfg, params, prompts, paged_streams,
+                       _streams(done))
+        _launched(tag, launches, names)
+        ts = eng.transfer_stats()
+        _handoff_line(tag, ts)
+        toks = sum(len(r.tokens) for r in done)
+        t, p = _means_ms(done)
+        log(f"[{tag}] passes {sorted(eng.passes())}; tok/s "
+            f"{toks / wall:.2f}, TTFT mean {t:.2f} ms, TPOT mean {p:.2f} ms")
+        if (len(ts["samples"]) != cfg.num_layers * ts["handoffs"]
+                or ts["handoffs"] != len(prompts)
+                or ts["exposed_s"] > ts["total_s"]
+                or ts["bytes"] != ts["pages"] * page):
+            raise AssertionError(f"{tag}: {len(ts['samples'])} samples for "
+                                 f"{ts['handoffs']} handoffs, exposed "
+                                 f"{ts['exposed_s']} s of {ts['total_s']} s")
+        samples += ts["samples"]
+        del eng
+
+    four = prompts[:4]
+    want = {rid: paged_streams[rid] for rid in range(4)}
+    pages = sum(-(-len(p) // 16) for p in four) + 4
+    for policy in ("swap", "recompute"):
+        tag = f"disagg {policy}"
+        eng = _disagg(cfg, params, preemption=policy, decode_blocks=pages)
+        done = _serve(eng, four)
+        _finished(tag, done, 4)
+        st, ts = eng.kv_stats()["decode0"], eng.transfer_stats()
+        log(f"[{tag}] decode pool {pages} pages: swap_outs "
+            f"{st['swap_outs']}, swap_ins {st['swap_ins']}, recompute_drops "
+            f"{st['recompute_drops']}, page_faults {st['page_faults']}; "
+            f"handoffs {ts['handoffs']} for 4 requests")
+        _check_streams(tag, cfg, params, prompts, want, _streams(done))
+        if policy == "swap" and st["swap_outs"] < 1:
+            raise AssertionError("disagg swap pressure: no swap")
+        if policy == "recompute" and ts["handoffs"] <= 4:
+            raise AssertionError("disagg recompute pressure: no victim "
+                                 "handed off again")
+        del eng
+
+    link = fit_link_spec(samples, "host-staged")
+    log(f"[disagg] host link fitted to {len(samples)} host-staged samples "
+        f"({min(b for b, _ in samples)}-{max(b for b, _ in samples)} B): "
+        f"latency {link.latency * 1e6:.2f} us, bandwidth "
+        f"{link.bandwidth / 1e9:.3f} GB/s")
+    _staging_probe(cfg, max(b for b, _ in samples) // page)
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        log(f"[disagg] the handoff between cards did not run: "
+            f"torch.cuda.device_count() = {n}, it needs two cards")
+        return
+    eng = _disagg(cfg, params, own_cards=True)
+    done = _serve(eng, prompts)
+    ts = eng.transfer_stats()
+    log(f"[disagg cards] prefill on {eng.prefill[0].device}, decode on "
+        f"{eng.decode[0].device}")
+    _handoff_line("disagg cards", ts)
+    _check_streams("disagg cards", cfg, params, prompts, paged_streams,
+                   _streams(done))
+    if not ts["cross_device"]:
+        raise AssertionError("disagg cards: the handoff did not cross cards")
+    del eng
+
+
 def kernels_line(rows, launches):
     out = []
     for name in KERNELS:
@@ -1702,6 +1960,7 @@ def main() -> int:
                                                     streams)
     launches["paged_chunk_attention"] = phase_chunked(cfg, params, prompts,
                                                       streams, whole)
+    phase_disagg(cfg, params, prompts, streams, whole)
     log(f"[done] all phases in {time.monotonic() - t0:.1f}s")
     log(json.dumps(kernels_line(rows, launches)))
     log(line)

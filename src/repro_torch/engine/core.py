@@ -61,10 +61,11 @@ eager: its shape varies.
 from __future__ import annotations
 
 import bisect
+import contextlib
 import functools
 import time
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -177,7 +178,14 @@ def _check_config(config: EngineConfig, cfg: ModelConfig, max_len: int,
 
 class EngineCore:
     """Store + cache pool + block tables + admission/preemption/growth and
-    the decode and chunk passes, on one device."""
+    the decode and chunk passes, on one device.
+
+    ``PASSES`` names the compiled passes the role may run: the engine
+    compiles (and on the card captures) those of them that its
+    configuration asks for, and no other. A prefill worker runs only the
+    chunk pass, a decode worker only the decode pass."""
+
+    PASSES: Tuple[str, ...] = ("decode", "chunk", "draft_decode", "verify")
 
     def __init__(self, cfg: ModelConfig, params=None, max_batch: int = 4,
                  max_len: int = 512, seed: int = 0, block_tokens: int = 16,
@@ -185,102 +193,122 @@ class EngineCore:
                  trace_occupancy: bool = False,
                  config: Optional[EngineConfig] = None, draft_params=None,
                  device="cuda", cuda_graphs: bool = True):
-        if max_len % block_tokens:
-            raise ValueError("max_len must be a multiple of block_tokens")
-        if preemption not in ("swap", "recompute"):
-            raise ValueError(f"preemption={preemption!r}")
-        self.config = config or EngineConfig()
-        max_context = _check_config(self.config, cfg, max_len, block_tokens)
-        self.chunk_size = self.config.chunk_size
-        self.cfg = cfg
         self.device = torch.device(device)
-        self.max_batch = max_batch
-        self.max_len = max_len
-        self.max_context = max_context
-        # generation stop bound and submit()'s validation bound: chunked
-        # rows may span max_context, whole-prefill rows stop at max_len as
-        # the dense oracle does
-        self._len_limit = max_context if self.chunk_size else max_len
-        self.block_tokens = block_tokens
-        self.max_blocks = max_context // block_tokens
-        self.num_blocks = (max_batch * self.max_blocks if num_blocks is None
-                           else num_blocks)
-        self.preemption = preemption
-        if params is None:
-            gen = torch.Generator(device=self.device).manual_seed(seed)
-            params = tf.init_model(cfg, gen, self.device)
-        self.params = _to_device(params, self.device)
-        self.store = PagedKVStore(self.num_blocks, block_tokens)
-        self.caches = tf.init_paged_cache(cfg, max_batch, self.num_blocks,
-                                          block_tokens, self.max_blocks,
-                                          self.device)
-        self._rows = self._static_rows(self.caches)
-        trash = self.store.trash_block
-        self._tables_np = np.full((max_batch, self.max_blocks), trash,
-                                  np.int32)
-        self._lengths_np = np.zeros((max_batch,), np.int32)
-        self.active: List[Optional[EngineRequest]] = [None] * max_batch
-        self.waiting: List[EngineRequest] = []
-        self.finished: List[EngineRequest] = []
-        self.steps = 0
-        self._next_rid = 0
-        self._admit_seq = 0
-        self._admit_order: Dict[int, int] = {}   # rid -> admit seq
-        self.trace_occupancy = trace_occupancy
-        self.occupancy: List[Dict] = []          # per-step block occupancy
+        with self._dev_scope():
+            if max_len % block_tokens:
+                raise ValueError("max_len must be a multiple of block_tokens")
+            if preemption not in ("swap", "recompute"):
+                raise ValueError(f"preemption={preemption!r}")
+            self.config = config or EngineConfig()
+            max_context = _check_config(self.config, cfg, max_len,
+                                        block_tokens)
+            self.chunk_size = self.config.chunk_size
+            self.cfg = cfg
+            self.max_batch = max_batch
+            self.max_len = max_len
+            self.max_context = max_context
+            # generation stop bound and submit()'s validation bound: chunked
+            # rows may span max_context, whole-prefill rows stop at max_len
+            # as the dense oracle does
+            self._len_limit = max_context if self.chunk_size else max_len
+            self.block_tokens = block_tokens
+            self.max_blocks = max_context // block_tokens
+            self.num_blocks = (max_batch * self.max_blocks
+                               if num_blocks is None else num_blocks)
+            self.preemption = preemption
+            if params is None:
+                gen = torch.Generator(device=self.device).manual_seed(seed)
+                params = tf.init_model(cfg, gen, self.device)
+            self.params = _to_device(params, self.device)
+            self.store = PagedKVStore(self.num_blocks, block_tokens)
+            self.caches = tf.init_paged_cache(cfg, max_batch, self.num_blocks,
+                                              block_tokens, self.max_blocks,
+                                              self.device)
+            self._rows = self._static_rows(self.caches)
+            trash = self.store.trash_block
+            self._tables_np = np.full((max_batch, self.max_blocks), trash,
+                                      np.int32)
+            self._lengths_np = np.zeros((max_batch,), np.int32)
+            self.active: List[Optional[EngineRequest]] = [None] * max_batch
+            self.waiting: List[EngineRequest] = []
+            self.finished: List[EngineRequest] = []
+            self.steps = 0
+            self._next_rid = 0
+            self._admit_seq = 0
+            self._admit_order: Dict[int, int] = {}  # rid -> admit seq
+            self.trace_occupancy = trace_occupancy
+            self.occupancy: List[Dict] = []         # per-step occupancy
 
-        # -- speculative decoding (draft model + verify pass) ----------
-        self.spec_k = self.config.spec_k
-        self.draft_cfg = self.config.draft_cfg
-        self.spec = self.draft_cfg is not None and self.spec_k > 0
-        if self.spec:
-            dcfg = self.draft_cfg
-            if draft_params is None:
-                gen = torch.Generator(device=self.device).manual_seed(
-                    self.config.draft_seed)
-                draft_params = tf.init_model(dcfg, gen, self.device)
-            self.draft_params = _to_device(draft_params, self.device)
-            # the draft pool is sized so it can never run out: capacity
-            # planning stays a target-pool problem and draft admission
-            # cannot fail
-            self.draft_store = PagedKVStore(max_batch * self.max_blocks,
-                                            block_tokens)
-            self.draft_caches = tf.init_paged_cache(
-                dcfg, max_batch, self.draft_store.num_blocks, block_tokens,
-                self.max_blocks, self.device)
-            self._draft_rows = self._static_rows(self.draft_caches)
-            self._draft_tables_np = np.full(
-                (max_batch, self.max_blocks), self.draft_store.trash_block,
-                np.int32)
-            self._draft_lengths_np = np.zeros((max_batch,), np.int32)
-            # rid -> leading draft-cache positions whose KV matches the
-            # request's true token stream (the rewind point for drafting)
-            self._draft_valid: Dict[int, int] = {}
-            # acceptance accounting (spec_stats())
-            self.spec_iters = 0
-            self.spec_row_steps = 0
-            self.spec_emitted = 0
-            self._spec_pos_proposed = np.zeros((self.spec_k,), np.int64)
-            self._spec_pos_accepted = np.zeros((self.spec_k,), np.int64)
+            # -- speculative decoding (draft model + verify pass) ----------
+            self.spec_k = self.config.spec_k
+            self.draft_cfg = self.config.draft_cfg
+            self.spec = self.draft_cfg is not None and self.spec_k > 0
+            if self.spec and "verify" not in self.PASSES:
+                raise ValueError(
+                    f"{type(self).__name__} runs no speculative decoding: it "
+                    "is a single-engine feature (the draft rides the decode "
+                    "pass)")
+            if self.spec:
+                dcfg = self.draft_cfg
+                if draft_params is None:
+                    gen = torch.Generator(device=self.device).manual_seed(
+                        self.config.draft_seed)
+                    draft_params = tf.init_model(dcfg, gen, self.device)
+                self.draft_params = _to_device(draft_params, self.device)
+                # the draft pool is sized so it can never run out: capacity
+                # planning stays a target-pool problem and draft admission
+                # cannot fail
+                self.draft_store = PagedKVStore(max_batch * self.max_blocks,
+                                                block_tokens)
+                self.draft_caches = tf.init_paged_cache(
+                    dcfg, max_batch, self.draft_store.num_blocks, block_tokens,
+                    self.max_blocks, self.device)
+                self._draft_rows = self._static_rows(self.draft_caches)
+                self._draft_tables_np = np.full(
+                    (max_batch, self.max_blocks),
+                    self.draft_store.trash_block, np.int32)
+                self._draft_lengths_np = np.zeros((max_batch,), np.int32)
+                # rid -> leading draft-cache positions whose KV matches the
+                # request's true token stream (the rewind point for drafting)
+                self._draft_valid: Dict[int, int] = {}
+                # acceptance accounting (spec_stats())
+                self.spec_iters = 0
+                self.spec_row_steps = 0
+                self.spec_emitted = 0
+                self._spec_pos_proposed = np.zeros((self.spec_k,),
+                                                   np.int64)
+                self._spec_pos_accepted = np.zeros((self.spec_k,),
+                                                   np.int64)
 
-        # -- compiled passes (built last: they capture over the buffers);
-        # a speculative engine never runs the plain decode pass --
-        self.cuda_graphs = cuda_graphs
-        if not self.spec:
-            self._decode = self._compile("decode", steps.serve_step,
-                                         self.params, cfg, self.caches,
-                                         self._rows, 1)
-        if self.chunk_size:
-            self._chunk = self._compile(
-                "chunk", steps.chunk_step, self.params, cfg, self.caches,
-                self._rows, self.chunk_size, q_valid=True)
-        if self.spec:
-            self._draft_decode = self._compile(
-                "draft_decode", steps.serve_step, self.draft_params,
-                self.draft_cfg, self.draft_caches, self._draft_rows, 1)
-            self._verify = self._compile(
-                "verify", steps.verify_step, self.params, cfg, self.caches,
-                self._rows, self.spec_k + 1, q_valid=True)
+            # -- compiled passes (built last: they capture over the
+            # buffers), those of the configuration that the role runs; a
+            # speculative engine never runs the plain decode pass --
+            self.cuda_graphs = cuda_graphs
+            if not self.spec and "decode" in self.PASSES:
+                self._decode = self._compile("decode", steps.serve_step,
+                                             self.params, cfg, self.caches,
+                                             self._rows, 1)
+            if self.chunk_size and "chunk" in self.PASSES:
+                self._chunk = self._compile(
+                    "chunk", steps.chunk_step, self.params, cfg, self.caches,
+                    self._rows, self.chunk_size, q_valid=True)
+            if self.spec:
+                self._draft_decode = self._compile(
+                    "draft_decode", steps.serve_step, self.draft_params,
+                    self.draft_cfg, self.draft_caches, self._draft_rows, 1)
+                self._verify = self._compile(
+                    "verify", steps.verify_step, self.params, cfg,
+                    self.caches, self._rows, self.spec_k + 1, q_valid=True)
+
+    def _dev_scope(self):
+        """The core's card made current (``torch.cuda.device``) for its
+        construction and every step, so that the passes' warm-up, capture
+        and replays and the kernels' launches land on it (the twin of the
+        JAX core's ``jax.default_device`` scope); a null context off CUDA
+        and for ``"cuda"`` without an index, which is the current card."""
+        return (torch.cuda.device(self.device)
+                if self.device.type == "cuda" and self.device.index is not None
+                else contextlib.nullcontext())
 
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(a, device=self.device)

@@ -11,7 +11,9 @@ The decode-shaped attention sources share the ``mma.sync`` helpers of
 ``csrc/flash_attention.cu`` (flash attention and, on the same body, the
 paged chunk attention of chunked prefill) takes its ``wgmma``, TMA and
 ``mbarrier`` helpers from ``csrc/wgmma_bf16.cuh``, and ``csrc/pq_scan.cu``
-its ``mbarrier`` helpers. The file name carries a hash of the source, the
+its ``mbarrier`` helpers; every entry keeps its one-time shared-memory
+opt-ins and occupancy queries per device (``csrc/per_device.cuh``) and is
+called under ``launching``. The file name carries a hash of the source, the
 shared headers, the flags and any ``-D`` defines (``tools/decode_split.py``
 and ``tools/pq_scan_design.py`` build variants that way, into a directory
 of their own), so a changed source rebuilds and an unchanged one loads what
@@ -21,6 +23,7 @@ without ``nvcc`` or a card.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -38,7 +41,8 @@ FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 SOURCES = ("flash_attention", "paged_attention", "decode_attention",
            "pq_scan")
-HEADERS = ("mma_bf16.cuh", "decode_body.cuh", "wgmma_bf16.cuh")
+HEADERS = ("mma_bf16.cuh", "decode_body.cuh", "wgmma_bf16.cuh",
+           "per_device.cuh")
 # Tokens per sequence split of the decode body: mirrors DECODE_SPLIT
 # (kSplit) in csrc/decode_body.cuh and sizes the decode wrappers' scratch.
 DECODE_SPLIT = 64
@@ -132,6 +136,17 @@ def check_split(lib: ctypes.CDLL, what: str):
     if fn() != DECODE_SPLIT:
         raise RuntimeError(f"{what}: library built with split {fn()}, the "
                            f"wrapper sizes its scratch for {DECODE_SPLIT}")
+
+
+@contextlib.contextmanager
+def launching(device: torch.device):
+    """The runtime's current device set to ``device`` around one C call
+    (what ``at::cuda::CUDAGuard`` does in an extension): the entries launch
+    on the current device and keep their one-time opt-ins per device
+    (``csrc/per_device.cuh``). Yields PyTorch's current stream on
+    ``device`` as the entries take it."""
+    with torch.cuda.device(device):
+        yield torch.cuda.current_stream(device).cuda_stream
 
 
 def aligned(x: torch.Tensor) -> torch.Tensor:

@@ -61,8 +61,9 @@ extern "C" int decode_attention_bf16(const void* q, const void* k_cache,
                                      int nh, int kvh, int d, float scale,
                                      void* stream) {
   const int smem = decode_smem_bytes(d);
-  static int granted = 0;
-  if (int err = grant_smem(decode_kernel, smem, &granted)) return err;
+  static int granted[repro_dev::kMaxDevices] = {};
+  if (int err = repro_dev::grant_smem(decode_kernel, smem, granted))
+    return err;
   const cudaStream_t st = (cudaStream_t)stream;
   const int nsplit = n_splits(S);
   const long rows = (long)b * nh;

@@ -46,6 +46,7 @@
 #pragma once
 
 #include "mma_bf16.cuh"
+#include "per_device.cuh"
 
 // Tokens per split: 64 timed fastest of 64, 128 and 256 for paged decode at
 // b = 8 on an H100 (tools/decode_split.py, which builds the others with
@@ -398,18 +399,6 @@ inline int launch_merge(const float* part_acc, const float2* part_ml,
   cfg.numAttrs = 1;
   return (int)cudaLaunchKernelEx(&cfg, decode_merge_kernel, part_acc, part_ml,
                                  lengths, out, s, nh, d, nsplit, cap, verify);
-}
-
-// Raise a kernel's opt-in dynamic shared memory limit to `smem` bytes once
-// per size; `granted` is the caller's static record. Returns the CUDA error.
-template <class Kernel>
-inline int grant_smem(Kernel kernel, int smem, int* granted) {
-  if (smem <= *granted) return 0;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  *granted = smem;
-  return 0;
 }
 
 }  // namespace repro_attn

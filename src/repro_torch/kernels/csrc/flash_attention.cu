@@ -60,6 +60,7 @@
 // keys past t, read from the row's last table entry.
 #include <cuda.h>
 
+#include "per_device.cuh"
 #include "wgmma_bf16.cuh"
 
 using namespace repro_wgmma;
@@ -342,14 +343,11 @@ int launch_da(const CUtensorMap& tq, const CUtensorMap& tk,
               const int* lengths, int b, int s, int t, int nh, int kvh, int d,
               int causal, int bt, float scale, cudaStream_t stream) {
   const int smem = smem_bytes(DA);
-  static int smem_granted = 0;  // raise the opt-in limit once per instance
-  if (smem > smem_granted) {
-    cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_kernel<DA, kPaged>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return (int)err;
-    smem_granted = smem;
-  }
+  // raise the opt-in limit once per instance and device
+  static int granted[repro_dev::kMaxDevices] = {};
+  if (int err = repro_dev::grant_smem(flash_fwd_kernel<DA, kPaged>, smem,
+                                      granted))
+    return err;
   const long blocks = (long)((s + kBlock - 1) / kBlock) * nh * b;
   flash_fwd_kernel<DA, kPaged><<<(unsigned)blocks, kThreads, smem, stream>>>(
       tq, tk, tv, (bf16*)o, tables, lengths, b, s, t, nh, kvh, d, causal, bt,

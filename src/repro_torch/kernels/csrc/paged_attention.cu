@@ -109,8 +109,9 @@ extern "C" int paged_decode_attention_bf16(const void* q, const void* k_pool,
                                            int kvh, int d, int bt, int mb,
                                            float scale, void* stream) {
   const int smem = decode_smem_bytes(d);
-  static int granted = 0;
-  if (int err = grant_smem(paged_decode_kernel, smem, &granted)) return err;
+  static int granted[repro_dev::kMaxDevices] = {};
+  if (int err = repro_dev::grant_smem(paged_decode_kernel, smem, granted))
+    return err;
   const cudaStream_t st = (cudaStream_t)stream;
   const int nsplit = n_splits(mb * bt);
   const long rows = (long)b * nh;
@@ -139,8 +140,9 @@ extern "C" int paged_verify_attention_bf16(const void* q, const void* k_pool,
                                            int mb, float scale,
                                            void* stream) {
   const int smem = decode_smem_bytes(d);
-  static int granted = 0;
-  if (int err = grant_smem(paged_verify_kernel, smem, &granted)) return err;
+  static int granted[repro_dev::kMaxDevices] = {};
+  if (int err = repro_dev::grant_smem(paged_verify_kernel, smem, granted))
+    return err;
   const cudaStream_t st = (cudaStream_t)stream;
   const int g = nh / kvh;
   const int tiles = (s * g + kRows - 1) / kRows;

@@ -43,11 +43,12 @@
 // stream a block did not keep HBM busy (0.55-0.72 of it on the shard) and
 // was slower at one query, so it was taken out.
 // The C entry makes the launch plan (grid, vectors a row, LUT fill, shared
-// memory) on each call, asking the occupancy once per kernel and shared-
-// memory size; `pq_scan_plan` reports it.
+// memory) on each call, asking the occupancy once per device, kernel and
+// shared-memory size; `pq_scan_plan` reports it.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "per_device.cuh"
 #include "wgmma_bf16.cuh"
 
 // Knobs for the -D builds of tools/pq_scan_design.py; the shipped build
@@ -217,9 +218,10 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // The kernel for `code_bytes` codes and `v` 16-byte vectors a row, opted in
-// to the full shared memory at its first use; nullptr if there is none.
-const void* kernel_for(int code_bytes, int v, cudaError_t* err) {
-  static bool opted[2][5] = {};
+// to the full shared memory at its first use on device `dev`; nullptr if
+// there is none.
+const void* kernel_for(int code_bytes, int v, int dev, cudaError_t* err) {
+  static bool opted[repro_dev::kMaxDevices][2][5] = {};
   const void* kernel = nullptr;
   const int c = code_bytes == 4;
   if (code_bytes == 1 || code_bytes == 4) switch (v) {
@@ -233,11 +235,11 @@ const void* kernel_for(int code_bytes, int v, cudaError_t* err) {
                          : (const void*)pq_scan_kernel<uint8_t, 4>; break;
     }
   *err = kernel ? cudaSuccess : cudaErrorInvalidValue;
-  if (kernel && !opted[c][v]) {
+  if (kernel && !opted[dev][c][v]) {
     *err = cudaFuncSetAttribute(kernel,
                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
                                 kSmemLimit);
-    opted[c][v] = *err == cudaSuccess;
+    opted[dev][c][v] = *err == cudaSuccess;
   }
   return *err == cudaSuccess ? kernel : nullptr;
 }
@@ -255,11 +257,12 @@ struct Plan {
 // vectors, a batch ahead; any other row one at a time. The LUT comes by bulk
 // copy when its size is a multiple of 16 bytes and its barrier fits beside
 // it. The grid is as many blocks as fit, and no more than batches; the
-// blocks that fit are asked once per kernel and shared-memory size.
+// blocks that fit are asked once per device, kernel and shared-memory size.
 cudaError_t make_plan(long long n, int m, int k, int code_bytes, bool aligned,
                       Plan* p) {
-  static int sms = 0;
-  static int fit_smem[2][5] = {}, fit[2][5] = {};
+  constexpr int kDevs = repro_dev::kMaxDevices;
+  static int sms[kDevs] = {};
+  static int fit_smem[kDevs][2][5] = {}, fit[kDevs][2][5] = {};
   const int row = m * code_bytes, lut = m * k * 4;
   const int v = row / 16;
   p->v = aligned && row % 16 == 0 && (v == 1 || v == 2 || v == 4) ? v : 0;
@@ -269,28 +272,27 @@ cudaError_t make_plan(long long n, int m, int k, int code_bytes, bool aligned,
   p->batch = kThreads * rows_a_thread(p->v);
   if (n < 1 || m < 1 || k < 1 || p->smem > kSmemLimit)
     return cudaErrorInvalidValue;
-  cudaError_t err;
-  p->kernel = kernel_for(code_bytes, p->v, &err);
+  int dev = 0;
+  cudaError_t err = repro_dev::current(&dev);
+  if (err) return err;
+  p->kernel = kernel_for(code_bytes, p->v, dev, &err);
   if (!p->kernel) return err;
-  if (sms == 0) {
-    int dev = 0;
-    if ((err = cudaGetDevice(&dev))) return err;
-    if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                      dev)))
-      return err;
-  }
+  if (sms[dev] == 0 &&
+      (err = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount,
+                                    dev)))
+    return err;
   const int c = code_bytes == 4;
-  if (fit_smem[c][p->v] != p->smem) {
+  if (fit_smem[dev][c][p->v] != p->smem) {
     int blocks = 0;
     if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
              &blocks, p->kernel, kThreads, p->smem)))
       return err;
     if (blocks < 1) return cudaErrorInvalidConfiguration;
-    fit[c][p->v] = blocks;
-    fit_smem[c][p->v] = p->smem;
+    fit[dev][c][p->v] = blocks;
+    fit_smem[dev][c][p->v] = p->smem;
   }
   const long long batches = (n + p->batch - 1) / p->batch;
-  const long long most = (long long)sms * fit[c][p->v];
+  const long long most = (long long)sms[dev] * fit[dev][c][p->v];
   p->grid = (int)(batches < most ? batches : most);
   return cudaSuccess;
 }

@@ -75,10 +75,10 @@ def decode_attention(q, k_cache, v_cache, lengths, *,
     if b == 0:
         return out
     scratch = _build.decode_scratch(b * nh, S, d, dev)
-    err = _entry()(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-                   lengths.data_ptr(), out.data_ptr(), scratch.data_ptr(), b,
-                   S, nh, kvh, d, float(scale),
-                   torch.cuda.current_stream(dev).cuda_stream)
+    with _build.launching(dev) as stream:
+        err = _entry()(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+                       lengths.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+                       b, S, nh, kvh, d, float(scale), stream)
     _build.check(err, "decode_attention")
     launches += 1
     return out

@@ -54,9 +54,10 @@ def flash_attention(q, k, v, *, causal: bool = True,
     out = torch.empty_like(q)
     if b == 0 or s == 0 or t == 0:       # no keys: the plain version's 0
         return out.zero_()
-    err = _entry()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                   b, s, t, nh, kvh, d, int(causal), float(scale),
-                   torch.cuda.current_stream(q.device).cuda_stream)
+    with _build.launching(q.device) as stream:
+        err = _entry()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                       out.data_ptr(), b, s, t, nh, kvh, d, int(causal),
+                       float(scale), stream)
     _build.check(err, "flash_attention")
     launches += 1
     return out

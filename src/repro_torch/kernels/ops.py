@@ -4,7 +4,9 @@ on the tensor's device.
 A CUDA tensor launches the hand-written kernel (``flash_attention.py``,
 ``decode_attention.py``, ``paged_attention.py``,
 ``paged_chunk_attention.py``, ``pq_scan.py``), which
-raises on a shape or dtype it does not take; there is no fallback. A CPU
+raises on a shape or dtype it does not take; there is no fallback. Each
+launches with its tensors' device current (``_build.launching``), so a
+kernel runs on whichever card of the host holds its inputs. A CPU
 tensor takes the plain PyTorch version in ``ref.py``, including the chunked
 form for long sequences that ``repro.kernels.ops`` takes off-TPU.
 

@@ -91,11 +91,12 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths, *,
     scale = d ** -0.5 if scale is None else scale
     bt, mb = k_pool.shape[1], tabs.shape[1]
     scratch = _build.decode_scratch(b * nh, mb * bt, d, q.device)
-    err = _entry("paged_decode_attention_bf16", 6)(
-        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), tabs.data_ptr(),
-        lens.data_ptr(), out.data_ptr(), scratch.data_ptr(), b, nh,
-        k_pool.shape[2], d, bt, mb, float(scale),
-        torch.cuda.current_stream(q.device).cuda_stream)
+    with _build.launching(q.device) as stream:
+        err = _entry("paged_decode_attention_bf16", 6)(
+            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+            tabs.data_ptr(), lens.data_ptr(), out.data_ptr(),
+            scratch.data_ptr(), b, nh, k_pool.shape[2], d, bt, mb,
+            float(scale), stream)
     _build.check(err, "paged_decode_attention")
     launches += 1
     return out
@@ -115,11 +116,12 @@ def paged_verify_attention(q, k_pool, v_pool, block_tables, lengths, *,
     scale = d ** -0.5 if scale is None else scale
     bt, mb = k_pool.shape[1], tabs.shape[1]
     scratch = _build.decode_scratch(b * s * nh, mb * bt, d, q.device)
-    err = _entry("paged_verify_attention_bf16", 7)(
-        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), tabs.data_ptr(),
-        lens.data_ptr(), out.data_ptr(), scratch.data_ptr(), b, s, nh,
-        k_pool.shape[2], d, bt, mb, float(scale),
-        torch.cuda.current_stream(q.device).cuda_stream)
+    with _build.launching(q.device) as stream:
+        err = _entry("paged_verify_attention_bf16", 7)(
+            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+            tabs.data_ptr(), lens.data_ptr(), out.data_ptr(),
+            scratch.data_ptr(), b, s, nh, k_pool.shape[2], d, bt, mb,
+            float(scale), stream)
     _build.check(err, "paged_verify_attention")
     verify_launches += 1
     return out

@@ -80,10 +80,11 @@ def paged_chunk_attention(q, k_pool, v_pool, block_tables, lengths, *,
     out = torch.empty_like(q)
     if b == 0 or s == 0:
         return out
-    err = _entry()(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-                   tabs.data_ptr(), lens.data_ptr(), out.data_ptr(), b, s,
-                   nh, kvh, d, bt, tabs.shape[1], nb, float(scale),
-                   torch.cuda.current_stream(dev).cuda_stream)
+    with _build.launching(dev) as stream:
+        err = _entry()(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+                       tabs.data_ptr(), lens.data_ptr(), out.data_ptr(), b,
+                       s, nh, kvh, d, bt, tabs.shape[1], nb, float(scale),
+                       stream)
     _build.check(err, "paged_chunk_attention")
     launches += 1
     return out

@@ -55,8 +55,10 @@ def plan(codes: torch.Tensor, lut: torch.Tensor,
     fn.restype = ctypes.c_int
     out = (ctypes.c_int * len(PLAN_FIELDS))()
     (n, m), k = codes.shape, lut.shape[1]
-    _build.check(fn(n, m, k, CODE_BYTES[codes.dtype],
-                    int(codes.data_ptr() % 16 == 0), out), "pq_scan plan")
+    with _build.launching(codes.device):
+        err = fn(n, m, k, CODE_BYTES[codes.dtype],
+                 int(codes.data_ptr() % 16 == 0), out)
+    _build.check(err, "pq_scan plan")
     return dict(zip(PLAN_FIELDS, out))
 
 
@@ -86,9 +88,9 @@ def pq_scan(codes, lut) -> torch.Tensor:
     (n, m), k = codes.shape, lut.shape[1]
     lut = _build.aligned(lut)
     out = torch.empty(n, dtype=torch.float32, device=codes.device)
-    err = _entry()(codes.data_ptr(), CODE_BYTES[codes.dtype], lut.data_ptr(),
-                   out.data_ptr(), n, m, k,
-                   torch.cuda.current_stream(codes.device).cuda_stream)
+    with _build.launching(codes.device) as stream:
+        err = _entry()(codes.data_ptr(), CODE_BYTES[codes.dtype],
+                       lut.data_ptr(), out.data_ptr(), n, m, k, stream)
     _build.check(err, "pq_scan")
     launches += 1
     return out

@@ -1,8 +1,8 @@
 """PyTorch port on the card: each CUDA kernel against its plain PyTorch
 version, the two bitwise contracts between the decode-shaped kernels, the
 chunk kernel's rows against the flash kernel's, and the paths through the
-kernels (the paged, chunked, dense slot and speculative engines, and the
-RAG retrieval scan).
+kernels (the paged, chunked, dense slot and speculative engines, the
+disaggregated prefill/decode workers and the RAG retrieval scan).
 
 Every test here needs an NVIDIA card and carries the ``cuda`` marker; it
 skips (in a fixture) without one. The file imports neither JAX nor
@@ -16,6 +16,7 @@ import torch
 
 from repro_torch.configs import gemma_2b, guard_2b
 from repro_torch.engine.core import Engine, EngineConfig, SlotEngine
+from repro_torch.engine.workers import DisaggEngine
 from repro_torch.kernels import _build
 from repro_torch.kernels import decode_attention as tda
 from repro_torch.kernels import flash_attention as tfa
@@ -25,6 +26,7 @@ from repro_torch.kernels import paged_chunk_attention as tpca
 from repro_torch.kernels import pq_scan as tpq
 from repro_torch.kernels import ref
 from repro_torch.launch import rag
+from repro_torch.models import transformer as ttf
 
 pytestmark = pytest.mark.cuda
 
@@ -504,3 +506,80 @@ def test_launch_rag_on_the_card_runs_through_the_kernel(cuda):
     assert tpq.launches == n0 + 1
     codes, lut = rag.make_inputs(20000, 16, 256, seed=0, device=cuda)
     assert ids == rag.nearest(ref.pq_scan(codes, lut))
+
+
+def _perturbed_params(cfg, device, seed):
+    """Seeded weights with every leaf perturbed (the init zeroes the output
+    projections, which would make the output ignore attention)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    params = ttf.init_model(cfg, gen, device)
+
+    def walk(tree):
+        for v in tree.values():
+            if isinstance(v, dict):
+                walk(v)
+            else:
+                noise = torch.randn(v.shape, generator=gen, device=device)
+                v.add_((noise * 0.1).to(v.dtype))
+    walk(params)
+    return params
+
+
+def _disagg_case(cuda):
+    cfg = gemma_2b.reduced()
+    rng = np.random.default_rng(6)
+    prompts = [rng.integers(0, 512, n).astype(np.int32)
+               for n in (12, 30, 7, 41)]
+    params = _perturbed_params(cfg, cuda, 6)
+    geom = dict(max_batch=2, max_len=64, block_tokens=16)
+    eng = Engine(cfg, params=params, device=cuda, **geom)
+    for p in prompts:
+        eng.submit(p, max_new_tokens=6)
+    want = {r.rid: r.tokens for r in eng.run()}
+    return cfg, params, prompts, geom, want
+
+
+def _serve_disagg(eng, prompts):
+    for p in prompts:
+        eng.submit(p, max_new_tokens=6)
+    return {r.rid: r.tokens for r in eng.run()}
+
+
+@pytest.mark.parametrize("cuda_graphs", [True, False])
+def test_disagg_streams_equal_paged_engine(cuda, cuda_graphs):
+    """Reduced Gemma-2B in bf16 on the card: one prefill and two decode
+    workers (local and global, full and layerwise handoffs) and a chunked
+    prefill worker give the paged Engine's streams, through flash, the
+    chunk kernel and paged decode; layerwise handoffs time one sample per
+    layer."""
+    cfg, params, prompts, geom, want = _disagg_case(cuda)
+    n0 = (tfa.launches, tpa.launches, tpca.launches)
+    for kw in (dict(n_decode=2, mode="local", granularity="full"),
+               dict(n_decode=2, mode="global", granularity="layerwise"),
+               dict(granularity="layerwise",
+                    config=EngineConfig(chunk_size=16))):
+        eng = DisaggEngine(cfg, params, device=cuda, cuda_graphs=cuda_graphs,
+                           **geom, **kw)
+        assert _serve_disagg(eng, prompts) == want
+        ts = eng.transfer_stats()
+        assert ts["handoffs"] == len(prompts)
+        per = cfg.num_layers if ts["granularity"] == "layerwise" else 1
+        assert len(ts["samples"]) == per * ts["handoffs"]
+        assert ts["exposed_s"] <= ts["total_s"]
+        assert all((p.graph is not None) == cuda_graphs
+                   for p in eng.passes().values())
+    assert tfa.launches > n0[0] and tpa.launches > n0[1] \
+        and tpca.launches > n0[2]
+
+
+def test_disagg_handoff_between_two_cards(cuda):
+    """With two or more cards the roles take cards of their own: the
+    handoff is a copy between cards and the streams stay the paged
+    Engine's."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards for a handoff between cards")
+    cfg, params, prompts, geom, want = _disagg_case(cuda)
+    eng = DisaggEngine(cfg, params, device=cuda, **geom)
+    assert eng.prefill[0].device != eng.decode[0].device
+    assert _serve_disagg(eng, prompts) == want
+    assert eng.transfer_stats()["cross_device"]

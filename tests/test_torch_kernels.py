@@ -392,3 +392,80 @@ def test_split_merge_emulation_verify_equals_decode_exactly():
     for j in range(s):
         assert torch.equal(ver[:, j:j + 1],
                            _emulate(q[:, j:j + 1], k, v, lens + j + 1)), j
+
+
+# ---------------------------------------------------------------------------
+# every wrapper launches with its tensors' device current
+# ---------------------------------------------------------------------------
+
+def test_wrappers_launch_under_their_tensors_device(monkeypatch):
+    """Each kernel wrapper calls its C entry inside ``torch.cuda.device``
+    of its first tensor's device and passes that device's current stream
+    (``_build.launching``), so a kernel launches on whichever card holds its
+    inputs. Checked on the CPU by patching the CUDA calls and the entries:
+    nothing launches."""
+    from repro_torch.kernels import paged_chunk_attention as tpca
+    from repro_torch.kernels import pq_scan as tpq
+    current: list = []
+    streams: list = []
+
+    class Scope:
+        def __init__(self, device):
+            self.device = device
+
+        def __enter__(self):
+            current.append(self.device)
+
+        def __exit__(self, *exc):
+            current.pop()
+
+    class Stream:
+        def __init__(self, device):
+            self.cuda_stream = 4242
+            streams.append(device)
+
+    calls: list = []
+
+    def entry(*args):
+        calls.append((list(current), args[-1]))
+        return 0
+
+    monkeypatch.setattr(torch.cuda, "device", Scope)
+    monkeypatch.setattr(torch.cuda, "current_stream", Stream)
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda t: True))
+    for mod in (tfa, tda, tpa, tpca, tpq):
+        monkeypatch.setattr(mod, "_entry", lambda *a: entry)
+        monkeypatch.setattr(mod, "launches", mod.launches)
+    monkeypatch.setattr(tpa, "verify_launches", tpa.verify_launches)
+
+    rng = np.random.default_rng(2)
+    bf = lambda *s: torch.tensor(rng.standard_normal(s),  # noqa: E731
+                                 dtype=torch.bfloat16)
+    i32 = lambda a: torch.tensor(a, dtype=torch.int32)  # noqa: E731
+    q, k = bf(1, 4, 2, 16), bf(1, 4, 1, 16)
+    pool, tab, lens = bf(5, 8, 1, 16), i32([[0, 1], [2, 3]]), i32([5, 9])
+    codes = torch.tensor(rng.integers(0, 16, (33, 8)), dtype=torch.uint8)
+    lut = torch.tensor(rng.standard_normal((8, 16)), dtype=torch.float32)
+    runs = [
+        lambda: tfa.flash_attention(q, k, k),
+        lambda: tda.decode_attention(bf(2, 1, 2, 16), bf(2, 9, 1, 16),
+                                     bf(2, 9, 1, 16), lens),
+        lambda: tpa.paged_decode_attention(bf(2, 1, 2, 16), pool, pool, tab,
+                                           lens),
+        lambda: tpa.paged_verify_attention(bf(2, 3, 2, 16), pool, pool, tab,
+                                           lens),
+        lambda: tpca.paged_chunk_attention(bf(2, 4, 2, 16), pool, pool, tab,
+                                           lens),
+        lambda: tpq.pq_scan(codes, lut),
+    ]
+    for run in runs:
+        run()
+        assert calls[-1] == ([torch.device("cpu")], 4242)
+        assert streams[-1] == torch.device("cpu") and current == []
+    assert len(calls) == len(runs)
+
+    def plan_entry(*args):
+        calls.append((list(current), None))
+        return 0
+    tpq.plan(codes, lut, lib=type("Lib", (), {"pq_scan_plan": plan_entry}))
+    assert calls[-1] == ([torch.device("cpu")], None)
