@@ -3,7 +3,9 @@
 Each architecture lives in its own module (``<arch>.py``) exposing ``CONFIG``
 (the exact published config) and ``reduced()`` (a tiny same-family config for
 CPU tests). Only the architectures whose serving path the port runs are
-registered; the others arrive with their slices.
+registered: the dense GQA decoders and the vlm on its text path (its
+prefill also takes the stub frontend's embeddings); MLA, MoE and the
+recurrent and audio families arrive with their slices.
 """
 from __future__ import annotations
 
@@ -22,7 +24,8 @@ from repro_torch.configs.base import (  # noqa: F401
     applicable_shapes,
 )
 
-ARCH_IDS = ("gemma_2b", "guard_2b")
+ARCH_IDS = ("gemma_2b", "guard_2b", "llama3_70b", "internlm2_20b",
+            "nemotron_4_340b", "pixtral_12b")
 
 
 def _norm(arch: str) -> str:

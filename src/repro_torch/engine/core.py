@@ -104,8 +104,8 @@ class EngineConfig:
     tokens per row, verifies them in one target pass and commits the
     longest matching prefix plus the bonus token.
 
-    * ``draft_cfg`` — config of the draft model (dense GQA, the target's
-      vocabulary). None disables speculation.
+    * ``draft_cfg`` — config of the draft model (GQA, dense or vlm, the
+      target's vocabulary). None disables speculation.
     * ``spec_k`` — draft tokens proposed per iteration (0 disables).
     * ``draft_seed`` — seed of the draft parameters when the engine is not
       handed ``draft_params``.
@@ -139,6 +139,13 @@ class EngineRequest:
     # decode-phase
     ctx: Optional[np.ndarray] = None
     prefilled: int = 0
+
+    @property
+    def itl(self) -> List[float]:
+        """Inter-token latencies (seconds) between consecutive streamed
+        tokens — the per-request tail-latency surface the chunked scheduler
+        is tuned against."""
+        return [b - a for a, b in zip(self.token_times, self.token_times[1:])]
 
     @property
     def ttft(self):
@@ -1003,11 +1010,12 @@ def paged_supported(cfg: ModelConfig) -> bool:
 
 
 def make_engine(cfg: ModelConfig, **kw) -> Engine:
-    """The paged ``Engine`` for the configs the port serves (dense GQA).
-    The JAX package hands MLA and the recurrent families to the dense
-    ``SlotEngine``; the port's ``SlotEngine`` serves only the dense GQA
-    family, so those configs raise here, naming the slice that brings
-    them."""
+    """The paged ``Engine`` for the configs the port serves (GQA attention
+    in the dense and vlm families; the vlm on its text path, as the JAX
+    ``Engine`` serves it). The JAX package hands MLA and the recurrent
+    families to the dense ``SlotEngine``; the port's ``SlotEngine`` serves
+    the same families as its ``Engine``, so those configs raise here, as
+    do MoE and audio, naming the slice that brings them."""
     if not paged_supported(cfg):
         raise NotImplementedError(
             f"{cfg.name}: MLA and the recurrent families need their own "

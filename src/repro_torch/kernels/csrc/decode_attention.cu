@@ -26,6 +26,7 @@ using namespace repro_attn;
 
 namespace {
 
+template <bool kHalf>
 __global__ void __launch_bounds__(kThreads) decode_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k_cache,
     const bf16* __restrict__ v_cache, const int* __restrict__ lengths,
@@ -36,7 +37,7 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(
   const int len = min(lengths[bi], S);
   const int row0 = bi * nh + kh * g;
   const long tok0 = (long)bi * S;
-  decode_split_block(
+  decode_split_block<kHalf>(
       q, k_cache, v_cache, part_acc, part_ml, d, g, blockIdx.z, nsplit, S,
       len,
       [=](int i) { return row0 + i; }, [=](int) { return len; },
@@ -51,7 +52,7 @@ extern "C" int decode_attention_smem_bytes(int d) {
 }
 
 // q (b, 1, nh, d); k_cache/v_cache (b, S, kvh, d); lengths (b,) int32 (may
-// exceed S: read as S); out (b, 1, nh, d). bf16, contiguous; d % 16 == 0,
+// exceed S: read as S); out (b, 1, nh, d). bf16, contiguous; d % 8 == 0,
 // d <= 256, nh / kvh <= 16 (the Python wrapper checks). scratch:
 // b·nh·n_splits(S)·(d + 2) fp32. Launches the split kernel and the merge;
 // returns the CUDA error (0 = cudaSuccess).
@@ -61,8 +62,10 @@ extern "C" int decode_attention_bf16(const void* q, const void* k_cache,
                                      int nh, int kvh, int d, float scale,
                                      void* stream) {
   const int smem = decode_smem_bytes(d);
-  static int granted[repro_dev::kMaxDevices] = {};
-  if (int err = repro_dev::grant_smem(decode_kernel, smem, granted))
+  const bool half = d % 16 != 0;  // Q K^T ends on a half k16 step
+  const auto kernel = half ? decode_kernel<true> : decode_kernel<false>;
+  static int granted[2][repro_dev::kMaxDevices] = {};
+  if (int err = repro_dev::grant_smem(kernel, smem, granted[half]))
     return err;
   const cudaStream_t st = (cudaStream_t)stream;
   const int nsplit = n_splits(S);
@@ -70,7 +73,7 @@ extern "C" int decode_attention_bf16(const void* q, const void* k_cache,
   float* acc = static_cast<float*>(scratch);
   float2* ml = part_ml_of(scratch, rows, nsplit, d);
   if (nsplit > 0) {
-    decode_kernel<<<dim3(b, kvh, nsplit), kThreads, smem, st>>>(
+    kernel<<<dim3(b, kvh, nsplit), kThreads, smem, st>>>(
         (const bf16*)q, (const bf16*)k_cache, (const bf16*)v_cache,
         (const int*)lengths, acc, ml, S, nh, kvh, d, nsplit, scale);
     if (int err = (int)cudaGetLastError()) return err;

@@ -40,6 +40,10 @@
 //    (m stays, alpha = 1, P = 0), and a masked position inside a live chunk
 //    adds exactly 0·V whether its V row was loaded or zero-filled; a split
 //    wholly past a row's length is neither written nor merged for it.
+// Head dims: d % 8 == 0, d <= 256. Token rows move in 16-byte pieces (d / 8
+// of them) and P·V in n8 output tiles, both in units of 8 columns; Q K^T
+// steps 16 columns at a time, so at d % 16 == 8 its last step covers the
+// 8 zeroed pad columns of each shared-memory row.
 // Numerics: bf16 x bf16 scores accumulated in fp32, fp32 softmax, bf16
 // probabilities into P·V with fp32 accumulation, fp32 merge, normalised at
 // the end.
@@ -88,8 +92,10 @@ inline int decode_smem_bytes(int d) {
 // part_acc. k, v: token rows of d elements; kv_of(p) is the row index of
 // token p (< cap). len_of(i): row i attends to tokens < len_of(i) <=
 // len_max <= cap. Rows n_valid..15 are padding and write nothing; so does a
-// row whose length ends at or before the split's first token.
-template <class RowOf, class LenOf, class KvOf>
+// row whose length ends at or before the split's first token. kHalf:
+// d % 16 == 8, whose Q K^T ends on a half step (each kernel has both
+// builds and its C entry picks one, so d % 16 == 0 compiles without it).
+template <bool kHalf, class RowOf, class LenOf, class KvOf>
 __device__ __forceinline__ void decode_split_block(
     const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* __restrict__ v, float* __restrict__ part_acc,
@@ -130,7 +136,10 @@ __device__ __forceinline__ void decode_split_block(
   const int gid = lane >> 2, tig = lane & 3;
   const int pieces = d / 8;  // 16-byte pieces of one row (<= 32)
   const int n_dt = d / 8;
-  const int n_ks = d / 16;
+  // k16 steps of Q K^T; at d % 16 == 8 (kHalf) the last one reads
+  // columns d..d+7, the row pad (ld = d + kPad, kPad = 8), zeroed below in
+  // Q and in every K stage so that they add exactly 0
+  const int n_ks = kHalf ? d / 16 + 1 : d / 16;
 
   // the valid query rows; rows n_valid..15 are zero padding
   for (int i = tid; i < kRows * pieces; i += kThreads) {
@@ -150,6 +159,13 @@ __device__ __forceinline__ void decode_split_block(
     sM[tid] = kNegInf;
     sL[tid] = 0.f;
     sLen[tid] = tid < n_valid ? len_of(tid) : 0;
+  }
+  if constexpr (kHalf) {
+    // the pad columns of the Q rows and of each stage's K rows (which
+    // follow Q contiguously); no copy writes them
+    static_assert(kPad == 8, "the last k16 step reads 8 pad columns");
+    for (int r = tid; r < kRows + kStages * kChunk; r += kThreads)
+      *reinterpret_cast<uint4*>(sQ + r * ld + d) = make_uint4(0, 0, 0, 0);
   }
   __syncthreads();
 

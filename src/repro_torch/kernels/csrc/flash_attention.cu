@@ -28,7 +28,9 @@
 //   128 consumer threads), so the next tile's copy runs under this tile's
 //   products. Rows past t and columns past d arrive as TMA's zero fill:
 //   nothing outside the tensors is read, zero columns add exactly 0 to
-//   Q K^T and are never stored.
+//   Q K^T and are never stored. Any d % 8 == 0 up to 256 works: a row is
+//   then d·2 bytes, a multiple of the 16 that TMA needs of every stride,
+//   and the epilogue's bf16 pairs stop at column d - 2.
 // - Only the diagonal tile and the ragged last tile are masked. The block
 //   order puts the q tiles with the most kv tiles first.
 //
@@ -386,7 +388,7 @@ extern "C" int flash_attention_smem_bytes(int d) {
 }
 
 // q (b, s, nh, d), k/v (b, t, kvh, d), o (b, s, nh, d); all bf16, contiguous,
-// 16-byte aligned. d % 16 == 0, d <= 256, nh % kvh == 0 (the Python wrapper
+// 16-byte aligned. d % 8 == 0, d <= 256, nh % kvh == 0 (the Python wrapper
 // checks). Returns the CUDA error of the launch (0 = cudaSuccess).
 extern "C" int flash_attention_bf16(const void* q, const void* k,
                                     const void* v, void* o, int b, int s,
@@ -404,7 +406,7 @@ extern "C" int flash_attention_bf16(const void* q, const void* k,
 // Chunked-prefill attention over paged K/V: q (b, s, nh, d), pools k/v
 // (num_pages, bt, kvh, d), tables (b, mb) int32 of valid page ids, lengths
 // (b,) int32, o (b, s, nh, d); query j of row i sees pooled positions
-// <= lengths[i] + j. bf16, contiguous, 16-byte aligned; d % 16 == 0,
+// <= lengths[i] + j. bf16, contiguous, 16-byte aligned; d % 8 == 0,
 // d <= 256, nh % kvh == 0, bt in {8, 16, 32, 64} (the Python wrapper
 // checks). Returns the CUDA error of the launch (0 = cudaSuccess).
 extern "C" int paged_chunk_attention_bf16(const void* q, const void* k,

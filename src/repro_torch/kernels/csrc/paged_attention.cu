@@ -40,6 +40,7 @@ using namespace repro_attn;
 
 namespace {
 
+template <bool kHalf>
 __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k_pool,
     const bf16* __restrict__ v_pool, const int* __restrict__ tables,
@@ -51,7 +52,7 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
   const int len = min(lengths[bi], mb * bt);
   const int* tab = tables + (long)bi * mb;
   const int row0 = bi * nh + kh * g;
-  decode_split_block(
+  decode_split_block<kHalf>(
       q, k_pool, v_pool, part_acc, part_ml, d, g, blockIdx.z, nsplit, mb * bt,
       len,
       [=](int i) { return row0 + i; }, [=](int) { return len; },
@@ -62,6 +63,7 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
 // Row r of the flattened (position-major) s·g query rows of a kv head is
 // draft position j = r / g, query head kh·g + r % g; it attends to pooled
 // positions < lengths + j + 1. Grid axis z is tile · nsplit + split.
+template <bool kHalf>
 __global__ void __launch_bounds__(kThreads) paged_verify_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k_pool,
     const bf16* __restrict__ v_pool, const int* __restrict__ tables,
@@ -77,7 +79,7 @@ __global__ void __launch_bounds__(kThreads) paged_verify_kernel(
   const int base = lengths[bi];
   const int len_max = min(base + (r0 + n_valid - 1) / g + 1, cap);
   const int* tab = tables + (long)bi * mb;
-  decode_split_block(
+  decode_split_block<kHalf>(
       q, k_pool, v_pool, part_acc, part_ml, d, n_valid,
       blockIdx.z - tile * nsplit, nsplit, cap, len_max,
       [=](int i) {
@@ -98,7 +100,7 @@ extern "C" int paged_decode_attention_smem_bytes(int d) {
 
 // q (b, 1, nh, d); k_pool/v_pool (num_pages, bt, kvh, d); tables (b, mb) int32
 // (every entry a valid page); lengths (b,) int32; out (b, 1, nh, d). bf16,
-// contiguous; d % 16 == 0, d <= 256, nh / kvh <= 16 (the Python wrapper
+// contiguous; d % 8 == 0, d <= 256, nh / kvh <= 16 (the Python wrapper
 // checks). scratch: b·nh·n_splits(mb·bt)·(d + 2) fp32. Launches the split
 // kernel and the merge; returns the CUDA error (0 = cudaSuccess).
 extern "C" int paged_decode_attention_bf16(const void* q, const void* k_pool,
@@ -109,8 +111,11 @@ extern "C" int paged_decode_attention_bf16(const void* q, const void* k_pool,
                                            int kvh, int d, int bt, int mb,
                                            float scale, void* stream) {
   const int smem = decode_smem_bytes(d);
-  static int granted[repro_dev::kMaxDevices] = {};
-  if (int err = repro_dev::grant_smem(paged_decode_kernel, smem, granted))
+  const bool half = d % 16 != 0;  // Q K^T ends on a half k16 step
+  const auto kernel = half ? paged_decode_kernel<true>
+                            : paged_decode_kernel<false>;
+  static int granted[2][repro_dev::kMaxDevices] = {};
+  if (int err = repro_dev::grant_smem(kernel, smem, granted[half]))
     return err;
   const cudaStream_t st = (cudaStream_t)stream;
   const int nsplit = n_splits(mb * bt);
@@ -118,7 +123,7 @@ extern "C" int paged_decode_attention_bf16(const void* q, const void* k_pool,
   float* acc = static_cast<float*>(scratch);
   float2* ml = part_ml_of(scratch, rows, nsplit, d);
   if (nsplit > 0) {
-    paged_decode_kernel<<<dim3(b, kvh, nsplit), kThreads, smem, st>>>(
+    kernel<<<dim3(b, kvh, nsplit), kThreads, smem, st>>>(
         (const bf16*)q, (const bf16*)k_pool, (const bf16*)v_pool,
         (const int*)tables, (const int*)lengths, acc, ml, nh, kvh, d, bt, mb,
         nsplit, scale);
@@ -140,8 +145,11 @@ extern "C" int paged_verify_attention_bf16(const void* q, const void* k_pool,
                                            int mb, float scale,
                                            void* stream) {
   const int smem = decode_smem_bytes(d);
-  static int granted[repro_dev::kMaxDevices] = {};
-  if (int err = repro_dev::grant_smem(paged_verify_kernel, smem, granted))
+  const bool half = d % 16 != 0;  // Q K^T ends on a half k16 step
+  const auto kernel = half ? paged_verify_kernel<true>
+                            : paged_verify_kernel<false>;
+  static int granted[2][repro_dev::kMaxDevices] = {};
+  if (int err = repro_dev::grant_smem(kernel, smem, granted[half]))
     return err;
   const cudaStream_t st = (cudaStream_t)stream;
   const int g = nh / kvh;
@@ -151,7 +159,7 @@ extern "C" int paged_verify_attention_bf16(const void* q, const void* k_pool,
   float* acc = static_cast<float*>(scratch);
   float2* ml = part_ml_of(scratch, rows, nsplit, d);
   if (nsplit > 0) {
-    paged_verify_kernel<<<dim3(b, kvh, tiles * nsplit), kThreads, smem, st>>>(
+    kernel<<<dim3(b, kvh, tiles * nsplit), kThreads, smem, st>>>(
         (const bf16*)q, (const bf16*)k_pool, (const bf16*)v_pool,
         (const int*)tables, (const int*)lengths, acc, ml, s, nh, kvh, d, bt,
         mb, nsplit, scale);

@@ -46,7 +46,7 @@ def _entry():
 def decode_attention(q, k_cache, v_cache, lengths, *,
                      scale: Optional[float] = None) -> torch.Tensor:
     """See the module docstring. bf16 q/caches, int32 lengths, all CUDA
-    tensors on one device; d % 16 == 0, d <= 256, nh // kvh <= 16."""
+    tensors on one device; d % 8 == 0, d <= 256, nh // kvh <= 16."""
     global launches
     b, one, nh, d = q.shape
     S, kvh = k_cache.shape[1], k_cache.shape[2]
@@ -61,13 +61,13 @@ def decode_attention(q, k_cache, v_cache, lengths, *,
         raise ValueError("decode_attention kernel takes int32 lengths")
     if (one != 1 or k_cache.shape != (b, S, kvh, d)
             or v_cache.shape != (b, S, kvh, d) or nh % kvh
-            or nh // kvh > 16 or d % 16 or d > 256
+            or nh // kvh > 16 or d % 8 or d > 256
             or lengths.shape != (b,)):
         raise ValueError(
             f"decode_attention kernel: unsupported shapes q={tuple(q.shape)}"
             f" k_cache={tuple(k_cache.shape)} v_cache="
             f"{tuple(v_cache.shape)} lengths={tuple(lengths.shape)} (needs "
-            f"dq == dv, d % 16 == 0, d <= 256, nh // kvh <= 16)")
+            f"dq == dv, d % 8 == 0, d <= 256, nh // kvh <= 16)")
     scale = d ** -0.5 if scale is None else scale
     q, k_cache, v_cache = (_build.aligned(x) for x in (q, k_cache, v_cache))
     lengths = lengths.contiguous()

@@ -33,7 +33,7 @@ def _entry():
 def flash_attention(q, k, v, *, causal: bool = True,
                     scale: Optional[float] = None) -> torch.Tensor:
     """q: (b, s, nh, d), k/v: (b, t, kvh, d), bf16 CUDA tensors on one
-    device; d % 16 == 0, d <= 256, nh % kvh == 0. Returns (b, s, nh, d)."""
+    device; d % 8 == 0, d <= 256, nh % kvh == 0. Returns (b, s, nh, d)."""
     global launches
     b, s, nh, d = q.shape
     t, kvh = k.shape[1], k.shape[2]
@@ -44,10 +44,10 @@ def flash_attention(q, k, v, *, causal: bool = True,
         raise ValueError(f"flash_attention kernel takes bf16, got "
                          f"{q.dtype}/{k.dtype}/{v.dtype}")
     if (k.shape != (b, t, kvh, d) or v.shape != (b, t, kvh, d)
-            or nh % kvh or d % 16 or d > 256):
+            or nh % kvh or d % 8 or d > 256):
         raise ValueError(f"flash_attention kernel: unsupported shapes "
                          f"q={tuple(q.shape)} k={tuple(k.shape)} "
-                         f"v={tuple(v.shape)} (needs dq == dv, d % 16 == 0, "
+                         f"v={tuple(v.shape)} (needs dq == dv, d % 8 == 0, "
                          f"d <= 256, nh % kvh == 0)")
     scale = d ** -0.5 if scale is None else scale
     q, k, v = _build.aligned(q), _build.aligned(k), _build.aligned(v)

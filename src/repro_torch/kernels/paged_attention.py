@@ -60,14 +60,14 @@ def _check(what, q, k_pool, v_pool, block_tables, lengths):
                          "lengths")
     if (s < 1 or k_pool.shape != (nb, bt, kvh, d)
             or v_pool.shape != (nb, bt, kvh, d) or nh % kvh
-            or nh // kvh > 16 or d % 16 or d > 256
+            or nh // kvh > 16 or d % 8 or d > 256
             or block_tables.dim() != 2 or block_tables.shape[0] != b
             or lengths.shape != (b,)):
         raise ValueError(
             f"{what} kernel: unsupported shapes q={tuple(q.shape)} "
             f"k_pool={tuple(k_pool.shape)} v_pool={tuple(v_pool.shape)} "
             f"tables={tuple(block_tables.shape)} "
-            f"lengths={tuple(lengths.shape)} (needs dq == dv, d % 16 == 0, "
+            f"lengths={tuple(lengths.shape)} (needs dq == dv, d % 8 == 0, "
             f"d <= 256, nh // kvh <= 16)")
     q, k_pool, v_pool = (_build.aligned(x) for x in (q, k_pool, v_pool))
     return (q, k_pool, v_pool, block_tables.contiguous(),
@@ -77,7 +77,7 @@ def _check(what, q, k_pool, v_pool, block_tables, lengths):
 def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths, *,
                            scale: Optional[float] = None) -> torch.Tensor:
     """See the module docstring. bf16 q ``(b, 1, nh, d)`` and pools, int32
-    tables/lengths, all CUDA tensors on one device; d % 16 == 0, d <= 256,
+    tables/lengths, all CUDA tensors on one device; d % 8 == 0, d <= 256,
     nh // kvh <= 16."""
     global launches
     if q.dim() != 4 or q.shape[1] != 1:

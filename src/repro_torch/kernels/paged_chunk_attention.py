@@ -46,7 +46,7 @@ def _entry():
 def paged_chunk_attention(q, k_pool, v_pool, block_tables, lengths, *,
                           scale: Optional[float] = None) -> torch.Tensor:
     """See the module docstring. bf16 q and pools, int32 tables and
-    lengths, all CUDA tensors on one device; d % 16 == 0, d <= 256, nh %
+    lengths, all CUDA tensors on one device; d % 8 == 0, d <= 256, nh %
     kvh == 0, and bt one of 8, 16, 32, 64: each 64-row kv tile is 64 / bt
     page-sized TMA boxes, each landing on a 1024-byte swizzle period."""
     global launches
@@ -64,7 +64,7 @@ def paged_chunk_attention(q, k_pool, v_pool, block_tables, lengths, *,
         raise ValueError("paged_chunk_attention kernel takes int32 "
                          "block_tables and lengths")
     if (k_pool.shape != (nb, bt, kvh, d) or v_pool.shape != (nb, bt, kvh, d)
-            or nh % kvh or d % 16 or d > 256 or bt not in (8, 16, 32, 64)
+            or nh % kvh or d % 8 or d > 256 or bt not in (8, 16, 32, 64)
             or block_tables.dim() != 2 or block_tables.shape[0] != b
             or lengths.shape != (b,)):
         raise ValueError(
@@ -72,7 +72,7 @@ def paged_chunk_attention(q, k_pool, v_pool, block_tables, lengths, *,
             f"q={tuple(q.shape)} k_pool={tuple(k_pool.shape)} "
             f"v_pool={tuple(v_pool.shape)} "
             f"tables={tuple(block_tables.shape)} "
-            f"lengths={tuple(lengths.shape)} (needs dq == dv, d % 16 == 0, "
+            f"lengths={tuple(lengths.shape)} (needs dq == dv, d % 8 == 0, "
             f"d <= 256, nh % kvh == 0, block_tokens in 8/16/32/64)")
     scale = d ** -0.5 if scale is None else scale
     q, k_pool, v_pool = (_build.aligned(x) for x in (q, k_pool, v_pool))

@@ -1,7 +1,9 @@
-"""Serve a small model through the port's paged engine.
+"""Serve a small model through the port's paged engine: the reduced
+config of any registered architecture (``--arch``, one of
+``repro_torch.configs.ARCH_IDS``).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma_2b
-    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3_70b --device cpu
 
 Runs on the card by default, its fixed-shape passes replayed as CUDA
 graphs (``--eager`` runs them without capture); ``--device cpu`` runs the
@@ -14,13 +16,13 @@ import time
 
 import numpy as np
 
-from repro_torch.configs import get_reduced_config
+from repro_torch.configs import ARCH_IDS, get_reduced_config
 from repro_torch.engine.runner import make_engine
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="gemma_2b")
+    ap.add_argument("--arch", default="gemma_2b", choices=ARCH_IDS)
     ap.add_argument("--requests", type=int, default=12)
     ap.add_argument("--max-new", type=int, default=24)
     ap.add_argument("--max-batch", type=int, default=4)

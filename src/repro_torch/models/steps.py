@@ -13,11 +13,14 @@ from repro_torch.models import transformer as tf
 
 def prefill_step(params, batch: Dict, cfg: ModelConfig, max_len: int):
     """Full-sequence prefill into fresh ``max_len`` dense caches on the
-    tokens' device. Returns (last_logits, caches)."""
-    tokens = batch["tokens"]
-    caches = tf.init_cache(cfg, tokens.shape[0], max_len, tokens.device)
-    return tf.forward(params, cfg, tokens=tokens, mode="prefill",
-                      caches=caches)
+    inputs' device: ``batch["tokens"]``, or for a stub-frontend config
+    ``batch["embeds"]`` where given. Returns (last_logits, caches)."""
+    key = ("embeds" if cfg.stub_frontend and "embeds" in batch
+           else "tokens")
+    x = batch[key]
+    caches = tf.init_cache(cfg, x.shape[0], max_len, x.device)
+    return tf.forward(params, cfg, mode="prefill", caches=caches,
+                      **{key: x})
 
 
 def serve_step(params, tokens, caches, cfg: ModelConfig):

@@ -1,5 +1,6 @@
-"""Dense decoder model for serving (twin of the dense family of
-``repro.models.transformer``).
+"""Dense decoder model for serving (twin of the dense and vlm families of
+``repro.models.transformer``; the vlm's stub frontend hands prefill its
+embeddings through ``frontend_proj``).
 
 Parameters are a plain nested dict of tensors with the JAX pytree's keys and
 its stacked ``(L, ...)`` layer layout, so ``weights.from_jax_params`` is a
@@ -29,11 +30,16 @@ from repro_torch.models.layers import (Initializer, apply_mlp, apply_norm,
                                        init_mlp, init_norm, softcap)
 
 def check_family(cfg: ModelConfig):
-    if cfg.family != "dense" or cfg.attn_type != "gqa":
+    if cfg.family == "audio":
+        raise NotImplementedError(
+            f"family='audio' ({cfg.name}): its serving entry runs the "
+            "encoder forward, mode='train', which arrives with the training "
+            "slice of the PyTorch port")
+    if cfg.family not in ("dense", "vlm") or cfg.attn_type != "gqa":
         raise NotImplementedError(
             f"family={cfg.family!r}, attn_type={cfg.attn_type!r}: the "
-            "PyTorch port serves the dense GQA family; the others arrive "
-            "with the other-families slice")
+            "PyTorch port serves GQA attention in the dense and vlm "
+            "families; the others arrive with the other-families slice")
 
 
 def _init_block(init: Initializer, cfg: ModelConfig) -> Dict:
@@ -45,10 +51,28 @@ def _init_block(init: Initializer, cfg: ModelConfig) -> Dict:
     }
 
 
-def _stack(trees):
-    if isinstance(trees[0], dict):
-        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
-    return torch.stack(trees, 0)
+def _init_layers(init: Initializer, cfg: ModelConfig) -> Dict:
+    """The ``(L, ...)`` stacked blocks, drawn block by block in layer order
+    and written into leaves allocated once: the same tensors as stacking
+    ``L`` block trees, without holding every layer twice."""
+    def alloc(t):
+        if isinstance(t, dict):
+            return {k: alloc(v) for k, v in t.items()}
+        return t.new_empty((cfg.num_layers, *t.shape))
+
+    def put(dst, src, i):
+        for k, v in src.items():
+            if isinstance(v, dict):
+                put(dst[k], v, i)
+            else:
+                dst[k][i] = v
+    out = None
+    for i in range(cfg.num_layers):
+        block = _init_block(init, cfg)
+        out = alloc(block) if out is None else out
+        put(out, block, i)
+        del block
+    return out
 
 
 def layer_slice(tree, i: int):
@@ -68,11 +92,12 @@ def init_model(cfg: ModelConfig, generator: torch.Generator,
     d = cfg.d_model
     # N(0, 1/d) embeddings + sqrt(d) input scaling (gemma-style)
     params: Dict = {"embed": init.w((cfg.vocab_size, d), scale=d ** -0.5)}
+    if cfg.stub_frontend:
+        params["frontend_proj"] = init.w((cfg.frontend_dim, d))
     params["final_norm"] = init_norm(init, cfg, d)
     if not cfg.tie_embeddings:
         params["head"] = init.w((d, cfg.vocab_size), scale=d ** -0.5)
-    params["layers"] = _stack([_init_block(init, cfg)
-                               for _ in range(cfg.num_layers)])
+    params["layers"] = _init_layers(init, cfg)
     return params
 
 
@@ -110,10 +135,14 @@ def _block_fwd(p, x, positions, cfg: ModelConfig, mode: str, cache,
     return x, new_cache
 
 
-def forward(params, cfg: ModelConfig, *, tokens, mode: str = "prefill",
-            caches=None, q_valid=None):
+def forward(params, cfg: ModelConfig, *, tokens=None, embeds=None,
+            mode: str = "prefill", caches=None, q_valid=None):
     """Returns ``(logits, new_caches)``; logits in ``cfg.logits_dtype``,
     ``(b, vocab)`` at the last position, except in mode "verify".
+
+    ``embeds`` (b, s, frontend_dim), given in place of ``tokens``, are a
+    stub frontend's outputs: the input is ``embeds @ frontend_proj``, with
+    no embedding scale.
 
     mode="chunk": ``tokens`` (b, s) holds one left-aligned chunk per row,
     ``q_valid`` (b,) its valid token count, over paged caches; each chunk
@@ -131,9 +160,12 @@ def forward(params, cfg: ModelConfig, *, tokens, mode: str = "prefill",
         raise NotImplementedError(
             f"mode={mode!r}: training arrives with a later slice")
     compute = getattr(torch, cfg.compute_dtype)
-    x = params["embed"].to(compute)[tokens]
-    x = x * embed_scale(cfg)
-    s = tokens.shape[1]
+    if embeds is not None:
+        x = embeds.to(compute) @ params["frontend_proj"].to(compute)
+    else:
+        x = params["embed"].to(compute)[tokens]
+        x = x * embed_scale(cfg)
+    s = x.shape[1]
     positions = (None if mode in ("decode", "chunk", "verify") else
                  torch.arange(s, dtype=torch.int32, device=x.device)[None, :])
 

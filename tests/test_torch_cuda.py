@@ -137,15 +137,16 @@ def test_paged_decode_kernel_matches_plain(cuda, d, g, bt, lengths, mb):
                        lengths)
 
 
-def _pool(rng, cuda, d, g, bt, lengths, s, mb=None):
-    """q (b, s, g, d), pools with a shuffled table of ``mb`` pages a row
-    (default: enough for the lengths + s positions verify reads) covering
-    those positions, and a trash page (the last) of large garbage."""
+def _pool(rng, cuda, d, g, bt, lengths, s, mb=None, kvh=1):
+    """q (b, s, g·kvh, d), pools of ``kvh`` kv heads with a shuffled table
+    of ``mb`` pages a row (default: enough for the lengths + s positions
+    verify reads) covering those positions, and a trash page (the last) of
+    large garbage."""
     b = len(lengths)
     mb = mb or (max(lengths) + s) // bt + 1
     nb = b * mb + 1
-    q = _bf16(rng, cuda, b, s, g, d)
-    kp, vp = _bf16(rng, cuda, nb, bt, 1, d), _bf16(rng, cuda, nb, bt, 1, d)
+    q = _bf16(rng, cuda, b, s, g * kvh, d)
+    kp, vp = (_bf16(rng, cuda, nb, bt, kvh, d) for _ in range(2))
     kp[nb - 1], vp[nb - 1] = 1e4, -1e4
     perm = rng.permutation(nb - 1)
     tab = np.full((b, mb), nb - 1, np.int32)
@@ -198,12 +199,55 @@ def test_verify_kernel_matches_plain(cuda, d, g, s, bt, lengths, mb):
     _assert_close(got, ref.paged_verify_attention(*case))
 
 
+# head dims that are multiples of 8 and not of 16: the reduced dense GQA
+# configs' 8 (Q K^T is one k16 step over 8 zeroed pad columns) and 24 (one
+# full step and that half one), at their 8 query heads over 2 kv heads
+ODD_D = (8, 24)
+
+
+@pytest.mark.parametrize("d", ODD_D)
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_kernel_takes_head_dims_of_8(cuda, d, causal):
+    rng = np.random.default_rng(40)
+    q, k, v = (_bf16(rng, cuda, 2, s, n, d)
+               for s, n in ((100, 8), (100, 2), (100, 2)))
+    _assert_close(ops.flash_attention(q, k, v, causal=causal),
+                  ref.flash_attention(q, k, v, causal=causal))
+
+
+@pytest.mark.parametrize("d", ODD_D)
+@pytest.mark.parametrize("kernel", ["paged_decode", "decode", "verify",
+                                    "chunk"])
+def test_paged_and_decode_kernels_take_head_dims_of_8(cuda, kernel, d):
+    """Each decode-shaped kernel and the chunk kernel against its plain
+    version at 8 query heads over 2 kv heads, across the split boundaries
+    and with a dead length-0 row."""
+    rng = np.random.default_rng(41)
+    s = {"verify": 5, "chunk": 37}.get(kernel, 1)
+    lengths = STRADDLE + [300]
+    case = _pool(rng, cuda, d, 4, 16, lengths, s=s, kvh=2)
+    q, kp, vp, tab, lens = case
+    if kernel == "paged_decode":
+        _assert_live_close(ops.paged_decode_attention(*case),
+                           ref.paged_decode_attention(*case), lengths)
+    elif kernel == "decode":
+        k, v = ref.gather_paged_kv(kp, tab), ref.gather_paged_kv(vp, tab)
+        _assert_live_close(ops.decode_attention(q, k, v, lens),
+                           ref.decode_attention(q, k, v, lens), lengths)
+    elif kernel == "verify":
+        _assert_close(ops.paged_verify_attention(*case),
+                      ref.paged_verify_attention(*case))
+    else:
+        _assert_close(ops.paged_chunk_attention(*case),
+                      ref.paged_chunk_attention(*case))
+
+
 @pytest.mark.parametrize("lengths,mb", [
     ([700, 1, 130, 64], None),
     (STRADDLE + [700], None),
     (SHORT, 256),
 ])
-@pytest.mark.parametrize("d,g", [(256, 8), (16, 4)])
+@pytest.mark.parametrize("d,g", [(256, 8), (16, 4), (8, 4)])
 def test_decode_shaped_kernels_agree_bitwise(cuda, d, g, lengths, mb):
     """verify position j == paged decode at lengths + j + 1, and dense
     decode == paged decode on the same logical cache, with torch.equal,
@@ -224,7 +268,7 @@ def test_decode_shaped_kernels_agree_bitwise(cuda, d, g, lengths, mb):
                        ops.paged_decode_attention(q0, kp, vp, tab, lens))
 
 
-@pytest.mark.parametrize("d,g", [(256, 8), (16, 4)])
+@pytest.mark.parametrize("d,g", [(256, 8), (16, 4), (8, 4)])
 def test_decode_shaped_kernels_are_deterministic(cuda, d, g):
     """No atomics in the merge: two calls on the same inputs give
     torch.equal outputs, for each of the three kernels."""
@@ -281,7 +325,7 @@ def test_chunk_kernel_matches_plain(cuda, d, nh, kvh, bt, s, lengths, mb):
 
 
 @pytest.mark.parametrize("chunk", [64, 100, 256])
-@pytest.mark.parametrize("d", [256, 16])
+@pytest.mark.parametrize("d", [256, 16, 8])
 def test_chunk_kernel_rows_equal_flash_rows(cuda, chunk, d):
     """One 1000-token prompt's q, k, v, the K/V also paged through a
     shuffled table: prefilled chunk by chunk, every chunk's rows equal the
@@ -313,8 +357,8 @@ def test_kernels_raise_on_what_they_do_not_take(cuda):
     q = torch.zeros(1, 8, 2, 16, device=cuda)                 # fp32
     with pytest.raises(ValueError):
         ops.flash_attention(q, q[:, :, :1], q[:, :, :1])
-    qb = torch.zeros(1, 8, 2, 24, device=cuda, dtype=torch.bfloat16)
-    with pytest.raises(ValueError):                           # d % 16 != 0
+    qb = torch.zeros(1, 8, 2, 12, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):                           # d % 8 != 0
         ops.flash_attention(qb, qb[:, :, :1], qb[:, :, :1])
     q1 = torch.zeros(2, 1, 4, 32, device=cuda, dtype=torch.bfloat16)
     kc = torch.zeros(2, 8, 1, 32, device=cuda, dtype=torch.bfloat16)
@@ -328,6 +372,19 @@ def test_kernels_raise_on_what_they_do_not_take(cuda):
         ops.paged_verify_attention(
             torch.zeros(2, 3, 32, 32, device=cuda, dtype=torch.bfloat16),
             kc, kc, tab, lens)
+    z12 = lambda *shape: torch.zeros(*shape, 12, device=cuda,  # noqa: E731
+                                     dtype=torch.bfloat16)
+    for call in (                                             # d % 8 != 0
+            lambda: ops.decode_attention(z12(2, 1, 4), z12(2, 8, 1),
+                                         z12(2, 8, 1), lens),
+            lambda: ops.paged_decode_attention(z12(2, 1, 4), z12(3, 16, 1),
+                                               z12(3, 16, 1), tab, lens),
+            lambda: ops.paged_verify_attention(z12(2, 3, 4), z12(3, 16, 1),
+                                               z12(3, 16, 1), tab, lens),
+            lambda: ops.paged_chunk_attention(z12(2, 8, 4), z12(3, 16, 1),
+                                              z12(3, 16, 1), tab, lens)):
+        with pytest.raises(ValueError):
+            call()
     qc = torch.zeros(2, 8, 4, 32, device=cuda, dtype=torch.bfloat16)
     for bt in (12, 4):                       # 64 % bt != 0, bt < 8
         pool = torch.zeros(3, bt, 1, 32, device=cuda, dtype=torch.bfloat16)

@@ -17,6 +17,7 @@ from repro.configs import gemma_2b as jgemma
 from repro.engine.paged_kv import PagedKVStore as JStore
 from repro.engine.paged_kv import prefix_chain as jchain
 from repro.engine.runner import Engine as JEngine
+from repro.engine.runner import EngineRequest as JRequest
 from repro.engine.runner import SlotEngine as JSlotEngine
 from repro.models import transformer as jtf
 from repro_torch import weights
@@ -120,6 +121,22 @@ def test_paged_engine_matches_slot_engine(models, prompts, slot_streams):
     assert _run(eng, prompts, 5) == slot_streams
     eng.store.check_invariants()
     assert eng.store.used_blocks == 0
+
+
+def test_request_itl_matches_jax_request(models, prompts):
+    """``EngineRequest.itl`` on one served schedule: each finished
+    request's gaps between streamed tokens equal those the JAX request
+    gives for the same token times."""
+    _, _, tcfg, tparams = models
+    eng = Engine(tcfg, params=tparams, max_batch=2, max_len=64,
+                 block_tokens=16, device="cpu")
+    _run(eng, prompts, 5)
+    for r in eng.finished:
+        want = JRequest(rid=r.rid, prompt=r.prompt,
+                        token_times=list(r.token_times)).itl
+        assert r.itl == want
+        assert len(r.itl) == len(r.tokens) - 1 == 4
+        assert all(x >= 0 for x in r.itl)
 
 
 def test_slot_engine_dense_cache_clamps_stale_lengths(models):

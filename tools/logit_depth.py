@@ -1,0 +1,122 @@
+#!/usr/bin/env python3
+"""How far the full model's logits through the attention kernels drift from
+plain attention's as the model deepens (card).
+
+    python3 tools/logit_depth.py [--arch internlm2_20b pixtral_12b ...]
+
+For each config at full width (bf16, ``chip_smoke.full_width_params``: the
+same seeded, perturbed weights as ``chip_smoke.py``'s families phase, depth
+cut as there), the last-position logits of one 300-token prefill through
+the first L layers, for a sweep of L, three ways (``prefill_three_ways``):
+
+- ``kernels``: ``flash_attention`` as the model runs it;
+- ``plain``: ``ref.flash_attention`` (fp32 scores, softmax and P·V);
+- ``plain, P bf16``: ``flash_p_bf16``, the same with the
+  unnormalised probabilities rounded to bf16 before P·V and the row sums
+  kept in fp32, the rounding the kernel makes.
+
+Prints, per depth, max |a - b| over max |plain logit| for each pair. Where
+``plain, P bf16`` sits as far from ``plain`` as the kernels do, the drift is
+the model's sensitivity to one bf16 rounding of P in every layer, not a
+fault of the kernel. Needs one card and nvcc.
+"""
+from __future__ import annotations
+
+import argparse
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT / "src"))
+sys.path.insert(0, str(ROOT))
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+import chip_smoke as cs  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+
+# (arch, layers made, depths swept); gemma_2b is the serving phases' model
+SWEEP = (("gemma_2b", None, (6, 12, 18)),
+         ("internlm2_20b", None, (8, 16, 24, 32, 40, 48)),
+         ("llama3_70b", 16, (4, 8, 16)),
+         ("pixtral_12b", None, (8, 16, 24, 32, 40)),
+         ("nemotron_4_340b", 2, (1, 2)))
+
+
+def flash_p_bf16(q, k, v, *, causal=True, scale=None):
+    """ref.flash_attention with P rounded to bf16 before P·V and the row
+    sums taken over the fp32 P, the rounding the flash kernel makes: a
+    second plain version, to measure how far rounding alone moves the
+    model."""
+    from repro_torch.kernels import ref
+    b, s, nh, d = q.shape
+    t, kvh = k.shape[1], k.shape[2]
+    scale = d ** -0.5 if scale is None else scale
+    qr = q.reshape(b, s, kvh, nh // kvh, d)
+    sc = torch.einsum("bskgh,btkh->bkgst", qr.float(), k.float()) * scale
+    if causal:
+        mask = (torch.arange(t, device=q.device)[None, :]
+                <= torch.arange(s, device=q.device)[:, None])
+        sc = torch.where(mask, sc, torch.tensor(ref.NEG_INF, device=q.device))
+    p = torch.exp(sc - sc.amax(dim=-1, keepdim=True))
+    out = torch.einsum("bkgst,btkh->bskgh", p.to(torch.bfloat16).float(),
+                       v.float())
+    out = out / p.sum(dim=-1).permute(0, 3, 1, 2)[..., None]
+    return out.reshape(b, s, nh, d).to(q.dtype)
+
+
+def prefill_three_ways(params, cfg, prompt):
+    """Last-position prefill logits of ``prompt`` with the model's flash
+    attention through the kernel, plain attention and ``flash_p_bf16``."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import steps
+    out = []
+    for flash in (ops.flash_attention, ref.flash_attention, flash_p_bf16):
+        saved, ops.flash_attention = ops.flash_attention, flash
+        try:
+            logits, _ = steps.prefill_step(params, {"tokens": torch.as_tensor(
+                prompt[None], device="cuda")}, cfg, 512)
+        finally:
+            ops.flash_attention = saved
+        out.append(logits[0].float())
+    return out
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", nargs="*", default=[a for a, _, _ in SWEEP])
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("logit_depth: needs a CUDA card", file=sys.stderr)
+        return 2
+    print(cs.card_line(), flush=True)
+    arms = ("kernels", "plain", "plain, P bf16")
+    for arch, layers, depths in SWEEP:
+        if arch not in args.arch:
+            continue
+        full = get_config(arch)
+        cfg = full.replace(num_layers=layers or full.num_layers)
+        params = cs.full_width_params(cfg)
+        prompt = np.random.default_rng(1).integers(
+            0, cfg.vocab_size, 300).astype(np.int32)
+        for depth in depths:
+            c = cfg.replace(num_layers=depth)
+            out = dict(zip(arms, prefill_three_ways(params, c, prompt)))
+            scale = float(out["plain"].abs().max())
+            rel = lambda a, b: float(  # noqa: E731
+                (out[a] - out[b]).abs().max()) / scale
+            print(f"[depth] {arch} {depth} of {full.num_layers} layers: max "
+                  f"|logit| {scale:.4g}; max |diff| / max |logit|: kernels "
+                  f"vs plain {rel('kernels', 'plain'):.4f}, plain P bf16 vs "
+                  f"plain {rel('plain, P bf16', 'plain'):.4f}, kernels vs "
+                  f"plain P bf16 {rel('kernels', 'plain, P bf16'):.4f}; "
+                  f"argmax kernels | plain | P bf16: "
+                  f"{[int(out[n].argmax()) for n in arms]}", flush=True)
+        del params
+        torch.cuda.empty_cache()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
