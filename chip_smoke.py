@@ -112,13 +112,27 @@ raises on failure:
    also the graphed SlotEngine, whose streams must equal the paged
    Engine's; tok/s, TTFT, TPOT and peak memory beside the card's name and
    power limit;
-13. the ``kernels`` JSON line, the card line, and the last line
+13. latent (after the families' weights are freed): flash at MLA
+   prefill's shapes, query/key head dim != value head dim (24/16 reduced,
+   96/64 at MiniCPM3-4B's 40 heads, 192/128 at DeepSeek-V2-Lite's 16 and
+   DeepSeek-V2-236B's 128), held against its plain version at lengths
+   1-1000 and timed beside the bound and one scaled_dot_product_attention
+   call; then minicpm3_4b (62 layers), deepseek_v2_lite_16b (27 layers,
+   MoE) and deepseek_v2_236b (1 dense + 4 MoE layers of 60) at full width
+   through ``make_engine``, which gives the SlotEngine: every layer's
+   flash call held (``layer_checks``), the 16 requests graphed and eager
+   (equal streams and launch counts), tok/s, TTFT, TPOT, peak memory and
+   the weights a decode pass reads (MoE: the experts it routes to)
+   against their byte bound; minicpm3_4b also with the absorbed decode;
+14. the ``kernels`` JSON line (flash's row also holds its MLA shapes and
+   launches), the card line, and the last line
    ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import contextlib
 import ctypes
+import dataclasses
 import itertools
 import json
 import subprocess
@@ -290,14 +304,18 @@ def phase_build():
             if any(w in ln for w in ("entry function", "registers", "spill",
                                      "smem", "error")):
                 log(f"[build] {name}: {ln.strip()}")
-    for name, entry in (("flash_attention", "flash_attention_smem_bytes"),
-                        ("paged_attention",
+    for name, entry in (("paged_attention",
                          "paged_decode_attention_smem_bytes"),
                         ("decode_attention", "decode_attention_smem_bytes")):
         fn = getattr(_build.load(name), entry)
         fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
         log(f"[build] {name}: {fn(256)} bytes of dynamic shared memory per "
             f"block at head dim 256, {fn(16)} at head dim 16")
+    fn = _build.load("flash_attention").flash_attention_smem_bytes
+    fn.argtypes, fn.restype = [ctypes.c_int] * 2, ctypes.c_int
+    log(f"[build] flash_attention: {fn(256, 256)} bytes of dynamic shared "
+        f"memory per block at head dim 256, {fn(16, 16)} at 16; at dq/dv "
+        f"192/128 (MLA) {fn(192, 128)}")
 
 
 def _flash_case(gen, b, s, nh, kvh, d):
@@ -366,23 +384,24 @@ def _dense_case(gen, b, S, nh, kvh, d, lengths):
                                     device="cuda")
 
 
-def _flash_work(b, s, nh, kvh, d):
-    """(bytes, operations) of causal flash attention: q, k, v read and o
-    written once; 4·d operations per (query, key) pair the mask keeps and
-    head."""
-    nbytes = 2 * (2 * b * s * nh * d + 2 * b * s * kvh * d)
-    return nbytes, 4 * d * nh * b * (s * (s + 1) // 2)
+def _flash_work(b, s, nh, kvh, d, dv=None):
+    """(bytes, operations) of causal flash attention at query/key head dim
+    d and value head dim dv (default d): q, k, v read and o written once;
+    2·(d + dv) operations per (query, key) pair the mask keeps and head."""
+    dv = d if dv is None else dv
+    nbytes = 2 * b * s * (nh * (d + dv) + kvh * (d + dv))
+    return nbytes, 2 * (d + dv) * nh * b * (s * (s + 1) // 2)
 
 
 def _sdpa_flash(q, k, v):
     """The yardstick: one causal scaled_dot_product_attention call, each kv
     head broadcast to its query heads (a view for one kv head, a copy made
     before the timing for more)."""
-    b, s, nh, d = q.shape
+    b, s, nh = q.shape[:3]
     kvh = k.shape[2]
     qt = q.permute(0, 2, 1, 3)
     rep = lambda x: x.permute(0, 2, 1, 3)[:, :, None].expand(  # noqa: E731
-        b, kvh, nh // kvh, s, d).reshape(b, nh, s, d)
+        b, kvh, nh // kvh, s, x.shape[-1]).reshape(b, nh, s, x.shape[-1])
     kt, vt = rep(k), rep(v)
     return lambda: torch.nn.functional.scaled_dot_product_attention(
         qt, kt, vt, is_causal=True)
@@ -723,7 +742,7 @@ def phase_chunk_kernel(gen, rng):
     from repro_torch.kernels import paged_chunk_attention as pca
     from repro_torch.kernels import ref
     nh, kvh, d, bt, mb = 8, 1, 256, 16, 128
-    for ln in _ptxas_lines("flash_attention", "ILi4ELb1E"):
+    for ln in _ptxas_lines("flash_attention", "ILi4ELi4ELb1E"):
         log(f"[kernels] paged_chunk_attention ptxas (head dim 256): {ln}")
     row = None
     for s in CHUNK_S:
@@ -1194,6 +1213,8 @@ def _perturb(params, cfg, gen, share: float = 1.0):
         if path.endswith("gamma"):
             return 0.1
         per_layer = shape[1:]
+        if ".moe.w" in path:              # (experts, fan-in, fan-out)
+            return per_layer[1] ** -0.5
         fan_in = (int(np.prod(per_layer[:-1])) if path.endswith("wo")
                   else per_layer[0])
         return fan_in ** -0.5
@@ -1207,7 +1228,11 @@ def _perturb(params, cfg, gen, share: float = 1.0):
             sd = share * std(path, v.shape)
             rows = (1 if path.startswith("layers.")
                     else max(1, NOISE_ELEMS // max(1, v[0].numel())))
-            for part in v.split(rows):
+            # an MoE layer's experts (DeepSeek-V2-236B: 2.5e9 values) one
+            # at a time
+            parts = (v.flatten(0, 1).split(1) if ".moe.w" in path
+                     else v.split(rows))
+            for part in parts:
                 noise = torch.randn(part.shape, generator=gen, device="cuda")
                 part.add_((noise * sd).to(v.dtype))
                 del noise
@@ -1295,6 +1320,24 @@ def _prefill_and_decode(params, cfg, prompt, feed=None, steps=4, batch=8):
     return out, feed
 
 
+def _prefill_and_decode_dense(params, cfg, prompt, feed=None, steps=4):
+    """``_prefill_and_decode`` over one row's dense caches (MLA's latent
+    cache is not paged): prefill, then ``steps`` decode steps each fed
+    ``feed`` (default: the prefill's greedy token)."""
+    from repro_torch.models import steps as st
+    logits, caches = st.prefill_step(
+        params, {"tokens": torch.as_tensor(prompt[None], device="cuda")},
+        cfg, 2048)
+    out = [logits[0].float()]
+    feed = int(out[0].argmax()) if feed is None else feed
+    for _ in range(steps):
+        _, lg, caches = st.serve_step(
+            params, torch.tensor([[feed]], dtype=torch.int32, device="cuda"),
+            caches, cfg)
+        out.append(lg[0].float())
+    return out, feed
+
+
 @contextlib.contextmanager
 def layer_checks():
     """Hold every flash and paged decode call the model makes against the
@@ -1334,12 +1377,15 @@ def phase_logits(cfg, params, tag="logits", gate=True):
     attention's; else their drift is printed beside it."""
     prompt = np.random.default_rng(1).integers(0, cfg.vocab_size, 300
                                                ).astype(np.int32)
+    # MLA: dense caches, and decode is einsums (flash in prefill only)
+    mla = cfg.attn_type == "mla"
+    run = _prefill_and_decode_dense if mla else _prefill_and_decode
     with layer_checks() as worst:
-        got, feed = _prefill_and_decode(params, cfg, prompt)
+        got, feed = run(params, cfg, prompt)
     with plain_attention():
-        want, _ = _prefill_and_decode(params, cfg, prompt, feed)
+        want, _ = run(params, cfg, prompt, feed)
     torch.cuda.synchronize()
-    calls = cfg.num_layers * len(got)
+    calls = cfg.num_layers * (1 if mla else len(got))
     log(f"[{tag}] every layer's attention against its plain version on its "
         f"own inputs, {cfg.num_layers} layers x (prefill + 4 decode steps): "
         + "; ".join(f"{k} {n} calls, max_abs_err={e:.3g} "
@@ -2242,13 +2288,7 @@ def phase_families(card: str):
         paged = _streams(g["done"])
         toks = sum(len(r.tokens) for r in g["done"])
         ttft, tpot = _means_ms(g["done"])
-        # a decode pass reads every weight once but the embedding rows it
-        # gathers (and the frontend's projection), unless the embedding is
-        # the head
-        skip = [k for k in ("frontend_proj",) + (
-            () if cfg.tie_embeddings else ("embed",)) if k in params]
-        read = sum(v.numel() * v.element_size() for v in _leaves(params)) \
-            - sum(params[k].numel() * params[k].element_size() for k in skip)
+        read = _decode_bytes(cfg, params)
         bound_ms = read / PEAK_BYTES_PER_S * 1e3
         log(f"[{tag}] paged Engine, graphed: tok/s {toks / g['wall']:.2f}, "
             f"TTFT mean {ttft:.2f} ms, TPOT mean {tpot:.2f} ms, peak "
@@ -2282,6 +2322,231 @@ def phase_families(card: str):
         torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phase 13: MLA and MoE (minicpm3_4b, deepseek_v2_lite_16b, deepseek_v2_236b)
+# ---------------------------------------------------------------------------
+
+# flash at MLA prefill's shapes: (name, query/key head dim qk_nope +
+# qk_rope, value head dim v_head_dim, heads), as many kv heads as heads
+MLA_SHAPES = (("reduced", 24, 16, 4), ("minicpm3_4b", 96, 64, 40),
+              ("deepseek_v2_lite_16b", 192, 128, 16),
+              ("deepseek_v2_236b", 192, 128, 128))
+# (arch, layers served), every config at full width: MiniCPM3-4B (62
+# layers, 8.1 GB) and DeepSeek-V2-Lite (27, 31.4 GB) whole; DeepSeek-V2-236B
+# cut to its dense layer and 4 of its 59 MoE layers (a MoE layer is 7.9 GB,
+# the whole model 472 GB)
+LATENT = (("minicpm3_4b", None), ("deepseek_v2_lite_16b", None),
+          ("deepseek_v2_236b", 5))
+
+
+def _mla_case(gen, b, s, nh, dq, dv):
+    mk = lambda *shape: torch.randn(*shape, generator=gen, device="cuda",
+                                    dtype=torch.float32).to(torch.bfloat16)
+    return mk(b, s, nh, dq), mk(b, s, nh, dq), mk(b, s, nh, dv)
+
+
+def phase_latent_kernels(gen):
+    """flash_attention at MLA_SHAPES (dq != dv): against its plain version
+    at lengths FLASH_S (b = 2, causal) and at the path's 1024-token
+    prefill, where kernel, plain version and one
+    scaled_dot_product_attention call (it takes dv != dq) are timed with
+    the host queue held, beside the bound. Returns the kernels-line rows
+    of these shapes."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    for mangled, what in (("ILi4ELi4ELb0E", "dq = dv = 256"),
+                          ("ILi3ELi2ELb0E", "dq/dv 192/128"),
+                          ("ILi2ELi1ELb0E", "dq/dv 96/64"),
+                          ("ILi1ELi1ELb0E", "dq, dv <= 64")):
+        for ln in _ptxas_lines("flash_attention", mangled):
+            log(f"[latent] flash_attention ptxas at {what}: {ln}")
+    rows = []
+    for arch, dq, dv, nh in MLA_SHAPES:
+        worst = [0.0, 0.0]
+        for s in FLASH_S:
+            q, k, v = _mla_case(gen, 2, s, nh, dq, dv)
+            e, r = compare(f"flash_attention {arch} s={s}",
+                           fa.flash_attention(q, k, v),
+                           ref.flash_attention(q, k, v))
+            worst = [max(worst[0], e), max(worst[1], r)]
+        q, k, v = _mla_case(gen, 1, 1024, nh, dq, dv)
+        e, r = compare(f"flash_attention {arch} s=1024",
+                       fa.flash_attention(q, k, v),
+                       ref.flash_attention(q, k, v))
+        ms = cuda_time_ms(lambda: fa.flash_attention(q, k, v), hold=True)
+        plain = cuda_time_ms(lambda: ref.flash_attention(q, k, v), hold=True)
+        lib = cuda_time_ms(_sdpa_flash(q, k, v), hold=True)
+        bound_ms, by = bound(*_flash_work(1, 1024, nh, nh, dq, dv),
+                             PEAK_BF16_FLOPS)
+        log(f"[latent] flash_attention {arch} dq/dv {dq}/{dv}, {nh}/{nh} "
+            f"heads, causal: b=2 s in {FLASH_S} max_abs_err={worst[0]:.3g} "
+            f"max_row_rel_err={worst[1]:.3g}; (1, 1024): max_abs_err="
+            f"{e:.3g} max_row_rel_err={r:.3g} (atol {ATOL}, rtol {RTOL}, row "
+            f"{ROW_RTOL}); host queue held: kernel {ms:.4f} ms, plain "
+            f"{plain:.4f} ms, sdpa {lib:.4f} ms, bound {bound_ms:.4f} ms "
+            f"({by}); kernel / sdpa {ms / lib:.2f}, bound / kernel "
+            f"{bound_ms / ms:.3f}")
+        rows.append(dict(shape=[1, 1024, nh, nh, dq, dv], arch=arch,
+                         max_abs_err=max(worst[0], e),
+                         max_row_rel_err=max(worst[1], r), ms=ms,
+                         plain_ms=plain, library_ms=lib, bound_ms=bound_ms,
+                         bound_by=by))
+        del q, k, v
+    return rows
+
+
+@contextlib.contextmanager
+def _routed_experts(rows: int):
+    """Keep the expert ids every MoE layer routes a ``rows``-token call to
+    while ``rec["on"]`` (a copy on the device, no host sync): what the
+    eager decode passes read of the experts."""
+    from repro_torch.models import moe
+    saved = moe._router
+    rec = {"on": False, "idx": []}
+
+    def router(params, x2d, cfg):
+        out = saved(params, x2d, cfg)
+        if rec["on"] and x2d.shape[0] == rows:
+            rec["idx"].append(out[1].clone())
+        return out
+    moe._router = router
+    try:
+        yield rec
+    finally:
+        moe._router = saved
+
+
+def _decode_bytes(cfg, params, experts_per_layer: float = 0.0) -> float:
+    """Bytes of weights one decode pass reads: every weight once but the
+    embedding rows it gathers (unless the embedding is the head), the
+    frontend's projection and the experts it does not route to;
+    ``experts_per_layer`` distinct experts of each MoE layer."""
+    skip = ("frontend_proj",) + (() if cfg.tie_embeddings else ("embed",))
+    total = sum(v.numel() * v.element_size() for k, v in params.items()
+                if k not in skip and not isinstance(v, dict))
+    for k, v in params.items():
+        if not isinstance(v, dict):
+            continue
+        for path, leaf in _flat(v).items():
+            size = leaf.numel() * leaf.element_size()
+            if path.startswith("moe.w"):        # (L, E, ...) expert weights
+                size = size / leaf.shape[1] * experts_per_layer
+            total += size
+    return total
+
+
+def _flat(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        path = f"{prefix}.{k}" if prefix else k
+        out.update(_flat(v, path) if isinstance(v, dict) else {path: v})
+    return out
+
+
+def phase_latent(card: str):
+    """MLA and MoE on the card: flash at MLA's shapes
+    (``phase_latent_kernels``), then each config of LATENT at full width
+    (bf16, seeded perturbed weights) through ``make_engine``, which gives
+    the SlotEngine: every layer's flash call held against its plain
+    version on its own inputs and the logits' drift from plain attention
+    printed (``phase_logits``), the 16 requests graphed and eagerly
+    (``_arms``: equal streams and launch counts, flash launched), tok/s,
+    TTFT, TPOT, peak memory and the weights a decode pass reads (MoE: the
+    experts the eager passes routed to) against their byte bound; for
+    minicpm3_4b also the absorbed decode (``MLAConfig.absorb``), graphed,
+    its TPOT and how many of its streams equal the naive decode's (JAX
+    holds the two paths equal to 2e-3 only, so nothing is gated on it).
+    Returns (the flash rows at MLA_SHAPES, flash launches by config)."""
+    from repro_torch.configs import get_config
+    from repro_torch.engine.core import SlotEngine, make_engine
+    from repro_torch.kernels import ops
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    shapes = phase_latent_kernels(gen)
+    launches = {}
+    for arch, layers in LATENT:
+        full = get_config(arch)
+        cfg = full.replace(num_layers=layers or full.num_layers)
+        tag = f"latent {arch}"
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.monotonic()
+        params = full_width_params(cfg)
+        torch.cuda.synchronize()
+        n = sum(v.numel() for v in _leaves(params))
+        m = cfg.mla
+        moe_txt = (f", MoE {cfg.moe.num_experts} experts top-"
+                   f"{cfg.moe.top_k} + {cfg.moe.num_shared_experts} shared "
+                   f"(first {cfg.moe.first_k_dense} dense)" if cfg.moe
+                   else "")
+        log(f"[{tag}] {cfg.num_layers} of {full.num_layers} layers, d_model "
+            f"{cfg.d_model}, {cfg.num_heads} heads, MLA kv_lora "
+            f"{m.kv_lora_rank} q_lora {m.q_lora_rank} dq/dv "
+            f"{m.qk_nope_head_dim + m.qk_rope_head_dim}/{m.v_head_dim}"
+            f"{moe_txt}: {n / 1e9:.3f}B parameters, {2 * n / 1e9:.1f} GB "
+            f"bf16, made and perturbed in {time.monotonic() - t0:.1f}s, peak "
+            f"allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        phase_logits(cfg, params, tag=tag, gate=False)
+        prompts = _requests(cfg)
+
+        def make(c=cfg, **kw):
+            eng = make_engine(c, params=params, max_batch=8, max_len=2048,
+                              device="cuda", **kw)
+            if not isinstance(eng, SlotEngine):
+                raise AssertionError(f"{arch}: make_engine gave "
+                                     f"{type(eng).__name__}")
+            return eng
+        _serve(make(), prompts[:1], max_new=2)                  # warm-up
+        with _routed_experts(8) as rec:
+            def arm(**kw):
+                eng = make(**kw)
+                rec["on"] = not kw["cuda_graphs"]
+                return eng
+            runs = _arms(tag, arm, prompts)
+        g = runs["graphed"]
+        _finished(tag, g["done"], len(prompts))
+        _launched(tag, g["launches"], ("flash_attention",))
+        launches[arch] = g["launches"]["flash_attention"]
+        toks = sum(len(r.tokens) for r in g["done"])
+        ttft, tpot = _means_ms(g["done"])
+        routed = ""
+        per_layer = 0.0
+        if rec["idx"]:
+            distinct = [int(torch.unique(i).numel()) for i in rec["idx"]]
+            per_layer = float(np.mean(distinct))
+            routed = (f"; the eager decode passes routed to {per_layer:.2f} "
+                      f"distinct experts of {cfg.moe.num_experts} a MoE "
+                      f"layer on average ({len(distinct)} layer calls)")
+        read = _decode_bytes(cfg, params, per_layer)
+        bound_ms = read / PEAK_BYTES_PER_S * 1e3
+        log(f"[{tag}] SlotEngine, graphed: tok/s {toks / g['wall']:.2f}, "
+            f"TTFT mean {ttft:.2f} ms, TPOT mean {tpot:.2f} ms, peak "
+            f"allocated {g['peak'][0] / 2**30:.2f} GiB; a decode pass reads "
+            f"{read / 1e9:.3f} GB of weights{routed}, {bound_ms:.3f} ms at "
+            f"{PEAK_BYTES_PER_S / 1e12:.2f} TB/s, TPOT / that "
+            f"{tpot / bound_ms:.3f}; {card}")
+        if arch == "minicpm3_4b":
+            acfg = cfg.replace(mla=dataclasses.replace(cfg.mla, absorb=True))
+            eng = make(acfg)
+            torch.cuda.synchronize()
+            ops.reset_launches()
+            t0 = time.monotonic()
+            done = _serve(eng, prompts)
+            wall = time.monotonic() - t0
+            _finished(f"{tag} absorbed", done, len(prompts))
+            naive = _streams(g["done"])
+            same = sum(naive[r.rid] == list(r.tokens) for r in done)
+            atoks = sum(len(r.tokens) for r in done)
+            log(f"[{tag} absorbed] SlotEngine graphed, absorb=True: tok/s "
+                f"{atoks / wall:.2f}, TTFT mean {_means_ms(done)[0]:.2f} ms, "
+                f"TPOT mean {_means_ms(done)[1]:.2f} ms (naive {tpot:.2f}); "
+                f"{same} of {len(done)} streams equal the naive decode's "
+                f"(not gated); {card}")
+            del eng, done
+        del params, g, runs
+        torch.cuda.empty_cache()
+    return shapes, launches
+
+
 def kernels_line(rows, launches):
     out = []
     for name in KERNELS:
@@ -2294,6 +2559,9 @@ def kernels_line(rows, launches):
                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                     "bound_by": r["bound_by"],
                     "library_ms": r["library_ms"]})
+        # flash at MLA's shapes (phase latent) and its launches there
+        out[-1].update({k: r[k] for k in ("mla_shapes", "mla_launches")
+                        if k in r})
     return {"kernels": out}
 
 
@@ -2338,6 +2606,9 @@ def main() -> int:
     del params, whole
     phase_families(line)
     lap("families")
+    (rows["flash_attention"]["mla_shapes"],
+     rows["flash_attention"]["mla_launches"]) = phase_latent(line)
+    lap("latent")
     log(f"[done] all phases in {time.monotonic() - t0:.1f}s")
     log(json.dumps(kernels_line(rows, launches)))
     log(line)

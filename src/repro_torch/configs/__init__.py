@@ -3,9 +3,10 @@
 Each architecture lives in its own module (``<arch>.py``) exposing ``CONFIG``
 (the exact published config) and ``reduced()`` (a tiny same-family config for
 CPU tests). Only the architectures whose serving path the port runs are
-registered: the dense GQA decoders and the vlm on its text path (its
-prefill also takes the stub frontend's embeddings); MLA, MoE and the
-recurrent and audio families arrive with their slices.
+registered: the dense GQA decoders, the vlm on its text path (its prefill
+also takes the stub frontend's embeddings), and the MLA configs, dense
+(``minicpm3_4b``) and MoE (the DeepSeek-V2 pair); the recurrent and audio
+families arrive with their slices.
 """
 from __future__ import annotations
 
@@ -25,7 +26,8 @@ from repro_torch.configs.base import (  # noqa: F401
 )
 
 ARCH_IDS = ("gemma_2b", "guard_2b", "llama3_70b", "internlm2_20b",
-            "nemotron_4_340b", "pixtral_12b")
+            "nemotron_4_340b", "pixtral_12b", "minicpm3_4b",
+            "deepseek_v2_lite_16b", "deepseek_v2_236b")
 
 
 def _norm(arch: str) -> str:

@@ -1009,20 +1009,18 @@ def paged_supported(cfg: ModelConfig) -> bool:
             and cfg.attn_type != "mla")
 
 
-def make_engine(cfg: ModelConfig, **kw) -> Engine:
-    """The paged ``Engine`` for the configs the port serves (GQA attention
-    in the dense and vlm families; the vlm on its text path, as the JAX
-    ``Engine`` serves it). The JAX package hands MLA and the recurrent
-    families to the dense ``SlotEngine``; the port's ``SlotEngine`` serves
-    the same families as its ``Engine``, so those configs raise here, as
-    do MoE and audio, naming the slice that brings them."""
-    if not paged_supported(cfg):
-        raise NotImplementedError(
-            f"{cfg.name}: MLA and the recurrent families need their own "
-            "layers, which arrive with the other-families slice of the "
-            "PyTorch port")
+def make_engine(cfg: ModelConfig, **kw):
+    """Engine factory, as in the JAX package: the paged ``Engine`` when the
+    config's attention cache pages, else the dense ``SlotEngine`` (MLA),
+    with the paged-only keywords dropped. A family the port does not serve
+    yet raises (``transformer.check_family``)."""
     tf.check_family(cfg)
-    return Engine(cfg, **kw)
+    if paged_supported(cfg):
+        return Engine(cfg, **kw)
+    for k in ("block_tokens", "num_blocks", "preemption", "trace_occupancy",
+              "config", "draft_params"):
+        kw.pop(k, None)
+    return SlotEngine(cfg, **kw)
 
 
 # ---------------------------------------------------------------------------
@@ -1031,7 +1029,9 @@ def make_engine(cfg: ModelConfig, **kw) -> Engine:
 
 class SlotEngine:
     """The dense-KV engine: one contiguous ``(max_len, kvh, hd)`` cache row
-    per decode slot, no paging, decoding through ``decode_attention``. The
+    per decode slot, no paging, decoding through ``decode_attention`` (MLA:
+    a ``(max_len, kv_lora)`` latent row and its rope key, decoded by
+    einsums; the engine ``make_engine`` gives MLA configs). The
     oracle the paged ``Engine`` is held against (same admission policy,
     same greedy decode, so token streams must match). Its preemption keeps
     the JAX package's seed behaviour: it discards progress past the first
@@ -1065,22 +1065,30 @@ class SlotEngine:
         self._decode = self._compile_decode()
 
     def _compile_decode(self) -> CompiledPass:
-        """The decode pass. Its warm-up runs every row at length
-        ``max_len - 1`` (the trash position: a live row stops before its
-        writes or reads reach it) and then restores the lengths."""
+        """The decode pass, advancing the lengths of every cache group
+        (the moe family's ``dense_attn`` and ``attn``). Its warm-up runs
+        every row at length ``max_len - 1`` (the trash position: a live row
+        stops before its writes or reads reach it) and then restores the
+        lengths."""
         params, caches, cfg = self.params, self.caches, self.cfg
-        lengths = caches["attn"]["length"]
+        lengths = [g["length"] for g in caches.values()]
         trash_at = self.max_len - 1
 
         def body(tokens):
             tok, logits, new = steps.serve_step(params, tokens, caches, cfg)
-            lengths.copy_(new["attn"]["length"])
+            for name, ln in zip(caches, lengths):
+                ln.copy_(new[name]["length"])
             return tok, logits
 
         def all_trash():
-            saved = lengths.clone()
-            lengths.fill_(trash_at)
-            return lambda: lengths.copy_(saved)
+            saved = [ln.clone() for ln in lengths]
+            for ln in lengths:
+                ln.fill_(trash_at)
+
+            def restore():
+                for ln, v in zip(lengths, saved):
+                    ln.copy_(v)
+            return restore
         return CompiledPass("decode", body, {"tokens": (self.max_batch, 1)},
                             self.device, capture=self.cuda_graphs,
                             trash=all_trash)

@@ -17,10 +17,15 @@
 // The design, per block (one warpgroup of consumers and one producer warp):
 // - Both products are `wgmma.mma_async` (wgmma_bf16.cuh). S = Q K^T is
 //   m64n64k16 with Q and K K-major in shared memory; P V is m64n{D}k16 with
-//   D the head dim rounded up to 64, P taken straight from the S
+//   D the value head dim rounded up to 64, P taken straight from the S
 //   accumulator registers packed to bf16 pairs (no trip through shared
 //   memory) and V read MN-major (the transpose flag). The 64 x D fp32
-//   output accumulator lives in registers (128 a thread at d = 256).
+//   output accumulator lives in registers (128 a thread at dv = 256).
+// - The query/key head dim dq and the value head dim dv may differ (MLA:
+//   dq = qk_nope + qk_rope, dv = v_head_dim, e.g. 192 and 128): Q, K and
+//   the depth of S = Q K^T are DQA 64-column atoms, V, the P·V width and
+//   the output DVA atoms, each rounded up on its own. Only the pairs with
+//   DVA <= DQA are built (the wrapper takes dv <= dq).
 // - K and V arrive by TMA (one 4-d tensor map each, encoded on the host per
 //   call and passed as __grid_constant__) into a ring of kStages stages in
 //   128-byte-swizzle layout; one thread of the producer warp keeps the ring
@@ -30,7 +35,7 @@
 //   nothing outside the tensors is read, zero columns add exactly 0 to
 //   Q K^T and are never stored. Any d % 8 == 0 up to 256 works: a row is
 //   then d·2 bytes, a multiple of the 16 that TMA needs of every stride,
-//   and the epilogue's bf16 pairs stop at column d - 2.
+//   and the epilogue's bf16 pairs stop at column dv - 2.
 // - Only the diagonal tile and the ragged last tile are masked. The block
 //   order puts the q tiles with the most kv tiles first.
 //
@@ -45,8 +50,9 @@
 // chunked-prefill attention, which the JAX package runs as jnp on every
 // backend (src/repro/kernels/ref.py, `paged_chunk_attention`): query j of
 // row bi sits at position lengths[bi] + j and sees every pooled position up
-// to it through the row's block table. Only two things change, so the
-// consumer code, and with it the accumulation order, is flash's:
+// to it through the row's block table (dq == dv: the pools have one head
+// dim). Only two things change, so the consumer code, and with it the
+// accumulation order, is flash's:
 // - the producer loads each 64-row kv tile as 64 / bt TMA boxes of one page
 //   each (page id from block_tables, read by the producer thread), into the
 //   same swizzle atoms; box i lands at i * bt * 128 bytes, a multiple of
@@ -61,6 +67,8 @@
 // on the same K/V, bit for bit. Keys past max_blocks * bt are masked like
 // keys past t, read from the row's last table entry.
 #include <cuda.h>
+
+#include <type_traits>
 
 #include "per_device.cuh"
 #include "wgmma_bf16.cuh"
@@ -78,10 +86,11 @@ constexpr int kThreads = kConsumers + 32;       // + the producer warp
 constexpr uint32_t kAtomBytes = kBlock * 64 * 2;  // 64 rows x 128 bytes
 constexpr float kNegInf = -1e30f;                 // the reference's NEG_INF
 
-// Bytes of dynamic shared memory for DA swizzle atoms of head dim: Q, the
-// K and V ring, 2 * kStages + 1 barriers, and 1 KB to align the tiles.
-constexpr int smem_bytes(int da) {
-  return 1024 + (1 + 2 * kStages) * da * (int)kAtomBytes +
+// Bytes of dynamic shared memory for DQA query/key and DVA value swizzle
+// atoms: Q, the K and V ring, 2 * kStages + 1 barriers, and 1 KB to align
+// the tiles.
+constexpr int smem_bytes(int dqa, int dva) {
+  return 1024 + ((1 + kStages) * dqa + kStages * dva) * (int)kAtomBytes +
          8 * (2 * kStages + 1);
 }
 
@@ -90,27 +99,30 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// DA = head dim rounded up to 64, in 64-column swizzle atoms (1..4).
-// kPaged: tk/tv map the pools (num_pages, bt, kvh, d), `tables` (b, t / bt)
-// and `lengths` (b,) are read, t = max_blocks * bt and causal is 1; else
-// tables, lengths and bt are unused.
-template <int DA, bool kPaged>
+// DQA / DVA = the query/key and the value head dims rounded up to 64, in
+// 64-column swizzle atoms (1..4); dv is the output's head dim.
+// kPaged (DQA == DVA): tk/tv map the pools (num_pages, bt, kvh, d), `tables`
+// (b, t / bt) and `lengths` (b,) are read, t = max_blocks * bt and causal is
+// 1; else tables, lengths and bt are unused.
+template <int DQA, int DVA, bool kPaged>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
                      const __grid_constant__ CUtensorMap tk,
                      const __grid_constant__ CUtensorMap tv,
                      bf16* __restrict__ o, const int* __restrict__ tables,
                      const int* __restrict__ lengths, int b, int s, int t,
-                     int nh, int kvh, int d, int causal, int bt,
+                     int nh, int kvh, int dv, int causal, int bt,
                      float scale_log2) {
-  constexpr int kN = 64 * DA;                     // P·V output width
-  constexpr uint32_t kTile = DA * kAtomBytes;     // one 64-row tile
+  static_assert(!kPaged || DQA == DVA, "the pools have one head dim");
+  constexpr int kN = 64 * DVA;                    // P·V output width
+  constexpr uint32_t kTileQ = DQA * kAtomBytes;   // one 64-row Q or K tile
+  constexpr uint32_t kTileV = DVA * kAtomBytes;   // one 64-row V tile
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t sQ = (raw + 1023u) & ~1023u;  // atoms are 1 KB aligned
-  const uint32_t sK = sQ + kTile;                 // + stage * kTile
-  const uint32_t sV = sK + kStages * kTile;
-  const uint32_t bars = sV + kStages * kTile;
+  const uint32_t sK = sQ + kTileQ;                // + stage * kTileQ
+  const uint32_t sV = sK + kStages * kTileQ;      // + stage * kTileV
+  const uint32_t bars = sV + kStages * kTileV;
   const uint32_t full = bars;                     // + 8 * stage
   const uint32_t empty = bars + 8 * kStages;
   const uint32_t qbar = bars + 16 * kStages;
@@ -141,8 +153,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   if (threadIdx.x >= kConsumers) {
     // producer: one thread issues every copy, the rest of the warp idles
     if (threadIdx.x == kConsumers) {
-      mbar_expect_tx(qbar, kTile);
-      for (int a = 0; a < DA; ++a)
+      mbar_expect_tx(qbar, kTileQ);
+      for (int a = 0; a < DQA; ++a)
         tma_load_4d(sQ + a * kAtomBytes, &tq, qbar, a * 64, h, q0, bi);
       const int per = kPaged ? kBlock / bt : 0;     // pages a kv tile
       const int mb = kPaged ? t / bt : 0;
@@ -158,10 +170,10 @@ __global__ void __launch_bounds__(kThreads, 1)
                         ? tables[(long)bi * mb + min(kt * per + i, mb - 1)]
                         : 0;
         mbar_wait(empty + 8 * st, ph ^ 1);          // stage free again
-        mbar_expect_tx(full + 8 * st, 2 * kTile);
-        for (int a = 0; a < DA; ++a) {
-          const uint32_t ka = sK + st * kTile + a * kAtomBytes;
-          const uint32_t va = sV + st * kTile + a * kAtomBytes;
+        mbar_expect_tx(full + 8 * st, kTileQ + kTileV);
+        for (int a = 0; a < DQA; ++a) {
+          const uint32_t ka = sK + st * kTileQ + a * kAtomBytes;
+          const uint32_t va = sV + st * kTileV + a * kAtomBytes;
           if (kPaged) {
 #pragma unroll
             for (int i = 0; i < kBlock / 8; ++i) {
@@ -173,7 +185,9 @@ __global__ void __launch_bounds__(kThreads, 1)
             }
           } else {
             tma_load_4d(ka, &tk, full + 8 * st, a * 64, kh, kt * kBlock, bi);
-            tma_load_4d(va, &tv, full + 8 * st, a * 64, kh, kt * kBlock, bi);
+            if (a < DVA)
+              tma_load_4d(va, &tv, full + 8 * st, a * 64, kh, kt * kBlock,
+                          bi);
           }
         }
       }
@@ -198,13 +212,13 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int st = kt % kStages;
     const int k0 = kt * kBlock;
     mbar_wait(full + 8 * st, (kt / kStages) & 1);
-    const uint32_t kbase = sK + st * kTile, vbase = sV + st * kTile;
+    const uint32_t kbase = sK + st * kTileQ, vbase = sV + st * kTileV;
 
-    // S = Q K^T: 4 k16 steps per atom; steps past d multiply zero fill
+    // S = Q K^T: 4 k16 steps per atom; steps past dq multiply zero fill
     float sc[32];
     wgmma_fence();
 #pragma unroll
-    for (int ks = 0; ks < 4 * DA; ++ks) {
+    for (int ks = 0; ks < 4 * DQA; ++ks) {
       const uint32_t off = (ks >> 2) * kAtomBytes + (ks & 3) * 32;
       wgmma_ss_m64n64k16(sc, desc_sw128(sQ + off, 16, 1024),
                          desc_sw128(kbase + off, 16, 1024), ks > 0);
@@ -269,7 +283,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     mbar_arrive(empty + 8 * st);                 // K and V of this stage read
   }
 
-  // finalize: full row sums, divide, store bf16 pairs of the d real columns
+  // finalize: full row sums, divide, store bf16 pairs of the dv real columns
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
@@ -280,12 +294,12 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
   for (int j = 0; j < kN / 8; ++j) {
     const int col = j * 8 + tig * 2;
-    if (col >= d) continue;
+    if (col >= dv) continue;
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int row = r ? row_b : row_a;
       if (row < s)
-        *reinterpret_cast<uint32_t*>(o + (((long)bi * s + row) * nh + h) * d +
+        *reinterpret_cast<uint32_t*>(o + (((long)bi * s + row) * nh + h) * dv +
                                      col) =
             pack_bf16(acc[4 * j + 2 * r] * inv[r],
                       acc[4 * j + 2 * r + 1] * inv[r]);
@@ -339,68 +353,95 @@ bool encode(CUtensorMap* map, const void* ptr, int n, int len, int heads,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int DA, bool kPaged>
+template <int DQA, int DVA, bool kPaged>
 int launch_da(const CUtensorMap& tq, const CUtensorMap& tk,
               const CUtensorMap& tv, void* o, const int* tables,
-              const int* lengths, int b, int s, int t, int nh, int kvh, int d,
-              int causal, int bt, float scale, cudaStream_t stream) {
-  const int smem = smem_bytes(DA);
+              const int* lengths, int b, int s, int t, int nh, int kvh,
+              int dv, int causal, int bt, float scale, cudaStream_t stream) {
+  const int smem = smem_bytes(DQA, DVA);
   // raise the opt-in limit once per instance and device
   static int granted[repro_dev::kMaxDevices] = {};
-  if (int err = repro_dev::grant_smem(flash_fwd_kernel<DA, kPaged>, smem,
-                                      granted))
+  if (int err = repro_dev::grant_smem(flash_fwd_kernel<DQA, DVA, kPaged>,
+                                      smem, granted))
     return err;
   const long blocks = (long)((s + kBlock - 1) / kBlock) * nh * b;
-  flash_fwd_kernel<DA, kPaged><<<(unsigned)blocks, kThreads, smem, stream>>>(
-      tq, tk, tv, (bf16*)o, tables, lengths, b, s, t, nh, kvh, d, causal, bt,
-      scale * 1.4426950408889634f);
+  flash_fwd_kernel<DQA, DVA, kPaged>
+      <<<(unsigned)blocks, kThreads, smem, stream>>>(
+          tq, tk, tv, (bf16*)o, tables, lengths, b, s, t, nh, kvh, dv, causal,
+          bt, scale * 1.4426950408889634f);
   return (int)cudaGetLastError();
+}
+
+// The instance for (DQA, dva): DVA == DQA for both variants, and for flash
+// also every DVA < DQA.
+template <bool kPaged, int DQA>
+int launch_dq(int dva, const CUtensorMap& tq, const CUtensorMap& tk,
+              const CUtensorMap& tv, void* o, const int* tables,
+              const int* lengths, int b, int s, int t, int nh, int kvh,
+              int dv, int causal, int bt, float scale, cudaStream_t stream) {
+  auto go = [&](auto dva_c) {
+    return launch_da<DQA, decltype(dva_c)::value, kPaged>(
+        tq, tk, tv, o, tables, lengths, b, s, t, nh, kvh, dv, causal, bt,
+        scale, stream);
+  };
+  if (dva == DQA) return go(std::integral_constant<int, DQA>{});
+  if constexpr (!kPaged) {
+    if constexpr (DQA > 1)
+      if (dva == 1) return go(std::integral_constant<int, 1>{});
+    if constexpr (DQA > 2)
+      if (dva == 2) return go(std::integral_constant<int, 2>{});
+    if constexpr (DQA > 3)
+      if (dva == 3) return go(std::integral_constant<int, 3>{});
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 template <bool kPaged>
 int launch(const CUtensorMap& tq, const CUtensorMap& tk,
            const CUtensorMap& tv, void* o, const int* tables,
-           const int* lengths, int b, int s, int t, int nh, int kvh, int d,
-           int causal, int bt, float scale, cudaStream_t stream) {
-  switch ((d + 63) / 64) {
+           const int* lengths, int b, int s, int t, int nh, int kvh, int dq,
+           int dv, int causal, int bt, float scale, cudaStream_t stream) {
+  const int dva = (dv + 63) / 64;
+  switch ((dq + 63) / 64) {
     case 1:
-      return launch_da<1, kPaged>(tq, tk, tv, o, tables, lengths, b, s, t, nh,
-                                  kvh, d, causal, bt, scale, stream);
+      return launch_dq<kPaged, 1>(dva, tq, tk, tv, o, tables, lengths, b, s,
+                                  t, nh, kvh, dv, causal, bt, scale, stream);
     case 2:
-      return launch_da<2, kPaged>(tq, tk, tv, o, tables, lengths, b, s, t, nh,
-                                  kvh, d, causal, bt, scale, stream);
+      return launch_dq<kPaged, 2>(dva, tq, tk, tv, o, tables, lengths, b, s,
+                                  t, nh, kvh, dv, causal, bt, scale, stream);
     case 3:
-      return launch_da<3, kPaged>(tq, tk, tv, o, tables, lengths, b, s, t, nh,
-                                  kvh, d, causal, bt, scale, stream);
+      return launch_dq<kPaged, 3>(dva, tq, tk, tv, o, tables, lengths, b, s,
+                                  t, nh, kvh, dv, causal, bt, scale, stream);
     case 4:
-      return launch_da<4, kPaged>(tq, tk, tv, o, tables, lengths, b, s, t, nh,
-                                  kvh, d, causal, bt, scale, stream);
+      return launch_dq<kPaged, 4>(dva, tq, tk, tv, o, tables, lengths, b, s,
+                                  t, nh, kvh, dv, causal, bt, scale, stream);
   }
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// Dynamic shared memory of one block at head dim d (Q, the K/V ring, the
-// barriers and the alignment slack).
-extern "C" int flash_attention_smem_bytes(int d) {
-  return smem_bytes((d + 63) / 64);
+// Dynamic shared memory of one block at query/key head dim dq and value
+// head dim dv (Q, the K/V ring, the barriers and the alignment slack).
+extern "C" int flash_attention_smem_bytes(int dq, int dv) {
+  return smem_bytes((dq + 63) / 64, (dv + 63) / 64);
 }
 
-// q (b, s, nh, d), k/v (b, t, kvh, d), o (b, s, nh, d); all bf16, contiguous,
-// 16-byte aligned. d % 8 == 0, d <= 256, nh % kvh == 0 (the Python wrapper
-// checks). Returns the CUDA error of the launch (0 = cudaSuccess).
+// q (b, s, nh, dq), k (b, t, kvh, dq), v (b, t, kvh, dv), o (b, s, nh, dv);
+// all bf16, contiguous, 16-byte aligned. dq % 8 == dv % 8 == 0, dv <= dq <=
+// 256, nh % kvh == 0 (the Python wrapper checks). Returns the CUDA error of
+// the launch (0 = cudaSuccess).
 extern "C" int flash_attention_bf16(const void* q, const void* k,
                                     const void* v, void* o, int b, int s,
-                                    int t, int nh, int kvh, int d, int causal,
-                                    float scale, void* stream) {
+                                    int t, int nh, int kvh, int dq, int dv,
+                                    int causal, float scale, void* stream) {
   CUtensorMap tq, tk, tv;
-  if (!encode(&tq, q, b, s, nh, d, kBlock) ||
-      !encode(&tk, k, b, t, kvh, d, kBlock) ||
-      !encode(&tv, v, b, t, kvh, d, kBlock))
+  if (!encode(&tq, q, b, s, nh, dq, kBlock) ||
+      !encode(&tk, k, b, t, kvh, dq, kBlock) ||
+      !encode(&tv, v, b, t, kvh, dv, kBlock))
     return (int)cudaErrorInvalidValue;
-  return launch<false>(tq, tk, tv, o, nullptr, nullptr, b, s, t, nh, kvh, d,
-                       causal, 0, scale, (cudaStream_t)stream);
+  return launch<false>(tq, tk, tv, o, nullptr, nullptr, b, s, t, nh, kvh, dq,
+                       dv, causal, 0, scale, (cudaStream_t)stream);
 }
 
 // Chunked-prefill attention over paged K/V: q (b, s, nh, d), pools k/v
@@ -421,5 +462,5 @@ extern "C" int paged_chunk_attention_bf16(const void* q, const void* k,
       !encode(&tv, v, num_pages, bt, kvh, d, bt))
     return (int)cudaErrorInvalidValue;
   return launch<true>(tq, tk, tv, o, tables, lengths, b, s, mb * bt, nh, kvh,
-                      d, 1, bt, scale, (cudaStream_t)stream);
+                      d, d, 1, bt, scale, (cudaStream_t)stream);
 }

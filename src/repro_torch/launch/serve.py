@@ -1,9 +1,11 @@
-"""Serve a small model through the port's paged engine: the reduced
-config of any registered architecture (``--arch``, one of
+"""Serve a small model through ``make_engine`` (the paged engine; the
+dense SlotEngine for the MLA configs): the reduced config of any
+registered architecture (``--arch``, one of
 ``repro_torch.configs.ARCH_IDS``).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma_2b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3_70b --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch minicpm3_4b --device cpu
 
 Runs on the card by default, its fixed-shape passes replayed as CUDA
 graphs (``--eager`` runs them without capture); ``--device cpu`` runs the

@@ -1,7 +1,7 @@
-"""GQA/MQA attention for serving (twin of the GQA half of
-``repro.models.attention``).
+"""Attention for serving (twin of ``repro.models.attention``): GQA/MQA and
+MLA (DeepSeek-V2 latent attention).
 
-Prefill is causal full-sequence attention through ``ops.flash_attention``;
+GQA prefill is causal full-sequence attention through ``ops.flash_attention``;
 decode reads a dense per-slot cache through ``ops.decode_attention`` or a
 paged cache through ``ops.paged_decode_attention``; the chunked-prefill
 pass reads a paged cache through ``ops.paged_chunk_attention`` and the
@@ -11,6 +11,13 @@ from ``dynamic_update_slice`` or ``.at[slot].set(...)``, this module writes
 the new tokens' K/V into the layer's slice of the cache with index writes,
 which saves a whole-cache copy per layer per step. The returned cache dict
 still names the (same) tensors, so callers read like the JAX package's.
+
+MLA prefill also goes through ``ops.flash_attention``, with query and key
+at ``qk_nope + qk_rope`` and value at ``v_head_dim`` (dq != dv); its decode
+is einsums over the latent cache (``c_kv``, ``k_rope``), as in the JAX
+package, either re-expanding K/V (naive) or in the latent space
+(``MLAConfig.absorb``). MLA's cache is dense only: the paged passes
+(chunk, verify) serve GQA.
 """
 from __future__ import annotations
 
@@ -20,15 +27,32 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
-from repro_torch.models.layers import Initializer, apply_rope
+from repro_torch.models.layers import (Initializer, apply_norm, apply_rope,
+                                       init_norm)
+
+NEG_INF = -1e30
 
 
 def init_attention(init: Initializer, cfg: ModelConfig) -> Dict:
-    if cfg.attn_type != "gqa":
-        raise NotImplementedError(
-            f"attn_type={cfg.attn_type!r}: the PyTorch port serves GQA/MQA "
-            "attention; MLA arrives with the other-families slice")
     d, hd = cfg.d_model, cfg.resolved_head_dim
+    if cfg.attn_type == "mla":
+        m = cfg.mla
+        p: Dict = {}
+        if m.q_lora_rank:
+            p["wdq"] = init.w((d, m.q_lora_rank))
+            p["q_norm"] = init_norm(init, cfg, m.q_lora_rank)
+        q_in = m.q_lora_rank or d
+        p["wuq"] = init.w((q_in, cfg.num_heads,
+                           m.qk_nope_head_dim + m.qk_rope_head_dim))
+        p["wdkv"] = init.w((d, m.kv_lora_rank))
+        p["wkr"] = init.w((d, m.qk_rope_head_dim))
+        p["kv_norm"] = init_norm(init, cfg, m.kv_lora_rank)
+        p["wuk"] = init.w((m.kv_lora_rank, cfg.num_heads, m.qk_nope_head_dim))
+        p["wuv"] = init.w((m.kv_lora_rank, cfg.num_heads, m.v_head_dim))
+        p["wo"] = init.z((cfg.num_heads, m.v_head_dim, d))
+        return p
+    if cfg.attn_type != "gqa":
+        raise NotImplementedError(f"attn_type={cfg.attn_type!r}")
     return {
         "wq": init.w((d, cfg.num_heads, hd)),
         "wk": init.w((d, cfg.num_kv_heads, hd)),
@@ -219,9 +243,125 @@ def gqa_verify_paged(params, x, cfg: ModelConfig, cache: Dict,
         "length": lengths + q_valid}
 
 
+# ---------------------------------------------------------------------------
+# MLA
+# ---------------------------------------------------------------------------
+
+def _einsum(eq, a, b):
+    """``jnp.einsum`` with JAX's type promotion (a bf16 latent cache times
+    fp32 weights is fp32); ``torch.einsum`` takes one dtype."""
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return torch.einsum(eq, a.to(dt), b.to(dt))
+
+
+def _mla_q(params, x, positions, cfg: ModelConfig):
+    """(q_nope, q_rope) ``(b, s, n, nope)`` / ``(b, s, n, rope)``, the rope
+    half rotated at ``positions``."""
+    m = cfg.mla
+    cq = (apply_norm(params["q_norm"], x @ params["wdq"], cfg)
+          if m.q_lora_rank else x)
+    q = _proj_in(cq, params["wuq"])
+    q_nope, q_rope = q[..., :m.qk_nope_head_dim], q[..., m.qk_nope_head_dim:]
+    return q_nope, apply_rope(q_rope, positions, cfg.rope_theta)
+
+
+def _mla_latent(params, x, positions, cfg: ModelConfig):
+    """(c_kv ``(b, s, kv_lora)``, k_rope ``(b, s, 1, rope)``)."""
+    c_kv = apply_norm(params["kv_norm"], x @ params["wdkv"], cfg)
+    k_rope = apply_rope((x @ params["wkr"])[:, :, None, :], positions,
+                        cfg.rope_theta)
+    return c_kv, k_rope
+
+
+def _mla_scale(cfg: ModelConfig) -> float:
+    return (cfg.mla.qk_nope_head_dim + cfg.mla.qk_rope_head_dim) ** -0.5
+
+
+def mla_prefill(params, x, positions, cfg: ModelConfig,
+                cache: Optional[Dict] = None
+                ) -> Tuple[torch.Tensor, Optional[Dict]]:
+    """Full-sequence MLA: K/V re-expanded from the latent, the rope key
+    shared by every head, through ``ops.flash_attention`` at dq = nope +
+    rope, dv = v_head_dim. If ``cache`` is given (a pre-allocated ``(b, S,
+    kv_lora)`` / ``(b, S, rope)`` layer slice), the latent and the rope key
+    are written into its first ``s`` positions in place."""
+    m = cfg.mla
+    q_nope, q_rope = _mla_q(params, x, positions, cfg)
+    c_kv, k_rope = _mla_latent(params, x, positions, cfg)
+    k_nope = _proj_in(c_kv, params["wuk"])
+    v = _proj_in(c_kv, params["wuv"])
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope.expand(*k_nope.shape[:3],
+                                         m.qk_rope_head_dim)], dim=-1)
+    out = ops.flash_attention(q, k, v, causal=not cfg.encoder_only,
+                              scale=_mla_scale(cfg))
+    new_cache = None
+    if cache is not None:
+        s = c_kv.shape[1]
+        cache["c_kv"][:, :s] = c_kv
+        cache["k_rope"][:, :s] = k_rope[:, :, 0]
+        new_cache = {"c_kv": cache["c_kv"], "k_rope": cache["k_rope"],
+                     "length": torch.full_like(cache["length"], s)}
+    return _proj_out(out, params["wo"]), new_cache
+
+
+def mla_decode(params, x, cfg: ModelConfig,
+               cache: Dict) -> Tuple[torch.Tensor, Dict]:
+    """One-token MLA decode against the dense latent cache. The new
+    token's latent and rope key are written in place at ``length``
+    (clamped to ``S - 1``, as in ``gqa_decode``). Naive: K/V re-expanded
+    from the whole latent cache; ``cfg.mla.absorb``: attention in the
+    latent space, ``wuk`` folded into the query and ``wuv`` applied after.
+    JAX's rounding order: the einsums and their scaled sum in the compute
+    dtype, the mask and softmax in fp32, the probabilities cast back."""
+    m = cfg.mla
+    lengths = cache["length"]
+    pos = lengths[:, None]
+    q_nope, q_rope = _mla_q(params, x, pos, cfg)
+    c_new, kr_new = _mla_latent(params, x, pos, cfg)
+    c_kv, k_rope = cache["c_kv"], cache["k_rope"]
+    rows = torch.arange(x.shape[0], device=x.device)
+    at = torch.clamp(lengths, max=c_kv.shape[1] - 1).long()
+    c_kv[rows, at] = c_new[:, 0].to(c_kv.dtype)
+    k_rope[rows, at] = kr_new[:, 0, 0].to(k_rope.dtype)
+    S = c_kv.shape[1]
+    valid = (torch.arange(S, device=x.device)[None, :]
+             < (lengths + 1)[:, None])                     # (b, S)
+    scale = _mla_scale(cfg)
+    rope = _einsum("bsnh,bSh->bnS", q_rope, k_rope)
+    if m.absorb:
+        q_lat = _einsum("bsnh,lnh->bsnl", q_nope, params["wuk"])
+        scores = (_einsum("bsnl,bSl->bnS", q_lat, c_kv) + rope) * scale
+        scores = torch.where(valid[:, None, :], scores.float(), NEG_INF)
+        probs = torch.softmax(scores, dim=-1).to(c_kv.dtype)
+        o_lat = _einsum("bnS,bSl->bnl", probs, c_kv)
+        out = _einsum("bnl,lnh->bnh", o_lat, params["wuv"])[:, None]
+    else:
+        k_nope = _einsum("bSl,lnh->bSnh", c_kv, params["wuk"])
+        v = _einsum("bSl,lnh->bSnh", c_kv, params["wuv"])
+        scores = (_einsum("bsnh,bSnh->bnS", q_nope, k_nope) + rope) * scale
+        scores = torch.where(valid[:, None, :], scores.float(), NEG_INF)
+        probs = torch.softmax(scores, dim=-1).to(v.dtype)
+        out = _einsum("bnS,bSnh->bnh", probs, v)[:, None]
+    return _proj_out(out, params["wo"]), {"c_kv": c_kv, "k_rope": k_rope,
+                                          "length": lengths + 1}
+
+
+# ---------------------------------------------------------------------------
+# cache specs
+# ---------------------------------------------------------------------------
+
 def cache_spec(cfg: ModelConfig, batch: int, max_len: int,
                dtype=torch.bfloat16) -> Dict[str, Tuple[tuple, torch.dtype]]:
-    """Shape and dtype of the dense KV-cache entry for ONE attention layer."""
+    """Shape and dtype of the dense KV-cache entry for ONE attention layer:
+    MLA's latent ``c_kv`` and shared rope key, or GQA's K/V."""
+    if cfg.attn_type == "mla":
+        m = cfg.mla
+        return {
+            "c_kv": ((batch, max_len, m.kv_lora_rank), dtype),
+            "k_rope": ((batch, max_len, m.qk_rope_head_dim), dtype),
+            "length": ((batch,), torch.int32),
+        }
     hd = cfg.resolved_head_dim
     return {
         "k": ((batch, max_len, cfg.num_kv_heads, hd), dtype),

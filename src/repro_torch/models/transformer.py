@@ -1,6 +1,9 @@
-"""Dense decoder model for serving (twin of the dense and vlm families of
+"""Decoder model for serving (twin of the dense, vlm and moe families of
 ``repro.models.transformer``; the vlm's stub frontend hands prefill its
-embeddings through ``frontend_proj``).
+embeddings through ``frontend_proj``). Attention is GQA, or MLA in the
+dense and moe families; the moe family stacks ``first_k_dense`` dense
+blocks (``dense_layers``) before its MoE blocks (``layers``), each group
+with its own cache (``dense_attn``, ``attn``).
 
 Parameters are a plain nested dict of tensors with the JAX pytree's keys and
 its stacked ``(L, ...)`` layer layout, so ``weights.from_jax_params`` is a
@@ -15,7 +18,8 @@ slices. Forward modes of this slice:
     logits at every feed position.
 
 Training and the other families arrive with later slices and raise
-``NotImplementedError`` here.
+``NotImplementedError`` here; so do chunk and verify for MLA, whose cache
+is not paged (as in the JAX package).
 """
 from __future__ import annotations
 
@@ -28,6 +32,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import (Initializer, apply_mlp, apply_norm,
                                        init_mlp, init_norm, softcap)
+from repro_torch.models.moe import apply_moe, init_moe
+
 
 def check_family(cfg: ModelConfig):
     if cfg.family == "audio":
@@ -35,30 +41,39 @@ def check_family(cfg: ModelConfig):
             f"family='audio' ({cfg.name}): its serving entry runs the "
             "encoder forward, mode='train', which arrives with the training "
             "slice of the PyTorch port")
-    if cfg.family not in ("dense", "vlm") or cfg.attn_type != "gqa":
+    served = {"dense": ("gqa", "mla"), "vlm": ("gqa",), "moe": ("mla",)}
+    if cfg.attn_type not in served.get(cfg.family, ()):
         raise NotImplementedError(
             f"family={cfg.family!r}, attn_type={cfg.attn_type!r}: the "
-            "PyTorch port serves GQA attention in the dense and vlm "
-            "families; the others arrive with the other-families slice")
+            "PyTorch port serves GQA and MLA attention in the dense family, "
+            "GQA in the vlm and MLA in the moe family; a GQA MoE needs the "
+            "paged Engine's MoE path and the recurrent families their own "
+            "layers, which arrive with later slices")
 
 
-def _init_block(init: Initializer, cfg: ModelConfig) -> Dict:
-    return {
+def _init_block(init: Initializer, cfg: ModelConfig,
+                moe_layer: bool = False) -> Dict:
+    p = {
         "ln1": init_norm(init, cfg, cfg.d_model),
         "attn": attn.init_attention(init, cfg),
         "ln2": init_norm(init, cfg, cfg.d_model),
-        "mlp": init_mlp(init, cfg),
     }
+    if moe_layer:
+        p["moe"] = init_moe(init, cfg)
+    else:
+        p["mlp"] = init_mlp(init, cfg)
+    return p
 
 
-def _init_layers(init: Initializer, cfg: ModelConfig) -> Dict:
-    """The ``(L, ...)`` stacked blocks, drawn block by block in layer order
-    and written into leaves allocated once: the same tensors as stacking
-    ``L`` block trees, without holding every layer twice."""
+def _init_layers(init: Initializer, cfg: ModelConfig, n: int,
+                 moe_layer: bool = False) -> Dict:
+    """``n`` stacked ``(n, ...)`` blocks, drawn block by block in layer
+    order and written into leaves allocated once: the same tensors as
+    stacking ``n`` block trees, without holding every layer twice."""
     def alloc(t):
         if isinstance(t, dict):
             return {k: alloc(v) for k, v in t.items()}
-        return t.new_empty((cfg.num_layers, *t.shape))
+        return t.new_empty((n, *t.shape))
 
     def put(dst, src, i):
         for k, v in src.items():
@@ -67,8 +82,8 @@ def _init_layers(init: Initializer, cfg: ModelConfig) -> Dict:
             else:
                 dst[k][i] = v
     out = None
-    for i in range(cfg.num_layers):
-        block = _init_block(init, cfg)
+    for i in range(n):
+        block = _init_block(init, cfg, moe_layer)
         out = alloc(block) if out is None else out
         put(out, block, i)
         del block
@@ -97,7 +112,9 @@ def init_model(cfg: ModelConfig, generator: torch.Generator,
     params["final_norm"] = init_norm(init, cfg, d)
     if not cfg.tie_embeddings:
         params["head"] = init.w((d, cfg.vocab_size), scale=d ** -0.5)
-    params["layers"] = _init_layers(init, cfg)
+    for pkey, _, n in _groups(cfg):
+        params[pkey] = _init_layers(init, cfg, n, moe_layer=(
+            cfg.family == "moe" and pkey == "layers"))
     return params
 
 
@@ -119,8 +136,15 @@ def _rounded_sqrt(n: int, dtype: str) -> float:
 def _block_fwd(p, x, positions, cfg: ModelConfig, mode: str, cache,
                q_valid=None):
     h = apply_norm(p["ln1"], x, cfg)
+    mla = cfg.attn_type == "mla"
+    if mla and mode in ("chunk", "verify"):
+        what = ("chunked prefill" if mode == "chunk"
+                else "speculative verify")
+        raise NotImplementedError(f"{what} supports gqa-family attention "
+                                  "only (paged KV)")
     if mode == "decode":
-        a, new_cache = attn.gqa_decode(p["attn"], h, cfg, cache)
+        a, new_cache = (attn.mla_decode if mla else attn.gqa_decode)(
+            p["attn"], h, cfg, cache)
     elif mode == "chunk":
         a, new_cache = attn.gqa_prefill_paged(p["attn"], h, cfg, cache,
                                               q_valid)
@@ -128,11 +152,26 @@ def _block_fwd(p, x, positions, cfg: ModelConfig, mode: str, cache,
         a, new_cache = attn.gqa_verify_paged(p["attn"], h, cfg, cache,
                                              q_valid)
     else:
-        a, new_cache = attn.gqa_prefill(p["attn"], h, positions, cfg, cache)
+        a, new_cache = (attn.mla_prefill if mla else attn.gqa_prefill)(
+            p["attn"], h, positions, cfg, cache)
     x = x + a
     h = apply_norm(p["ln2"], x, cfg)
-    x = x + apply_mlp(p["mlp"], h, cfg)
+    if "moe" in p:
+        x = x + apply_moe(p["moe"], h, cfg)[0]
+    else:
+        x = x + apply_mlp(p["mlp"], h, cfg)
     return x, new_cache
+
+
+def _groups(cfg: ModelConfig):
+    """(params key, cache key, layers) of each stack of blocks, in forward
+    order: the moe family's ``first_k_dense`` dense blocks, then its MoE
+    blocks; one stack otherwise."""
+    if cfg.family == "moe":
+        kd = cfg.moe.first_k_dense
+        return (("dense_layers", "dense_attn", kd),
+                ("layers", "attn", cfg.num_layers - kd))
+    return (("layers", "attn", cfg.num_layers),)
 
 
 def forward(params, cfg: ModelConfig, *, tokens=None, embeds=None,
@@ -169,18 +208,19 @@ def forward(params, cfg: ModelConfig, *, tokens=None, embeds=None,
     positions = (None if mode in ("decode", "chunk", "verify") else
                  torch.arange(s, dtype=torch.int32, device=x.device)[None, :])
 
-    c = caches["attn"] if caches is not None else None
-    lengths = []
-    for i in range(cfg.num_layers):
-        cache_i = None if c is None else layer_slice(c, i)
-        x, nc = _block_fwd(layer_slice(params["layers"], i), x, positions,
-                           cfg, mode, cache_i, q_valid)
-        if nc is not None:
-            lengths.append(nc["length"])
-    new_caches = None
-    if c is not None:
-        # pools/caches were written in place; only the lengths are new
-        new_caches = {"attn": {**c, "length": torch.stack(lengths, 0)}}
+    new_caches = None if caches is None else {}
+    for pkey, ckey, n in _groups(cfg):
+        c = caches[ckey] if caches is not None else None
+        lengths = []
+        for i in range(n):
+            cache_i = None if c is None else layer_slice(c, i)
+            x, nc = _block_fwd(layer_slice(params[pkey], i), x, positions,
+                               cfg, mode, cache_i, q_valid)
+            if nc is not None:
+                lengths.append(nc["length"])
+        if c is not None:
+            # pools/caches were written in place; only the lengths are new
+            new_caches[ckey] = {**c, "length": torch.stack(lengths, 0)}
 
     x = apply_norm(params["final_norm"], x, cfg)
     if mode == "prefill":
@@ -215,11 +255,13 @@ def _zeros_tree(spec, n: int, device):
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda"):
-    """Dense ``(L, b, max_len, kvh, hd)`` prefill caches (bf16, as the JAX
-    package's ``cache_spec`` default)."""
+    """Dense prefill caches, one ``(L, ...)`` stack a group of blocks: GQA
+    ``(L, b, max_len, kvh, hd)`` K/V, or MLA's latent and rope key (bf16,
+    as the JAX package's ``cache_spec`` default)."""
     check_family(cfg)
-    return {"attn": _zeros_tree(attn.cache_spec(cfg, batch, max_len),
-                                cfg.num_layers, device)}
+    spec = attn.cache_spec(cfg, batch, max_len)
+    return {ckey: _zeros_tree(spec, n, device)
+            for _, ckey, n in _groups(cfg)}
 
 
 def init_paged_cache(cfg: ModelConfig, batch: int, num_blocks: int,

@@ -14,8 +14,9 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.configs import gemma_2b, guard_2b
-from repro_torch.engine.core import Engine, EngineConfig, SlotEngine
+from repro_torch.configs import gemma_2b, get_reduced_config, guard_2b
+from repro_torch.engine.core import (Engine, EngineConfig, SlotEngine,
+                                     make_engine)
 from repro_torch.engine.workers import DisaggEngine
 from repro_torch.kernels import _build
 from repro_torch.kernels import decode_attention as tda
@@ -215,6 +216,25 @@ def test_flash_kernel_takes_head_dims_of_8(cuda, d, causal):
                   ref.flash_attention(q, k, v, causal=causal))
 
 
+# MLA prefill: query/key head dim qk_nope + qk_rope, value head dim
+# v_head_dim, as many kv heads as query heads: reduced (24/16), MiniCPM3-4B
+# (96/64, 40 heads), DeepSeek-V2-Lite (192/128, 16) and DeepSeek-V2-236B
+# (192/128, 128)
+MLA_SHAPES = [(24, 16, 4), (96, 64, 40), (192, 128, 16), (192, 128, 128)]
+
+
+@pytest.mark.parametrize("dq,dv,nh", MLA_SHAPES)
+@pytest.mark.parametrize("s,causal", [(1, True), (65, False), (300, True)])
+def test_flash_kernel_takes_dq_other_than_dv(cuda, dq, dv, nh, s, causal):
+    rng = np.random.default_rng(41)
+    q, k = (_bf16(rng, cuda, 2, s, nh, dq) for _ in range(2))
+    v = _bf16(rng, cuda, 2, s, nh, dv)
+    n0 = tfa.launches
+    got = ops.flash_attention(q, k, v, causal=causal)    # scale dq ** -0.5
+    assert tfa.launches == n0 + 1 and got.shape == (2, s, nh, dv)
+    _assert_close(got, ref.flash_attention(q, k, v, causal=causal))
+
+
 @pytest.mark.parametrize("d", ODD_D)
 @pytest.mark.parametrize("kernel", ["paged_decode", "decode", "verify",
                                     "chunk"])
@@ -360,6 +380,14 @@ def test_kernels_raise_on_what_they_do_not_take(cuda):
     qb = torch.zeros(1, 8, 2, 12, device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError):                           # d % 8 != 0
         ops.flash_attention(qb, qb[:, :, :1], qb[:, :, :1])
+    q24 = torch.zeros(1, 8, 2, 24, device=cuda, dtype=torch.bfloat16)
+    assert ops.flash_attention(q24, q24, q24[..., :16]).shape == (1, 8, 2,
+                                                                  16)
+    for q_, v_ in ((qb, qb[..., :8]),                         # dq % 8 != 0
+                   (q24, qb),                                 # dv % 8 != 0
+                   (q24[..., :16], q24)):                     # dv > dq
+        with pytest.raises(ValueError):
+            ops.flash_attention(q_, q_, v_)
     q1 = torch.zeros(2, 1, 4, 32, device=cuda, dtype=torch.bfloat16)
     kc = torch.zeros(2, 8, 1, 32, device=cuda, dtype=torch.bfloat16)
     lens = torch.ones(2, dtype=torch.int32, device=cuda)
@@ -454,6 +482,27 @@ def test_slot_engine_runs_through_decode_kernel(cuda):
             eng.submit(p, max_new_tokens=6)
         streams.append({r.rid: r.tokens for r in eng.run()})
     assert tda.launches > n0
+    assert streams[0] == streams[1] and len(streams[0]) == 3
+
+
+@pytest.mark.parametrize("arch", ["minicpm3_4b", "deepseek_v2_lite_16b"])
+def test_mla_slot_engine_runs_through_flash_kernel(cuda, arch):
+    """Reduced MLA configs (dq 24, dv 16) in bf16 on the card: make_engine
+    gives the SlotEngine, which prefills through flash_attention at dq !=
+    dv; its decode pass graphed gives the eager pass's streams."""
+    cfg = get_reduced_config(arch)
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, 512, n).astype(np.int32) for n in (12, 30, 7)]
+    streams = []
+    for graphs in (True, False):
+        eng = make_engine(cfg, max_batch=2, max_len=64, seed=4, device=cuda,
+                          block_tokens=16, cuda_graphs=graphs)
+        assert isinstance(eng, SlotEngine)
+        n0 = tfa.launches
+        for p in prompts:
+            eng.submit(p, max_new_tokens=6)
+        streams.append({r.rid: r.tokens for r in eng.run()})
+        assert tfa.launches >= n0 + 3 * cfg.num_layers
     assert streams[0] == streams[1] and len(streams[0]) == 3
 
 

@@ -22,6 +22,7 @@ from repro.engine.runner import SlotEngine as JSlotEngine
 from repro.models import transformer as jtf
 from repro_torch import weights
 from repro_torch.configs import gemma_2b as tgemma
+from repro_torch.configs.base import MLAConfig
 from repro_torch.engine import core
 from repro_torch.engine.paged_kv import PagedKVStore as TStore
 from repro_torch.engine.paged_kv import prefix_chain as tchain
@@ -242,8 +243,9 @@ def test_store_matches_jax_store_on_random_walk():
 
 
 def test_paths_of_later_slices_raise(models):
-    """Chunked prefill, speculative decoding and dense decode run; MLA and
-    MoE raise naming the other-families slice, training raises."""
+    """Chunked prefill, speculative decoding and dense decode run; MLA
+    gives the SlotEngine; a GQA MoE and the recurrent families raise
+    naming the later slices, training raises."""
     _, _, tcfg, tparams = models
     kw = dict(params=tparams, max_batch=1, max_len=64, device="cpu")
     chunked = Engine(tcfg, config=EngineConfig(chunk_size=8), **kw)
@@ -253,10 +255,14 @@ def test_paths_of_later_slices_raise(models):
                   draft_params=tparams, **kw)
     spec.submit(np.arange(5, dtype=np.int32), max_new_tokens=4)
     assert len(spec.run()[0].tokens) == 4 and spec.spec_iters > 0
-    with pytest.raises(NotImplementedError, match="other-families"):
-        make_engine(tcfg.replace(attn_type="mla"), **kw)
-    with pytest.raises(NotImplementedError, match="other-families"):
-        make_engine(tcfg.replace(family="moe"), **kw)
+    mla = tcfg.replace(attn_type="mla", mla=MLAConfig(
+        kv_lora_rank=32, qk_nope_head_dim=16, qk_rope_head_dim=8,
+        v_head_dim=16))
+    assert isinstance(make_engine(mla, max_batch=1, max_len=64,
+                                  block_tokens=16, device="cpu"), SlotEngine)
+    for family in ("moe", "hybrid", "ssm"):
+        with pytest.raises(NotImplementedError, match="later slices"):
+            make_engine(tcfg.replace(family=family), **kw)
     cache = ttf.init_cache(tcfg, 1, 8, "cpu")
     out, new = tattn.gqa_decode(
         ttf.layer_slice(tparams["layers"], 0)["attn"],

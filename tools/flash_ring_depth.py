@@ -58,7 +58,7 @@ def build(depths):
         if proc.returncode != 0:
             raise RuntimeError(f"ring depth {depth} build failed:\n{log}")
         fn = ctypes.CDLL(str(so)).flash_attention_bf16
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [
             ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         built[depth] = (fn, [ln.strip() for ln in log.splitlines()
@@ -74,7 +74,7 @@ def caller(fn, q, k, v):
 
     def run():
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 b, s, t, nh, kvh, d, 1, d ** -0.5,
+                 b, s, t, nh, kvh, d, d, 1, d ** -0.5,
                  torch.cuda.current_stream().cuda_stream)
         _build.check(err, "flash_attention variant")
         return out

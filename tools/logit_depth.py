@@ -18,7 +18,11 @@ the first L layers, for a sweep of L, three ways (``prefill_three_ways``):
 Prints, per depth, max |a - b| over max |plain logit| for each pair. Where
 ``plain, P bf16`` sits as far from ``plain`` as the kernels do, the drift is
 the model's sensitivity to one bf16 rounding of P in every layer, not a
-fault of the kernel. Needs one card and nvcc.
+fault of the kernel. For a MoE config it also prints the share of (token,
+MoE layer) top-k expert choices that differ from plain attention's, and
+the first MoE layer where one does: a token routed to other experts takes
+another path through the layer, which no tolerance of the attention
+bounds. Needs one card and nvcc.
 """
 from __future__ import annotations
 
@@ -41,7 +45,10 @@ SWEEP = (("gemma_2b", None, (6, 12, 18)),
          ("internlm2_20b", None, (8, 16, 24, 32, 40, 48)),
          ("llama3_70b", 16, (4, 8, 16)),
          ("pixtral_12b", None, (8, 16, 24, 32, 40)),
-         ("nemotron_4_340b", 2, (1, 2)))
+         ("nemotron_4_340b", 2, (1, 2)),
+         ("minicpm3_4b", None, (16, 31, 62)),
+         ("deepseek_v2_lite_16b", None, (2, 4, 8, 16, 27)),
+         ("deepseek_v2_236b", 5, (2, 3, 5)))
 
 
 def flash_p_bf16(q, k, v, *, causal=True, scale=None):
@@ -51,7 +58,7 @@ def flash_p_bf16(q, k, v, *, causal=True, scale=None):
     model."""
     from repro_torch.kernels import ref
     b, s, nh, d = q.shape
-    t, kvh = k.shape[1], k.shape[2]
+    t, kvh, dv = k.shape[1], k.shape[2], v.shape[-1]
     scale = d ** -0.5 if scale is None else scale
     qr = q.reshape(b, s, kvh, nh // kvh, d)
     sc = torch.einsum("bskgh,btkh->bkgst", qr.float(), k.float()) * scale
@@ -63,24 +70,52 @@ def flash_p_bf16(q, k, v, *, causal=True, scale=None):
     out = torch.einsum("bkgst,btkh->bskgh", p.to(torch.bfloat16).float(),
                        v.float())
     out = out / p.sum(dim=-1).permute(0, 3, 1, 2)[..., None]
-    return out.reshape(b, s, nh, d).to(q.dtype)
+    return out.reshape(b, s, nh, dv).to(q.dtype)
 
 
 def prefill_three_ways(params, cfg, prompt):
     """Last-position prefill logits of ``prompt`` with the model's flash
-    attention through the kernel, plain attention and ``flash_p_bf16``."""
+    attention through the kernel, plain attention and ``flash_p_bf16``,
+    and each arm's sorted top-k expert ids per MoE layer (none for a dense
+    config)."""
     from repro_torch.kernels import ops, ref
-    from repro_torch.models import steps
-    out = []
+    from repro_torch.models import moe, steps
+    out, routes = [], []
+    router = moe._router
     for flash in (ops.flash_attention, ref.flash_attention, flash_p_bf16):
+        chosen = []
+
+        def record(p, x2d, c, _chosen=chosen):
+            w, idx, aux = router(p, x2d, c)
+            _chosen.append(idx.sort(dim=-1).values)
+            return w, idx, aux
         saved, ops.flash_attention = ops.flash_attention, flash
+        moe._router = record
         try:
             logits, _ = steps.prefill_step(params, {"tokens": torch.as_tensor(
                 prompt[None], device="cuda")}, cfg, 512)
         finally:
-            ops.flash_attention = saved
+            ops.flash_attention, moe._router = saved, router
         out.append(logits[0].float())
-    return out
+        routes.append(chosen)
+    return out, routes
+
+
+def routing_line(routes) -> str:
+    """The share of (token, MoE layer) expert choices of the kernels' and
+    of the P bf16 arm that differ from plain attention's, and the first
+    MoE layer (0-based) where the kernels' do."""
+    if not routes[0]:
+        return ""
+
+    def differ(a, b):
+        return torch.stack([(x != y).any(-1) for x, y in zip(a, b)]).float()
+    kern, pbf = differ(routes[0], routes[1]), differ(routes[2], routes[1])
+    first = [i for i, row in enumerate(kern) if row.any()]
+    return (f"; tokens routed to other experts than plain attention's, "
+            f"share of (token, MoE layer): kernels {float(kern.mean()):.4f}, "
+            f"plain P bf16 {float(pbf.mean()):.4f}; first MoE layer where "
+            f"the kernels' differ: {first[0] if first else None}")
 
 
 def main(argv=None) -> int:
@@ -102,7 +137,8 @@ def main(argv=None) -> int:
             0, cfg.vocab_size, 300).astype(np.int32)
         for depth in depths:
             c = cfg.replace(num_layers=depth)
-            out = dict(zip(arms, prefill_three_ways(params, c, prompt)))
+            logits, routes = prefill_three_ways(params, c, prompt)
+            out = dict(zip(arms, logits))
             scale = float(out["plain"].abs().max())
             rel = lambda a, b: float(  # noqa: E731
                 (out[a] - out[b]).abs().max()) / scale
@@ -112,7 +148,8 @@ def main(argv=None) -> int:
                   f"plain {rel('plain, P bf16', 'plain'):.4f}, kernels vs "
                   f"plain P bf16 {rel('kernels', 'plain, P bf16'):.4f}; "
                   f"argmax kernels | plain | P bf16: "
-                  f"{[int(out[n].argmax()) for n in arms]}", flush=True)
+                  f"{[int(out[n].argmax()) for n in arms]}"
+                  f"{routing_line(routes)}", flush=True)
         del params
         torch.cuda.empty_cache()
     return 0
