@@ -124,9 +124,25 @@ raises on failure:
    (equal streams and launch counts), tok/s, TTFT, TPOT, peak memory and
    the weights a decode pass reads (MoE: the experts it routes to)
    against their byte bound; minicpm3_4b also with the absorbed decode;
-14. the ``kernels`` JSON line (flash's row also holds its MLA shapes and
-   launches), the card line, and the last line
-   ``{"ok": true, "device": {...}}``.
+14. recurrent (after the MLA weights are freed): flash and dense decode
+   at zamba2_7b's shared-block shape (MHA, 32/32 heads, head dim 112:
+   two 64-column atoms, a query group of 1) held against their plain
+   versions and timed beside the bound and one
+   scaled_dot_product_attention call; one full-width layer each of
+   Mamba2 (1, 512, 3584), mLSTM and sLSTM (1, 512, 2048) at fp32, the
+   chunked prefill against the token-by-token recurrence (sLSTM: one call
+   against a call a token); then zamba2_7b (81 Mamba2 layers, 6 shared
+   block applications) and xlstm_1_3b (48 layers) at full width, nothing
+   cut, through ``make_engine``, which gives the SlotEngine: zamba2's
+   every shared-block flash and decode call held (``layer_checks``), a
+   1024-token prefill's peak memory, the 16 requests (prompts of 64-1024
+   tokens, lengths the chunked prefill takes) graphed and eager (equal
+   streams and launch counts), tok/s, TTFT, TPOT, peak memory and the
+   bytes a decode pass reads and writes (weights, the shared block per
+   application, recurrent state, K/V) against their byte bound;
+15. the ``kernels`` JSON line (flash's row also holds its MLA shapes and
+   launches, flash's and dense decode's their zamba2 shape and launches),
+   the card line, and the last line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -1212,8 +1228,11 @@ def _perturb(params, cfg, gen, share: float = 1.0):
             return d ** -0.5
         if path.endswith("gamma"):
             return 0.1
-        per_layer = shape[1:]
+        # the hybrid's one shared block is not stacked
+        per_layer = shape if path.startswith("shared.") else shape[1:]
         if ".moe.w" in path:              # (experts, fan-in, fan-out)
+            return per_layer[1] ** -0.5
+        if path == "slstm.r":             # (heads, fan-in, 4, head dim)
             return per_layer[1] ** -0.5
         fan_in = (int(np.prod(per_layer[:-1])) if path.endswith("wo")
                   else per_layer[0])
@@ -1263,13 +1282,15 @@ def plain_attention():
     """Route the model's attention through the plain PyTorch versions (on
     the card) instead of the kernels, for the end-to-end comparison."""
     from repro_torch.kernels import ops, ref
-    saved = ops.flash_attention, ops.paged_decode_attention
-    ops.flash_attention = ref.flash_attention
-    ops.paged_decode_attention = ref.paged_decode_attention
+    names = ("flash_attention", "paged_decode_attention", "decode_attention")
+    saved = [getattr(ops, n) for n in names]
+    for n in names:
+        setattr(ops, n, getattr(ref, n))
     try:
         yield
     finally:
-        ops.flash_attention, ops.paged_decode_attention = saved
+        for n, fn in zip(names, saved):
+            setattr(ops, n, fn)
 
 
 def _prefill_paged(params, cfg, prompt, bt=16, max_len=2048, batch=8):
@@ -1340,54 +1361,65 @@ def _prefill_and_decode_dense(params, cfg, prompt, feed=None, steps=4):
 
 @contextlib.contextmanager
 def layer_checks():
-    """Hold every flash and paged decode call the model makes against the
-    plain version on that call's own inputs (``compare``: ATOL/RTOL and
-    ROW_RTOL), the kernel's output going on into the model. Each layer
-    is so held at the activations the model gives it, whatever the depth:
+    """Hold every flash, paged decode and dense decode call the model
+    makes against the plain version on that call's own inputs (``compare``:
+    ATOL/RTOL and ROW_RTOL; a dense decode row of length 0 must only be
+    finite), the kernel's output going on into the model. Each layer is so
+    held at the activations the model gives it, whatever the depth:
     rounding that compounds through the layers does not enter. Yields a
     dict of each kernel's (calls, max abs error, max row error)."""
     from repro_torch.kernels import ops, ref
-    saved = ops.flash_attention, ops.paged_decode_attention
+    names = ("flash_attention", "paged_decode_attention", "decode_attention")
+    saved = {n: getattr(ops, n) for n in names}
     worst = {}
 
     def held(name, kernel, plain):
         def run(*args, **kw):
             out = kernel(*args, **kw)
             n, e0, r0 = worst.get(name, (0, 0.0, 0.0))
-            e, r = compare(f"{name} call {n}", out, plain(*args, **kw))
+            want = plain(*args, **kw)
+            if name == "decode_attention":
+                e, r = _check_rows(f"{name} call {n}", out, want,
+                                   args[3].tolist())
+            else:
+                e, r = compare(f"{name} call {n}", out, want)
             worst[name] = (n + 1, max(e0, e), max(r0, r))
             return out
         return run
-    ops.flash_attention = held("flash_attention", saved[0],
-                               ref.flash_attention)
-    ops.paged_decode_attention = held("paged_decode_attention", saved[1],
-                                      ref.paged_decode_attention)
+    for n in names:
+        setattr(ops, n, held(n, saved[n], getattr(ref, n)))
     try:
         yield worst
     finally:
-        ops.flash_attention, ops.paged_decode_attention = saved
+        for n, fn in saved.items():
+            setattr(ops, n, fn)
 
 
-def phase_logits(cfg, params, tag="logits", gate=True):
+def phase_logits(cfg, params, tag="logits", gate=True, prompt_len=300):
     """The full model through the kernels, every layer's attention held
     against its plain version on its own inputs (``layer_checks``),
     against the same model through the plain attention versions: prefill
-    of 300 tokens and 4 decode steps fed the kernel path's greedy token.
-    ``gate``: the logits must also lie within LOGIT_TOL of plain
-    attention's; else their drift is printed beside it."""
-    prompt = np.random.default_rng(1).integers(0, cfg.vocab_size, 300
+    of ``prompt_len`` tokens and 4 decode steps fed the kernel path's
+    greedy token. ``gate``: the logits must also lie within LOGIT_TOL of
+    plain attention's; else their drift is printed beside it."""
+    prompt = np.random.default_rng(1).integers(0, cfg.vocab_size, prompt_len
                                                ).astype(np.int32)
-    # MLA: dense caches, and decode is einsums (flash in prefill only)
+    # MLA: dense caches, and decode is einsums (flash in prefill only); the
+    # hybrid: dense caches, its shared block applied n_apps times
     mla = cfg.attn_type == "mla"
-    run = _prefill_and_decode_dense if mla else _prefill_and_decode
+    hybrid = cfg.family == "hybrid"
+    run = (_prefill_and_decode_dense if mla or hybrid
+           else _prefill_and_decode)
     with layer_checks() as worst:
         got, feed = run(params, cfg, prompt)
     with plain_attention():
         want, _ = run(params, cfg, prompt, feed)
     torch.cuda.synchronize()
-    calls = cfg.num_layers * (1 if mla else len(got))
+    layers = (cfg.num_layers // cfg.shared_attn_every if hybrid
+              else cfg.num_layers)
+    calls = layers * (1 if mla else len(got))
     log(f"[{tag}] every layer's attention against its plain version on its "
-        f"own inputs, {cfg.num_layers} layers x (prefill + 4 decode steps): "
+        f"own inputs, {layers} layers x (prefill + 4 decode steps): "
         + "; ".join(f"{k} {n} calls, max_abs_err={e:.3g} "
                     f"max_row_rel_err={r:.3g}"
                     for k, (n, e, r) in worst.items())
@@ -2547,6 +2579,285 @@ def phase_latent(card: str):
     return shapes, launches
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the recurrent families (zamba2_7b, xlstm_1_3b)
+# ---------------------------------------------------------------------------
+
+# zamba2_7b's shared attention block: MHA, 32/32 heads at head dim 112
+ZAMBA_HEADS, ZAMBA_D = 32, 112
+# prompt lengths the recurrent prefill takes (at most one chunk of 256 or a
+# multiple of it), drawn with default_rng(0)
+RECURRENT_PROMPTS = (64, 128, 256, 512, 768, 1024)
+# chunked prefill against the token-by-token recurrence, fp32 on the card:
+# max error within this share of the recurrence's max |y|
+RECURRENCE_REL = 1e-3
+RECURRENT = ("zamba2_7b", "xlstm_1_3b")
+
+
+def _recurrent_requests(cfg, n=16):
+    rng = np.random.default_rng(0)
+    return [rng.integers(0, cfg.vocab_size, int(p)).astype(np.int32)
+            for p in rng.choice(RECURRENT_PROMPTS, n)]
+
+
+def phase_recurrent_kernels(gen):
+    """flash and dense decode at zamba2's shared-block shape (group 1, d =
+    112): flash against its plain version at b = 2 over lengths FLASH_S,
+    causal and not, and at the path's (1, 1024) causal prefill; dense
+    decode at b = 8, S = 2048, DEC_LENGTHS and the straddling lengths.
+    Each timed at the path's shape with the host queue held beside one
+    scaled_dot_product_attention call and the bound. Returns the
+    kernels-line entries {name: shape dict}."""
+    from repro_torch.kernels import _build, ref
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    nh, d = ZAMBA_HEADS, ZAMBA_D
+    out = {}
+    worst = [0.0, 0.0]
+    for s_ in FLASH_S:
+        for causal in (True, False):
+            q, k, v = _flash_case(gen, 2, s_, nh, nh, d)
+            e, r = compare(f"flash_attention d={d} s={s_} causal={causal}",
+                           fa.flash_attention(q, k, v, causal=causal),
+                           ref.flash_attention(q, k, v, causal=causal))
+            worst = [max(worst[0], e), max(worst[1], r)]
+    q, k, v = _flash_case(gen, 1, 1024, nh, nh, d)
+    e, r = compare("flash_attention zamba2 (1, 1024)",
+                   fa.flash_attention(q, k, v), ref.flash_attention(q, k, v))
+    ms = cuda_time_ms(lambda: fa.flash_attention(q, k, v), hold=True)
+    plain = cuda_time_ms(lambda: ref.flash_attention(q, k, v), hold=True)
+    lib = cuda_time_ms(_sdpa_flash(q, k, v), hold=True)
+    bound_ms, by = bound(*_flash_work(1, 1024, nh, nh, d), PEAK_BF16_FLOPS)
+    log(f"[recurrent] flash_attention zamba2 shared block {nh}/{nh} heads, "
+        f"d {d}: b=2 s in {FLASH_S} causal and not max_abs_err="
+        f"{worst[0]:.3g} max_row_rel_err={worst[1]:.3g}; (1, 1024) causal: "
+        f"max_abs_err={e:.3g} max_row_rel_err={r:.3g} (atol {ATOL}, rtol "
+        f"{RTOL}, row {ROW_RTOL}); host queue held: kernel {ms:.4f} ms, "
+        f"plain {plain:.4f} ms, sdpa {lib:.4f} ms, bound {bound_ms:.4f} ms "
+        f"({by}); kernel / sdpa {ms / lib:.2f}, bound / kernel "
+        f"{bound_ms / ms:.3f}")
+    out["flash_attention"] = dict(
+        shape=[1, 1024, nh, nh, d], max_abs_err=max(worst[0], e),
+        max_row_rel_err=max(worst[1], r), ms=ms, plain_ms=plain,
+        library_ms=lib, bound_ms=bound_ms, bound_by=by)
+    del q, k, v
+    worst = [0.0, 0.0]
+    for lengths in (straddle_lengths(_build.DECODE_SPLIT) + [2048, 1],
+                    DEC_LENGTHS):
+        q, k, v, lens = _dense_case(gen, len(lengths), 2048, nh, nh, d,
+                                    lengths)
+        e, r = _check_rows(f"decode_attention zamba2 {lengths}",
+                           da.decode_attention(q, k, v, lens),
+                           ref.decode_attention(q, k, v, lens), lengths)
+        worst = [max(worst[0], e), max(worst[1], r)]
+    t = _decode_times(
+        f"decode_attention zamba2 shared block (8, 2048, {nh}/{nh}, {d})",
+        lambda: da.decode_attention(q, k, v, lens),
+        lambda: ref.decode_attention(q, k, v, lens),
+        _sdpa_dense(q, k, v, lens),
+        _decode_work(DEC_LENGTHS, nh, nh, d, 2048))
+    bound_ms, by = bound(*t.pop("bound"), PEAK_BF16_FLOPS)
+    log(f"[recurrent] decode_attention zamba2 shared block: b=8 S=2048 "
+        f"lengths {DEC_LENGTHS} and straddling the split max_abs_err="
+        f"{worst[0]:.3g} max_row_rel_err={worst[1]:.3g}")
+    out["decode_attention"] = dict(
+        shape=[8, 2048, nh, nh, d], max_abs_err=worst[0],
+        max_row_rel_err=worst[1], bound_ms=bound_ms, bound_by=by, **t)
+    del q, k, v, lens
+    return out
+
+
+def _layer_params(init_fn, key, cfg, gen):
+    """One layer's seeded weights at cfg's dtypes on the card, every leaf
+    perturbed as ``_perturb`` perturbs a layer of the stack ``key``."""
+    from repro_torch.models.layers import Initializer
+    p = init_fn(Initializer(cfg, gen, "cuda"), cfg)
+    _perturb({key: {k: v[None] for k, v in p.items()}}, cfg, gen)
+    return p
+
+
+def _held_to_recurrence(name, got, want):
+    torch.cuda.synchronize()
+    if not (torch.isfinite(got).all() and torch.isfinite(want).all()):
+        raise AssertionError(f"{name}: non-finite output")
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    log(f"[recurrent] {name}: max|chunked - recurrence| = {err:.4g}, max|y| "
+        f"{scale:.4g}, share {err / scale:.3g} (limit {RECURRENCE_REL})")
+    if not scale > 0 or err > RECURRENCE_REL * scale:
+        raise AssertionError(f"{name}: off by {err} of {scale}")
+
+
+def phase_recurrent_layers(gen):
+    """One full-width layer of each recurrent block at fp32 on the card
+    (TF32 off, PyTorch's default), seeded perturbed weights: the Mamba2
+    and the mLSTM chunked prefill over 512 tokens (two chunks) against
+    their token-by-token decode from zero state, and ``slstm_forward`` in
+    one call against one call a token with the state carried; each within
+    RECURRENCE_REL of the recurrence's max |y|, and the final states
+    too."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import mamba2 as m2
+    from repro_torch.models import xlstm as xl
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 matmuls are on: the fp32 checks need "
+                             "them off")
+    fp32 = dict(param_dtype="float32", compute_dtype="float32")
+    zcfg = get_config("zamba2_7b").replace(**fp32)
+    xcfg = get_config("xlstm_1_3b").replace(**fp32)
+    x = torch.randn(1, 512, zcfg.d_model, generator=gen, device="cuda") * 0.5
+    p = _layer_params(m2.init_mamba2, "mamba", zcfg, gen)
+    y, st = m2.mamba2_forward(p, x, zcfg, return_state=True)
+    _held_to_recurrence("Mamba2 (1, 512, 3584)", y,
+                        m2.mamba2_reference(p, x, zcfg))
+    del p
+    x = torch.randn(1, 512, xcfg.d_model, generator=gen, device="cuda") * 0.5
+    p = _layer_params(xl.init_mlstm, "mlstm", xcfg, gen)
+    y, st = xl.mlstm_forward(p, x, xcfg, return_state=True)
+    d_in, nh, hd = xl._mlstm_dims(xcfg)
+    state = {"C": x.new_zeros(1, nh, hd, hd), "n": x.new_zeros(1, nh, hd),
+             "m": x.new_full((1, nh), -1e30)}
+    ys = [xl.mlstm_decode(p, x[:, t:t + 1], xcfg, state)[0]
+          for t in range(x.shape[1])]
+    _held_to_recurrence("mLSTM (1, 512, 2048)", y, torch.cat(ys, 1))
+    _held_to_recurrence("mLSTM final C", st["C"], state["C"])
+    del p, state, ys
+    p = _layer_params(xl.init_slstm, "slstm", xcfg, gen)
+    y, st = xl.slstm_forward(p, x, xcfg, return_state=True)
+    carry, ys = None, []
+    for t in range(x.shape[1]):
+        yt, carry = xl.slstm_forward(p, x[:, t:t + 1], xcfg, state=carry,
+                                     return_state=True)
+        ys.append(yt)
+    _held_to_recurrence("sLSTM (1, 512, 2048), one call vs a call a token",
+                        y, torch.cat(ys, 1))
+    _held_to_recurrence("sLSTM final h", st["h"], carry["h"])
+
+
+def _recurrent_bytes(cfg, params, prompts, max_new=64, batch=8):
+    """Bytes one decode pass at ``batch`` slots reads and writes, by part:
+    every weight once (the gathered embedding rows aside) but the hybrid's
+    shared block, which each of its applications reads again; the
+    recurrent state read and written; the shared block's K/V over each
+    slot's mean context (mean prompt + max_new / 2) in every application."""
+    from repro_torch.models import transformer as tf
+    state = tf.init_cache(cfg, batch, 1, "meta")
+    st = sum(t.numel() * t.element_size() for g, c in state.items()
+             if "length" not in c for t in c.values())
+    shared = 0
+    apps = 0
+    kv = 0
+    if cfg.family == "hybrid":
+        apps = cfg.num_layers // cfg.shared_attn_every
+        shared = sum(t.numel() * t.element_size()
+                     for t in _leaves(params["shared"]))
+        ctx = float(np.mean([len(p) for p in prompts])) + max_new / 2
+        kv = apps * batch * ctx * 2 * cfg.num_kv_heads \
+            * cfg.resolved_head_dim * 2
+    weights_ = _decode_bytes(cfg, params) - shared
+    return {"weights": weights_, "shared": shared * apps, "state": 2 * st,
+            "kv": kv}
+
+
+def _prefill_peak(cfg, params, n=1024):
+    """Peak memory a prefill of ``n`` tokens allocates above what was
+    allocated before it (a fresh (1, n) cache, the activations)."""
+    from repro_torch.models import steps
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    tok = torch.as_tensor(np.arange(n, dtype=np.int32)[None] % cfg.vocab_size,
+                          device="cuda")
+    t0 = time.monotonic()
+    logits, caches = steps.prefill_step(params, {"tokens": tok}, cfg, n)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    del logits, caches
+    return torch.cuda.max_memory_allocated() - base, wall
+
+
+def phase_recurrent(card: str):
+    """The recurrent families on the card: flash and dense decode at
+    zamba2's shared-block shape (``phase_recurrent_kernels``); one
+    full-width layer of Mamba2, mLSTM and sLSTM at fp32 against its
+    recurrence (``phase_recurrent_layers``); then zamba2_7b (81 layers)
+    and xlstm_1_3b (48) at full width, bf16, seeded perturbed weights,
+    nothing cut, through ``make_engine``, which gives the SlotEngine:
+    zamba2's every shared-block flash and dense decode call held against
+    its plain version on its own inputs and its logits' drift from plain
+    attention printed (``phase_logits``, a 512-token prompt); the peak
+    memory of a 1024-token prefill; the 16 requests (prompts of 64-1024
+    tokens) graphed and eagerly (``_arms``: equal streams and launch
+    counts; zamba2 through flash and dense decode), tok/s, TTFT, TPOT,
+    peak memory and the bytes a decode pass reads and writes, by part,
+    against their byte bound. Returns {kernel: (zamba2-shape entry,
+    zamba2's graphed launches)} for flash and dense decode."""
+    from repro_torch.configs import get_config
+    from repro_torch.engine.core import SlotEngine, make_engine
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    shapes = phase_recurrent_kernels(gen)
+    phase_recurrent_layers(gen)
+    launches = {}
+    for arch in RECURRENT:
+        cfg = get_config(arch)
+        tag = f"recurrent {arch}"
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.monotonic()
+        params = full_width_params(cfg)
+        torch.cuda.synchronize()
+        n = sum(v.numel() for v in _leaves(params))
+        what = (f"Mamba2 d_inner {cfg.ssm.expand * cfg.d_model}, state "
+                f"{cfg.ssm.state_dim}, shared GQA block every "
+                f"{cfg.shared_attn_every} layers ({cfg.num_heads}/"
+                f"{cfg.num_kv_heads} heads, d {cfg.resolved_head_dim})"
+                if cfg.family == "hybrid" else
+                f"mLSTM x {cfg.xlstm.slstm_every - 1} + sLSTM groups, "
+                f"{cfg.num_heads} heads")
+        log(f"[{tag}] {cfg.num_layers} layers, d_model {cfg.d_model}, "
+            f"{what}: {n / 1e9:.3f}B parameters, {2 * n / 1e9:.1f} GB bf16, "
+            f"made and perturbed in {time.monotonic() - t0:.1f}s, peak "
+            f"allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        if cfg.family == "hybrid":
+            phase_logits(cfg, params, tag=tag, gate=False, prompt_len=512)
+        peak, wall = _prefill_peak(cfg, params)
+        log(f"[{tag}] a 1024-token prefill: {wall * 1e3:.1f} ms (eager, "
+            f"first of its length), peak {peak / 2**30:.3f} GiB above the "
+            f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+        prompts = _recurrent_requests(cfg)
+
+        def make(**kw):
+            eng = make_engine(cfg, params=params, max_batch=8, max_len=2048,
+                              device="cuda", **kw)
+            if not isinstance(eng, SlotEngine):
+                raise AssertionError(f"{arch}: make_engine gave "
+                                     f"{type(eng).__name__}")
+            return eng
+        _serve(make(), prompts[:1], max_new=2)                  # warm-up
+        g = _arms(tag, make, prompts)["graphed"]
+        _finished(tag, g["done"], len(prompts))
+        if cfg.family == "hybrid":
+            _launched(tag, g["launches"],
+                      ("flash_attention", "decode_attention"))
+            launches = {k: g["launches"][k]
+                        for k in ("flash_attention", "decode_attention")}
+        toks = sum(len(r.tokens) for r in g["done"])
+        ttft, tpot = _means_ms(g["done"])
+        parts = _recurrent_bytes(cfg, params, prompts)
+        total = sum(parts.values())
+        bound_ms = total / PEAK_BYTES_PER_S * 1e3
+        log(f"[{tag}] SlotEngine, graphed: tok/s {toks / g['wall']:.2f}, "
+            f"TTFT mean {ttft:.2f} ms, TPOT mean {tpot:.2f} ms, peak "
+            f"allocated {g['peak'][0] / 2**30:.2f} GiB; a decode pass at 8 "
+            f"slots reads and writes {total / 1e9:.3f} GB ("
+            + ", ".join(f"{k} {v / 1e9:.3f}" for k, v in parts.items())
+            + f" GB), {bound_ms:.3f} ms at {PEAK_BYTES_PER_S / 1e12:.2f} "
+            f"TB/s, TPOT / that {tpot / bound_ms:.3f}; {card}")
+        del params, g
+        torch.cuda.empty_cache()
+    return {k: (shapes[k], launches[k]) for k in shapes}
+
+
 def kernels_line(rows, launches):
     out = []
     for name in KERNELS:
@@ -2559,8 +2870,11 @@ def kernels_line(rows, launches):
                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                     "bound_by": r["bound_by"],
                     "library_ms": r["library_ms"]})
-        # flash at MLA's shapes (phase latent) and its launches there
-        out[-1].update({k: r[k] for k in ("mla_shapes", "mla_launches")
+        # flash at MLA's shapes (phase latent), flash and dense decode at
+        # zamba2's shared-block shape (phase recurrent), and their launches
+        # there
+        out[-1].update({k: r[k] for k in ("mla_shapes", "mla_launches",
+                                          "zamba2_shape", "zamba2_launches")
                         if k in r})
     return {"kernels": out}
 
@@ -2609,6 +2923,9 @@ def main() -> int:
     (rows["flash_attention"]["mla_shapes"],
      rows["flash_attention"]["mla_launches"]) = phase_latent(line)
     lap("latent")
+    for name, (shape, n) in phase_recurrent(line).items():
+        rows[name].update(zamba2_shape=shape, zamba2_launches=n)
+    lap("recurrent")
     log(f"[done] all phases in {time.monotonic() - t0:.1f}s")
     log(json.dumps(kernels_line(rows, launches)))
     log(line)

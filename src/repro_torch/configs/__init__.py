@@ -4,9 +4,10 @@ Each architecture lives in its own module (``<arch>.py``) exposing ``CONFIG``
 (the exact published config) and ``reduced()`` (a tiny same-family config for
 CPU tests). Only the architectures whose serving path the port runs are
 registered: the dense GQA decoders, the vlm on its text path (its prefill
-also takes the stub frontend's embeddings), and the MLA configs, dense
-(``minicpm3_4b``) and MoE (the DeepSeek-V2 pair); the recurrent and audio
-families arrive with their slices.
+also takes the stub frontend's embeddings), the MLA configs, dense
+(``minicpm3_4b``) and MoE (the DeepSeek-V2 pair), and the recurrent
+families (``zamba2_7b``'s Mamba2 with a shared attention block,
+``xlstm_1_3b``'s mLSTM/sLSTM); the audio family arrives with training.
 """
 from __future__ import annotations
 
@@ -27,7 +28,8 @@ from repro_torch.configs.base import (  # noqa: F401
 
 ARCH_IDS = ("gemma_2b", "guard_2b", "llama3_70b", "internlm2_20b",
             "nemotron_4_340b", "pixtral_12b", "minicpm3_4b",
-            "deepseek_v2_lite_16b", "deepseek_v2_236b")
+            "deepseek_v2_lite_16b", "deepseek_v2_236b", "zamba2_7b",
+            "xlstm_1_3b")
 
 
 def _norm(arch: str) -> str:

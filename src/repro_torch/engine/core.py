@@ -1011,9 +1011,9 @@ def paged_supported(cfg: ModelConfig) -> bool:
 
 def make_engine(cfg: ModelConfig, **kw):
     """Engine factory, as in the JAX package: the paged ``Engine`` when the
-    config's attention cache pages, else the dense ``SlotEngine`` (MLA),
-    with the paged-only keywords dropped. A family the port does not serve
-    yet raises (``transformer.check_family``)."""
+    config's attention cache pages, else the dense ``SlotEngine`` (MLA and
+    the recurrent families), with the paged-only keywords dropped. A family
+    the port does not serve yet raises (``transformer.check_family``)."""
     tf.check_family(cfg)
     if paged_supported(cfg):
         return Engine(cfg, **kw)
@@ -1031,7 +1031,9 @@ class SlotEngine:
     """The dense-KV engine: one contiguous ``(max_len, kvh, hd)`` cache row
     per decode slot, no paging, decoding through ``decode_attention`` (MLA:
     a ``(max_len, kv_lora)`` latent row and its rope key, decoded by
-    einsums; the engine ``make_engine`` gives MLA configs). The
+    einsums; the recurrent families: each slot's recurrent state, and the
+    hybrid's shared-block K/V rows; the engine ``make_engine`` gives MLA
+    and the recurrent families). The
     oracle the paged ``Engine`` is held against (same admission policy,
     same greedy decode, so token streams must match). Its preemption keeps
     the JAX package's seed behaviour: it discards progress past the first
@@ -1041,7 +1043,10 @@ class SlotEngine:
     over the dense caches, written in place: each row's K/V at its length,
     and ``lengths + 1`` back into the caches' ``length`` buffer inside the
     pass (the device holds the lengths; admission writes a slot's row,
-    length included, in place)."""
+    length included, in place; a recurrent state is written in place by
+    the pass and whole by admission). A recurrent config's prompt must be
+    one its chunked prefill takes (``transformer.check_prompt``), or
+    ``submit`` raises."""
 
     def __init__(self, cfg: ModelConfig, params=None, max_batch: int = 4,
                  max_len: int = 512, seed: int = 0, device="cuda",
@@ -1065,29 +1070,43 @@ class SlotEngine:
         self._decode = self._compile_decode()
 
     def _compile_decode(self) -> CompiledPass:
-        """The decode pass, advancing the lengths of every cache group
-        (the moe family's ``dense_attn`` and ``attn``). Its warm-up runs
-        every row at length ``max_len - 1`` (the trash position: a live row
-        stops before its writes or reads reach it) and then restores the
-        lengths."""
+        """The decode pass, advancing the lengths of every cache group that
+        has them (the moe family's ``dense_attn`` and ``attn``, the
+        hybrid's ``attn``); recurrent states are written in place by the
+        model. Its warm-up runs every row at length ``max_len - 1`` (the
+        trash position: a live row stops before its writes or reads reach
+        it) and then restores the lengths and the recurrent states: by
+        zeroing them where they were all zeros (a fresh engine: no copy of
+        the state is kept, 5.6 GB for xlstm_1_3b at 8 slots), else from a
+        copy."""
         params, caches, cfg = self.params, self.caches, self.cfg
-        lengths = [g["length"] for g in caches.values()]
+        grouped = [name for name, g in caches.items() if "length" in g]
+        lengths = [caches[name]["length"] for name in grouped]
+        state = [t for g in caches.values() if "length" not in g
+                 for t in g.values()]
         trash_at = self.max_len - 1
 
         def body(tokens):
             tok, logits, new = steps.serve_step(params, tokens, caches, cfg)
-            for name, ln in zip(caches, lengths):
+            for name, ln in zip(grouped, lengths):
                 ln.copy_(new[name]["length"])
             return tok, logits
 
         def all_trash():
             saved = [ln.clone() for ln in lengths]
+            kept = (None if not any(bool(t.any()) for t in state)
+                    else [t.clone() for t in state])
             for ln in lengths:
                 ln.fill_(trash_at)
 
             def restore():
                 for ln, v in zip(lengths, saved):
                     ln.copy_(v)
+                for i, t in enumerate(state):
+                    if kept is None:
+                        t.zero_()
+                    else:
+                        t.copy_(kept[i])
             return restore
         return CompiledPass("decode", body, {"tokens": (self.max_batch, 1)},
                             self.device, capture=self.cuda_graphs,
@@ -1099,8 +1118,9 @@ class SlotEngine:
 
     def submit(self, prompt: np.ndarray, max_new_tokens: int = 32,
                eos_id: Optional[int] = None) -> EngineRequest:
-        r = EngineRequest(rid=self._next_rid,
-                          prompt=np.asarray(prompt, np.int32),
+        prompt = np.asarray(prompt, np.int32)
+        tf.check_prompt(self.cfg, len(prompt))
+        r = EngineRequest(rid=self._next_rid, prompt=prompt,
                           max_new_tokens=max_new_tokens, eos_id=eos_id,
                           submit_time=time.monotonic())
         self._next_rid += 1
@@ -1109,7 +1129,7 @@ class SlotEngine:
 
     def _write_slot(self, slot: int, req_cache):
         """Copy a single-request cache (every leaf ``(L, 1, ...)``) into
-        batch slot ``slot``, lengths included."""
+        batch slot ``slot``, lengths and recurrent states included."""
         for name, g in self.caches.items():
             for k, full in g.items():
                 full[:, slot] = req_cache[name][k][:, 0].to(full.dtype)

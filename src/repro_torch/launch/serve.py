@@ -1,11 +1,13 @@
 """Serve a small model through ``make_engine`` (the paged engine; the
-dense SlotEngine for the MLA configs): the reduced config of any
-registered architecture (``--arch``, one of
-``repro_torch.configs.ARCH_IDS``).
+dense SlotEngine for the MLA configs and the recurrent families): the
+reduced config of any registered architecture (``--arch``, one of
+``repro_torch.configs.ARCH_IDS``). Prompts are 8-47 tokens; a recurrent
+config's are cut to lengths its chunked prefill takes.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma_2b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3_70b --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch minicpm3_4b --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2_7b --device cpu
 
 Runs on the card by default, its fixed-shape passes replayed as CUDA
 graphs (``--eager`` runs them without capture); ``--device cpu`` runs the
@@ -20,6 +22,7 @@ import numpy as np
 
 from repro_torch.configs import ARCH_IDS, get_reduced_config
 from repro_torch.engine.runner import make_engine
+from repro_torch.models.transformer import prefill_chunk
 
 
 def main(argv=None):
@@ -42,9 +45,12 @@ def main(argv=None):
                       seed=args.seed, device=args.device,
                       cuda_graphs=not args.eager)
     rng = np.random.default_rng(args.seed)
+    chunk = prefill_chunk(cfg)
     t0 = time.monotonic()
     for _ in range(args.requests):
         plen = int(rng.integers(8, 48))
+        if chunk and plen > chunk:
+            plen -= plen % chunk
         eng.submit(rng.integers(0, cfg.vocab_size, plen), args.max_new)
     done = eng.run()
     wall = time.monotonic() - t0

@@ -28,7 +28,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models.layers import (Initializer, apply_norm, apply_rope,
-                                       init_norm)
+                                       init_norm, proj_in)
 
 NEG_INF = -1e30
 
@@ -61,20 +61,15 @@ def init_attention(init: Initializer, cfg: ModelConfig) -> Dict:
     }
 
 
-def _proj_in(x, w):
-    """einsum("bsd,dnh->bsnh") as one matmul."""
-    return (x @ w.reshape(w.shape[0], -1)).unflatten(-1, w.shape[1:])
-
-
 def _proj_out(o, w):
     """einsum("bsnh,nhd->bsd") as one matmul."""
     return o.flatten(-2) @ w.reshape(-1, w.shape[-1])
 
 
 def _qkv(params, x, positions, cfg: ModelConfig):
-    q = _proj_in(x, params["wq"])
-    k = _proj_in(x, params["wk"])
-    v = _proj_in(x, params["wv"])
+    q = proj_in(x, params["wq"])
+    k = proj_in(x, params["wk"])
+    v = proj_in(x, params["wv"])
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
@@ -260,7 +255,7 @@ def _mla_q(params, x, positions, cfg: ModelConfig):
     m = cfg.mla
     cq = (apply_norm(params["q_norm"], x @ params["wdq"], cfg)
           if m.q_lora_rank else x)
-    q = _proj_in(cq, params["wuq"])
+    q = proj_in(cq, params["wuq"])
     q_nope, q_rope = q[..., :m.qk_nope_head_dim], q[..., m.qk_nope_head_dim:]
     return q_nope, apply_rope(q_rope, positions, cfg.rope_theta)
 
@@ -288,8 +283,8 @@ def mla_prefill(params, x, positions, cfg: ModelConfig,
     m = cfg.mla
     q_nope, q_rope = _mla_q(params, x, positions, cfg)
     c_kv, k_rope = _mla_latent(params, x, positions, cfg)
-    k_nope = _proj_in(c_kv, params["wuk"])
-    v = _proj_in(c_kv, params["wuv"])
+    k_nope = proj_in(c_kv, params["wuk"])
+    v = proj_in(c_kv, params["wuv"])
     q = torch.cat([q_nope, q_rope], dim=-1)
     k = torch.cat([k_nope, k_rope.expand(*k_nope.shape[:3],
                                          m.qk_rope_head_dim)], dim=-1)

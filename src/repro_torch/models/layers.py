@@ -16,7 +16,8 @@ class Initializer:
     """Creates parameters from one ``torch.Generator`` on one device, drawn
     in the order the model builds them. ``w`` is truncated-normal fan-in
     init; ``z`` is zero init (output projections and norm gammas start at
-    zero, as in the JAX package)."""
+    zero, as in the JAX package); ``ones`` and ``const`` fill a leaf with
+    ones or with given values."""
 
     def __init__(self, cfg: ModelConfig, generator: torch.Generator,
                  device):
@@ -36,6 +37,13 @@ class Initializer:
 
     def z(self, shape) -> torch.Tensor:
         return torch.zeros(shape, dtype=self.dtype, device=self.device)
+
+    def ones(self, shape) -> torch.Tensor:
+        return torch.ones(shape, dtype=self.dtype, device=self.device)
+
+    def const(self, value: np.ndarray) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(value, np.float32)).to(
+            device=self.device, dtype=self.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -117,10 +125,15 @@ def gelu(x):
     return F.gelu(x, approximate="tanh")
 
 
+def proj_in(x, w):
+    """x (..., d) contracted with w (d, *rest) -> (..., *rest) as one
+    matmul: the JAX package's einsums "bsd,dnh->bsnh", "bld,dgf->blgf"."""
+    return (x @ w.reshape(w.shape[0], -1)).unflatten(-1, w.shape[1:])
+
+
 def apply_mlp(params, x, cfg: ModelConfig):
     if cfg.mlp_type in ("swiglu", "geglu"):
-        wi = params["wi"]
-        h = (x @ wi.reshape(wi.shape[0], -1)).unflatten(-1, wi.shape[1:])
+        h = proj_in(x, params["wi"])
         gate, up = h[..., 0, :], h[..., 1, :]
         act = F.silu(gate) if cfg.mlp_type == "swiglu" else gelu(gate)
         h = act * up

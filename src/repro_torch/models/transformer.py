@@ -1,25 +1,33 @@
-"""Decoder model for serving (twin of the dense, vlm and moe families of
-``repro.models.transformer``; the vlm's stub frontend hands prefill its
-embeddings through ``frontend_proj``). Attention is GQA, or MLA in the
-dense and moe families; the moe family stacks ``first_k_dense`` dense
-blocks (``dense_layers``) before its MoE blocks (``layers``), each group
-with its own cache (``dense_attn``, ``attn``).
+"""Decoder model for serving (twin of the dense, vlm, moe, hybrid and ssm
+families of ``repro.models.transformer``; the vlm's stub frontend hands
+prefill its embeddings through ``frontend_proj``). Attention is GQA, or MLA
+in the dense and moe families; the moe family stacks ``first_k_dense``
+dense blocks (``dense_layers``) before its MoE blocks (``layers``), each
+group with its own cache (``dense_attn``, ``attn``). The hybrid (Zamba2)
+runs spans of ``shared_attn_every`` Mamba2 layers (``mamba``), each span
+followed by one GQA block whose weights every application shares
+(``shared``) and whose cache each application has of its own (``attn``,
+``(n_apps, ...)``); the ssm family (xLSTM) runs groups of ``slstm_every -
+1`` mLSTM layers (``mlstm``), each followed by one sLSTM (``slstm``).
+Their caches are the recurrent states (``mamba``, ``mlstm``, ``slstm``).
 
 Parameters are a plain nested dict of tensors with the JAX pytree's keys and
 its stacked ``(L, ...)`` layer layout, so ``weights.from_jax_params`` is a
 tree map; ``lax.scan`` over the stack becomes a Python loop over layer
 slices. Forward modes of this slice:
 
-  * "prefill": last-position logits, K/V written into dense caches;
-  * "decode": one-token logits against dense or paged caches (in place);
+  * "prefill": last-position logits, K/V and recurrent states written into
+    the caches;
+  * "decode": one-token logits against dense or paged caches, K/V and
+    recurrent states written in place;
   * "chunk": the chunked-prefill continuation over paged caches, logits at
     each row's last valid chunk position;
   * "verify": the speculative draft-and-verify pass over paged caches,
     logits at every feed position.
 
-Training and the other families arrive with later slices and raise
-``NotImplementedError`` here; so do chunk and verify for MLA, whose cache
-is not paged (as in the JAX package).
+Training and the audio family arrive with a later slice and raise
+``NotImplementedError`` here; so do chunk and verify for MLA and the
+recurrent families, whose caches are not paged (as in the JAX package).
 """
 from __future__ import annotations
 
@@ -30,6 +38,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import mamba2 as m2
+from repro_torch.models import xlstm as xl
 from repro_torch.models.layers import (Initializer, apply_mlp, apply_norm,
                                        init_mlp, init_norm, softcap)
 from repro_torch.models.moe import apply_moe, init_moe
@@ -41,14 +51,49 @@ def check_family(cfg: ModelConfig):
             f"family='audio' ({cfg.name}): its serving entry runs the "
             "encoder forward, mode='train', which arrives with the training "
             "slice of the PyTorch port")
-    served = {"dense": ("gqa", "mla"), "vlm": ("gqa",), "moe": ("mla",)}
+    served = {"dense": ("gqa", "mla"), "vlm": ("gqa",), "moe": ("mla",),
+              "hybrid": ("gqa",), "ssm": ("none",)}
     if cfg.attn_type not in served.get(cfg.family, ()):
         raise NotImplementedError(
             f"family={cfg.family!r}, attn_type={cfg.attn_type!r}: the "
             "PyTorch port serves GQA and MLA attention in the dense family, "
-            "GQA in the vlm and MLA in the moe family; a GQA MoE needs the "
-            "paged Engine's MoE path and the recurrent families their own "
-            "layers, which arrive with later slices")
+            "GQA in the vlm and the hybrid, MLA in the moe family and the "
+            "ssm family without attention; a GQA MoE needs the paged "
+            "Engine's MoE path, which arrives with later slices")
+
+
+def prefill_chunk(cfg: ModelConfig) -> int:
+    """The chunk of the recurrent families' prefill scan, 0 for the others:
+    a prompt of ``l`` tokens is taken when ``l <= chunk`` or ``l % chunk
+    == 0`` (the JAX package asserts the same)."""
+    if cfg.family == "hybrid":
+        return cfg.ssm.chunk_size
+    if cfg.family == "ssm":
+        return cfg.xlstm.chunk_size
+    return 0
+
+
+def check_prompt(cfg: ModelConfig, n: int):
+    """Raise ``ValueError`` for a prompt of ``n`` tokens the config's
+    prefill does not take (``prefill_chunk``)."""
+    chunk = prefill_chunk(cfg)
+    if chunk:
+        m2.check_chunks(n, chunk)
+
+
+def _ssm_layout(cfg: ModelConfig):
+    """(n_groups, mlstm_per_group, n_slstm). slstm_every == 0 => pure
+    mLSTM."""
+    if not cfg.xlstm.slstm_every:
+        return 1, cfg.num_layers, 0
+    n_groups = cfg.num_layers // cfg.xlstm.slstm_every
+    return n_groups, cfg.xlstm.slstm_every - 1, n_groups
+
+
+def _n_apps(cfg: ModelConfig) -> int:
+    """How often the hybrid applies its shared attention block."""
+    return (cfg.num_layers // cfg.shared_attn_every
+            if cfg.shared_attn_every else 0)
 
 
 def _init_block(init: Initializer, cfg: ModelConfig,
@@ -65,11 +110,11 @@ def _init_block(init: Initializer, cfg: ModelConfig,
     return p
 
 
-def _init_layers(init: Initializer, cfg: ModelConfig, n: int,
-                 moe_layer: bool = False) -> Dict:
+def _init_layers(n: int, build) -> Dict:
     """``n`` stacked ``(n, ...)`` blocks, drawn block by block in layer
-    order and written into leaves allocated once: the same tensors as
-    stacking ``n`` block trees, without holding every layer twice."""
+    order by ``build()`` and written into leaves allocated once: the same
+    tensors as stacking ``n`` block trees, without holding every layer
+    twice."""
     def alloc(t):
         if isinstance(t, dict):
             return {k: alloc(v) for k, v in t.items()}
@@ -83,7 +128,7 @@ def _init_layers(init: Initializer, cfg: ModelConfig, n: int,
                 dst[k][i] = v
     out = None
     for i in range(n):
-        block = _init_block(init, cfg, moe_layer)
+        block = build()
         out = alloc(block) if out is None else out
         put(out, block, i)
         del block
@@ -112,9 +157,22 @@ def init_model(cfg: ModelConfig, generator: torch.Generator,
     params["final_norm"] = init_norm(init, cfg, d)
     if not cfg.tie_embeddings:
         params["head"] = init.w((d, cfg.vocab_size), scale=d ** -0.5)
-    for pkey, _, n in _groups(cfg):
-        params[pkey] = _init_layers(init, cfg, n, moe_layer=(
-            cfg.family == "moe" and pkey == "layers"))
+    if cfg.family == "hybrid":
+        params["mamba"] = _init_layers(
+            cfg.num_layers, lambda: m2.init_mamba2(init, cfg))
+        params["shared"] = _init_block(init, cfg)
+    elif cfg.family == "ssm":
+        n_groups, n_m_per, n_slstm = _ssm_layout(cfg)
+        params["mlstm"] = _init_layers(
+            n_groups * n_m_per, lambda: xl.init_mlstm(init, cfg))
+        if n_slstm:
+            params["slstm"] = _init_layers(
+                n_slstm, lambda: xl.init_slstm(init, cfg))
+    else:
+        for pkey, _, n in _groups(cfg):
+            moe_layer = cfg.family == "moe" and pkey == "layers"
+            params[pkey] = _init_layers(
+                n, lambda: _init_block(init, cfg, moe_layer))
     return params
 
 
@@ -174,6 +232,87 @@ def _groups(cfg: ModelConfig):
     return (("layers", "attn", cfg.num_layers),)
 
 
+def _put(dst: Dict, src: Dict):
+    """Write a layer's new state ``src`` into its cache slice ``dst`` in
+    place."""
+    for k, v in src.items():
+        dst[k].copy_(v)
+
+
+def _mamba_layer(params, x, i: int, cfg: ModelConfig, mode: str, state):
+    """Mamba2 layer ``i`` with its residual; its state (``state``: the
+    ``mamba`` cache, or None) is written in place."""
+    p = layer_slice(params["mamba"], i)
+    if mode == "decode":
+        y, _ = m2.mamba2_decode(p, x, cfg, layer_slice(state, i))
+    else:
+        y, st = m2.mamba2_forward(p, x, cfg, return_state=state is not None)
+        if state is not None:
+            _put(layer_slice(state, i), st)
+    return x + y
+
+
+def _hybrid(params, x, positions, cfg: ModelConfig, mode: str, caches):
+    """Spans of ``shared_attn_every`` Mamba2 layers, each followed by the
+    shared attention block over its own cache (application ``g`` reads
+    ``attn[g]``); the leftover Mamba2 layers come last."""
+    state = caches["mamba"] if caches is not None else None
+    attn_c = caches.get("attn") if caches is not None else None
+    per = cfg.shared_attn_every
+    lengths = []
+    idx = 0
+    for g in range(_n_apps(cfg)):
+        for i in range(idx, idx + per):
+            x = _mamba_layer(params, x, i, cfg, mode, state)
+        ac = None if attn_c is None else layer_slice(attn_c, g)
+        x, nac = _block_fwd(params["shared"], x, positions, cfg, mode, ac)
+        if nac is not None:
+            lengths.append(nac["length"])
+        idx += per
+    for i in range(idx, cfg.num_layers):
+        x = _mamba_layer(params, x, i, cfg, mode, state)
+    if caches is None:
+        return x, None
+    new = {"mamba": state}
+    if lengths:
+        new["attn"] = {**attn_c, "length": torch.stack(lengths, 0)}
+    return x, new
+
+
+def _ssm(params, x, cfg: ModelConfig, mode: str, caches):
+    """Groups of ``slstm_every - 1`` mLSTM layers, each followed by one
+    sLSTM. As in the JAX package, a prefill given caches starts each sLSTM
+    from its cache's state (zeros from ``init_cache``), and without caches
+    from zeros with m = -1e30; the mLSTM prefill always starts fresh."""
+    n_groups, n_m_per, n_slstm = _ssm_layout(cfg)
+    mstate = caches["mlstm"] if caches is not None else None
+    sstate = caches.get("slstm") if caches is not None else None
+    for g in range(n_groups):
+        for i in range(g * n_m_per, (g + 1) * n_m_per):
+            p = layer_slice(params["mlstm"], i)
+            if mode == "decode":
+                y, _ = xl.mlstm_decode(p, x, cfg, layer_slice(mstate, i))
+            else:
+                y, st = xl.mlstm_forward(p, x, cfg,
+                                         return_state=mstate is not None)
+                if mstate is not None:
+                    _put(layer_slice(mstate, i), st)
+            x = x + y
+        if n_slstm:
+            ss = None if sstate is None else layer_slice(sstate, g)
+            y, new_ss = xl.slstm_forward(layer_slice(params["slstm"], g), x,
+                                         cfg, state=ss)
+            if ss is not None:
+                _put(ss, new_ss)
+            x = x + y
+    if caches is None:
+        return x, None
+    new = {"mlstm": mstate}
+    if sstate is not None:
+        new["slstm"] = sstate
+    return x, new
+
+
 def forward(params, cfg: ModelConfig, *, tokens=None, embeds=None,
             mode: str = "prefill", caches=None, q_valid=None):
     """Returns ``(logits, new_caches)``; logits in ``cfg.logits_dtype``,
@@ -198,6 +337,11 @@ def forward(params, cfg: ModelConfig, *, tokens=None, embeds=None,
     if mode not in ("prefill", "decode", "chunk", "verify"):
         raise NotImplementedError(
             f"mode={mode!r}: training arrives with a later slice")
+    if prefill_chunk(cfg) and mode in ("chunk", "verify"):
+        raise NotImplementedError(
+            f"mode={mode!r} runs over paged caches; family={cfg.family!r} "
+            "carries recurrent state, which is not paged (as in the JAX "
+            "package)")
     compute = getattr(torch, cfg.compute_dtype)
     if embeds is not None:
         x = embeds.to(compute) @ params["frontend_proj"].to(compute)
@@ -208,19 +352,25 @@ def forward(params, cfg: ModelConfig, *, tokens=None, embeds=None,
     positions = (None if mode in ("decode", "chunk", "verify") else
                  torch.arange(s, dtype=torch.int32, device=x.device)[None, :])
 
-    new_caches = None if caches is None else {}
-    for pkey, ckey, n in _groups(cfg):
-        c = caches[ckey] if caches is not None else None
-        lengths = []
-        for i in range(n):
-            cache_i = None if c is None else layer_slice(c, i)
-            x, nc = _block_fwd(layer_slice(params[pkey], i), x, positions,
-                               cfg, mode, cache_i, q_valid)
-            if nc is not None:
-                lengths.append(nc["length"])
-        if c is not None:
-            # pools/caches were written in place; only the lengths are new
-            new_caches[ckey] = {**c, "length": torch.stack(lengths, 0)}
+    if cfg.family == "hybrid":
+        x, new_caches = _hybrid(params, x, positions, cfg, mode, caches)
+    elif cfg.family == "ssm":
+        x, new_caches = _ssm(params, x, cfg, mode, caches)
+    else:
+        new_caches = None if caches is None else {}
+        for pkey, ckey, n in _groups(cfg):
+            c = caches[ckey] if caches is not None else None
+            lengths = []
+            for i in range(n):
+                cache_i = None if c is None else layer_slice(c, i)
+                x, nc = _block_fwd(layer_slice(params[pkey], i), x,
+                                   positions, cfg, mode, cache_i, q_valid)
+                if nc is not None:
+                    lengths.append(nc["length"])
+            if c is not None:
+                # pools/caches were written in place; only the lengths are
+                # new
+                new_caches[ckey] = {**c, "length": torch.stack(lengths, 0)}
 
     x = apply_norm(params["final_norm"], x, cfg)
     if mode == "prefill":
@@ -257,8 +407,26 @@ def _zeros_tree(spec, n: int, device):
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda"):
     """Dense prefill caches, one ``(L, ...)`` stack a group of blocks: GQA
     ``(L, b, max_len, kvh, hd)`` K/V, or MLA's latent and rope key (bf16,
-    as the JAX package's ``cache_spec`` default)."""
+    as the JAX package's ``cache_spec`` default). The hybrid's are the
+    Mamba2 states (``mamba``) and the shared block's K/V, one ``(n_apps,
+    ...)`` stack (``attn``); the ssm family's the mLSTM and sLSTM states
+    (``mlstm``, ``slstm``). All start at zeros."""
     check_family(cfg)
+    if cfg.family == "hybrid":
+        out = {"mamba": _zeros_tree(m2.mamba2_state_spec(cfg, batch),
+                                    cfg.num_layers, device)}
+        if _n_apps(cfg):
+            out["attn"] = _zeros_tree(attn.cache_spec(cfg, batch, max_len),
+                                      _n_apps(cfg), device)
+        return out
+    if cfg.family == "ssm":
+        n_groups, n_m_per, n_slstm = _ssm_layout(cfg)
+        out = {"mlstm": _zeros_tree(xl.mlstm_state_spec(cfg, batch),
+                                    n_groups * n_m_per, device)}
+        if n_slstm:
+            out["slstm"] = _zeros_tree(xl.slstm_state_spec(cfg, batch),
+                                       n_slstm, device)
+        return out
     spec = attn.cache_spec(cfg, batch, max_len)
     return {ckey: _zeros_tree(spec, n, device)
             for _, ckey, n in _groups(cfg)}
@@ -269,8 +437,13 @@ def init_paged_cache(cfg: ModelConfig, batch: int, num_blocks: int,
     """Paged caches: each layer holds pools of ``num_blocks + 1`` pages;
     page ``num_blocks`` is the engine's *trash page* — dead rows' tables
     point at it and their masked decode writes land there. Block tables
-    start all-trash and lengths at 0."""
+    start all-trash and lengths at 0. Only attention caches page: the
+    recurrent families raise, as in the JAX package."""
     check_family(cfg)
+    if prefill_chunk(cfg):
+        raise NotImplementedError(
+            f"paged KV cache is attention-only (family={cfg.family}): "
+            "recurrent state has no pages to share")
     spec = attn.paged_cache_spec(cfg, num_blocks + 1, block_tokens, batch,
                                  max_blocks)
     g = _zeros_tree(spec, cfg.num_layers, device)

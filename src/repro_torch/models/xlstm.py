@@ -1,0 +1,251 @@
+"""xLSTM blocks (twin of ``repro.models.xlstm``): the mLSTM (matrix
+memory, chunkwise-parallel prefill, O(1)-state decode) and the sLSTM
+(stabilized scalar-memory recurrence), arXiv:2405.04517 with the standard
+log-space stabilization.
+
+The mLSTM prefill's inter-chunk ``(C, n, m)`` state is carried by a Python
+loop over chunks, and the sLSTM by a Python loop over time, where the JAX
+package runs ``lax.scan``. Einsums of three operands are written as
+elementwise products and batched matmuls. The order of the operations that
+decide a rounding is the JAX package's: ``C * f + i k (x) v``, then ``q C``;
+``rms_norm(y) * silu(gate)``.
+
+``mlstm_decode`` writes its state in place (``C``, ``n``, ``m``), where the
+JAX package returns a new one: the engine's CUDA graph reads the state at
+fixed addresses. Every state leaf is fp32.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.layers import Initializer, gelu, proj_in, rms_norm
+from repro_torch.models.mamba2 import NEG_INF, check_chunks
+
+
+def _mlstm_dims(cfg: ModelConfig):
+    d_in = int(cfg.xlstm.proj_factor_mlstm * cfg.d_model)
+    nh = cfg.num_heads
+    hd = d_in // nh
+    return d_in, nh, hd
+
+
+# ---------------------------------------------------------------------------
+# mLSTM
+# ---------------------------------------------------------------------------
+
+def init_mlstm(init: Initializer, cfg: ModelConfig) -> Dict:
+    d = cfg.d_model
+    d_in, nh, hd = _mlstm_dims(cfg)
+    return {
+        "up": init.w((d, 2, d_in)),
+        "wq": init.w((d_in, d_in)),
+        "wk": init.w((d_in, d_in)),
+        "wv": init.w((d_in, d_in)),
+        "wif": init.w((d_in, 2, nh), scale=0.01),
+        "b_if": init.const(np.concatenate([np.full((1, nh), -3.0),
+                                           np.full((1, nh), 3.0)])),
+        "norm": init.z((d_in,)),
+        "down": init.z((d_in, d)),
+    }
+
+
+def _mlstm_chunked(q, k, v, li, lf, chunk: int):
+    """Stabilized chunkwise mLSTM.
+
+    q, k, v: (b, l, h, p); li (log input gate) / lf (log forget gate): (b,
+    l, h) fp32. Returns y (b, l, h, p) and the final state (C (b, h, p, p),
+    n (b, h, p), m (b, h)), all fp32."""
+    b, l, h, p = q.shape
+    chunk = check_chunks(l, chunk)
+    c = l // chunk
+    # (b, c, h, q, ...): heads ahead of positions, for batched matmuls
+    r = lambda t: t.reshape(b, c, chunk, *t.shape[2:]).transpose(2, 3)
+    q = r(q.float() * (p ** -0.5))
+    k, v, li, lf = r(k.float()), r(v.float()), r(li), r(lf)
+
+    cum = torch.cumsum(lf, dim=-1)                       # (b,c,h,q) inclusive
+    # intra-chunk log weights: w[t,s] = cum_t - cum_s + li_s (s <= t)
+    seg = cum[..., :, None] - cum[..., None, :] + li[..., None, :]
+    mask = torch.ones(chunk, chunk, dtype=torch.bool, device=q.device).tril()
+    seg = torch.where(mask, seg, NEG_INF)                # (b,c,h,t,s)
+    # chunk-summary (state) log weights: wS[s] = cum_Q - cum_s + li_s
+    wS = cum[..., -1:] - cum + li                        # (b,c,h,q)
+    mS_local = wS.amax(dim=-1)                           # (b,c,h)
+
+    C_prev = q.new_zeros((b, h, p, p))
+    n_prev = q.new_zeros((b, h, p))
+    m_prev = q.new_full((b, h), NEG_INF)
+    ys = []
+    for i in range(c):
+        seg_c, cum_c = seg[:, i], cum[:, i]
+        q_c, k_c, v_c = q[:, i], k[:, i], v[:, i]        # (b,h,q,p)
+        # position-wise stabilizer: intra max vs decayed state stabilizer
+        m_intra = seg_c.amax(dim=-1)                     # (b,h,t)
+        m_state = cum_c + m_prev[..., None]              # (b,h,t)
+        m_t = torch.maximum(m_intra, m_state)
+        w_intra = torch.exp(seg_c - m_t[..., None])      # (b,h,t,s)
+        w_state = torch.exp(m_state - m_t)               # (b,h,t)
+        sw = (q_c @ k_c.transpose(-1, -2)) * w_intra     # scores * w_intra
+        num = sw @ v_c + (q_c @ C_prev) * w_state[..., None]
+        den = sw.sum(-1) + (q_c @ n_prev[..., None])[..., 0] * w_state
+        ys.append(num / torch.maximum(den.abs(), torch.exp(-m_t))[..., None])
+        # state update
+        m_new = torch.maximum(cum_c[..., -1] + m_prev, mS_local[:, i])
+        wS_st = torch.exp(wS[:, i] - m_new[..., None])   # (b,h,s)
+        dec = torch.exp(cum_c[..., -1] + m_prev - m_new)  # (b,h)
+        wk = wS_st[..., None] * k_c                      # (b,h,s,p)
+        C_prev = (C_prev * dec[..., None, None]
+                  + wk.transpose(-1, -2) @ v_c)
+        n_prev = n_prev * dec[..., None] + wk.sum(-2)
+        m_prev = m_new
+    y = torch.stack(ys, 1).transpose(2, 3)               # (b,c,q,h,p)
+    return y.reshape(b, l, h, p), (C_prev, n_prev, m_prev)
+
+
+def _mlstm_in(params, x, cfg: ModelConfig):
+    """(q, k, v (b, l, h, p), li, lf (b, l, h) fp32, gate)."""
+    d_in, nh, hd = _mlstm_dims(cfg)
+    h2 = proj_in(x, params["up"])
+    core_in, gate = h2[..., 0, :], h2[..., 1, :]
+    q = (core_in @ params["wq"]).reshape(*x.shape[:2], nh, hd)
+    k = (core_in @ params["wk"]).reshape(*x.shape[:2], nh, hd)
+    v = (core_in @ params["wv"]).reshape(*x.shape[:2], nh, hd)
+    if_gates = (proj_in(core_in, params["wif"])
+                + params["b_if"][None].to(x.dtype))
+    li = if_gates[..., 0, :].float()                     # log input gate
+    lf = F.logsigmoid(if_gates[..., 1, :].float())
+    return q, k, v, li, lf, gate
+
+
+def _mlstm_out(params, y, gate, x, cfg: ModelConfig):
+    y = y.reshape(*x.shape[:2], _mlstm_dims(cfg)[0]).to(x.dtype)
+    y = rms_norm(y, params["norm"], cfg.norm_eps)
+    y = y * F.silu(gate)
+    return y @ params["down"]
+
+
+def mlstm_forward(params, x, cfg: ModelConfig, return_state: bool = False):
+    q, k, v, li, lf, gate = _mlstm_in(params, x, cfg)
+    y, state = _mlstm_chunked(q, k, v, li, lf, cfg.xlstm.chunk_size)
+    out = _mlstm_out(params, y, gate, x, cfg)
+    return out, ({"C": state[0], "n": state[1], "m": state[2]}
+                 if return_state else None)
+
+
+def mlstm_decode(params, x, cfg: ModelConfig, state: Dict):
+    """One-token step. x: (b, 1, d); state C (b, h, p, p), n (b, h, p), m
+    (b, h), written in place. Returns (y (b, 1, d), state)."""
+    hd = _mlstm_dims(cfg)[2]
+    q, k, v, li, lf, gate = _mlstm_in(params, x, cfg)
+    q = q[:, 0].float() * (hd ** -0.5)                   # (b,h,p)
+    k, v = k[:, 0].float(), v[:, 0].float()
+    li, lf = li[:, 0], lf[:, 0]                          # (b,h)
+    C, n, m = state["C"], state["n"], state["m"]
+    m_new = torch.maximum(lf + m, li)
+    i_p = torch.exp(li - m_new)
+    f_p = torch.exp(lf + m - m_new)
+    C.mul_(f_p[..., None, None]).add_(
+        (i_p[..., None] * k)[..., :, None] * v[..., None, :])
+    n.mul_(f_p[..., None]).add_(i_p[..., None] * k)
+    m.copy_(m_new)
+    num = (q[..., None, :] @ C)[..., 0, :]               # (b,h,p)
+    den = torch.maximum((q * n).sum(-1).abs(), torch.exp(-m_new))
+    y = (num / den[..., None])[:, None]                  # (b,1,h,p)
+    return _mlstm_out(params, y, gate, x, cfg), state
+
+
+def mlstm_state_spec(cfg: ModelConfig, batch: int):
+    d_in, nh, hd = _mlstm_dims(cfg)
+    return {"C": ((batch, nh, hd, hd), torch.float32),
+            "n": ((batch, nh, hd), torch.float32),
+            "m": ((batch, nh), torch.float32)}
+
+
+# ---------------------------------------------------------------------------
+# sLSTM
+# ---------------------------------------------------------------------------
+
+def init_slstm(init: Initializer, cfg: ModelConfig) -> Dict:
+    d = cfg.d_model
+    nh = cfg.num_heads
+    hd = d // nh
+    f_up = int(cfg.xlstm.proj_factor_slstm * d)
+    return {
+        "wx": init.w((d, 4, d)),
+        "r": init.w((nh, hd, 4, hd), scale=hd ** -0.5),
+        "b": init.const(np.concatenate([np.zeros((2, nh, hd)),
+                                        np.full((1, nh, hd), 3.0),
+                                        np.zeros((1, nh, hd))])),
+        "norm": init.z((d,)),
+        "ff_wi": init.w((d, 2, f_up)),
+        "ff_wo": init.z((f_up, d)),
+    }
+
+
+def _slstm_step(r, bias, carry, gx, cfg: ModelConfig):
+    """carry: (c, n, h, m) each (b, nh, hd); gx: (b, 4, d) pre-activations;
+    r: the recurrent weights in fp32 as (nh, hd, 4 hd), bias: ``b`` in
+    fp32 (both converted once a call, where the JAX package converts them
+    a step and XLA hoists it)."""
+    nh = cfg.num_heads
+    hd = cfg.d_model // nh
+    c, n, h, m = carry
+    # rec[b,g,k,x] = sum_h h[b,k,h] r[k,h,g,x]: one matmul per head
+    rec = h.transpose(0, 1) @ r                            # (nh, b, 4hd)
+    rec = rec.reshape(nh, -1, 4, hd).permute(1, 2, 0, 3)   # (b, 4, nh, hd)
+    g = gx.reshape(gx.shape[0], 4, nh, hd).float() + rec + bias[None]
+    z = torch.tanh(g[:, 0])
+    li = g[:, 1]                                         # log input gate
+    lf = F.logsigmoid(g[:, 2])
+    o = torch.sigmoid(g[:, 3])
+    m_new = torch.maximum(lf + m, li)
+    i_p = torch.exp(li - m_new)
+    f_p = torch.exp(lf + m - m_new)
+    c_new = f_p * c + i_p * z
+    n_new = f_p * n + i_p
+    h_new = o * c_new / torch.clamp(n_new, min=1e-6)
+    return (c_new, n_new, h_new, m_new)
+
+
+def slstm_forward(params, x, cfg: ModelConfig, state=None,
+                  return_state: bool = False):
+    """x: (b, l, d), a loop over time from ``state`` (c, n, h, m: (b, nh,
+    hd) each), or from zeros with m = -1e30. Returns (y, the new state when
+    ``state`` was given or ``return_state``, else None); ``state`` itself
+    is not written."""
+    b, l, d = x.shape
+    nh = cfg.num_heads
+    hd = d // nh
+    gx = proj_in(x, params["wx"])                          # (b,l,4,d)
+    if state is None:
+        zeros = x.new_zeros((b, nh, hd), dtype=torch.float32)
+        carry = (zeros, zeros, zeros, torch.full_like(zeros, NEG_INF))
+    else:
+        carry = (state["c"], state["n"], state["h"], state["m"])
+    r = params["r"].float().reshape(nh, hd, 4 * hd)
+    bias = params["b"].float()
+    hs = []
+    for t in range(l):
+        carry = _slstm_step(r, bias, carry, gx[:, t], cfg)
+        hs.append(carry[2])
+    y = torch.stack(hs, 1).reshape(b, l, d).to(x.dtype)
+    y = rms_norm(y, params["norm"], cfg.norm_eps)
+    # gated FFN tail (proj_factor_slstm)
+    hff = proj_in(y, params["ff_wi"])
+    y = (gelu(hff[..., 0, :]) * hff[..., 1, :]) @ params["ff_wo"]
+    new_state = None
+    if return_state or state is not None:
+        new_state = dict(zip("cnhm", carry))
+    return y, new_state
+
+
+def slstm_state_spec(cfg: ModelConfig, batch: int):
+    nh = cfg.num_heads
+    hd = cfg.d_model // nh
+    sd = ((batch, nh, hd), torch.float32)
+    return {"c": sd, "n": sd, "h": sd, "m": sd}

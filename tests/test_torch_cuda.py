@@ -2,7 +2,8 @@
 version, the two bitwise contracts between the decode-shaped kernels, the
 chunk kernel's rows against the flash kernel's, and the paths through the
 kernels (the paged, chunked, dense slot and speculative engines, the
-disaggregated prefill/decode workers and the RAG retrieval scan).
+recurrent families' slot engines, the disaggregated prefill/decode workers
+and the RAG retrieval scan).
 
 Every test here needs an NVIDIA card and carries the ``cuda`` marker; it
 skips (in a fixture) without one. The file imports neither JAX nor
@@ -504,6 +505,70 @@ def test_mla_slot_engine_runs_through_flash_kernel(cuda, arch):
         streams.append({r.rid: r.tokens for r in eng.run()})
         assert tfa.launches >= n0 + 3 * cfg.num_layers
     assert streams[0] == streams[1] and len(streams[0]) == 3
+
+
+# zamba2_7b's shared attention block: MHA, 32/32 heads at head dim 112
+# (two 64-column atoms, the second half zero-filled by TMA; the decode
+# body's query group of 1 in its m16 tile)
+@pytest.mark.parametrize("s,causal", [(1, True), (65, False), (300, True),
+                                      (1024, True)])
+def test_flash_kernel_at_the_hybrid_shared_block_shape(cuda, s, causal):
+    rng = np.random.default_rng(36)
+    q, k, v = (_bf16(rng, cuda, 1, s, 32, 112) for _ in range(3))
+    n0 = tfa.launches
+    got = ops.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert tfa.launches == n0 + 1
+    _assert_close(got, ref.flash_attention(q, k, v, causal=causal))
+
+
+@pytest.mark.parametrize("lengths", [
+    [2048, 1, 17, 300, 1024, 1537, 640, 2000],      # the path's decode
+    STRADDLE + [2048, 1],
+])
+def test_decode_kernel_at_the_hybrid_shared_block_shape(cuda, lengths):
+    """b = 8, S = 2048, 32/32 heads (query group 1), d = 112, content past
+    each row's length large garbage."""
+    rng = np.random.default_rng(37)
+    b = len(lengths)
+    q = _bf16(rng, cuda, b, 1, 32, 112)
+    k, v = (_bf16(rng, cuda, b, 2048, 32, 112) for _ in range(2))
+    for i, n in enumerate(lengths):
+        k[i, n:], v[i, n:] = 1e4, -1e4
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    n0 = tda.launches
+    got = ops.decode_attention(q, k, v, lens)
+    torch.cuda.synchronize()
+    assert tda.launches == n0 + 1
+    _assert_live_close(got, ref.decode_attention(q, k, v, lens), lengths)
+
+
+@pytest.mark.parametrize("arch", ["zamba2_7b", "xlstm_1_3b"])
+def test_recurrent_slot_engine_graphed_equals_eager(cuda, arch):
+    """Reduced recurrent configs in bf16 on the card: make_engine gives
+    the SlotEngine; graphed and eager decode passes give equal streams over
+    five requests through two slots (slots reused); the hybrid's shared
+    block prefills through flash_attention and decodes through
+    decode_attention."""
+    cfg = get_reduced_config(arch)
+    rng = np.random.default_rng(6)
+    prompts = [rng.integers(0, 512, n).astype(np.int32)
+               for n in (24, 64, 7, 32, 96)]
+    streams = []
+    for graphs in (True, False):
+        eng = make_engine(cfg, max_batch=2, max_len=160, seed=4,
+                          device=cuda, block_tokens=16, cuda_graphs=graphs)
+        assert isinstance(eng, SlotEngine)
+        assert (eng._decode.graph is not None) == graphs
+        n0 = (tfa.launches, tda.launches)
+        for p in prompts:
+            eng.submit(p, max_new_tokens=6)
+        streams.append({r.rid: r.tokens for r in eng.run()})
+        if arch == "zamba2_7b":
+            apps = cfg.num_layers // cfg.shared_attn_every
+            assert tfa.launches == n0[0] + apps * len(prompts)
+            assert tda.launches > n0[1]
+    assert streams[0] == streams[1] and len(streams[0]) == 5
 
 
 def test_spec_engine_runs_through_verify_kernel(cuda):

@@ -22,6 +22,7 @@ from repro.engine.runner import SlotEngine as JSlotEngine
 from repro.models import transformer as jtf
 from repro_torch import weights
 from repro_torch.configs import gemma_2b as tgemma
+from repro_torch.configs import get_reduced_config
 from repro_torch.configs.base import MLAConfig
 from repro_torch.engine import core
 from repro_torch.engine.paged_kv import PagedKVStore as TStore
@@ -244,8 +245,9 @@ def test_store_matches_jax_store_on_random_walk():
 
 def test_paths_of_later_slices_raise(models):
     """Chunked prefill, speculative decoding and dense decode run; MLA
-    gives the SlotEngine; a GQA MoE and the recurrent families raise
-    naming the later slices, training raises."""
+    and the recurrent families (the reduced zamba2_7b and xlstm_1_3b) give
+    the SlotEngine; a GQA MoE raises naming the later slices, training
+    raises."""
     _, _, tcfg, tparams = models
     kw = dict(params=tparams, max_batch=1, max_len=64, device="cpu")
     chunked = Engine(tcfg, config=EngineConfig(chunk_size=8), **kw)
@@ -260,9 +262,13 @@ def test_paths_of_later_slices_raise(models):
         v_head_dim=16))
     assert isinstance(make_engine(mla, max_batch=1, max_len=64,
                                   block_tokens=16, device="cpu"), SlotEngine)
-    for family in ("moe", "hybrid", "ssm"):
-        with pytest.raises(NotImplementedError, match="later slices"):
-            make_engine(tcfg.replace(family=family), **kw)
+    for arch in ("zamba2_7b", "xlstm_1_3b"):
+        rec = get_reduced_config(arch)
+        assert isinstance(make_engine(rec, max_batch=1, max_len=64,
+                                      block_tokens=16, device="cpu"),
+                          SlotEngine)
+    with pytest.raises(NotImplementedError, match="later slices"):
+        make_engine(tcfg.replace(family="moe"), **kw)
     cache = ttf.init_cache(tcfg, 1, 8, "cpu")
     out, new = tattn.gqa_decode(
         ttf.layer_slice(tparams["layers"], 0)["attn"],

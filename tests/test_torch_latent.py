@@ -347,7 +347,8 @@ def test_slot_engine_absorbed_streams_match_jax():
 def test_make_engine_gives_slot_engine_for_mla():
     """MLA's latent cache is not paged (as in JAX): the factory hands MLA
     configs the dense SlotEngine and drops the paged-only keywords; GQA
-    still gets the paged Engine; a GQA MoE and the recurrent families
+    still gets the paged Engine; the recurrent families (the reduced
+    zamba2_7b and xlstm_1_3b) get the SlotEngine too; a GQA MoE and audio
     raise."""
     kw = dict(max_batch=1, max_len=64, device="cpu")
     gqa = importlib.import_module("repro_torch.configs.gemma_2b").reduced()
@@ -357,10 +358,14 @@ def test_make_engine_gives_slot_engine_for_mla():
         eng = make_engine(cfg, block_tokens=16, num_blocks=8,
                           preemption="swap", **kw)
         assert isinstance(eng, SlotEngine) and eng.cfg is cfg
-    for bad in (gqa.replace(family="moe"), gqa.replace(family="hybrid"),
-                gqa.replace(family="ssm")):
-        with pytest.raises(NotImplementedError, match="later slices"):
-            make_engine(bad, **kw)
+    for arch in ("zamba2_7b", "xlstm_1_3b"):
+        rec = importlib.import_module(f"repro_torch.configs.{arch}")
+        assert isinstance(make_engine(rec.reduced(), block_tokens=16, **kw),
+                          SlotEngine)
+    with pytest.raises(NotImplementedError, match="later slices"):
+        make_engine(gqa.replace(family="moe"), **kw)
+    with pytest.raises(NotImplementedError, match="training"):
+        make_engine(gqa.replace(family="audio"), **kw)
     with pytest.raises(NotImplementedError, match="paged KV"):
         ttf.init_paged_cache(_configs("minicpm3_4b")[1], 1, 4, 16, 4, "cpu")
 
