@@ -140,9 +140,34 @@ raises on failure:
    streams and launch counts), tok/s, TTFT, TPOT, peak memory and the
    bytes a decode pass reads and writes (weights, the shared block per
    application, recurrent state, K/V) against their byte bound;
-15. the ``kernels`` JSON line (flash's row also holds its MLA shapes and
-   launches, flash's and dense decode's their zamba2 shape and launches),
-   the card line, and the last line ``{"ok": true, "device": {...}}``.
+15. train (after the recurrent weights are freed): the backward kernel
+   ``flash_attention_bwd`` against its plain version at Gemma's (1, 1024,
+   8/1 heads, 256) causal, HuBERT's (4, 1024, 16/16, 80) non-causal and
+   a dv < dq shape (1, 512, 16/16, 192/128), the forward's lse output
+   ``torch.equal`` in its output to the launch without it and held
+   against the plain lse, kernel, plain version and autograd's backward of
+   scaled_dot_product_attention timed beside the bound (2.5 x the
+   forward's operations, or the bytes); then ``launch.train.main`` at
+   full width, bf16, seeded perturbed weights, 6 steps of 4 x 1024
+   tokens, remat "none" as the launcher trains: gemma_2b (18 layers) and
+   hubert_xlarge (48 layers), the launch counters reset just before and
+   read just after (forward and backward launches = layers x steps),
+   every backward call of the first step held against its plain version
+   on its own inputs, finite losses and gradient norms, every layer of
+   every leaf changed; gemma's gradients of one batch ``torch.equal``
+   under remat "full" (forward launches 2 x layers) and "none" and their
+   drift from plain attention printed; one HuBERT step from seeded embeds
+   through ``frontend_proj`` and its serving entry ``prefill_step`` (every
+   flash call held); the restart (hubert_xlarge at 4 of 48 layers, the
+   launcher's config cut while it runs, stopped after step 4 with its
+   newest checkpoint at step 3 and resumed: losses equal to the
+   uninterrupted run's); step time, tokens/s, peak memory, achieved TFLOP/s of the
+   model's products and their share of the peak;
+16. the ``kernels`` JSON line (flash's row also holds its MLA shapes and
+   launches, flash's and dense decode's their zamba2 shape and launches,
+   flash's its training launches; the backward's row its other shapes
+   and ptxas report), the card line, and the last line ``{"ok": true,
+   "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -151,6 +176,7 @@ import ctypes
 import dataclasses
 import itertools
 import json
+import os
 import subprocess
 import sys
 import time
@@ -216,7 +242,8 @@ FLASH_D = (8, 16, 24, 40, 64, 128, 256)
 FLASH_SWEEP = (128, 256, 512, 1024, 2048)
 
 KERNELS = ("flash_attention", "paged_decode_attention", "decode_attention",
-           "paged_verify_attention", "pq_scan", "paged_chunk_attention")
+           "paged_verify_attention", "pq_scan", "paged_chunk_attention",
+           "flash_attention_bwd")
 SOURCE = {
     "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
     "paged_chunk_attention":
@@ -227,6 +254,8 @@ SOURCE = {
     "paged_verify_attention":
         "src/repro_torch/kernels/csrc/paged_attention.cu",
     "pq_scan": "src/repro_torch/kernels/csrc/pq_scan.cu",
+    "flash_attention_bwd":
+        "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
 }
 REPLACES = {
     "flash_attention": "src/repro/kernels/flash_attention.py:95",
@@ -236,6 +265,8 @@ REPLACES = {
     "pq_scan": "src/repro/kernels/pq_scan.py:41",
     # no Pallas kernel: the JAX chunk pass runs its jnp version everywhere
     "paged_chunk_attention": "src/repro/kernels/ops.py:83",
+    # no Pallas kernel: the JAX train step differentiates its jnp reference
+    "flash_attention_bwd": "src/repro/kernels/ref.py:10",
 }
 
 
@@ -332,6 +363,11 @@ def phase_build():
     log(f"[build] flash_attention: {fn(256, 256)} bytes of dynamic shared "
         f"memory per block at head dim 256, {fn(16, 16)} at 16; at dq/dv "
         f"192/128 (MLA) {fn(192, 128)}")
+    fn = _build.load("flash_attention_bwd").flash_attention_bwd_smem_bytes
+    fn.argtypes, fn.restype = [ctypes.c_int] * 2, ctypes.c_int
+    log(f"[build] flash_attention_bwd: {fn(256, 256)} bytes of dynamic "
+        f"shared memory per block at head dim 256, {fn(80, 80)} at 80, "
+        f"{fn(192, 128)} at 192/128")
 
 
 def _flash_case(gen, b, s, nh, kvh, d):
@@ -1226,7 +1262,7 @@ def _perturb(params, cfg, gen, share: float = 1.0):
     def std(path, shape):
         if path == "embed":
             return d ** -0.5
-        if path.endswith("gamma"):
+        if path.endswith(("gamma", "beta")):    # norms (beta: layernorm)
             return 0.1
         # the hybrid's one shared block is not stacked
         per_layer = shape if path.startswith("shared.") else shape[1:]
@@ -1291,6 +1327,28 @@ def plain_attention():
     finally:
         for n, fn in zip(names, saved):
             setattr(ops, n, fn)
+
+
+def flash_p_bf16(q, k, v, *, causal=True, scale=None):
+    """ref.flash_attention with P rounded to bf16 before P·V and the row
+    sums taken over the fp32 P, the rounding the flash kernel makes: a
+    second plain version, to measure how far rounding alone moves the
+    model."""
+    from repro_torch.kernels import ref
+    b, s, nh, d = q.shape
+    t, kvh, dv = k.shape[1], k.shape[2], v.shape[-1]
+    scale = d ** -0.5 if scale is None else scale
+    qr = q.reshape(b, s, kvh, nh // kvh, d)
+    sc = torch.einsum("bskgh,btkh->bkgst", qr.float(), k.float()) * scale
+    if causal:
+        mask = (torch.arange(t, device=q.device)[None, :]
+                <= torch.arange(s, device=q.device)[:, None])
+        sc = torch.where(mask, sc, torch.tensor(ref.NEG_INF, device=q.device))
+    p = torch.exp(sc - sc.amax(dim=-1, keepdim=True))
+    out = torch.einsum("bkgst,btkh->bskgh", p.to(torch.bfloat16).float(),
+                       v.float())
+    out = out / p.sum(dim=-1).permute(0, 3, 1, 2)[..., None]
+    return out.reshape(b, s, nh, dv).to(q.dtype)
 
 
 def _prefill_paged(params, cfg, prompt, bt=16, max_len=2048, batch=8):
@@ -2858,6 +2916,523 @@ def phase_recurrent(card: str):
     return {k: (shapes[k], launches[k]) for k in shapes}
 
 
+# ---------------------------------------------------------------------------
+# phase 15: training at full width
+# ---------------------------------------------------------------------------
+
+# the backward kernel's shapes, (b, s, nh, kvh, dq, dv) and causal: Gemma-
+# 2B's prefill attention (the row's shape), HuBERT-XLarge's non-causal
+# encoder at the training batch, and a value head narrower than the
+# query's (MLA's 192/128)
+BWD_SHAPES = (("gemma_2b", (1, 1024, 8, 1, 256, 256), True),
+              ("hubert_xlarge", (4, 1024, 16, 16, 80, 80), False),
+              ("dv<dq", (1, 512, 16, 16, 192, 128), True))
+# the gradient kernel against its plain version on the same bf16 inputs,
+# each of dq, dk, dv: relative norm per (batch, head) slab <= GRAD_SLAB_RTOL
+# and |err| <= GRAD_TOL (max |plain| + |plain|) elementwise; the plain
+# version forms P and every product in fp32, the kernel rounds P and dS to
+# bf16 for its products and its outputs to bf16
+GRAD_SLAB_RTOL = 0.01
+GRAD_TOL = 0.02
+# lse: both sum exp of the same fp32 scores, in other orders
+LSE_ATOL, LSE_RTOL = 1e-4, 1e-5
+# full-width launch.train runs (remat "none", as the launcher trains), 6
+# steps of 4 x 1024 tokens; the restart runs hubert_xlarge at
+# RESTART_LAYERS of its 48 layers (its checkpoint ~1 GB; Gemma-2B's state
+# would be ~25 GB)
+TRAIN_ARCHS = ("gemma_2b", "hubert_xlarge")
+TRAIN_BATCH, TRAIN_SEQ = 4, 1024
+TRAIN_ARGV = ("--steps", "6", "--batch", str(TRAIN_BATCH), "--seq",
+              str(TRAIN_SEQ), "--log-every", "1")
+RESTART_LAYERS = 4
+# values of each layer of a stacked leaf (of the leaf elsewhere) kept to
+# show that the training run moved it
+SNAP_ELEMS = 4096
+
+
+def compare_grads(name: str, got, want):
+    """(max abs error, max slab relative error) of a gradient of shape (b,
+    n, heads, d) against its plain version; raises past GRAD_TOL or
+    GRAD_SLAB_RTOL."""
+    torch.cuda.synchronize()
+    got, want = got.float(), want.float()
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{name}: non-finite kernel gradient")
+    err = (got - want).abs()
+    bad = err > GRAD_TOL * float(want.abs().max()) + GRAD_TOL * want.abs()
+    if bad.any():
+        raise AssertionError(f"{name}: {int(bad.sum())} elements off, max "
+                             f"abs err {float(err.max()):.4g}")
+    slab = lambda x: x.permute(0, 2, 1, 3).flatten(2)        # noqa: E731
+    rel = float((slab(got - want).norm(dim=-1)
+                 / slab(want).norm(dim=-1).clamp(min=1e-30)).max())
+    if rel > GRAD_SLAB_RTOL:
+        raise AssertionError(f"{name}: a (batch, head) slab is off by "
+                             f"{rel:.4g} of its norm")
+    return float(err.max()), rel
+
+
+def _bwd_work(b, s, nh, kvh, dq, dv, causal):
+    """(bytes, operations) of the attention backward: q, k, v, o, dO, lse
+    read and dq, dk, dv written once; 2.5 x the forward's operations."""
+    nbytes = (2 * 2 * b * s * (nh * dq + kvh * dq + kvh * dv + nh * dv)
+              + 4 * b * nh * s)
+    pairs = s * (s + 1) // 2 if causal else s * s
+    return nbytes, 2.5 * 2 * (dq + dv) * nh * b * pairs
+
+
+def _sdpa_bwd(q, k, v, do, causal):
+    """The yardstick: autograd's backward of one
+    scaled_dot_product_attention on the same inputs (GQA by
+    ``enable_gqa``), timed alone; the port never calls it."""
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
+                  for x in (q, k, v))
+    out = torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=causal,
+        enable_gqa=q.shape[2] != k.shape[2])
+    dot = do.transpose(1, 2)
+    return lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
+                                       retain_graph=True)
+
+
+def _bwd_ptxas():
+    """Registers and spill bytes of the backward library's kernels, from
+    nvcc's -Xptxas -v report."""
+    from repro_torch.kernels import _build
+    rep = _build.ptxas_reports.get("flash_attention_bwd", "")
+    regs = [int(x.split("Used ")[1].split()[0]) for x in rep.splitlines()
+            if "registers" in x]
+    spills = [int(x.split("bytes spill stores")[0].split(",")[-1])
+              for x in rep.splitlines() if "spill stores" in x]
+    return (f"{len(regs)} kernels, {min(regs, default=0)}-"
+            f"{max(regs, default=0)} registers, "
+            f"{max(spills, default=0)} B spilled at most")
+
+
+def phase_train_kernels(gen):
+    """The backward kernel at BWD_SHAPES: the forward with lse ==
+    the launch without it (``torch.equal``) and its lse against the plain
+    version's; the backward against ``ref.flash_attention_bwd`` on the same
+    bf16 inputs (``compare_grads``), two launches equal, and kernel, plain
+    version and sdpa's backward timed with the host queue held beside the
+    bound. Returns the kernels-line row (Gemma's shape; the others under
+    "shapes")."""
+    from repro_torch.kernels import flash_attention as tfa
+    from repro_torch.kernels import ref
+    mk = lambda *shape: torch.randn(                          # noqa: E731
+        *shape, generator=gen, device="cuda").to(torch.bfloat16)
+    shapes = {}
+    for tag, (b, s, nh, kvh, dq, dv), causal in BWD_SHAPES:
+        q, k, v = mk(b, s, nh, dq), mk(b, s, kvh, dq), mk(b, s, kvh, dv)
+        do = mk(b, s, nh, dv)
+        o, lse = tfa.flash_attention_lse(q, k, v, causal=causal)
+        if not torch.equal(o, tfa.flash_attention(q, k, v, causal=causal)):
+            raise AssertionError(f"{tag}: the lse launch's output is not "
+                                 "the plain launch's")
+        _, want_lse = ref.flash_attention_lse(q, k, v, causal=causal)
+        lse_err = float((lse - want_lse).abs().max())
+        if ((lse - want_lse).abs() > LSE_ATOL
+                + LSE_RTOL * want_lse.abs()).any():
+            raise AssertionError(f"{tag}: lse off by {lse_err:.3g}")
+        run = lambda: tfa.flash_attention_bwd(                # noqa: E731
+            q, k, v, o, lse, do, causal=causal)
+        got = run()
+        want = ref.flash_attention_bwd(q, k, v, o, lse, do, causal)
+        errs = [compare_grads(f"flash_attention_bwd {tag} {n}", g, w)
+                for n, g, w in zip(("dq", "dk", "dv"), got, want)]
+        del want
+        if not all(torch.equal(x, y) for x, y in zip(got, run())):
+            raise AssertionError(f"{tag}: two backward launches differ")
+        ms = cuda_time_ms(run, hold=True)
+        plain_ms = cuda_time_ms(lambda: ref.flash_attention_bwd(
+            q, k, v, o, lse, do, causal), iters=5, warmup=1, hold=True)
+        library_ms = cuda_time_ms(_sdpa_bwd(q, k, v, do, causal), hold=True)
+        b_ms, b_by = bound(*_bwd_work(b, s, nh, kvh, dq, dv, causal),
+                           PEAK_BF16_FLOPS)
+        shapes[tag] = {
+            "shape": [b, s, nh, kvh, dq, dv], "causal": causal,
+            "max_abs_err": max(e for e, _ in errs),
+            "max_row_rel_err": max(r for _, r in errs), "lse_err": lse_err,
+            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": b_ms, "bound_by": b_by}
+        log(f"[train] flash_attention_bwd {tag} ({b}, {s}, {nh}/{kvh}, "
+            f"{dq}/{dv}, causal={causal}): dq/dk/dv max_abs_err "
+            + "/".join(f"{e:.3g}" for e, _ in errs) + ", slab rel err "
+            + "/".join(f"{r:.3g}" for _, r in errs)
+            + f" (limits {GRAD_TOL}, {GRAD_SLAB_RTOL}); lse err "
+            f"{lse_err:.3g}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"sdpa backward {library_ms:.4f} ms, bound {b_ms:.4f} ms "
+            f"({b_by}), kernel / bound {ms / b_ms:.2f}, kernel / sdpa "
+            f"{ms / library_ms:.2f}")
+        del q, k, v, do, o, lse, got
+    ptxas = _bwd_ptxas()
+    log(f"[train] flash_attention_bwd ptxas: {ptxas}")
+    row = dict(shapes["gemma_2b"])
+    row.update(shapes={k: v for k, v in shapes.items() if k != "gemma_2b"},
+               ptxas=ptxas)
+    return row
+
+
+@contextlib.contextmanager
+def backward_checks():
+    """While ``on[0]`` is true, hold every backward kernel call against
+    ``ref.flash_attention_bwd`` on that call's own inputs (``compare_grads``),
+    the kernel's gradients going on into the model. Yields (on, worst):
+    worst is [calls, max abs error, max slab relative error]."""
+    from repro_torch.kernels import flash_attention as tfa
+    from repro_torch.kernels import ref
+    kernel = tfa.flash_attention_bwd
+    on, worst = [True], [0, 0.0, 0.0]
+
+    def run(q, k, v, o, lse, do, *, causal=True, scale=None):
+        got = kernel(q, k, v, o, lse, do, causal=causal, scale=scale)
+        if on[0]:
+            want = ref.flash_attention_bwd(q, k, v, o, lse, do, causal,
+                                           scale)
+            for n, g, w in zip(("dq", "dk", "dv"), got, want):
+                e, r = compare_grads(f"backward call {worst[0]} {n}", g, w)
+                worst[1], worst[2] = max(worst[1], e), max(worst[2], r)
+            worst[0] += 1
+        return got
+    tfa.flash_attention_bwd = run
+    try:
+        yield on, worst
+    finally:
+        tfa.flash_attention_bwd = kernel
+
+
+def _state_fn(seed: int = 0):
+    """launch.train's start: seeded full-width weights, every leaf
+    perturbed (the JAX init zeroes the output projections), fresh AdamW
+    moments."""
+    def make(cfg, device):
+        from repro_torch.models.optim import init_opt_state
+        params = full_width_params(cfg, seed)
+        return {"params": params, "opt": init_opt_state(params)}
+    return make
+
+
+def _train_flops(cfg, b, s) -> float:
+    """6 x the parameters a token's matrix products read x tokens, plus
+    3 x the causal (or full) attention's forward products."""
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    per_layer = (d * hd * (2 * cfg.num_heads + 2 * cfg.num_kv_heads)
+                 + d * cfg.d_ff * (3 if cfg.mlp_type in ("swiglu", "geglu")
+                                   else 2))
+    n = cfg.num_layers * per_layer + d * cfg.vocab_size        # + the head
+    pairs = s * (s + 1) // 2 if not cfg.encoder_only else s * s
+    attn = 3 * 2 * 2 * hd * cfg.num_heads * b * pairs * cfg.num_layers
+    return 6.0 * n * b * s + attn
+
+
+@contextlib.contextmanager
+def _launch_patched(init_state, layers=None, after_step=None):
+    """While open, launch.train.main starts from ``init_state(cfg, device)``
+    in place of its seed-0 state, trains its config cut to ``layers``
+    layers (full width) when given, and calls ``after_step(state,
+    metrics)`` after each train step."""
+    from repro_torch.launch import train
+    from repro_torch.models import steps
+    saved = train.get_config, steps.init_train_state, steps.train_step
+    get_config, train_step = saved[0], saved[2]
+
+    def config(arch):
+        cfg = get_config(arch)
+        return cfg if layers is None else cfg.replace(num_layers=layers)
+
+    def step(*args, **kw):
+        state, metrics = train_step(*args, **kw)
+        if after_step is not None:
+            after_step(state, metrics)
+        return state, metrics
+    train.get_config = config
+    steps.init_train_state = lambda cfg, gen, device: init_state(cfg, device)
+    steps.train_step = step
+    try:
+        yield
+    finally:
+        train.get_config, steps.init_train_state, steps.train_step = saved
+
+
+def _train_run(arch, init_state):
+    """launch.train.main at full width (TRAIN_ARGV) from ``init_state``,
+    in a fresh checkpoint directory (6 steps write no checkpoint at the
+    default interval of 20), the launch counters reset just before and
+    read just after, every backward call of its first step held against
+    the plain version. Returns (losses, grad norms, step seconds,
+    launches, worst, state, cfg)."""
+    import tempfile
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    got = {"gn": [], "t": [], "state": None}
+
+    def after_step(state, metrics):
+        torch.cuda.synchronize()
+        got["t"].append(time.perf_counter())
+        got["gn"].append(float(metrics["grad_norm"]))
+        got["state"] = state
+        checks[0][0] = False
+
+    with tempfile.TemporaryDirectory(dir=str(ROOT / "build")) as tmp, \
+            backward_checks() as checks, \
+            _launch_patched(init_state, after_step=after_step):
+        argv = ["--arch", arch, *TRAIN_ARGV, "--ckpt-dir", tmp]
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        got["t"] = [time.perf_counter()]
+        losses = train.main(argv)
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()
+    cfg = get_config(arch).replace(remat="none")
+    steps_s = np.diff(got["t"])
+    return losses, got["gn"], steps_s, launches, checks[1], got["state"], cfg
+
+
+def _layer_sample(path, v, layers):
+    """The first SNAP_ELEMS values of each layer of a stacked leaf, one row
+    a layer; of the leaf itself elsewhere, one row."""
+    rows = layers if path.startswith("layers.") else 1
+    return v.reshape(rows, -1)[:, :SNAP_ELEMS]
+
+
+def _flash_counts(launches):
+    return launches["flash_attention"], launches["flash_attention_bwd"]
+
+
+def _remat_and_drift(params, cfg, batch, card):
+    """Gradients of one batch under remat "full" and "none": equal
+    (``torch.equal``), flash's forward launched 2 x layers times under
+    "full" and layers times under "none", its backward layers times, and
+    the "none" run's every backward call held
+    against its plain version on its own inputs (``backward_checks``) at
+    these weights; then the gradients against plain attention's and
+    against plain attention's with P rounded to bf16 before P·V
+    (``flash_p_bf16``), printed: loss, global grad norm, their drift, the
+    gradients' cosine and the leaves that differ the most."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import optim, steps
+
+    def grads(remat, counted=True):
+        L = cfg.num_layers
+        ops.reset_launches()
+        (tot, _), g = steps.value_and_grad(params, batch,
+                                           cfg.replace(remat=remat))
+        got = _flash_counts(ops.launch_counts())
+        want = (2 * L if remat == "full" else L, L)
+        if counted and got != want:
+            raise AssertionError(f"remat {remat}: flash launches {got} "
+                                 f"(forward, backward); want {want}")
+        return float(tot), _flat(g)
+    tot_f, flat_f = grads("full")
+    with backward_checks() as (_, worst):
+        tot_n, flat_n = grads("none")
+    same = tot_f == tot_n and all(torch.equal(flat_f[k], flat_n[k])
+                                  for k in flat_f)
+    del flat_n
+    if not same:
+        raise AssertionError("gradients differ under remat full and none")
+    if worst[0] != cfg.num_layers:
+        raise AssertionError(f"{worst[0]} backward calls held")
+    log(f"[train] gemma_2b: one batch's gradients torch.equal under remat "
+        f"full and none (flash {2 * cfg.num_layers} / {cfg.num_layers} "
+        f"forward launches, {cfg.num_layers} backward each); every "
+        f"backward call at the trained weights held "
+        f"({worst[0]} calls, max_abs_err {worst[1]:.3g}, slab rel err "
+        f"{worst[2]:.3g})")
+    gn = float(optim.global_norm(flat_f))
+    for tag, plain in (("plain attention", None),
+                       ("plain attention, P in bf16", flash_p_bf16)):
+        with plain_attention():                 # restores ops on exit
+            if plain is not None:
+                ops.flash_attention = plain
+            tot_p, flat_p = grads("none", counted=False)
+        gp = float(optim.global_norm(flat_p))
+        cos = sum(float((flat_f[k].float() * flat_p[k].float()).sum())
+                  for k in flat_f) / (gn * gp)
+        diff = sorted(((float((flat_f[k].float() - flat_p[k].float()
+                               ).norm()), k) for k in flat_f),
+                      reverse=True)[:3]
+        log(f"[train] gemma_2b against {tag} (printed, not gated): loss "
+            f"{tot_f:.6f} / {tot_p:.6f}, global grad norm {gn:.6g} / "
+            f"{gp:.6g}, drift {abs(gn - gp) / gp:.4g}, cosine of the "
+            f"gradients {cos:.6f}; largest |kernels - plain| "
+            + ", ".join(f"{k} {d:.4g}" for d, k in diff) + f"; {card}")
+        del flat_p
+
+
+def phase_train(card: str):
+    """Training on the card: the backward kernel (``phase_train_kernels``);
+    launch.train.main at full width for gemma_2b and hubert_xlarge (48
+    layers), remat "none" as the launcher trains, 6 steps of 4 x 1024
+    tokens from seeded perturbed weights (``_launch_patched``), bf16:
+    finite losses and gradient norms, every layer of every leaf changed,
+    forward and backward launches = layers x steps, every backward call of
+    the first step held against the plain version on its own inputs
+    (``backward_checks``); gemma's gradients of one batch equal under
+    remat "full" and "none" (``_remat_and_drift``) and their norm's drift
+    from plain
+    attention printed; one HuBERT step from seeded embeds through
+    frontend_proj and its serving entry ``prefill_step`` on them (every
+    flash call held, ``layer_checks``); the restart: hubert_xlarge at
+    RESTART_LAYERS layers, 6 steps, stopped after step 4 (its newest
+    checkpoint at 3) and resumed, the resumed losses equal to the uninterrupted run's. Step
+    time, tokens/s, peak memory and the achieved TFLOP/s against the
+    model's products are printed. Returns (the backward kernel's row,
+    {arch: flash forward and backward launches})."""
+    import gc
+    import tempfile
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.data.pipeline import DataConfig, batch_at
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.models import steps
+    t_phase = time.monotonic()
+    gc.collect()
+    torch.cuda.empty_cache()
+    # what the earlier phases leave on the card: the largest live tensors
+    live = sorted(((o.numel() * o.element_size(), tuple(o.shape),
+                    str(o.dtype)) for o in gc.get_objects()
+                   if torch.is_tensor(o) and o.is_cuda), reverse=True)
+    log(f"[train] {torch.cuda.memory_allocated() / 2**30:.2f} GiB still "
+        f"allocated before the phase; largest live tensors: "
+        + ", ".join(f"{n / 2**20:.0f} MiB {shape} {dt}"
+                    for n, shape, dt in live[:4]))
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    row = phase_train_kernels(gen)
+    launches = {}
+    for arch in TRAIN_ARCHS:
+        torch.cuda.reset_peak_memory_stats()
+        snap = {}
+
+        def snap_state(cfg, device, _make=_state_fn()):
+            state = _make(cfg, device)
+            snap.update({k: _layer_sample(k, v, cfg.num_layers).clone()
+                         for k, v in _flat(state["params"]).items()})
+            return state
+        losses, gns, step_s, counts, worst, state, cfg = _train_run(
+            arch, snap_state)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        L, n_steps = cfg.num_layers, len(losses)
+        fwd, bwd = _flash_counts(counts)
+        if (fwd, bwd) != (L * n_steps, L * n_steps):
+            raise AssertionError(f"{arch}: flash launches {fwd} forward, "
+                                 f"{bwd} backward; want {L * n_steps} "
+                                 "each")
+        if not all(np.isfinite(losses)) or not all(np.isfinite(gns)):
+            raise AssertionError(f"{arch}: non-finite loss or grad norm")
+        # every layer of every leaf the token steps read; frontend_proj (a
+        # stub frontend's, read only from embeds) gets a zero gradient, and
+        # in bf16 its weight decay alone rounds away: the embeds step below
+        # moves it
+        unchanged = [(k, i) for k, v in _flat(state["params"]).items()
+                     if k != "frontend_proj"
+                     for i, moved in enumerate(
+                         (_layer_sample(k, v, L) != snap[k]).any(dim=1))
+                     if not moved]
+        if unchanged:
+            raise AssertionError(f"{arch}: (leaf, layer) unchanged "
+                                 f"{unchanged}")
+        if worst[0] != L:
+            raise AssertionError(f"{arch}: {worst[0]} backward calls held, "
+                                 f"{L} expected")
+        launches[arch] = {"flash_attention": fwd, "flash_attention_bwd": bwd}
+        b, s = TRAIN_BATCH, TRAIN_SEQ
+        med = float(np.median(step_s[1:]))
+        flops = _train_flops(cfg, b, s)
+        log(f"[train] {arch} ({L} layers, remat none): losses "
+            + " ".join(f"{x:.4f}" for x in losses) + "; grad norms "
+            + " ".join(f"{x:.4f}" for x in gns)
+            + f"; launches flash {fwd} forward, {bwd} backward; every "
+            f"layer of every leaf moved; every "
+            f"backward call of step 1 held ({worst[0]} calls, max_abs_err "
+            f"{worst[1]:.3g}, slab rel err {worst[2]:.3g}); step s "
+            + " ".join(f"{x:.3f}" for x in step_s)
+            + f", median of steps 2-6 {med:.4f} s, {b * s / med:.1f} "
+            f"tokens/s, {flops / med / 1e12:.1f} TFLOP/s of the model's "
+            f"products ({flops / 1e12:.1f} TFLOP a step), "
+            f"{flops / med / PEAK_BF16_FLOPS:.3f} of "
+            f"{PEAK_BF16_FLOPS / 1e12:.0f}; peak {peak:.2f} GiB; {card}")
+        dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=s, global_batch=1)
+        if arch == "gemma_2b":
+            batch = {k: torch.as_tensor(v, device="cuda")
+                     for k, v in batch_at(dc, 100).items()}
+            _remat_and_drift(state["params"], cfg, batch, card)
+        else:
+            rng = torch.Generator(device="cuda").manual_seed(25)
+            emb = torch.randn(b, s, cfg.frontend_dim, generator=rng,
+                              device="cuda").to(torch.bfloat16)
+            batch = {"embeds": emb, "labels": torch.randint(
+                0, cfg.vocab_size, (b, s), generator=rng, device="cuda",
+                dtype=torch.int32)}
+            m0 = state["opt"]["m"]["frontend_proj"].abs().max().item()
+            ops.reset_launches()
+            state, met = steps.train_step(state, batch, cfg)
+            fwd, bwd = _flash_counts(ops.launch_counts())
+            m1 = state["opt"]["m"]["frontend_proj"].abs().max().item()
+            if (fwd, bwd) != (L, L) or not (
+                    np.isfinite(float(met["loss"])) and m0 == 0 < m1):
+                raise AssertionError(f"embeds step: launches {fwd}/{bwd}, "
+                                     f"loss {float(met['loss'])}, "
+                                     f"frontend_proj m {m0} -> {m1}")
+            with torch.no_grad(), layer_checks() as held:
+                logits, caches = steps.prefill_step(
+                    state["params"], {"embeds": emb}, cfg, s)
+            n_held = held.get("flash_attention", (0, 0, 0))[0]
+            if (caches is not None or logits.shape != (b, s, cfg.vocab_size)
+                    or not torch.isfinite(logits).all() or n_held != L):
+                raise AssertionError(f"prefill_step: {tuple(logits.shape)}, "
+                                     f"{n_held} flash calls held")
+            log(f"[train] hubert_xlarge from embeds {tuple(emb.shape)}: "
+                f"loss {float(met['loss']):.4f}, grad norm "
+                f"{float(met['grad_norm']):.4f}, frontend_proj's first "
+                f"moment 0 -> {m1:.3g}, flash {fwd} forward / {bwd} "
+                f"backward; prefill_step logits {tuple(logits.shape)}, "
+                f"caches None, every flash call held ({n_held})")
+            del logits
+        del state, snap, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # restart: 6 steps with checkpoints every 3, against a run stopped
+    # after step 4 (its newest checkpoint is step 3's) and resumed
+    class Stop(Exception):
+        pass
+    calls = []
+
+    def stop(state, metrics):
+        calls.append(1)
+        if len(calls) == 4:
+            raise Stop
+    argv = ["--arch", "hubert_xlarge", *TRAIN_ARGV, "--ckpt-every", "3"]
+    with tempfile.TemporaryDirectory(dir=str(ROOT / "build")) as tmp:
+        t0 = time.perf_counter()
+        with _launch_patched(_state_fn(), RESTART_LAYERS):
+            whole = train.main(argv + ["--ckpt-dir", f"{tmp}/a"])
+        t1 = time.perf_counter()
+        with _launch_patched(_state_fn(), RESTART_LAYERS, stop):
+            try:
+                train.main(argv + ["--ckpt-dir", f"{tmp}/b"])
+            except Stop:
+                pass
+        if ckpt.latest_step(f"{tmp}/b") != 3:
+            raise AssertionError("restart: no checkpoint at step 3")
+        with _launch_patched(_state_fn(), RESTART_LAYERS):
+            resumed = train.main(argv + ["--ckpt-dir", f"{tmp}/b"])
+        size = sum(os.path.getsize(os.path.join(r, f))
+                   for r, _, fs in os.walk(f"{tmp}/b/step_00000003")
+                   for f in fs)
+    log(f"[train] restart, hubert_xlarge at {RESTART_LAYERS} of 48 layers: "
+        f"uninterrupted losses " + " ".join(f"{x:.6f}" for x in whole)
+        + "; resumed from step 3 " + " ".join(f"{x:.6f}" for x in resumed)
+        + f"; checkpoint {size / 1e9:.3f} GB; 6 steps with 2 saves "
+        f"{t1 - t0:.2f} s")
+    if resumed != whole[3:]:
+        raise AssertionError(f"restart: {resumed} != {whole[3:]}")
+    log(f"[train] phase seconds {time.monotonic() - t_phase:.1f}; {card}")
+    return row, launches
+
+
 def kernels_line(rows, launches):
     out = []
     for name in KERNELS:
@@ -2872,9 +3447,12 @@ def kernels_line(rows, launches):
                     "library_ms": r["library_ms"]})
         # flash at MLA's shapes (phase latent), flash and dense decode at
         # zamba2's shared-block shape (phase recurrent), and their launches
-        # there
+        # there; flash's launches in the training runs and the backward
+        # kernel's other shapes and ptxas report (phase train)
         out[-1].update({k: r[k] for k in ("mla_shapes", "mla_launches",
-                                          "zamba2_shape", "zamba2_launches")
+                                          "zamba2_shape", "zamba2_launches",
+                                          "train_launches", "shapes",
+                                          "ptxas")
                         if k in r})
     return {"kernels": out}
 
@@ -2926,6 +3504,13 @@ def main() -> int:
     for name, (shape, n) in phase_recurrent(line).items():
         rows[name].update(zamba2_shape=shape, zamba2_launches=n)
     lap("recurrent")
+    rows["flash_attention_bwd"], train_launches = phase_train(line)
+    # the training path's launches are gemma_2b's run (phase train)
+    launches["flash_attention_bwd"] = train_launches["gemma_2b"][
+        "flash_attention_bwd"]
+    rows["flash_attention"]["train_launches"] = {
+        arch: n["flash_attention"] for arch, n in train_launches.items()}
+    lap("train")
     log(f"[done] all phases in {time.monotonic() - t0:.1f}s")
     log(json.dumps(kernels_line(rows, launches)))
     log(line)

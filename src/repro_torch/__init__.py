@@ -1,1 +1,2 @@
-"""PyTorch/CUDA port of the paged serving path (see README, PyTorch/CUDA port)."""
+"""PyTorch/CUDA port of the serving paths and of training (see README,
+PyTorch/CUDA port)."""

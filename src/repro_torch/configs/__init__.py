@@ -7,7 +7,8 @@ registered: the dense GQA decoders, the vlm on its text path (its prefill
 also takes the stub frontend's embeddings), the MLA configs, dense
 (``minicpm3_4b``) and MoE (the DeepSeek-V2 pair), and the recurrent
 families (``zamba2_7b``'s Mamba2 with a shared attention block,
-``xlstm_1_3b``'s mLSTM/sLSTM); the audio family arrives with training.
+``xlstm_1_3b``'s mLSTM/sLSTM), and the audio encoder (``hubert_xlarge``,
+which trains and whose serving entry is its encoder forward).
 """
 from __future__ import annotations
 
@@ -29,7 +30,7 @@ from repro_torch.configs.base import (  # noqa: F401
 ARCH_IDS = ("gemma_2b", "guard_2b", "llama3_70b", "internlm2_20b",
             "nemotron_4_340b", "pixtral_12b", "minicpm3_4b",
             "deepseek_v2_lite_16b", "deepseek_v2_236b", "zamba2_7b",
-            "xlstm_1_3b")
+            "xlstm_1_3b", "hubert_xlarge")
 
 
 def _norm(arch: str) -> str:

@@ -1013,8 +1013,11 @@ def make_engine(cfg: ModelConfig, **kw):
     """Engine factory, as in the JAX package: the paged ``Engine`` when the
     config's attention cache pages, else the dense ``SlotEngine`` (MLA and
     the recurrent families), with the paged-only keywords dropped. A family
-    the port does not serve yet raises (``transformer.check_family``)."""
+    the port does not serve yet raises (``transformer.check_family``), and
+    an encoder-only config, which has no serving path, as JAX's serve
+    launcher does (``ValueError``)."""
     tf.check_family(cfg)
+    tf.check_serving(cfg)
     if paged_supported(cfg):
         return Engine(cfg, **kw)
     for k in ("block_tokens", "num_blocks", "preemption", "trace_occupancy",

@@ -1,2 +1,2 @@
-"""Hand-written CUDA kernels for Hopper (attention and the IVF-PQ scan),
-their plain PyTorch versions, and the dispatch between them."""
+"""Hand-written CUDA kernels for Hopper (attention, its gradient and the
+IVF-PQ scan), their plain PyTorch versions, and the dispatch between them."""

@@ -7,7 +7,9 @@ Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own with
 
 into ``build/kernels/`` at the repository root (listed in ``.gitignore``).
 The decode-shaped attention sources share the ``mma.sync`` helpers of
-``csrc/mma_bf16.cuh`` and the decode body of ``csrc/decode_body.cuh``;
+``csrc/mma_bf16.cuh`` and the decode body of ``csrc/decode_body.cuh``
+(``csrc/flash_attention_bwd.cu``, flash attention's gradient, takes the
+same helpers);
 ``csrc/flash_attention.cu`` (flash attention and, on the same body, the
 paged chunk attention of chunked prefill) takes its ``wgmma``, TMA and
 ``mbarrier`` helpers from ``csrc/wgmma_bf16.cuh``, and ``csrc/pq_scan.cu``
@@ -39,8 +41,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-SOURCES = ("flash_attention", "paged_attention", "decode_attention",
-           "pq_scan")
+SOURCES = ("flash_attention", "flash_attention_bwd", "paged_attention",
+           "decode_attention", "pq_scan")
 HEADERS = ("mma_bf16.cuh", "decode_body.cuh", "wgmma_bf16.cuh",
            "per_device.cuh")
 # Tokens per sequence split of the decode body: mirrors DECODE_SPLIT

@@ -46,6 +46,14 @@
 // and so probability exactly 0. The kernel agrees with the reference to
 // bf16 rounding, not bitwise.
 //
+// lse: when the caller passes a non-null fp32 (b, nh, s) buffer (entry
+// flash_attention_lse_bf16, the forward of a training step), the epilogue
+// also stores each row's natural-log m + log(l) of the scaled scores, the
+// softmax statistic the backward kernel (flash_attention_bwd.cu) rebuilds
+// P from. The kernel keeps m in log2 units and l as a sum of exp2f, so the
+// store is (m + log2(l)) · ln 2. It adds a store and changes nothing else:
+// the output is bit for bit that of a launch without lse.
+//
 // The paged variant (kPaged, entry paged_chunk_attention_bf16) is the
 // chunked-prefill attention, which the JAX package runs as jnp on every
 // backend (src/repro/kernels/ref.py, `paged_chunk_attention`): query j of
@@ -103,13 +111,14 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // 64-column swizzle atoms (1..4); dv is the output's head dim.
 // kPaged (DQA == DVA): tk/tv map the pools (num_pages, bt, kvh, d), `tables`
 // (b, t / bt) and `lengths` (b,) are read, t = max_blocks * bt and causal is
-// 1; else tables, lengths and bt are unused.
+// 1; else tables, lengths and bt are unused. `lse` (b, nh, s) fp32 or null.
 template <int DQA, int DVA, bool kPaged>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
                      const __grid_constant__ CUtensorMap tk,
                      const __grid_constant__ CUtensorMap tv,
-                     bf16* __restrict__ o, const int* __restrict__ tables,
+                     bf16* __restrict__ o, float* __restrict__ lse,
+                     const int* __restrict__ tables,
                      const int* __restrict__ lengths, int b, int s, int t,
                      int nh, int kvh, int dv, int causal, int bt,
                      float scale_log2) {
@@ -291,6 +300,15 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
   const float inv[2] = {1.f / fmaxf(l_run[0], 1e-30f),
                         1.f / fmaxf(l_run[1], 1e-30f)};
+  if (lse != nullptr && tig == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = r ? row_b : row_a;
+      if (row < s)
+        lse[((long)bi * nh + h) * s + row] =
+            (m_run[r] + log2f(fmaxf(l_run[r], 1e-30f))) * 0.6931471805599453f;
+    }
+  }
 #pragma unroll
   for (int j = 0; j < kN / 8; ++j) {
     const int col = j * 8 + tig * 2;
@@ -355,7 +373,7 @@ bool encode(CUtensorMap* map, const void* ptr, int n, int len, int heads,
 
 template <int DQA, int DVA, bool kPaged>
 int launch_da(const CUtensorMap& tq, const CUtensorMap& tk,
-              const CUtensorMap& tv, void* o, const int* tables,
+              const CUtensorMap& tv, void* o, float* lse, const int* tables,
               const int* lengths, int b, int s, int t, int nh, int kvh,
               int dv, int causal, int bt, float scale, cudaStream_t stream) {
   const int smem = smem_bytes(DQA, DVA);
@@ -367,8 +385,8 @@ int launch_da(const CUtensorMap& tq, const CUtensorMap& tk,
   const long blocks = (long)((s + kBlock - 1) / kBlock) * nh * b;
   flash_fwd_kernel<DQA, DVA, kPaged>
       <<<(unsigned)blocks, kThreads, smem, stream>>>(
-          tq, tk, tv, (bf16*)o, tables, lengths, b, s, t, nh, kvh, dv, causal,
-          bt, scale * 1.4426950408889634f);
+          tq, tk, tv, (bf16*)o, lse, tables, lengths, b, s, t, nh, kvh, dv,
+          causal, bt, scale * 1.4426950408889634f);
   return (int)cudaGetLastError();
 }
 
@@ -376,12 +394,12 @@ int launch_da(const CUtensorMap& tq, const CUtensorMap& tk,
 // also every DVA < DQA.
 template <bool kPaged, int DQA>
 int launch_dq(int dva, const CUtensorMap& tq, const CUtensorMap& tk,
-              const CUtensorMap& tv, void* o, const int* tables,
+              const CUtensorMap& tv, void* o, float* lse, const int* tables,
               const int* lengths, int b, int s, int t, int nh, int kvh,
               int dv, int causal, int bt, float scale, cudaStream_t stream) {
   auto go = [&](auto dva_c) {
     return launch_da<DQA, decltype(dva_c)::value, kPaged>(
-        tq, tk, tv, o, tables, lengths, b, s, t, nh, kvh, dv, causal, bt,
+        tq, tk, tv, o, lse, tables, lengths, b, s, t, nh, kvh, dv, causal, bt,
         scale, stream);
   };
   if (dva == DQA) return go(std::integral_constant<int, DQA>{});
@@ -398,23 +416,27 @@ int launch_dq(int dva, const CUtensorMap& tq, const CUtensorMap& tk,
 
 template <bool kPaged>
 int launch(const CUtensorMap& tq, const CUtensorMap& tk,
-           const CUtensorMap& tv, void* o, const int* tables,
+           const CUtensorMap& tv, void* o, float* lse, const int* tables,
            const int* lengths, int b, int s, int t, int nh, int kvh, int dq,
            int dv, int causal, int bt, float scale, cudaStream_t stream) {
   const int dva = (dv + 63) / 64;
   switch ((dq + 63) / 64) {
     case 1:
-      return launch_dq<kPaged, 1>(dva, tq, tk, tv, o, tables, lengths, b, s,
-                                  t, nh, kvh, dv, causal, bt, scale, stream);
+      return launch_dq<kPaged, 1>(dva, tq, tk, tv, o, lse, tables, lengths,
+                                  b, s, t, nh, kvh, dv, causal, bt, scale,
+                                  stream);
     case 2:
-      return launch_dq<kPaged, 2>(dva, tq, tk, tv, o, tables, lengths, b, s,
-                                  t, nh, kvh, dv, causal, bt, scale, stream);
+      return launch_dq<kPaged, 2>(dva, tq, tk, tv, o, lse, tables, lengths,
+                                  b, s, t, nh, kvh, dv, causal, bt, scale,
+                                  stream);
     case 3:
-      return launch_dq<kPaged, 3>(dva, tq, tk, tv, o, tables, lengths, b, s,
-                                  t, nh, kvh, dv, causal, bt, scale, stream);
+      return launch_dq<kPaged, 3>(dva, tq, tk, tv, o, lse, tables, lengths,
+                                  b, s, t, nh, kvh, dv, causal, bt, scale,
+                                  stream);
     case 4:
-      return launch_dq<kPaged, 4>(dva, tq, tk, tv, o, tables, lengths, b, s,
-                                  t, nh, kvh, dv, causal, bt, scale, stream);
+      return launch_dq<kPaged, 4>(dva, tq, tk, tv, o, lse, tables, lengths,
+                                  b, s, t, nh, kvh, dv, causal, bt, scale,
+                                  stream);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -429,19 +451,30 @@ extern "C" int flash_attention_smem_bytes(int dq, int dv) {
 
 // q (b, s, nh, dq), k (b, t, kvh, dq), v (b, t, kvh, dv), o (b, s, nh, dv);
 // all bf16, contiguous, 16-byte aligned. dq % 8 == dv % 8 == 0, dv <= dq <=
-// 256, nh % kvh == 0 (the Python wrapper checks). Returns the CUDA error of
-// the launch (0 = cudaSuccess).
-extern "C" int flash_attention_bf16(const void* q, const void* k,
-                                    const void* v, void* o, int b, int s,
-                                    int t, int nh, int kvh, int dq, int dv,
-                                    int causal, float scale, void* stream) {
+// 256, nh % kvh == 0 (the Python wrapper checks). `lse` is null or an fp32
+// (b, nh, s) buffer that receives each row's natural-log logsumexp of the
+// scaled scores. Returns the CUDA error of the launch (0 = cudaSuccess).
+extern "C" int flash_attention_lse_bf16(const void* q, const void* k,
+                                        const void* v, void* o, float* lse,
+                                        int b, int s, int t, int nh, int kvh,
+                                        int dq, int dv, int causal,
+                                        float scale, void* stream) {
   CUtensorMap tq, tk, tv;
   if (!encode(&tq, q, b, s, nh, dq, kBlock) ||
       !encode(&tk, k, b, t, kvh, dq, kBlock) ||
       !encode(&tv, v, b, t, kvh, dv, kBlock))
     return (int)cudaErrorInvalidValue;
-  return launch<false>(tq, tk, tv, o, nullptr, nullptr, b, s, t, nh, kvh, dq,
-                       dv, causal, 0, scale, (cudaStream_t)stream);
+  return launch<false>(tq, tk, tv, o, lse, nullptr, nullptr, b, s, t, nh,
+                       kvh, dq, dv, causal, 0, scale, (cudaStream_t)stream);
+}
+
+// The serving entry: flash_attention_lse_bf16 without lse.
+extern "C" int flash_attention_bf16(const void* q, const void* k,
+                                    const void* v, void* o, int b, int s,
+                                    int t, int nh, int kvh, int dq, int dv,
+                                    int causal, float scale, void* stream) {
+  return flash_attention_lse_bf16(q, k, v, o, nullptr, b, s, t, nh, kvh, dq,
+                                  dv, causal, scale, stream);
 }
 
 // Chunked-prefill attention over paged K/V: q (b, s, nh, d), pools k/v
@@ -461,6 +494,6 @@ extern "C" int paged_chunk_attention_bf16(const void* q, const void* k,
       !encode(&tk, k, num_pages, bt, kvh, d, bt) ||
       !encode(&tv, v, num_pages, bt, kvh, d, bt))
     return (int)cudaErrorInvalidValue;
-  return launch<true>(tq, tk, tv, o, tables, lengths, b, s, mb * bt, nh, kvh,
-                      d, d, 1, bt, scale, (cudaStream_t)stream);
+  return launch<true>(tq, tk, tv, o, nullptr, tables, lengths, b, s, mb * bt,
+                      nh, kvh, d, d, 1, bt, scale, (cudaStream_t)stream);
 }

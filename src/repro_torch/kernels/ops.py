@@ -2,6 +2,7 @@
 on the tensor's device.
 
 A CUDA tensor launches the hand-written kernel (``flash_attention.py``,
+whose ``FlashAttentionFn`` also gives training its gradient kernel,
 ``decode_attention.py``, ``paged_attention.py``,
 ``paged_chunk_attention.py``, ``pq_scan.py``), which
 raises on a shape or dtype it does not take; there is no fallback. Each
@@ -30,6 +31,7 @@ from repro_torch.kernels import ref as _ref
 # kernel name -> (wrapper module, its counter)
 _COUNTERS = {
     "flash_attention": (_fa, "launches"),
+    "flash_attention_bwd": (_fa, "backward_launches"),
     "paged_decode_attention": (_pa, "launches"),
     "paged_verify_attention": (_pa, "verify_launches"),
     "decode_attention": (_da, "launches"),
@@ -60,7 +62,15 @@ def reset_launches():
 
 def flash_attention(q, k, v, *, causal: bool = True,
                     scale: Optional[float] = None):
+    """GQA prefill attention. On the card, under autograd (grad mode on and
+    an input that needs a gradient) it is ``FlashAttentionFn``, whose
+    backward is the hand-written gradient kernel; otherwise the forward
+    kernel alone. On the CPU autograd runs through the plain version's
+    torch ops."""
     if q.is_cuda:
+        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                        or v.requires_grad):
+            return _fa.FlashAttentionFn.apply(q, k, v, causal, scale)
         return _fa.flash_attention(q, k, v, causal=causal, scale=scale)
     s, t = q.shape[1], k.shape[1]
     if s * t > 2048 * 2048:

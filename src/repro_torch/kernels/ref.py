@@ -1,5 +1,5 @@
-"""Plain PyTorch versions of the kernels: attention on the serving path and
-the IVF-PQ scan on the retrieval path.
+"""Plain PyTorch versions of the kernels: attention on the serving path, its
+gradient on the training path and the IVF-PQ scan on the retrieval path.
 
 Each function has the numerics of its twin in ``repro.kernels.ref``: the CPU
 path runs them, the tests hold them against the JAX oracles, and
@@ -21,19 +21,63 @@ def flash_attention(q, k, v, *, causal: bool = True,
     q: (b, s, nh, dq)  k: (b, t, kvh, dq)  v: (b, t, kvh, dv); nh % kvh == 0.
     """
     b, s, nh, dq = q.shape
-    t, kvh = k.shape[1], k.shape[2]
-    g = nh // kvh
     scale = dq ** -0.5 if scale is None else scale
-    qr = q.reshape(b, s, kvh, g, dq)
+    probs = torch.softmax(_scores(q, k, causal, scale), dim=-1)
+    out = torch.einsum("bkgst,btkh->bskgh", probs, v.float())
+    return out.reshape(b, s, nh, v.shape[-1]).to(q.dtype)
+
+
+def _scores(q, k, causal: bool, scale: float):
+    """fp32 scaled scores (b, kvh, g, s, t), masked keys at NEG_INF."""
+    b, s, nh, dq = q.shape
+    t, kvh = k.shape[1], k.shape[2]
+    qr = q.reshape(b, s, kvh, nh // kvh, dq)
     scores = torch.einsum("bskgh,btkh->bkgst", qr.float(), k.float()) * scale
     if causal:
         mask = (torch.arange(t, device=q.device)[None, :]
                 <= torch.arange(s, device=q.device)[:, None])      # (s, t)
         scores = torch.where(mask, scores, torch.tensor(NEG_INF,
                                                         device=q.device))
-    probs = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bkgst,btkh->bskgh", probs, v.float())
-    return out.reshape(b, s, nh, v.shape[-1]).to(q.dtype)
+    return scores
+
+
+def flash_attention_lse(q, k, v, *, causal: bool = True,
+                        scale: Optional[float] = None):
+    """``flash_attention`` and each row's natural-log logsumexp of the
+    scaled scores, fp32 (b, nh, s): what the kernel's ``lse`` output
+    holds."""
+    b, s, nh, dq = q.shape
+    scale = dq ** -0.5 if scale is None else scale
+    lse = torch.logsumexp(_scores(q, k, causal, scale), dim=-1)
+    return (flash_attention(q, k, v, causal=causal, scale=scale),
+            lse.reshape(b, nh, s))
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True,
+                        scale: Optional[float] = None):
+    """The gradient of ``flash_attention`` in fp32 torch ops: (dq, dk, dv)
+    in the dtypes of (q, k, v), from the forward's output ``o``, its row
+    logsumexp ``lse`` (b, nh, s) and the output's gradient ``do``.
+    P = exp(scale Q K^T - lse), dV = P^T dO, dS = P (dO V^T - D) with D =
+    rowsum(dO o), dQ = scale dS K, dK = scale dS^T Q; the GQA group's dK,
+    dV summed over its query heads. The tests hold it to autograd of
+    ``flash_attention``; the card's backward kernel is held to it."""
+    b, s, nh, dq = q.shape
+    t, kvh, dv = k.shape[1], k.shape[2], v.shape[-1]
+    g = nh // kvh
+    scale = dq ** -0.5 if scale is None else scale
+    p = torch.exp(_scores(q, k, causal, scale)
+                  - lse.float().reshape(b, kvh, g, s)[..., None])
+    dor = do.float().reshape(b, s, kvh, g, dv)
+    d_row = (dor * o.float().reshape(b, s, kvh, g, dv)).sum(-1)  # (b,s,k,g)
+    dvv = torch.einsum("bkgst,bskgh->btkh", p, dor)
+    dp = torch.einsum("bskgh,btkh->bkgst", dor, v.float())
+    ds = p * (dp - d_row.permute(0, 2, 3, 1)[..., None])
+    dqq = torch.einsum("bkgst,btkh->bskgh", ds, k.float()) * scale
+    dkk = torch.einsum("bkgst,bskgh->btkh", ds,
+                       q.float().reshape(b, s, kvh, g, dq)) * scale
+    return (dqq.reshape(b, s, nh, dq).to(q.dtype), dkk.to(k.dtype),
+            dvv.to(v.dtype))
 
 
 def chunked_flash_attention(q, k, v, *, causal: bool = True,

@@ -1,1 +1,1 @@
-"""Dense GQA transformer for serving, in PyTorch."""
+"""The model families in PyTorch: serving, and training for GQA."""

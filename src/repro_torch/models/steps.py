@@ -1,26 +1,103 @@
-"""prefill_step / serve_step / chunk_step / verify_step and the paged-cache
-page movement (twin of the serving half of ``repro.models.steps``). Page
-movement writes the pools in place and returns the same cache dict."""
+"""The train step (``cross_entropy``, ``loss_fn``, ``train_step``,
+``init_train_state``), prefill_step / serve_step / chunk_step / verify_step
+and the paged-cache page movement (twin of ``repro.models.steps``).
+
+``train_step`` is ``jax.value_and_grad`` of ``loss_fn`` written as
+autograd over the parameter leaves, then ``optim.adamw_update``, which
+writes the new parameters and moments into the state it is given. On the
+card the attention's backward is the hand-written gradient kernel
+(``kernels.flash_attention.FlashAttentionFn``). Page movement writes the
+pools in place and returns the same cache dict."""
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
+from repro_torch import tree
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer as tf
+from repro_torch.models.optim import OptConfig, adamw_update, init_opt_state
+
+
+def cross_entropy(logits, labels, mask: Optional[torch.Tensor] = None):
+    """logits (b, s, V); labels (b, s) integer. Reduction always in fp32;
+    with ``mask`` (b, s), the mean over the masked positions."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = logz - gold
+    if mask is not None:
+        nll = nll * mask
+        return torch.sum(nll) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.mean(nll)
+
+
+def _inputs(batch: Dict, cfg: ModelConfig) -> Dict:
+    """The forward's input: a stub frontend's ``embeds`` where given, else
+    ``tokens``."""
+    if cfg.stub_frontend and "embeds" in batch:
+        return {"embeds": batch["embeds"]}
+    return {"tokens": batch["tokens"]}
+
+
+def loss_fn(params, batch: Dict, cfg: ModelConfig):
+    """Returns (loss + aux, (loss, aux)); aux is 0 for the families that
+    train here (no MoE load-balancing term)."""
+    logits, _ = tf.forward(params, cfg, mode="train", **_inputs(batch, cfg))
+    loss = cross_entropy(logits, batch["labels"], batch.get("mask"))
+    aux = torch.zeros((), dtype=torch.float32, device=loss.device)
+    return loss + aux, (loss, aux)
+
+
+def value_and_grad(params, batch: Dict, cfg: ModelConfig):
+    """((total, (loss, aux)), grads): ``jax.value_and_grad(loss_fn,
+    has_aux=True)``. The gradients come in the parameters' dtypes; a tied
+    embedding's sums its lookup and its use as the head."""
+    live = tree.map_tree(lambda t: t.detach().requires_grad_(True), params)
+    with torch.enable_grad():
+        total, (loss, aux) = loss_fn(live, batch, cfg)
+        # a leaf the loss does not read (the token embedding when a stub
+        # frontend's embeds come in) gets zeros, as in JAX
+        grads = torch.autograd.grad(total, tree.leaves(live),
+                                    allow_unused=True, materialize_grads=True)
+    flat = dict(zip(tree.flatten(live), grads))
+    return ((total.detach(), (loss.detach(), aux)),
+            tree.unflatten(params, flat))
+
+
+def train_step(state: Dict, batch: Dict, cfg: ModelConfig,
+               opt: OptConfig = OptConfig()):
+    """One AdamW step on ``batch`` (``tokens`` or ``embeds``, ``labels``,
+    optional ``mask``). The state's tensors are updated in place and
+    returned as the new state, with metrics ``loss``, ``aux_loss`` and
+    ``grad_norm`` (0-d fp32 tensors)."""
+    tf.check_train(cfg)
+    (_, (loss, aux)), grads = value_and_grad(state["params"], batch, cfg)
+    params, new_opt, gnorm = adamw_update(state["params"], grads,
+                                          state["opt"], opt)
+    return ({"params": params, "opt": new_opt},
+            {"loss": loss, "aux_loss": aux, "grad_norm": gnorm})
+
+
+def init_train_state(cfg: ModelConfig, generator: torch.Generator,
+                     device="cuda") -> Dict:
+    params = tf.init_model(cfg, generator, device)
+    return {"params": params, "opt": init_opt_state(params)}
 
 
 def prefill_step(params, batch: Dict, cfg: ModelConfig, max_len: int):
     """Full-sequence prefill into fresh ``max_len`` dense caches on the
     inputs' device: ``batch["tokens"]``, or for a stub-frontend config
-    ``batch["embeds"]`` where given. Returns (last_logits, caches)."""
-    key = ("embeds" if cfg.stub_frontend and "embeds" in batch
-           else "tokens")
-    x = batch[key]
+    ``batch["embeds"]`` where given. Returns (last_logits, caches). An
+    encoder-only config's is its encoder forward (mode "train"): logits
+    (b, s, V) at every position and no caches."""
+    inputs = _inputs(batch, cfg)
+    if cfg.encoder_only:
+        return tf.forward(params, cfg, mode="train", **inputs)[0], None
+    x = next(iter(inputs.values()))
     caches = tf.init_cache(cfg, x.shape[0], max_len, x.device)
-    return tf.forward(params, cfg, mode="prefill", caches=caches,
-                      **{key: x})
+    return tf.forward(params, cfg, mode="prefill", caches=caches, **inputs)
 
 
 def serve_step(params, tokens, caches, cfg: ModelConfig):

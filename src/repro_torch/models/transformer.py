@@ -14,8 +14,14 @@ Their caches are the recurrent states (``mamba``, ``mlstm``, ``slstm``).
 Parameters are a plain nested dict of tensors with the JAX pytree's keys and
 its stacked ``(L, ...)`` layer layout, so ``weights.from_jax_params`` is a
 tree map; ``lax.scan`` over the stack becomes a Python loop over layer
-slices. Forward modes of this slice:
+slices. Forward modes:
 
+  * "train": full-sequence logits ``(b, s, vocab)`` and no caches, for GQA
+    attention in the dense, vlm and audio families (encoder-only configs
+    run it non-causal; it is also HuBERT's serving entry). Under autograd
+    each layer body follows ``cfg.remat``: "full" recomputes it in the
+    backward (``torch.utils.checkpoint``, JAX's ``nothing_saveable``),
+    "none" saves its activations;
   * "prefill": last-position logits, K/V and recurrent states written into
     the caches;
   * "decode": one-token logits against dense or paged caches, K/V and
@@ -25,9 +31,11 @@ slices. Forward modes of this slice:
   * "verify": the speculative draft-and-verify pass over paged caches,
     logits at every feed position.
 
-Training and the audio family arrive with a later slice and raise
-``NotImplementedError`` here; so do chunk and verify for MLA and the
-recurrent families, whose caches are not paged (as in the JAX package).
+Training for MLA, MoE and the recurrent families, and ``remat="dots"``,
+arrive with later slices and raise ``NotImplementedError``; so do chunk and
+verify for MLA and the recurrent families, whose caches are not paged (as
+in the JAX package). An encoder-only config has no decode or cache path:
+every mode but "train" and the cache factories raise ``ValueError``.
 """
 from __future__ import annotations
 
@@ -35,6 +43,7 @@ import functools
 from typing import Dict
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
@@ -46,20 +55,40 @@ from repro_torch.models.moe import apply_moe, init_moe
 
 
 def check_family(cfg: ModelConfig):
-    if cfg.family == "audio":
-        raise NotImplementedError(
-            f"family='audio' ({cfg.name}): its serving entry runs the "
-            "encoder forward, mode='train', which arrives with the training "
-            "slice of the PyTorch port")
-    served = {"dense": ("gqa", "mla"), "vlm": ("gqa",), "moe": ("mla",),
-              "hybrid": ("gqa",), "ssm": ("none",)}
+    served = {"dense": ("gqa", "mla"), "vlm": ("gqa",), "audio": ("gqa",),
+              "moe": ("mla",), "hybrid": ("gqa",), "ssm": ("none",)}
     if cfg.attn_type not in served.get(cfg.family, ()):
         raise NotImplementedError(
             f"family={cfg.family!r}, attn_type={cfg.attn_type!r}: the "
             "PyTorch port serves GQA and MLA attention in the dense family, "
-            "GQA in the vlm and the hybrid, MLA in the moe family and the "
-            "ssm family without attention; a GQA MoE needs the paged "
-            "Engine's MoE path, which arrives with later slices")
+            "GQA in the vlm, the audio encoder and the hybrid, MLA in the "
+            "moe family and the ssm family without attention; a GQA MoE "
+            "needs the paged Engine's MoE path, which arrives with later "
+            "slices")
+
+
+def check_train(cfg: ModelConfig):
+    """Raise for a config whose training the port does not run yet: only
+    GQA attention in the dense, vlm and audio families trains, with
+    ``remat`` "full" or "none"."""
+    check_family(cfg)
+    if cfg.family not in ("dense", "vlm", "audio") or cfg.attn_type != "gqa":
+        raise NotImplementedError(
+            f"training family={cfg.family!r}, attn_type={cfg.attn_type!r} "
+            f"({cfg.name}): the PyTorch port trains GQA attention in the "
+            "dense, vlm and audio families; MLA, MoE and the hybrid and ssm "
+            "families arrive with later training slices")
+    if cfg.remat not in ("full", "none"):
+        raise NotImplementedError(
+            f"remat={cfg.remat!r} (dots_saveable) arrives with a later "
+            "training slice of the PyTorch port; 'full' and 'none' train")
+
+
+def check_serving(cfg: ModelConfig):
+    """Raise ``ValueError`` for an encoder-only config, which has no decode
+    or cache path (``supports_decode`` is false)."""
+    if not cfg.supports_decode:
+        raise ValueError(f"{cfg.name} is encoder-only; no serving path")
 
 
 def prefill_chunk(cfg: ModelConfig) -> int:
@@ -142,6 +171,18 @@ def layer_slice(tree, i: int):
     return tree[i]
 
 
+def unbind_layers(tree, n: int):
+    """The ``n`` layers of a stacked ``(L, ...)`` subtree as ``n`` trees of
+    views, through one ``torch.unbind`` a leaf. Under autograd a leaf's
+    gradient is then one stack of the layers' gradients; ``n``
+    ``layer_slice`` views would each scatter theirs into a zero tensor of
+    the whole stack and add it, ``n`` times the stack's bytes."""
+    if isinstance(tree, dict):
+        per = {k: unbind_layers(v, n) for k, v in tree.items()}
+        return [{k: per[k][i] for k in per} for i in range(n)]
+    return torch.unbind(tree)
+
+
 def init_model(cfg: ModelConfig, generator: torch.Generator,
                device="cuda") -> Dict:
     """Random parameters (truncated-normal fan-in weights, zero output
@@ -219,6 +260,17 @@ def _block_fwd(p, x, positions, cfg: ModelConfig, mode: str, cache,
     else:
         x = x + apply_mlp(p["mlp"], h, cfg)
     return x, new_cache
+
+
+def _train_layer(p, x, positions, cfg: ModelConfig):
+    """One block of mode "train" (no cache), its body recomputed in the
+    backward under ``remat="full"`` when autograd records it."""
+    def body(p, x):
+        return _block_fwd(p, x, positions, cfg, "train", None)[0]
+    if cfg.remat == "full" and torch.is_grad_enabled():
+        return torch.utils.checkpoint.checkpoint(body, p, x,
+                                                 use_reentrant=False)
+    return body(p, x)
 
 
 def _groups(cfg: ModelConfig):
@@ -334,9 +386,12 @@ def forward(params, cfg: ModelConfig, *, tokens=None, embeds=None,
     ``(b, s, vocab)``, since acceptance needs the argmax at every position.
     """
     check_family(cfg)
-    if mode not in ("prefill", "decode", "chunk", "verify"):
-        raise NotImplementedError(
-            f"mode={mode!r}: training arrives with a later slice")
+    if mode == "train":
+        check_train(cfg)
+    elif mode in ("prefill", "decode", "chunk", "verify"):
+        check_serving(cfg)
+    else:
+        raise ValueError(f"mode={mode!r}")
     if prefill_chunk(cfg) and mode in ("chunk", "verify"):
         raise NotImplementedError(
             f"mode={mode!r} runs over paged caches; family={cfg.family!r} "
@@ -352,7 +407,11 @@ def forward(params, cfg: ModelConfig, *, tokens=None, embeds=None,
     positions = (None if mode in ("decode", "chunk", "verify") else
                  torch.arange(s, dtype=torch.int32, device=x.device)[None, :])
 
-    if cfg.family == "hybrid":
+    if mode == "train":
+        for p in unbind_layers(params["layers"], cfg.num_layers):
+            x = _train_layer(p, x, positions, cfg)
+        new_caches = None
+    elif cfg.family == "hybrid":
         x, new_caches = _hybrid(params, x, positions, cfg, mode, caches)
     elif cfg.family == "ssm":
         x, new_caches = _ssm(params, x, cfg, mode, caches)
@@ -378,7 +437,9 @@ def forward(params, cfg: ModelConfig, *, tokens=None, embeds=None,
     elif mode == "chunk":
         idx = torch.clamp(q_valid.long() - 1, min=0)
         x = x[torch.arange(x.shape[0], device=x.device), idx][:, None]
-    if cfg.tie_embeddings:
+    if cfg.tie_embeddings and mode == "train":
+        logits = x @ params["embed"].to(x.dtype).T
+    elif cfg.tie_embeddings:
         # (E x^T)^T keeps the embedding in its (vocab, d) layout; on the
         # CPU x E^T takes another kernel at some row counts, and then a
         # row's logits depend on how many rows the pass has (verify vs
@@ -390,7 +451,7 @@ def forward(params, cfg: ModelConfig, *, tokens=None, embeds=None,
         logits = x @ params["head"].to(x.dtype)
     logits = logits.to(getattr(torch, cfg.logits_dtype))
     logits = softcap(logits, cfg.logits_softcap)
-    if mode == "verify":
+    if mode in ("verify", "train"):
         return logits, new_caches
     return logits[:, -1, :], new_caches
 
@@ -410,8 +471,10 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda"):
     as the JAX package's ``cache_spec`` default). The hybrid's are the
     Mamba2 states (``mamba``) and the shared block's K/V, one ``(n_apps,
     ...)`` stack (``attn``); the ssm family's the mLSTM and sLSTM states
-    (``mlstm``, ``slstm``). All start at zeros."""
+    (``mlstm``, ``slstm``). All start at zeros. An encoder-only config has
+    none (``ValueError``)."""
     check_family(cfg)
+    check_serving(cfg)
     if cfg.family == "hybrid":
         out = {"mamba": _zeros_tree(m2.mamba2_state_spec(cfg, batch),
                                     cfg.num_layers, device)}
@@ -438,8 +501,10 @@ def init_paged_cache(cfg: ModelConfig, batch: int, num_blocks: int,
     page ``num_blocks`` is the engine's *trash page* — dead rows' tables
     point at it and their masked decode writes land there. Block tables
     start all-trash and lengths at 0. Only attention caches page: the
-    recurrent families raise, as in the JAX package."""
+    recurrent families raise, as in the JAX package; an encoder-only config
+    has no cache (``ValueError``)."""
     check_family(cfg)
+    check_serving(cfg)
     if prefill_chunk(cfg):
         raise NotImplementedError(
             f"paged KV cache is attention-only (family={cfg.family}): "

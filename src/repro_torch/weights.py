@@ -4,7 +4,9 @@ parameter dict.
 Both are nested dicts with the same keys and the same stacked ``(L, ...)``
 layer layout, so the bridge is a tree map. The JAX side hands over numpy
 arrays (``jax.tree.map(np.asarray, params)``); bf16 arrays arrive with
-numpy's ``bfloat16`` extension dtype and cross bit for bit.
+numpy's ``bfloat16`` extension dtype and cross bit for bit. A whole train
+state crosses the same way: params, AdamW's fp32 ``m`` and ``v``, and the
+0-d int32 step.
 """
 from __future__ import annotations
 
@@ -15,12 +17,13 @@ import torch
 
 
 def _to_tensor(a: np.ndarray, device, dtype: Optional[torch.dtype]):
-    a = np.asarray(a)
+    # np.array(order="C") keeps a 0-d array 0-d (a train state's step);
+    # np.ascontiguousarray would make it (1,)
+    a = np.array(a, order="C")
     if a.dtype.name == "bfloat16":
-        t = torch.from_numpy(np.ascontiguousarray(a).view(np.uint16).copy())
-        t = t.view(torch.bfloat16)
+        t = torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
     else:
-        t = torch.from_numpy(np.ascontiguousarray(a).copy())
+        t = torch.from_numpy(a)
     return t.to(device=device, dtype=dtype or t.dtype)
 
 

@@ -3,7 +3,8 @@ version, the two bitwise contracts between the decode-shaped kernels, the
 chunk kernel's rows against the flash kernel's, and the paths through the
 kernels (the paged, chunked, dense slot and speculative engines, the
 recurrent families' slot engines, the disaggregated prefill/decode workers
-and the RAG retrieval scan).
+and the RAG retrieval scan), and training: flash attention's lse output,
+its backward kernel and the autograd Function around both.
 
 Every test here needs an NVIDIA card and carries the ``cuda`` marker; it
 skips (in a fixture) without one. The file imports neither JAX nor
@@ -28,6 +29,7 @@ from repro_torch.kernels import paged_chunk_attention as tpca
 from repro_torch.kernels import pq_scan as tpq
 from repro_torch.kernels import ref
 from repro_torch.launch import rag
+from repro_torch.models import steps
 from repro_torch.models import transformer as ttf
 
 pytestmark = pytest.mark.cuda
@@ -754,3 +756,189 @@ def test_disagg_handoff_between_two_cards(cuda):
     assert eng.prefill[0].device != eng.decode[0].device
     assert _serve_disagg(eng, prompts) == want
     assert eng.transfer_stats()["cross_device"]
+
+
+# ---------------------------------------------------------------------------
+# training: flash attention's lse output, its backward kernel and the
+# autograd Function around both
+# ---------------------------------------------------------------------------
+
+# (b, s, t, nh, kvh, dq, dv): groups 1/2/8, head dims 8/80/128/256 and MLA's
+# 192/128, s off the 64-row tile and s = 1 (one query over 70 keys; under
+# causal it sees one key, and dq, dk are 0 up to rounding: not a case)
+BWD_SHAPES = [
+    (2, 100, 100, 4, 4, 80, 80),
+    (2, 130, 130, 4, 2, 128, 128),
+    (1, 200, 200, 8, 1, 256, 256),
+    (2, 77, 77, 8, 4, 8, 8),
+    (1, 96, 96, 4, 4, 192, 128),
+    (2, 1, 70, 8, 1, 256, 256),
+    (1, 64, 64, 2, 1, 24, 16),
+]
+BWD_CASES = [(shape, causal) for shape in BWD_SHAPES
+             for causal in (True, False) if shape[1] > 1 or not causal]
+
+
+def _grad_close(name, got, want):
+    """The backward tolerance: per (batch, head) slab a relative norm <=
+    0.01, elementwise |err| <= 0.02 max|plain| + 0.02 |plain|."""
+    got, want = got.float(), want.float()
+    assert torch.isfinite(got).all(), name
+    err = (got - want).abs()
+    assert (err <= 0.02 * want.abs().max() + 0.02 * want.abs()).all(), \
+        (name, float(err.max()))
+    slab = lambda x: x.permute(0, 2, 1, 3).flatten(2)   # noqa: E731
+    rel = (slab(got - want).norm(dim=-1)
+           / slab(want).norm(dim=-1).clamp(min=1e-30))
+    assert float(rel.max()) <= 0.01, (name, float(rel.max()))
+
+
+def _bwd_case(rng, device, b, s, t, nh, kvh, dq, dv, causal):
+    q = _bf16(rng, device, b, s, nh, dq)
+    k = _bf16(rng, device, b, t, kvh, dq)
+    v = _bf16(rng, device, b, t, kvh, dv)
+    do = _bf16(rng, device, b, s, nh, dv)
+    o, lse = tfa.flash_attention_lse(q, k, v, causal=causal)
+    return q, k, v, o, lse, do
+
+
+@pytest.mark.parametrize("shape,causal", BWD_CASES)
+def test_flash_bwd_kernel_matches_plain(cuda, shape, causal):
+    rng = np.random.default_rng(60)
+    q, k, v, o, lse, do = _bwd_case(rng, cuda, *shape, causal)
+    n0 = tfa.backward_launches
+    got = tfa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+    torch.cuda.synchronize()
+    assert tfa.backward_launches == n0 + 1
+    want = ref.flash_attention_bwd(q, k, v, o, lse, do, causal)
+    for name, g, w, x in zip(("dq", "dk", "dv"), got, want, (q, k, v)):
+        assert g.shape == x.shape and g.dtype == torch.bfloat16
+        _grad_close(name, g, w)
+
+
+@pytest.mark.parametrize("shape,causal", BWD_CASES)
+def test_flash_lse_output_is_bitwise_the_plain_launch(cuda, shape, causal):
+    """The forward with lse gives the output of the launch without it bit
+    for bit, and its lse matches the plain version's."""
+    rng = np.random.default_rng(61)
+    q, k, v, _, lse, _ = _bwd_case(rng, cuda, *shape, causal)
+    out, lse2 = tfa.flash_attention_lse(q, k, v, causal=causal)
+    assert torch.equal(out, tfa.flash_attention(q, k, v, causal=causal))
+    assert torch.equal(lse, lse2)
+    _, want = ref.flash_attention_lse(q, k, v, causal=causal)
+    torch.testing.assert_close(lse, want, atol=1e-4, rtol=1e-5)
+
+
+def test_chunk_rows_still_equal_flash_rows_with_lse(cuda):
+    """The lse launch's rows equal the chunk kernel's over the same K/V."""
+    rng = np.random.default_rng(62)
+    P, bt, nh, d, L = 300, 16, 8, 256, 128
+    q, k, v = (_bf16(rng, cuda, 1, P, n, d) for n in (nh, 1, 1))
+    whole, _ = tfa.flash_attention_lse(q, k, v)
+    mb = 512 // bt
+    kp = torch.zeros(mb + 1, bt, 1, d, device=cuda, dtype=torch.bfloat16)
+    vp = torch.zeros_like(kp)
+    n = -(-P // bt)
+    pad = lambda x: torch.cat([x[0], x.new_zeros(n * bt - P, 1, d)])  # noqa
+    kp[:n] = pad(k).reshape(n, bt, 1, d)
+    vp[:n] = pad(v).reshape(n, bt, 1, d)
+    tab = torch.arange(mb, dtype=torch.int32, device=cuda)[None]
+    out = ops.paged_chunk_attention(
+        q[:, L:], kp, vp, tab, torch.tensor([L], dtype=torch.int32,
+                                            device=cuda))
+    assert torch.equal(out[0], whole[0, L:])
+
+
+@pytest.mark.parametrize("shape", [(1, 200, 200, 8, 1, 256, 256),
+                                   (2, 130, 130, 4, 2, 128, 128)])
+def test_flash_bwd_kernel_is_deterministic(cuda, shape):
+    rng = np.random.default_rng(63)
+    args = _bwd_case(rng, cuda, *shape, True)
+    a = tfa.flash_attention_bwd(*args)
+    b = tfa.flash_attention_bwd(*args)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_flash_function_under_checkpoint(cuda):
+    """ops.flash_attention under autograd is the Function: its gradients
+    are the backward kernel's, and under torch.utils.checkpoint (the
+    forward run again in the backward) they are bit for bit the same."""
+    rng = np.random.default_rng(64)
+    q, k, v, _, _, do = _bwd_case(rng, cuda, 2, 130, 130, 8, 2, 64, 64,
+                                  True)
+
+    def grads(use_ckpt):
+        leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        fn = lambda a, b_, c: ops.flash_attention(a, b_, c) * 1.0  # noqa
+        out = (torch.utils.checkpoint.checkpoint(fn, *leaves,
+                                                 use_reentrant=False)
+               if use_ckpt else fn(*leaves))
+        out.backward(do)
+        return [x.grad for x in leaves]
+    n0, b0 = tfa.launches, tfa.backward_launches
+    plain = grads(False)
+    assert (tfa.launches, tfa.backward_launches) == (n0 + 1, b0 + 1)
+    ckpt = grads(True)
+    assert (tfa.launches, tfa.backward_launches) == (n0 + 3, b0 + 2)
+    assert all(torch.equal(x, y) for x, y in zip(plain, ckpt))
+    o, lse = tfa.flash_attention_lse(q, k, v)
+    want = ref.flash_attention_bwd(q, k, v, o, lse, do, True)
+    for name, g, w in zip(("dq", "dk", "dv"), plain, want):
+        _grad_close(name, g, w)
+    with torch.no_grad():                       # serving: the plain launch
+        x = q.clone().requires_grad_(True)
+        ops.flash_attention(x, k, v)
+    assert tfa.launches == n0 + 5 and tfa.backward_launches == b0 + 2
+
+
+def test_flash_bwd_raises_on_what_it_does_not_take(cuda):
+    rng = np.random.default_rng(65)
+    q, k, v, o, lse, do = _bwd_case(rng, cuda, 1, 16, 16, 2, 1, 16, 16,
+                                    True)
+    for bad in (
+            (q.float(), k, v, o, lse, do),                    # fp32
+            (q, k, v, o, lse.double(), do),                   # lse dtype
+            (q, k, v, o, lse[:, :1], do),                     # lse shape
+            (q, k, v, o, lse, do[..., :8]),                   # dO shape
+            (q[..., :12], k[..., :12], v[..., :12], o[..., :12], lse,
+             do[..., :12])):                                  # d % 8 != 0
+        with pytest.raises(ValueError):
+            tfa.flash_attention_bwd(*bad)
+    with pytest.raises(ValueError):                           # fp32 leaves
+        ops.flash_attention(q.float().requires_grad_(True), k.float(),
+                            v.float())
+
+
+def _leaves(tree):
+    for v in tree.values():
+        yield from (_leaves(v) if isinstance(v, dict) else (v,))
+
+
+@pytest.mark.parametrize("arch,remat", [("gemma_2b", "full"),
+                                        ("hubert_xlarge", "none")])
+def test_train_step_runs_through_both_flash_kernels(cuda, arch, remat):
+    """A reduced bf16 train step on the card: every layer's attention
+    forward is the kernel (twice under remat "full": once more in the
+    backward's recompute) and its backward the gradient kernel."""
+    cfg = get_reduced_config(arch).replace(remat=remat)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    state = steps.init_train_state(cfg, gen, cuda)
+    # the init zeroes the output projections, and then attention gets no
+    # gradient: perturb every leaf
+    for leaf in _leaves(state["params"]):
+        leaf.add_((torch.randn(leaf.shape, generator=gen, device=cuda)
+                   * 0.05).to(leaf.dtype))
+    rng = np.random.default_rng(66)
+    batch = {k: torch.tensor(rng.integers(0, cfg.vocab_size, (2, 96)),
+                             dtype=torch.int32, device=cuda)
+             for k in ("tokens", "labels")}
+    before = state["params"]["layers"]["attn"]["wq"].clone()
+    n0, b0 = tfa.launches, tfa.backward_launches
+    state, metrics = steps.train_step(state, batch, cfg)
+    torch.cuda.synchronize()
+    assert tfa.launches - n0 == cfg.num_layers * (2 if remat == "full"
+                                                  else 1)
+    assert tfa.backward_launches - b0 == cfg.num_layers
+    assert torch.isfinite(metrics["loss"]) and torch.isfinite(
+        metrics["grad_norm"])
+    assert not torch.equal(before, state["params"]["layers"]["attn"]["wq"])

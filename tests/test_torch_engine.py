@@ -246,8 +246,9 @@ def test_store_matches_jax_store_on_random_walk():
 def test_paths_of_later_slices_raise(models):
     """Chunked prefill, speculative decoding and dense decode run; MLA
     and the recurrent families (the reduced zamba2_7b and xlstm_1_3b) give
-    the SlotEngine; a GQA MoE raises naming the later slices, training
-    raises."""
+    the SlotEngine; a GQA MoE raises naming the later slices; training
+    runs for GQA (full-sequence logits, no caches) and raises for MLA,
+    naming its later training slice."""
     _, _, tcfg, tparams = models
     kw = dict(params=tparams, max_batch=1, max_len=64, device="cpu")
     chunked = Engine(tcfg, config=EngineConfig(chunk_size=8), **kw)
@@ -274,9 +275,11 @@ def test_paths_of_later_slices_raise(models):
         ttf.layer_slice(tparams["layers"], 0)["attn"],
         torch.ones(1, 1, tcfg.d_model), tcfg, ttf.layer_slice(cache["attn"], 0))
     assert out.shape == (1, 1, tcfg.d_model) and new["length"].tolist() == [1]
-    with pytest.raises(NotImplementedError):
-        ttf.forward(tparams, tcfg, tokens=torch.zeros(1, 4, dtype=torch.int32),
-                    mode="train")
+    tokens = torch.zeros(1, 4, dtype=torch.int32)
+    logits, caches = ttf.forward(tparams, tcfg, tokens=tokens, mode="train")
+    assert logits.shape == (1, 4, tcfg.vocab_size) and caches is None
+    with pytest.raises(NotImplementedError, match="later training slice"):
+        ttf.forward(tparams, mla, tokens=tokens, mode="train")
     assert isinstance(make_engine(tcfg, **kw), Engine)
 
 

@@ -6,7 +6,7 @@ perturbed numpy weights at fp32: configs and parameter trees equal, prefill
 and decode logits over dense and paged caches, the paged ``Engine``'s
 greedy streams against the JAX ``Engine``'s and the port's ``SlotEngine``'s;
 the layer-by-layer ``init_model`` against stacking whole block trees; the
-serve CLI; and the audio family still refused."""
+serve CLI; and the audio encoder's refusal to serve, as in JAX."""
 import dataclasses
 import importlib
 
@@ -18,6 +18,7 @@ import torch
 
 from repro.configs import hubert_xlarge as jhubert
 from repro.engine.runner import Engine as JEngine
+from repro.launch import serve as jserve
 from repro.models import steps as jsteps
 from repro.models import transformer as jtf
 from repro_torch import weights
@@ -262,13 +263,28 @@ def test_serve_cli_runs_each_family_on_cpu(arch, capsys):
     assert f"arch={arch} device=cpu" in capsys.readouterr().out
 
 
-def test_audio_family_still_raises():
-    """HuBERT's serving entry is the encoder forward (mode "train"), which
-    arrives with the training slice."""
+def test_audio_encoder_has_no_serving_path_as_in_jax():
+    """HuBERT is encoder-only (``supports_decode`` is false): its decode,
+    its caches and ``make_engine`` refuse, and ``serve --arch
+    hubert_xlarge`` exits with the JAX launcher's message. Its serving
+    entry, ``prefill_step``'s encoder forward, is held against JAX in
+    tests/test_torch_train.py."""
     cfg = ModelConfig(**dataclasses.asdict(jhubert.reduced()))
-    for fn in (ttf.check_family,
-               lambda c: make_engine(c, max_batch=1, max_len=16,
-                                     device="cpu"),
-               lambda c: ttf.init_model(c, torch.Generator(), "cpu")):
-        with pytest.raises(NotImplementedError, match="training"):
-            fn(cfg)
+    assert not cfg.supports_decode and not jhubert.reduced().supports_decode
+    params = ttf.init_model(cfg, torch.Generator().manual_seed(0), "cpu")
+    msg = "encoder-only; no serving path"
+    tok = torch.zeros(1, 1, dtype=torch.int32)
+    for fn in (lambda: make_engine(cfg, max_batch=1, max_len=16,
+                                   device="cpu"),
+               lambda: ttf.init_cache(cfg, 1, 16, "cpu"),
+               lambda: ttf.init_paged_cache(cfg, 1, 4, 8, 2, "cpu"),
+               lambda: ttf.forward(params, cfg, tokens=tok, mode="decode",
+                                   caches={}),
+               lambda: ttf.forward(params, cfg, tokens=tok)):
+        with pytest.raises(ValueError, match=msg):
+            fn()
+    with pytest.raises(SystemExit) as got:
+        serve.main(["--arch", "hubert_xlarge", "--device", "cpu"])
+    with pytest.raises(SystemExit) as want:
+        jserve.main(["--arch", "hubert_xlarge"])
+    assert str(got.value) == str(want.value) == f"hubert_xlarge is {msg}"

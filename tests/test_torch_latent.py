@@ -348,8 +348,9 @@ def test_make_engine_gives_slot_engine_for_mla():
     """MLA's latent cache is not paged (as in JAX): the factory hands MLA
     configs the dense SlotEngine and drops the paged-only keywords; GQA
     still gets the paged Engine; the recurrent families (the reduced
-    zamba2_7b and xlstm_1_3b) get the SlotEngine too; a GQA MoE and audio
-    raise."""
+    zamba2_7b and xlstm_1_3b) get the SlotEngine too; a GQA MoE raises,
+    and an encoder-only config, which has no serving path (as JAX's serve
+    launcher refuses it)."""
     kw = dict(max_batch=1, max_len=64, device="cpu")
     gqa = importlib.import_module("repro_torch.configs.gemma_2b").reduced()
     assert isinstance(make_engine(gqa, block_tokens=16, **kw), Engine)
@@ -364,8 +365,8 @@ def test_make_engine_gives_slot_engine_for_mla():
                           SlotEngine)
     with pytest.raises(NotImplementedError, match="later slices"):
         make_engine(gqa.replace(family="moe"), **kw)
-    with pytest.raises(NotImplementedError, match="training"):
-        make_engine(gqa.replace(family="audio"), **kw)
+    with pytest.raises(ValueError, match="encoder-only; no serving path"):
+        make_engine(gqa.replace(family="audio", encoder_only=True), **kw)
     with pytest.raises(NotImplementedError, match="paged KV"):
         ttf.init_paged_cache(_configs("minicpm3_4b")[1], 1, 4, 16, 4, "cpu")
 

@@ -270,7 +270,8 @@ def test_port_imports_no_jax_and_no_repro():
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
         "bad = sorted(n for n in sys.modules if n == 'jax' or "
-        "n.startswith('jax.') or n == 'repro' or n.startswith('repro.'))\n"
+        "n.startswith('jax.') or n == 'repro' or n.startswith('repro.') "
+        "or n == 'msgpack' or n.startswith('msgpack.'))\n"
         "print(len(sys.modules), bad)\n"
         "sys.exit(1 if bad else 0)\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -281,11 +282,14 @@ def test_port_imports_no_jax_and_no_repro():
 
 
 def test_port_sources_never_name_jax_or_repro_imports():
+    """Nor msgpack: the card machine has no msgpack package, so the
+    checkpoints' msgpack is written and read in plain Python."""
     import re
     pat = re.compile(r"^\s*(import\s+jax\b|from\s+jax\b|import\s+repro\b"
-                     r"|import\s+repro\.|from\s+repro\b|from\s+repro\.)",
-                     re.M)
+                     r"|import\s+repro\.|from\s+repro\b|from\s+repro\."
+                     r"|import\s+msgpack\b|from\s+msgpack\b)", re.M)
     hits = [str(p) for p in (SRC / "repro_torch").rglob("*.py")
             if pat.search(p.read_text())]
     assert hits == []
-    assert "import jax" not in (SRC.parent / "chip_smoke.py").read_text()
+    smoke = (SRC.parent / "chip_smoke.py").read_text()
+    assert "import jax" not in smoke and not pat.search(smoke)

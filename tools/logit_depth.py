@@ -11,7 +11,7 @@ the first L layers, for a sweep of L, three ways (``prefill_three_ways``):
 
 - ``kernels``: ``flash_attention`` as the model runs it;
 - ``plain``: ``ref.flash_attention`` (fp32 scores, softmax and P·V);
-- ``plain, P bf16``: ``flash_p_bf16``, the same with the
+- ``plain, P bf16``: ``chip_smoke.flash_p_bf16``, the same with the
   unnormalised probabilities rounded to bf16 before P·V and the row sums
   kept in fp32, the rounding the kernel makes.
 
@@ -51,38 +51,17 @@ SWEEP = (("gemma_2b", None, (6, 12, 18)),
          ("deepseek_v2_236b", 5, (2, 3, 5)))
 
 
-def flash_p_bf16(q, k, v, *, causal=True, scale=None):
-    """ref.flash_attention with P rounded to bf16 before P·V and the row
-    sums taken over the fp32 P, the rounding the flash kernel makes: a
-    second plain version, to measure how far rounding alone moves the
-    model."""
-    from repro_torch.kernels import ref
-    b, s, nh, d = q.shape
-    t, kvh, dv = k.shape[1], k.shape[2], v.shape[-1]
-    scale = d ** -0.5 if scale is None else scale
-    qr = q.reshape(b, s, kvh, nh // kvh, d)
-    sc = torch.einsum("bskgh,btkh->bkgst", qr.float(), k.float()) * scale
-    if causal:
-        mask = (torch.arange(t, device=q.device)[None, :]
-                <= torch.arange(s, device=q.device)[:, None])
-        sc = torch.where(mask, sc, torch.tensor(ref.NEG_INF, device=q.device))
-    p = torch.exp(sc - sc.amax(dim=-1, keepdim=True))
-    out = torch.einsum("bkgst,btkh->bskgh", p.to(torch.bfloat16).float(),
-                       v.float())
-    out = out / p.sum(dim=-1).permute(0, 3, 1, 2)[..., None]
-    return out.reshape(b, s, nh, dv).to(q.dtype)
-
-
 def prefill_three_ways(params, cfg, prompt):
     """Last-position prefill logits of ``prompt`` with the model's flash
-    attention through the kernel, plain attention and ``flash_p_bf16``,
+    attention through the kernel, plain attention and ``cs.flash_p_bf16``,
     and each arm's sorted top-k expert ids per MoE layer (none for a dense
     config)."""
     from repro_torch.kernels import ops, ref
     from repro_torch.models import moe, steps
     out, routes = [], []
     router = moe._router
-    for flash in (ops.flash_attention, ref.flash_attention, flash_p_bf16):
+    for flash in (ops.flash_attention, ref.flash_attention,
+                  cs.flash_p_bf16):
         chosen = []
 
         def record(p, x2d, c, _chosen=chosen):
