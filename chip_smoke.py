@@ -142,9 +142,11 @@ raises on failure:
    application, recurrent state, K/V) against their byte bound;
 15. train (after the recurrent weights are freed): the backward kernel
    ``flash_attention_bwd`` against its plain version at Gemma's (1, 1024,
-   8/1 heads, 256) causal, HuBERT's (4, 1024, 16/16, 80) non-causal and
-   a dv < dq shape (1, 512, 16/16, 192/128), the forward's lse output
-   ``torch.equal`` in its output to the launch without it and held
+   8/1 heads, 256) causal and its training batch of 4, HuBERT's (4, 1024,
+   16/16, 80) non-causal and a dv < dq shape (1, 512, 16/16, 192/128),
+   each with its launch plan (head splits, blocks, ring stages, partial
+   bytes), the forward's lse output ``torch.equal`` in its output to the
+   launch without it and held
    against the plain lse, kernel, plain version and autograd's backward of
    scaled_dot_product_attention timed beside the bound (2.5 x the
    forward's operations, or the bytes); then ``launch.train.main`` at
@@ -2921,10 +2923,11 @@ def phase_recurrent(card: str):
 # ---------------------------------------------------------------------------
 
 # the backward kernel's shapes, (b, s, nh, kvh, dq, dv) and causal: Gemma-
-# 2B's prefill attention (the row's shape), HuBERT-XLarge's non-causal
-# encoder at the training batch, and a value head narrower than the
-# query's (MLA's 192/128)
+# 2B's prefill attention (the row's shape) and its training batch of 4 (the
+# row's launches), HuBERT-XLarge's non-causal encoder at the training
+# batch, and a value head narrower than the query's (MLA's 192/128)
 BWD_SHAPES = (("gemma_2b", (1, 1024, 8, 1, 256, 256), True),
+              ("gemma_2b_train", (4, 1024, 8, 1, 256, 256), True),
               ("hubert_xlarge", (4, 1024, 16, 16, 80, 80), False),
               ("dv<dq", (1, 512, 16, 16, 192, 128), True))
 # the gradient kernel against its plain version on the same bf16 inputs,
@@ -3015,8 +3018,8 @@ def phase_train_kernels(gen):
     version's; the backward against ``ref.flash_attention_bwd`` on the same
     bf16 inputs (``compare_grads``), two launches equal, and kernel, plain
     version and sdpa's backward timed with the host queue held beside the
-    bound. Returns the kernels-line row (Gemma's shape; the others under
-    "shapes")."""
+    bound; each shape's launch plan logged. Returns the kernels-line row
+    (Gemma's shape; the others under "shapes")."""
     from repro_torch.kernels import flash_attention as tfa
     from repro_torch.kernels import ref
     mk = lambda *shape: torch.randn(                          # noqa: E731
@@ -3049,8 +3052,10 @@ def phase_train_kernels(gen):
         library_ms = cuda_time_ms(_sdpa_bwd(q, k, v, do, causal), hold=True)
         b_ms, b_by = bound(*_bwd_work(b, s, nh, kvh, dq, dv, causal),
                            PEAK_BF16_FLOPS)
+        plan = tfa.backward_plan(b, s, s, nh, kvh, dq, dv, q.device)
         shapes[tag] = {
             "shape": [b, s, nh, kvh, dq, dv], "causal": causal,
+            "plan": plan,
             "max_abs_err": max(e for e, _ in errs),
             "max_row_rel_err": max(r for _, r in errs), "lse_err": lse_err,
             "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
@@ -3064,6 +3069,11 @@ def phase_train_kernels(gen):
             f"sdpa backward {library_ms:.4f} ms, bound {b_ms:.4f} ms "
             f"({b_by}), kernel / bound {ms / b_ms:.2f}, kernel / sdpa "
             f"{ms / library_ms:.2f}")
+        log(f"[train] flash_attention_bwd {tag} plan: {plan['splits']} "
+            f"head splits, {plan['dkdv_blocks']} dK/dV blocks "
+            f"({plan['dkdv_stages']} ring stages, {plan['dkdv_smem']} B), "
+            f"{plan['dq_blocks']} dQ blocks ({plan['dq_stages']} stages, "
+            f"{plan['dq_smem']} B), {plan['partial_bytes']} B of partials")
         del q, k, v, do, o, lse, got
     ptxas = _bwd_ptxas()
     log(f"[train] flash_attention_bwd ptxas: {ptxas}")

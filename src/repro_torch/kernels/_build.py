@@ -7,15 +7,15 @@ Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own with
 
 into ``build/kernels/`` at the repository root (listed in ``.gitignore``).
 The decode-shaped attention sources share the ``mma.sync`` helpers of
-``csrc/mma_bf16.cuh`` and the decode body of ``csrc/decode_body.cuh``
-(``csrc/flash_attention_bwd.cu``, flash attention's gradient, takes the
-same helpers);
+``csrc/mma_bf16.cuh`` and the decode body of ``csrc/decode_body.cuh``;
 ``csrc/flash_attention.cu`` (flash attention and, on the same body, the
-paged chunk attention of chunked prefill) takes its ``wgmma``, TMA and
-``mbarrier`` helpers from ``csrc/wgmma_bf16.cuh``, and ``csrc/pq_scan.cu``
-its ``mbarrier`` helpers; every entry keeps its one-time shared-memory
-opt-ins and occupancy queries per device (``csrc/per_device.cuh``) and is
-called under ``launching``. The file name carries a hash of the source, the
+paged chunk attention of chunked prefill) and
+``csrc/flash_attention_bwd.cu`` (its gradient) take their ``wgmma``, TMA,
+tensor-map, ``mbarrier``, named-barrier and ``setmaxnreg`` helpers from
+``csrc/wgmma_bf16.cuh``, and ``csrc/pq_scan.cu`` its ``mbarrier``
+helpers; every entry keeps its one-time shared-memory opt-ins and
+occupancy queries per device (``csrc/per_device.cuh``) and is called
+under ``launching``. The file name carries a hash of the source, the
 shared headers, the flags and any ``-D`` defines (``tools/decode_split.py``
 and ``tools/pq_scan_design.py`` build variants that way, into a directory
 of their own), so a changed source rebuilds and an unchanged one loads what

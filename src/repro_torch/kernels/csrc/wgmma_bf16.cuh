@@ -1,7 +1,8 @@
-// Hopper device helpers for the prefill attention kernel: warpgroup matrix
-// products (`wgmma.mma_async`, bf16 operands, fp32 accumulators), their
-// shared-memory matrix descriptors, TMA tile loads and the `mbarrier`s that
-// report them. sm_90a only.
+// Hopper helpers for the prefill attention kernel and its gradient: warpgroup
+// matrix products (`wgmma.mma_async`, bf16 operands, fp32 accumulators),
+// their shared-memory matrix descriptors, TMA tile loads, the tensor maps
+// they read, the `mbarrier`s that report them and named barriers between
+// warpgroups. sm_90a only.
 //
 // Layouts. Every operand tile in shared memory is built from 128-byte-swizzle
 // atoms: 64 rows of 64 bf16 (128 bytes a row, 8 KB an atom, 1024-byte
@@ -77,7 +78,81 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   }
 }
 
+// --- named barriers ---------------------------------------------------------
+
+// Barrier `id` (1..15; 0 is __syncthreads) of `n` threads, whole warps:
+// named_arrive marks this warp's arrival and goes on, named_sync arrives and
+// waits until `n` threads have arrived. An arrive is ordered before the
+// accesses after the sync it completes (release, acquire).
+__device__ __forceinline__ void named_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+__device__ __forceinline__ void named_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// Move this warpgroup's registers a thread to N (a multiple of 8 in [24,
+// 256]): a producer gives them up, consumers take them. Every warp of the
+// warpgroup executes it, on a path that does not reconverge with the
+// others'.
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
 // --- TMA --------------------------------------------------------------------
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled of libcuda, found once through the CUDA runtime
+// (no link against libcuda).
+inline EncodeTiled encode_fn() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// Tensor map of a contiguous bf16 (n, len, heads, d) tensor: boxes of 64
+// columns x 1 head x `rows` positions x 1 batch row (or page), 128-byte
+// swizzle, zero fill outside the tensor.
+inline bool encode(CUtensorMap* map, const void* ptr, int n, int len,
+                   int heads, int d, int rows) {
+  EncodeTiled fn = encode_fn();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)heads,
+                              (cuuint64_t)len, (cuuint64_t)n};
+  const cuuint64_t strides[3] = {(cuuint64_t)d * 2, (cuuint64_t)heads * d * 2,
+                                 (cuuint64_t)len * heads * d * 2};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
 
 // Load the box at coordinates (c0, c1, c2, c3) (innermost first) of a 4-d
 // tensor map into shared memory at `dst`; completion is counted in bytes on

@@ -14,17 +14,22 @@ kernel does not take; the CPU path lives in ``ops.py``.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
 from repro_torch.kernels import _build
 
 launches = 0          # forward kernel launches since the last reset
-backward_launches = 0  # backward launches (three kernels each) since then
+backward_launches = 0  # backward calls (three or four kernels each)
+# the fields of ``backward_plan``, in the order the C entry writes them
+BWD_PLAN_FIELDS = ("splits", "dkdv_blocks", "dq_blocks", "dkdv_stages",
+                   "dq_stages", "dkdv_smem", "dq_smem", "partial_bytes",
+                   "scratch_floats")
 _fn = None
 _fn_lse = None
 _fn_bwd = None
+_fn_plan = None
 
 
 def _entry():
@@ -58,6 +63,30 @@ def _entry_bwd():
         fn.restype = ctypes.c_int
         _fn_bwd = fn
     return _fn_bwd
+
+
+def _entry_plan():
+    global _fn_plan
+    if _fn_plan is None:
+        fn = _build.load("flash_attention_bwd").flash_attention_bwd_plan
+        fn.argtypes = [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _fn_plan = fn
+    return _fn_plan
+
+
+def backward_plan(b: int, s: int, t: int, nh: int, kvh: int, dq: int,
+                  dv: int, device) -> Dict[str, int]:
+    """The launch ``flash_attention_bwd`` makes at these shapes on
+    ``device``, as its C entry plans it: the GQA group's head splits, the
+    dK/dV and dQ blocks, their ring stages and dynamic shared memory, the
+    bytes of fp32 partials (0 with one split) and the fp32 scratch the
+    wrapper allocates (D, then the partials)."""
+    out = (ctypes.c_longlong * len(BWD_PLAN_FIELDS))()
+    with _build.launching(device):
+        err = _entry_plan()(b, s, t, nh, kvh, dq, dv, out)
+    _build.check(err, "flash_attention_bwd plan")
+    return dict(zip(BWD_PLAN_FIELDS, out))
 
 
 def _check(q, k, v, *more):
@@ -130,10 +159,10 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
                         scale: Optional[float] = None):
     """The gradient of ``flash_attention``: (dq, dk, dv) shaped and typed
     as (q, k, v), from the forward's output ``o`` and ``lse`` and the
-    output's gradient ``do`` (``csrc/flash_attention_bwd.cu``, three
-    launches counted as one in ``backward_launches``). Takes what the
-    forward takes; the GQA group's dk, dv are summed over its query
-    heads."""
+    output's gradient ``do`` (``csrc/flash_attention_bwd.cu``, three or
+    four launches counted as one in ``backward_launches``). Takes what the
+    forward takes; the GQA group's dk, dv are summed over its query heads,
+    in a fixed order."""
     global backward_launches
     b, s, t, nh, kvh, dq, dv = _check(q, k, v, o, do)
     if (lse.dtype != torch.float32 or lse.shape != (b, nh, s)
@@ -147,11 +176,13 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     dq_, dk, dv_ = (torch.empty_like(x) for x in (q, k, v))
     if b == 0 or s == 0 or t == 0:
         return dq_.zero_(), dk.zero_(), dv_.zero_()
-    dsum = torch.empty(b, nh, s, dtype=torch.float32, device=q.device)
+    plan = backward_plan(b, s, t, nh, kvh, dq, dv, q.device)
+    scratch = torch.empty(plan["scratch_floats"], dtype=torch.float32,
+                          device=q.device)
     with _build.launching(q.device) as stream:
         err = _entry_bwd()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                            o.data_ptr(), do.data_ptr(), lse.data_ptr(),
-                           dsum.data_ptr(), dq_.data_ptr(), dk.data_ptr(),
+                           scratch.data_ptr(), dq_.data_ptr(), dk.data_ptr(),
                            dv_.data_ptr(), b, s, t, nh, kvh, dq, dv,
                            int(causal), float(scale), stream)
     _build.check(err, "flash_attention_bwd")

@@ -765,7 +765,10 @@ def test_disagg_handoff_between_two_cards(cuda):
 
 # (b, s, t, nh, kvh, dq, dv): groups 1/2/8, head dims 8/80/128/256 and MLA's
 # 192/128, s off the 64-row tile and s = 1 (one query over 70 keys; under
-# causal it sees one key, and dq, dk are 0 up to rounding: not a case)
+# causal it sees one key, and dq, dk are 0 up to rounding: not a case); an
+# MQA group of 8 at Gemma-2B's s = 1024, d = 256, at b = 1 (the group split
+# 8 ways, partials summed) and at the training batch b = 4 (fewer splits),
+# with more q tiles than the dK/dV ring has stages
 BWD_SHAPES = [
     (2, 100, 100, 4, 4, 80, 80),
     (2, 130, 130, 4, 2, 128, 128),
@@ -774,6 +777,8 @@ BWD_SHAPES = [
     (1, 96, 96, 4, 4, 192, 128),
     (2, 1, 70, 8, 1, 256, 256),
     (1, 64, 64, 2, 1, 24, 16),
+    (1, 1024, 1024, 8, 1, 256, 256),
+    (4, 1024, 1024, 8, 1, 256, 256),
 ]
 BWD_CASES = [(shape, causal) for shape in BWD_SHAPES
              for causal in (True, False) if shape[1] > 1 or not causal]
@@ -850,7 +855,8 @@ def test_chunk_rows_still_equal_flash_rows_with_lse(cuda):
 
 
 @pytest.mark.parametrize("shape", [(1, 200, 200, 8, 1, 256, 256),
-                                   (2, 130, 130, 4, 2, 128, 128)])
+                                   (2, 130, 130, 4, 2, 128, 128),
+                                   (1, 1024, 1024, 8, 1, 256, 256)])
 def test_flash_bwd_kernel_is_deterministic(cuda, shape):
     rng = np.random.default_rng(63)
     args = _bwd_case(rng, cuda, *shape, True)

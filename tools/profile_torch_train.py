@@ -14,8 +14,8 @@ among them), from the phase's seeded perturbed weights at bf16, on batches of 4 
    (``steps.value_and_grad``) and the optimizer (``optim.adamw_update``);
 2. profiled: the same number of steps under ``torch.profiler``, device
    time by kernel name grouped into flash attention's forward, its backward
-   (the D, dK/dV and dQ kernels), matrix products and the rest, and the
-   device's idle share of the wall time.
+   (the D, dK/dV, dQ and partial-sum kernels), matrix products and the
+   rest, and the device's idle share of the wall time.
 
 Prints one JSON line per config with every number and the card's name and
 power limit; needs one CUDA card and the CUDA toolkit (the kernels build at
@@ -44,8 +44,8 @@ def _group(name: str) -> str:
     low = name.lower()
     if "flash_fwd" in low:
         return "flash_attention forward kernel"
-    if "bwd_dkdv" in low or "bwd_dq" in low or "bwd_dot" in low:
-        return "flash_attention_bwd kernels (D, dK/dV, dQ)"
+    if any(w in low for w in ("bwd_dot", "bwd_dkdv", "bwd_dq", "bwd_sum")):
+        return "flash_attention_bwd kernels (D, dK/dV, dQ, partial sum)"
     if any(w in low for w in ("gemm", "gemv", "cutlass", "sm90_xmma",
                               "nvjet", "matmul", "splitk")):
         return "matrix products"
