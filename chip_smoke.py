@@ -83,9 +83,12 @@ raises on failure:
 9. spec: the paged ``Engine`` with a draft model (the target's weights plus
    seeded noise, ``spec_k = 4``) over 8 of the requests, through
    ``paged_verify_attention``; one verify pass is held against sequential
-   decode steps, and the streams are compared with plain decode's;
+   decode steps (each layer's verify call against its plain version on
+   its own inputs, ``layer_checks``), and the streams are compared with
+   plain decode's;
 10. chunked: a 1024-token prompt prefilled in chunks of 256 against whole
-   prefill (logits, written K/V); the chunked ``Engine`` (``chunk_size =
+   prefill (logits, written K/V; each layer's chunk call held,
+   ``layer_checks``); the chunked ``Engine`` (``chunk_size =
    256``) over the 16 requests through ``paged_chunk_attention``, its
    streams equal to the whole-prefill ``Engine``'s, its TTFT and TPOT
    beside them; a swap-pressured chunked run; a 3000-token prompt under
@@ -120,7 +123,9 @@ raises on failure:
    call; then minicpm3_4b (62 layers), deepseek_v2_lite_16b (27 layers,
    MoE) and deepseek_v2_236b (1 dense + 4 MoE layers of 60) at full width
    through ``make_engine``, which gives the SlotEngine: every layer's
-   flash call held (``layer_checks``), the 16 requests graphed and eager
+   flash call and every MoE layer's ``apply_moe`` (against
+   ``moe_reference``) held (``layer_checks``), the 16 requests graphed and
+   eager
    (equal streams and launch counts), tok/s, TTFT, TPOT, peak memory and
    the weights a decode pass reads (MoE: the experts it routes to)
    against their byte bound; minicpm3_4b also with the absorbed decode;
@@ -134,37 +139,46 @@ raises on failure:
    against a call a token); then zamba2_7b (81 Mamba2 layers, 6 shared
    block applications) and xlstm_1_3b (48 layers) at full width, nothing
    cut, through ``make_engine``, which gives the SlotEngine: zamba2's
-   every shared-block flash and decode call held (``layer_checks``), a
+   every shared-block flash and decode call and Mamba2 decode step, and
+   xlstm's every mLSTM decode step (against the fp32 step), held
+   (``layer_checks``), a
    1024-token prefill's peak memory, the 16 requests (prompts of 64-1024
    tokens, lengths the chunked prefill takes) graphed and eager (equal
    streams and launch counts), tok/s, TTFT, TPOT, peak memory and the
    bytes a decode pass reads and writes (weights, the shared block per
    application, recurrent state, K/V) against their byte bound;
-15. train (after the recurrent weights are freed): the backward kernel
-   ``flash_attention_bwd`` against its plain version at Gemma's (1, 1024,
-   8/1 heads, 256) causal and its training batch of 4, HuBERT's (4, 1024,
-   16/16, 80) non-causal and a dv < dq shape (1, 512, 16/16, 192/128),
-   each with its launch plan (head splits, blocks, ring stages, partial
-   bytes), the forward's lse output ``torch.equal`` in its output to the
-   launch without it and held
-   against the plain lse, kernel, plain version and autograd's backward of
+15. train (after the recurrent weights are freed; first what the earlier
+   phases leave allocated, by block, pool and allocation stack): the
+   backward kernel ``flash_attention_bwd`` against its plain version at
+   Gemma's (1, 1024, 8/1 heads, 256) causal and its training batch of 4,
+   HuBERT's (4, 1024, 16/16, 80) non-causal, a dv < dq shape (1, 512,
+   16/16, 192/128) and the training shapes of minicpm3_4b, v2-lite and
+   zamba2's shared block, each with its launch plan (head splits, blocks,
+   ring stages, partial bytes), the forward's lse output ``torch.equal``
+   in its output to the launch without it and held against the plain lse,
+   kernel, plain version and autograd's backward of
    scaled_dot_product_attention timed beside the bound (2.5 x the
    forward's operations, or the bytes); then ``launch.train.main`` at
-   full width, bf16, seeded perturbed weights, 6 steps of 4 x 1024
-   tokens, remat "none" as the launcher trains: gemma_2b (18 layers) and
-   hubert_xlarge (48 layers), the launch counters reset just before and
-   read just after (forward and backward launches = layers x steps),
-   every backward call of the first step held against its plain version
-   on its own inputs, finite losses and gradient norms, every layer of
-   every leaf changed; gemma's gradients of one batch ``torch.equal``
-   under remat "full" (forward launches 2 x layers) and "none" and their
-   drift from plain attention printed; one HuBERT step from seeded embeds
-   through ``frontend_proj`` and its serving entry ``prefill_step`` (every
-   flash call held); the restart (hubert_xlarge at 4 of 48 layers, the
-   launcher's config cut while it runs, stopped after step 4 with its
-   newest checkpoint at step 3 and resumed: losses equal to the
-   uninterrupted run's); step time, tokens/s, peak memory, achieved TFLOP/s of the
-   model's products and their share of the peak;
+   full width, bf16, seeded perturbed weights (xlstm's at 0.3 of their
+   scale: TRAIN_SHARE), 6 steps of 4 x 1024 tokens, for each of
+   TRAIN_RUNS: gemma_2b (18 layers) and hubert_xlarge
+   (48) under remat "none" as the launcher trains, minicpm3_4b (62
+   layers), zamba2_7b (26 of 81) and xlstm_1_3b (48) under "full",
+   deepseek_v2_lite_16b (5 of 27) under "none"; the launch counters reset
+   just before and read just after (forward and backward launches =
+   attention layers x steps, the forward doubled under "full"), every
+   backward call of the first step held against its plain version on its
+   own inputs, finite losses and gradient norms, MoE's aux > 0, every
+   layer of every leaf changed; xlstm's device idle share of one step;
+   gemma's gradients of one batch ``torch.equal`` under remat "full" and
+   "none" and their drift from plain attention printed; minicpm3_4b's at
+   4 layers under "none", "full" and "dots"; one HuBERT step from seeded
+   embeds through ``frontend_proj`` and its serving entry
+   ``prefill_step`` (every flash call held); the restart (hubert_xlarge at
+   4 of 48 layers, the launcher's config cut while it runs, stopped after
+   step 4 with its newest checkpoint at step 3 and resumed: losses equal
+   to the uninterrupted run's); step time, tokens/s, peak memory,
+   achieved TFLOP/s of the model's products and their share of the peak;
 16. the ``kernels`` JSON line (flash's row also holds its MLA shapes and
    launches, flash's and dense decode's their zamba2 shape and launches,
    flash's its training launches; the backward's row its other shapes
@@ -311,15 +325,19 @@ def bound(nbytes: float, ops: float, peak_ops: float):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def compare(name: str, got, want):
+def compare(name: str, got, want, of_max: bool = False):
     """(max abs error, max per-row relative error) of a kernel's output
-    against its plain version; raises past ATOL/RTOL or ROW_RTOL."""
+    against its plain version; raises past ATOL/RTOL or ROW_RTOL. With
+    ``of_max`` the elementwise bound is ATOL x max |plain| + RTOL x |plain|
+    (the gradient kernel's form, for layer outputs that are sums which
+    cancel: MoE, the recurrent decode steps)."""
     torch.cuda.synchronize()
     got, want = got.float(), want.float()
     if not torch.isfinite(got).all():
         raise AssertionError(f"{name}: non-finite kernel output")
     err = (got - want).abs()
-    bad = err > ATOL + RTOL * want.abs()
+    atol = ATOL * float(want.abs().max()) if of_max else ATOL
+    bad = err > atol + RTOL * want.abs()
     if bad.any():
         raise AssertionError(f"{name}: {int(bad.sum())} elements off, max "
                              f"abs err {float(err.max()):.4g}")
@@ -1297,13 +1315,14 @@ def _perturb(params, cfg, gen, share: float = 1.0):
     return params
 
 
-def full_width_params(cfg, seed: int = 0):
-    """Seeded random weights on the card with every leaf perturbed: the
-    JAX-style init zeroes both output projections and every norm gamma,
-    which would make the output ignore attention."""
+def full_width_params(cfg, seed: int = 0, share: float = 1.0):
+    """Seeded random weights on the card with every leaf perturbed by
+    ``share`` of its scale (``_perturb``): the JAX-style init zeroes both
+    output projections and every norm gamma, which would make the output
+    ignore attention."""
     from repro_torch.models import transformer as tf
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    return _perturb(tf.init_model(cfg, gen, "cuda"), cfg, gen)
+    return _perturb(tf.init_model(cfg, gen, "cuda"), cfg, gen, share)
 
 
 def noisy_draft_params(params, cfg, share: float, seed: int = 23):
@@ -1419,40 +1438,179 @@ def _prefill_and_decode_dense(params, cfg, prompt, feed=None, steps=4):
     return out, feed
 
 
+# the attention kernels layer_checks holds (ops entry = ref entry)
+ATTN_KERNELS = ("flash_attention", "paged_decode_attention",
+                "decode_attention", "paged_verify_attention",
+                "paged_chunk_attention")
+
+
+def _fp32_tree(tree):
+    """An fp32 copy of every leaf (a copy also of fp32 leaves: a state
+    given to a step that writes it in place)."""
+    return {k: _fp32_tree(v) if isinstance(v, dict)
+            else v.to(torch.float32, copy=True) for k, v in tree.items()}
+
+
+# a recurrent decode step (bf16, its state written by the bf16 steps)
+# against the same step in fp32: per output row ||bf16 - fp32|| / ||fp32||
+# <= STEP_ROW_RTOL, and the control, the fp32 step given the state as it
+# was before the last write (of the step before, or of the prefill), must
+# fail it. Set from the readings of tools/recurrent_step_tol.py over seeds
+# (PERF.md section 6)
+STEP_ROW_RTOL = {"mamba2_decode": 0.03, "mlstm_decode": 0.03}
+
+
+class _Held(dict):
+    """``layer_checks``' readings: name -> (calls, max abs error, max row
+    error); for a recurrent step, ``controls``: -> its controls' least row
+    error, ``bounds``: -> its largest elementwise error as a share of the
+    bound."""
+
+    def __init__(self):
+        super().__init__()
+        self.controls, self.bounds = {}, {}
+
+
+def _step_errors(got, want, ctrl):
+    """(max abs error, the largest elementwise error as a share of ATOL x
+    max |want| + RTOL x |want|, the largest row error, the control's least
+    row error) of a recurrent step's output against its fp32 step and
+    against the control."""
+    torch.cuda.synchronize()
+    got, want, ctrl = got.float(), want.float(), ctrl.float()
+    if not torch.isfinite(got).all():
+        raise AssertionError("non-finite recurrent step output")
+    err = (got - want).abs()
+    ratio = float((err / (ATOL * want.abs().max() + RTOL * want.abs())
+                   ).max())
+    d = got.shape[-1]
+    rows = lambda a, b: ((a - b).reshape(-1, d).norm(dim=1)  # noqa: E731
+                         / b.reshape(-1, d).norm(dim=1))
+    return (float(err.max()), ratio, float(rows(got, want).max()),
+            float(rows(got, ctrl).min()))
+
+
 @contextlib.contextmanager
-def layer_checks():
-    """Hold every flash, paged decode and dense decode call the model
-    makes against the plain version on that call's own inputs (``compare``:
-    ATOL/RTOL and ROW_RTOL; a dense decode row of length 0 must only be
-    finite), the kernel's output going on into the model. Each layer is so
-    held at the activations the model gives it, whatever the depth:
-    rounding that compounds through the layers does not enter. Yields a
-    dict of each kernel's (calls, max abs error, max row error)."""
+def layer_checks(gate_steps: bool = True):
+    """Hold every layer call the model makes against its plain version on
+    that call's own inputs (``compare``: ATOL/RTOL and ROW_RTOL; a dense
+    decode row of length 0 must only be finite), the kernel path's output
+    going on into the model: the five attention kernels (ATTN_KERNELS)
+    against ``ref``; each MoE layer's ``apply_moe`` against
+    ``moe_reference`` (fp32, the same routing), with the elementwise bound
+    taken of the output's largest entry (``compare(of_max=True)``); each
+    Mamba2 and mLSTM decode step against the same step in fp32
+    (parameters, input and state), its state written by the bf16 step
+    only: that elementwise bound, STEP_ROW_RTOL per row, and a control
+    that must fail the row check, the fp32 step given the state as it was
+    before the last write (``_step_errors``; ``gate_steps=False`` only
+    records the readings). Each layer is so held
+    at the activations the model gives it, whatever the depth: rounding
+    that compounds through the layers does not enter. Yields a ``_Held``
+    of each checked call's (calls, max abs error, max row error), by
+    name."""
     from repro_torch.kernels import ops, ref
-    names = ("flash_attention", "paged_decode_attention", "decode_attention")
-    saved = {n: getattr(ops, n) for n in names}
-    worst = {}
+    from repro_torch.models import mamba2 as m2
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tf
+    from repro_torch.models import xlstm as xl
+    saved = {n: getattr(ops, n) for n in ATTN_KERNELS}
+    moe_fn = tf.apply_moe
+    decodes = {"mamba2_decode": m2, "mlstm_decode": xl}
+    saved_dec = {n: getattr(mod, n) for n, mod in decodes.items()}
+    worst = _Held()
+
+    def note(name, e, r):
+        n, e0, r0 = worst.get(name, (0, 0.0, 0.0))
+        worst[name] = (n + 1, max(e0, e), max(r0, r))
+        return n
 
     def held(name, kernel, plain):
         def run(*args, **kw):
             out = kernel(*args, **kw)
-            n, e0, r0 = worst.get(name, (0, 0.0, 0.0))
+            n = worst.get(name, (0,))[0]
             want = plain(*args, **kw)
             if name == "decode_attention":
                 e, r = _check_rows(f"{name} call {n}", out, want,
                                    args[3].tolist())
             else:
                 e, r = compare(f"{name} call {n}", out, want)
-            worst[name] = (n + 1, max(e0, e), max(r0, r))
+            note(name, e, r)
             return out
         return run
-    for n in names:
+
+    def held_moe(p, x, cfg, mesh=None):
+        out, aux = moe_fn(p, x, cfg, mesh)
+        n = worst.get("apply_moe", (0,))[0]
+        note("apply_moe", *compare(f"apply_moe call {n}", out,
+                                   moe.moe_reference(p, x, cfg), True))
+        return out, aux
+
+    def held_decode(name):
+        step = saved_dec[name]
+        # each state's copy before the last step wrote it, by address
+        before = {}
+
+        def run(p, x, cfg, state):
+            # the fp32 steps first, on copies: the bf16 step writes state
+            p32, x32 = _fp32_tree(p), x.float()
+            cfg32 = cfg.replace(param_dtype="float32",
+                                compute_dtype="float32")
+            s_in = _fp32_tree(state)
+            want, _ = step(p32, x32, cfg32, _fp32_tree(state))
+            # the control: the state as it was before the last write (of
+            # the step before, or zeros where the prefill wrote it)
+            key = next(_leaves(state)).data_ptr()
+            ctrl, _ = step(p32, x32, cfg32, before.get(key) or {
+                k: torch.zeros_like(v) for k, v in s_in.items()})
+            before[key] = s_in
+            out = step(p, x, cfg, state)
+            n = worst.get(name, (0,))[0]
+            e, ratio, r, rc = _step_errors(out[0], want, ctrl)
+            note(name, e, r)
+            worst.controls[name] = min(worst.controls.get(name, rc), rc)
+            worst.bounds[name] = max(worst.bounds.get(name, 0.0), ratio)
+            tol = STEP_ROW_RTOL[name]
+            if gate_steps and not (ratio <= 1 and r <= tol < rc):
+                raise AssertionError(
+                    f"{name} call {n}: elementwise {ratio:.3g} of its "
+                    f"bound, row error {r:.4g}, control's {rc:.4g} "
+                    f"(limit {tol})")
+            return out
+        return run
+    for n in ATTN_KERNELS:
         setattr(ops, n, held(n, saved[n], getattr(ref, n)))
+    tf.apply_moe = held_moe
+    for n, mod in decodes.items():
+        setattr(mod, n, held_decode(n))
     try:
         yield worst
     finally:
         for n, fn in saved.items():
             setattr(ops, n, fn)
+        tf.apply_moe = moe_fn
+        for n, mod in decodes.items():
+            setattr(mod, n, saved_dec[n])
+
+
+def _steps_text(worst) -> str:
+    """The recurrent steps' readings of ``layer_checks``, for a log line."""
+    return "".join(
+        f"; {k}: elementwise <= {worst.bounds[k]:.3g} of its bound, row "
+        f"error <= {worst[k][2]:.4g} (limit {STEP_ROW_RTOL[k]}), control's "
+        f">= {c:.4g}" for k, c in worst.controls.items())
+
+
+def _held_line(tag, worst, want):
+    """Log what ``layer_checks`` held and raise unless it held ``want``
+    (name -> calls) and nothing else."""
+    log(f"[{tag}] every layer call against its plain version on its own "
+        f"inputs: " + "; ".join(f"{k} {n} calls, max_abs_err={e:.3g} "
+                                f"max_row_rel_err={r:.3g}"
+                                for k, (n, e, r) in worst.items())
+        + f" (atol {ATOL}, rtol {RTOL}, row {ROW_RTOL})" + _steps_text(worst))
+    if {k: n for k, (n, _, _) in worst.items()} != want:
+        raise AssertionError(f"{tag}: held {worst}, want {want}")
 
 
 def phase_logits(cfg, params, tag="logits", gate=True, prompt_len=300):
@@ -1478,15 +1636,24 @@ def phase_logits(cfg, params, tag="logits", gate=True, prompt_len=300):
     layers = (cfg.num_layers // cfg.shared_attn_every if hybrid
               else cfg.num_layers)
     calls = layers * (1 if mla else len(got))
-    log(f"[{tag}] every layer's attention against its plain version on its "
-        f"own inputs, {layers} layers x (prefill + 4 decode steps): "
+    log(f"[{tag}] every layer's attention (and MoE, and Mamba2 decode "
+        f"step) against its plain version on its own inputs, {layers} "
+        f"attention layers x (prefill + 4 decode steps): "
         + "; ".join(f"{k} {n} calls, max_abs_err={e:.3g} "
                     f"max_row_rel_err={r:.3g}"
                     for k, (n, e, r) in worst.items())
-        + f" (atol {ATOL}, rtol {RTOL}, row {ROW_RTOL})")
-    if sum(n for n, _, _ in worst.values()) != calls:
-        raise AssertionError(f"{tag}: {worst} held, {calls} layer calls "
-                             f"expected")
+        + f" (atol {ATOL}, rtol {RTOL}, row {ROW_RTOL})" + _steps_text(worst))
+    held = {k: n for k, (n, _, _) in worst.items()}
+    expect = {}
+    if cfg.family == "moe":
+        expect["apply_moe"] = (cfg.num_layers - cfg.moe.first_k_dense
+                               ) * len(got)
+    if hybrid:
+        expect["mamba2_decode"] = cfg.num_layers * (len(got) - 1)
+    if (sum(held.get(k, 0) for k in ATTN_KERNELS) != calls
+            or any(held.get(k) != n for k, n in expect.items())):
+        raise AssertionError(f"{tag}: {worst} held, {calls} attention "
+                             f"calls and {expect} expected")
     drift = 0.0
     for i, (g, w) in enumerate(zip(got, want)):
         if g.shape != (cfg.vocab_size,) or not torch.isfinite(g).all():
@@ -1810,8 +1977,10 @@ def phase_spec_logits(cfg, params):
     toks[0] = torch.as_tensor(feed[:SPEC_K + 1], device="cuda")
     q_valid = torch.zeros(8, dtype=torch.int32, device="cuda")
     q_valid[0] = SPEC_K + 1
-    _, ver, _ = steps.verify_step(params, toks, q_valid, caches, cfg)
+    with layer_checks() as worst:
+        _, ver, _ = steps.verify_step(params, toks, q_valid, caches, cfg)
     torch.cuda.synchronize()
+    _held_line("spec", worst, {"paged_verify_attention": cfg.num_layers})
     for j, want in enumerate(seq):
         got = ver[0, j].float()
         if got.shape != (cfg.vocab_size,) or not torch.isfinite(got).all():
@@ -1921,8 +2090,11 @@ def phase_chunked_logits(cfg, params):
     prompt = np.random.default_rng(1).integers(0, cfg.vocab_size, 1024
                                                ).astype(np.int32)
     want, dense = _whole_prefill(params, cfg, prompt)
-    got, caches, tab = _chunked_prefill(params, cfg, prompt, CHUNK)
+    with layer_checks() as worst:
+        got, caches, tab = _chunked_prefill(params, cfg, prompt, CHUNK)
     torch.cuda.synchronize()
+    _held_line("chunked", worst, {"paged_chunk_attention":
+                                  cfg.num_layers * (1024 // CHUNK)})
     if got.shape != (cfg.vocab_size,) or not torch.isfinite(got).all():
         raise AssertionError("chunked logits: bad shape or non-finite")
     err = float((got - want).abs().max())
@@ -2880,6 +3052,20 @@ def phase_recurrent(card: str):
             f"allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
         if cfg.family == "hybrid":
             phase_logits(cfg, params, tag=tag, gate=False, prompt_len=512)
+        else:
+            # each mLSTM layer's decode step against the fp32 step, at the
+            # weights phase train starts xLSTM from (TRAIN_SHARE): at full
+            # scale the gate pre-activations reach ~1e4 in the late layers,
+            # where bf16 rounds them by tens
+            prompt = np.random.default_rng(1).integers(
+                0, cfg.vocab_size, 64).astype(np.int32)
+            check = full_width_params(cfg, share=TRAIN_SHARE[arch])
+            with layer_checks() as worst:
+                _prefill_and_decode_dense(check, cfg, prompt, steps=1)
+            del check
+            n_groups = cfg.num_layers // cfg.xlstm.slstm_every
+            _held_line(tag, worst, {"mlstm_decode": n_groups * (
+                cfg.xlstm.slstm_every - 1)})
         peak, wall = _prefill_peak(cfg, params)
         log(f"[{tag}] a 1024-token prefill: {wall * 1e3:.1f} ms (eager, "
             f"first of its length), peak {peak / 2**30:.3f} GiB above the "
@@ -2925,11 +3111,16 @@ def phase_recurrent(card: str):
 # the backward kernel's shapes, (b, s, nh, kvh, dq, dv) and causal: Gemma-
 # 2B's prefill attention (the row's shape) and its training batch of 4 (the
 # row's launches), HuBERT-XLarge's non-causal encoder at the training
-# batch, and a value head narrower than the query's (MLA's 192/128)
+# batch, a value head narrower than the query's (MLA's 192/128), and the
+# training shapes of MiniCPM3-4B (MLA 96/64 x 40 heads), DeepSeek-V2-Lite
+# (MLA 192/128 x 16) and Zamba2-7B's shared block (32 heads, d 112)
 BWD_SHAPES = (("gemma_2b", (1, 1024, 8, 1, 256, 256), True),
               ("gemma_2b_train", (4, 1024, 8, 1, 256, 256), True),
               ("hubert_xlarge", (4, 1024, 16, 16, 80, 80), False),
-              ("dv<dq", (1, 512, 16, 16, 192, 128), True))
+              ("dv<dq", (1, 512, 16, 16, 192, 128), True),
+              ("minicpm3_4b", (4, 1024, 40, 40, 96, 64), True),
+              ("deepseek_v2_lite_16b", (4, 1024, 16, 16, 192, 128), True),
+              ("zamba2_7b", (4, 1024, 32, 32, 112, 112), True))
 # the gradient kernel against its plain version on the same bf16 inputs,
 # each of dq, dk, dv: relative norm per (batch, head) slab <= GRAD_SLAB_RTOL
 # and |err| <= GRAD_TOL (max |plain| + |plain|) elementwise; the plain
@@ -2939,11 +3130,51 @@ GRAD_SLAB_RTOL = 0.01
 GRAD_TOL = 0.02
 # lse: both sum exp of the same fp32 scores, in other orders
 LSE_ATOL, LSE_RTOL = 1e-4, 1e-5
-# full-width launch.train runs (remat "none", as the launcher trains), 6
-# steps of 4 x 1024 tokens; the restart runs hubert_xlarge at
-# RESTART_LAYERS of its 48 layers (its checkpoint ~1 GB; Gemma-2B's state
-# would be ~25 GB)
-TRAIN_ARCHS = ("gemma_2b", "hubert_xlarge")
+# full-width launch.train runs, 6 steps of 4 x 1024 tokens: (arch, layers
+# trained (None: all), remat). The GQA configs and v2-lite train with remat
+# "none", as the launcher trains. The train state takes 12 B a parameter
+# (bf16 parameter and gradient, fp32 m and v): v2-lite's 27 layers are
+# 175.5 GiB and zamba2's 81 are 75.4, so they train the dense layer and 4
+# MoE layers, and 26 Mamba2 layers with 2 applications of the shared
+# block. Under "none" MiniCPM3-4B's 62 layers (45.5 GiB of state) and
+# zamba2's 26 ran out of the card's 80 GB (peaks 76.47 and 77.86 GiB
+# allocated when they failed, an H100 80GB HBM3 at 700 W), so they train
+# under remat "full" (the configs' default), as does xLSTM (48 layers,
+# 40.3 GiB of state, ~0.8 GB of mLSTM chunk states a layer under "none").
+# The restart runs hubert_xlarge at RESTART_LAYERS of its 48 layers (its
+# checkpoint ~1 GB; Gemma-2B's state would be ~25 GB)
+TRAIN_RUNS = (("gemma_2b", None, "none"), ("hubert_xlarge", None, "none"),
+              ("minicpm3_4b", None, "full"),
+              ("deepseek_v2_lite_16b", 5, "none"),
+              ("zamba2_7b", 26, "full"), ("xlstm_1_3b", None, "full"))
+TRAIN_ARCHS = tuple(arch for arch, _, _ in TRAIN_RUNS)
+# the share of each weight's scale that perturbs a run's start, where not
+# 1 (phase recurrent's mLSTM step check takes the same weights): at 1
+# xLSTM's residual stream (which its mLSTM and sLSTM read without a norm,
+# as in the JAX package) grows ~1.37x a layer, its gradient norm
+# overflowed fp32 on the card (inf at step 1; 4.5e15 at 48 reduced layers
+# on the CPU); at 0.3 the stream stays O(1) (RMS 0.95-1.64 over 48 reduced
+# layers)
+TRAIN_SHARE = {"xlstm_1_3b": 0.3}
+# the leaves of a run that may keep a layer unmoved in bf16 though its
+# gradient arrives: xLSTM's gate biases (-3 and +3 plus noise of 0.15),
+# where half a bf16 gap (>= 7.8e-3) exceeds the largest AdamW step (lr <=
+# 3e-3, its weight decay 0.1 x |x| x lr); zamba2's Mamba2 D (1 plus noise
+# of 0.09), whose clipped gradient in the last layers is below AdamW's eps
+# (1e-8), which holds its steps under half a bf16 gap (the run prints each
+# unmoved row's largest sqrt(v)). Every other (leaf, layer) must move
+TRAIN_STUCK = {"zamba2_7b": {"mamba.D"}, "xlstm_1_3b": {"mlstm.b_if"}}
+# xLSTM's bf16 steps against fp32 gradients at the same weights
+# (``_xlstm_witness``): one mLSTM x 7 + sLSTM group, 6 steps. The first
+# step, at the start weights, is gated: its norms within
+# WITNESS_NORM_RTOL and the gradients' cosine >= WITNESS_COS (read at 1.9e-4
+# and 0.99993 on an H100 80GB HBM3 at 700 W); after one AdamW step at lr
+# 3e-3 the gradient is ill-conditioned (bf16 and fp32 cosines 0.01-0.66 at
+# the same weights), so the later steps are printed
+WITNESS_LAYERS, WITNESS_STEPS = 8, 6
+WITNESS_NORM_RTOL, WITNESS_COS = 0.005, 0.999
+# MiniCPM3-4B's gradients of one batch under the three remats, at a depth
+REMAT_LAYERS = 4
 TRAIN_BATCH, TRAIN_SEQ = 4, 1024
 TRAIN_ARGV = ("--steps", "6", "--batch", str(TRAIN_BATCH), "--seq",
               str(TRAIN_SEQ), "--log-every", "1")
@@ -3111,36 +3342,70 @@ def backward_checks():
         tfa.flash_attention_bwd = kernel
 
 
-def _state_fn(seed: int = 0):
+def _state_fn(seed: int = 0, share: float = 1.0):
     """launch.train's start: seeded full-width weights, every leaf
-    perturbed (the JAX init zeroes the output projections), fresh AdamW
-    moments."""
+    perturbed by ``share`` of its scale (the JAX init zeroes the output
+    projections), fresh AdamW moments."""
     def make(cfg, device):
         from repro_torch.models.optim import init_opt_state
-        params = full_width_params(cfg, seed)
+        params = full_width_params(cfg, seed, share)
         return {"params": params, "opt": init_opt_state(params)}
     return make
 
 
+# the matrix-product weights _train_flops counts (by their last key)
+_PRODUCT_WEIGHTS = ("wq", "wk", "wv", "wo", "wi", "wdq", "wuq", "wdkv",
+                    "wkr", "wuk", "wuv", "router", "in_proj", "out_proj",
+                    "up", "down", "wif", "wx", "r", "ff_wi", "ff_wo",
+                    "head")
+
+
+def _attn_layers(cfg) -> int:
+    """How many attention calls one forward makes (the hybrid's shared
+    block once an application; the ssm family none)."""
+    if cfg.family == "hybrid":
+        return cfg.num_layers // cfg.shared_attn_every
+    return 0 if cfg.family == "ssm" else cfg.num_layers
+
+
 def _train_flops(cfg, b, s) -> float:
-    """6 x the parameters a token's matrix products read x tokens, plus
-    3 x the causal (or full) attention's forward products."""
-    d, hd = cfg.d_model, cfg.resolved_head_dim
-    per_layer = (d * hd * (2 * cfg.num_heads + 2 * cfg.num_kv_heads)
-                 + d * cfg.d_ff * (3 if cfg.mlp_type in ("swiglu", "geglu")
-                                   else 2))
-    n = cfg.num_layers * per_layer + d * cfg.vocab_size        # + the head
+    """6 x the matrix-product weights a token reads x tokens (a routed MoE
+    expert's at top_k / experts; the hybrid's shared block once an
+    application; a tied embedding as the head), plus 3 x the causal (or
+    full) attention's forward products. The recurrent scans' own products
+    (chunk-quadratic terms, the sLSTM's state) are left out."""
+    from repro_torch.models import transformer as tf
+    flat = _flat(tf.init_model(cfg, torch.Generator(), "meta"))
+    n = 0.0
+    for path, v in flat.items():
+        last = path.split(".")[-1]
+        if path == "embed" and cfg.tie_embeddings:
+            n += v.numel()
+        elif last in _PRODUCT_WEIGHTS and path != "embed":
+            share = 1.0
+            routed = ".moe." in path and ".shared." not in path
+            if routed and last != "router":
+                share = cfg.moe.top_k / cfg.moe.num_experts
+            if path.startswith("shared."):
+                share = _attn_layers(cfg)
+            n += v.numel() * share
+    if cfg.attn_type == "mla":
+        dq = cfg.mla.qk_nope_head_dim + cfg.mla.qk_rope_head_dim
+        dv = cfg.mla.v_head_dim
+    else:
+        dq = dv = cfg.resolved_head_dim
     pairs = s * (s + 1) // 2 if not cfg.encoder_only else s * s
-    attn = 3 * 2 * 2 * hd * cfg.num_heads * b * pairs * cfg.num_layers
+    attn = 3 * 2 * (dq + dv) * cfg.num_heads * b * pairs * _attn_layers(cfg)
     return 6.0 * n * b * s + attn
 
 
 @contextlib.contextmanager
-def _launch_patched(init_state, layers=None, after_step=None):
+def _launch_patched(init_state, layers=None, after_step=None, remat=None):
     """While open, launch.train.main starts from ``init_state(cfg, device)``
     in place of its seed-0 state, trains its config cut to ``layers``
-    layers (full width) when given, and calls ``after_step(state,
-    metrics)`` after each train step."""
+    layers (full width) when given, with ``remat`` in place of the
+    launcher's "none" when given, and calls ``after_step(state, metrics,
+    the step's OptConfig)`` after each train step."""
     from repro_torch.launch import train
     from repro_torch.models import steps
     saved = train.get_config, steps.init_train_state, steps.train_step
@@ -3150,10 +3415,12 @@ def _launch_patched(init_state, layers=None, after_step=None):
         cfg = get_config(arch)
         return cfg if layers is None else cfg.replace(num_layers=layers)
 
-    def step(*args, **kw):
-        state, metrics = train_step(*args, **kw)
+    def step(state, batch, cfg, opt, **kw):
+        if remat is not None:
+            cfg = cfg.replace(remat=remat)
+        state, metrics = train_step(state, batch, cfg, opt, **kw)
         if after_step is not None:
-            after_step(state, metrics)
+            after_step(state, metrics, opt)
         return state, metrics
     train.get_config = config
     steps.init_train_state = lambda cfg, gen, device: init_state(cfg, device)
@@ -3164,29 +3431,32 @@ def _launch_patched(init_state, layers=None, after_step=None):
         train.get_config, steps.init_train_state, steps.train_step = saved
 
 
-def _train_run(arch, init_state):
+def _train_run(arch, init_state, layers=None, remat="none"):
     """launch.train.main at full width (TRAIN_ARGV) from ``init_state``,
-    in a fresh checkpoint directory (6 steps write no checkpoint at the
-    default interval of 20), the launch counters reset just before and
-    read just after, every backward call of its first step held against
-    the plain version. Returns (losses, grad norms, step seconds,
-    launches, worst, state, cfg)."""
+    cut to ``layers`` layers when given, under ``remat``, in a fresh
+    checkpoint directory (6 steps write no checkpoint at the default
+    interval of 20), the launch counters reset just before and read just
+    after, every backward call of its first step held against the plain
+    version. Returns (losses, grad norms, aux losses, step seconds,
+    launches, worst, state, cfg, the launcher's OptConfig)."""
     import tempfile
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.launch import train
-    got = {"gn": [], "t": [], "state": None}
+    got = {"gn": [], "aux": [], "t": [], "state": None}
 
-    def after_step(state, metrics):
+    def after_step(state, metrics, opt):
+        got["opt"] = opt
         torch.cuda.synchronize()
         got["t"].append(time.perf_counter())
         got["gn"].append(float(metrics["grad_norm"]))
+        got["aux"].append(float(metrics["aux_loss"]))
         got["state"] = state
         checks[0][0] = False
 
     with tempfile.TemporaryDirectory(dir=str(ROOT / "build")) as tmp, \
             backward_checks() as checks, \
-            _launch_patched(init_state, after_step=after_step):
+            _launch_patched(init_state, layers, after_step, remat):
         argv = ["--arch", arch, *TRAIN_ARGV, "--ckpt-dir", tmp]
         torch.cuda.synchronize()
         ops.reset_launches()
@@ -3194,16 +3464,68 @@ def _train_run(arch, init_state):
         losses = train.main(argv)
         torch.cuda.synchronize()
         launches = ops.launch_counts()
-    cfg = get_config(arch).replace(remat="none")
+    cfg = get_config(arch)
+    cfg = cfg.replace(num_layers=layers or cfg.num_layers, remat=remat)
     steps_s = np.diff(got["t"])
-    return losses, got["gn"], steps_s, launches, checks[1], got["state"], cfg
+    return (losses, got["gn"], got["aux"], steps_s, launches, checks[1],
+            got["state"], cfg, got["opt"])
 
 
-def _layer_sample(path, v, layers):
+# the params keys whose leaves stack layers on their first axis
+STACKED = ("layers", "dense_layers", "mamba", "mlstm", "slstm")
+
+
+def _layer_sample(path, v, rows=None):
     """The first SNAP_ELEMS values of each layer of a stacked leaf, one row
-    a layer; of the leaf itself elsewhere, one row."""
-    rows = layers if path.startswith("layers.") else 1
-    return v.reshape(rows, -1)[:, :SNAP_ELEMS]
+    a layer; of the leaf itself elsewhere, one row; of an untied embedding
+    the token rows ``rows`` (the others get no gradient)."""
+    if path == "embed" and rows is not None:
+        return v[rows]
+    n = v.shape[0] if path.split(".")[0] in STACKED else 1
+    return v.reshape(n, -1)[:, :SNAP_ELEMS]
+
+
+def _unmoved(state, snap, rows):
+    """The sampled (leaf, layer) rows of a train state (``_layer_sample``
+    with ``rows``; frontend_proj left out) whose second moments are all 0,
+    as (leaf, layer), and those whose values are ``snap``'s, as (leaf,
+    layer, the largest sqrt(v) of the row)."""
+    flat_v = _flat(state["opt"]["v"])
+    no_grad, unmoved = [], []
+    for k, v in _flat(state["params"]).items():
+        if k == "frontend_proj":
+            continue
+        rms = _layer_sample(k, flat_v[k], rows).amax(dim=1).sqrt().tolist()
+        moved = (_layer_sample(k, v, rows) != snap[k]).any(dim=1).tolist()
+        no_grad += [(k, i) for i, r in enumerate(rms) if r == 0]
+        unmoved += [(k, i, r) for i, (m, r) in enumerate(zip(moved, rms))
+                    if not m]
+    return no_grad, unmoved
+
+
+@contextlib.contextmanager
+def _floor_overflows():
+    """While open, count the entries of the chunked mLSTM's floor exp(-m)
+    that overflow to inf (m below -88.7), where autograd's exp backward
+    would give 0 x inf = NaN and ``xlstm._exp_floor`` gives 0, over every
+    forward and remat recompute. Yields a list that holds, at exit, (that
+    count, the least m)."""
+    from repro_torch.models import xlstm as xl
+    floor, seen, out = xl._exp_floor, [], []
+
+    def rec(m):
+        y = floor(m)
+        seen.append(torch.stack([torch.isinf(y).sum().float(),
+                                 m.detach().amin().float()]))
+        return y
+    xl._exp_floor = rec
+    try:
+        yield out
+    finally:
+        xl._exp_floor = floor
+        if seen:
+            s = torch.stack(seen)
+            out += [int(s[:, 0].sum()), float(s[:, 1].min())]
 
 
 def _flash_counts(launches):
@@ -3271,28 +3593,191 @@ def _remat_and_drift(params, cfg, batch, card):
         del flat_p
 
 
+def _memory_report(top: int = 6):
+    """What is still allocated on the card: the active blocks of
+    ``torch.cuda.memory_snapshot()`` grouped by size, each group with its
+    memory pool (a CUDA graph's pool is not (0, 0)), stream and, where
+    ``main`` recorded allocation history, the Python stack of its first
+    block's allocation (innermost frames of the repo). Returns the
+    allocated GiB."""
+    groups = {}
+    for seg in torch.cuda.memory_snapshot():
+        for blk in seg["blocks"]:
+            if blk["state"] != "active_allocated":
+                continue
+            frames = blk.get("frames", [])
+            where = tuple(
+                f"{f['filename'].split('/')[-1]}:{f['line']} {f['name']}"
+                for f in frames if "repro" in f["filename"]
+                or "chip_smoke" in f["filename"])[:4]
+            key = (blk["size"], tuple(seg.get("segment_pool_id", (0, 0))),
+                   where or (("no Python frame of the repo",) if frames
+                             else ("no recorded stack",)))
+            g = groups.setdefault(key, [0, set()])
+            g[0] += 1
+            g[1].add(seg.get("stream", 0))
+    allocated = torch.cuda.memory_allocated() / 2**30
+    log(f"[memory] {allocated:.3f} GiB allocated in "
+        f"{sum(g[0] for g in groups.values())} blocks")
+    for (size, pool, where), (n, streams) in sorted(
+            groups.items(), key=lambda kv: -kv[0][0] * kv[1][0])[:top]:
+        log(f"[memory]   {n} x {size / 2**20:.2f} MiB, pool {pool}, on "
+            f"{len(streams)} stream(s): " + " <- ".join(where))
+    return allocated
+
+
+def device_busy(fn):
+    """Run ``fn`` once under ``torch.profiler`` (device activity only: an
+    xLSTM step launches ~10^5 kernels): (wall s, the device's summed
+    kernel time s)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy = 0.0
+    for evt in prof.key_averages():
+        dev = getattr(evt, "self_device_time_total", None)
+        if dev is None:
+            dev = getattr(evt, "self_cuda_time_total", 0)
+        if dev > 0 and evt.device_type == torch.autograd.DeviceType.CUDA:
+            busy += dev / 1e6
+    return wall, busy
+
+
+def _xlstm_witness(opt, card):
+    """xlstm_1_3b cut to WITNESS_LAYERS layers (full width, remat "full"),
+    from its training run's start (weights perturbed at TRAIN_SHARE), bf16,
+    WITNESS_STEPS AdamW steps of launch.train's batches under its
+    OptConfig ``opt``, each step as ``steps.train_step`` takes it; before
+    each update the bf16 gradients against fp32 gradients at the same
+    weights (the bf16 parameters in fp32) on the same batch, the fp32 path
+    being the one the CPU tests hold against JAX: at the first step the
+    global norms within WITNESS_NORM_RTOL of each other and the cosine of
+    the two gradients at least WITNESS_COS; every step's loss, norms and
+    cosine printed, so that the growth of the norms from step to step shows
+    in fp32 as well as in bf16."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, batch_at
+    from repro_torch.models import optim, steps
+    from repro_torch import tree
+    arch = "xlstm_1_3b"
+    cfg = get_config(arch).replace(num_layers=WITNESS_LAYERS,
+                                   param_dtype="bfloat16",
+                                   compute_dtype="bfloat16", remat="full")
+    cfg32 = cfg.replace(param_dtype="float32", compute_dtype="float32")
+    state = _state_fn(share=TRAIN_SHARE[arch])(cfg, "cuda")
+    dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                    global_batch=TRAIN_BATCH)
+    rows = []
+    for i in range(WITNESS_STEPS):
+        batch = {k: torch.as_tensor(v, device="cuda")
+                 for k, v in batch_at(dc, i).items()}
+        p32 = tree.map_tree(lambda t: t.float(), state["params"])
+        (_, (l32, _)), g32 = steps.value_and_grad(p32, batch, cfg32)
+        del p32
+        n32 = optim.global_norm(g32)
+        (_, (l16, _)), g16 = steps.value_and_grad(state["params"], batch,
+                                                  cfg)
+        n16 = optim.global_norm(g16)
+        cos = sum(torch.sum((a.float() / n16) * (b / n32))
+                  for a, b in zip(tree.leaves(g16), tree.leaves(g32)))
+        del g32
+        state["params"], state["opt"], _ = optim.adamw_update(
+            state["params"], g16, state["opt"], opt)
+        del g16
+        rows.append((float(l16), float(l32), float(n16), float(n32),
+                     float(cos)))
+    log(f"[train] xlstm_1_3b at {WITNESS_LAYERS} of 48 layers, weights "
+        f"perturbed at {TRAIN_SHARE[arch]}, {WITNESS_STEPS} bf16 steps, "
+        f"each step's gradients against fp32's at the same weights: "
+        + "; ".join(f"step {i + 1} loss {a:.4f} / {b:.4f}, grad norm "
+                    f"{c:.6g} / {d:.6g} (rel {abs(c / d - 1):.3g}), cosine "
+                    f"{e:.6f}" for i, (a, b, c, d, e) in enumerate(rows))
+        + f" (limits at step 1: norm rel {WITNESS_NORM_RTOL}, cosine >= "
+        f"{WITNESS_COS}); {card}")
+    _, _, c, d, e = rows[0]
+    if not (abs(c / d - 1) <= WITNESS_NORM_RTOL and e >= WITNESS_COS):
+        raise AssertionError(f"xlstm witness: step 1 off fp32 {rows[0]}")
+
+
+def _remat_grads_equal(card):
+    """MiniCPM3-4B at REMAT_LAYERS layers, full width: one batch's loss
+    and gradients ``torch.equal`` under remat "none", "full" and "dots",
+    flash's forward launched layers times under "none" and twice that
+    under "full" and "dots" (its forward is not a product: "dots"
+    recomputes it), its backward layers times each; every backward call of
+    the "none" run held (``backward_checks``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, batch_at
+    from repro_torch.kernels import ops
+    from repro_torch.models import steps
+    cfg = get_config("minicpm3_4b").replace(num_layers=REMAT_LAYERS)
+    params = full_width_params(cfg, seed=3)
+    dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                    global_batch=TRAIN_BATCH)
+    batch = {k: torch.as_tensor(v, device="cuda")
+             for k, v in batch_at(dc, 100).items()}
+    L, out, peaks = cfg.num_layers, {}, {}
+    for remat in ("none", "full", "dots"):
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        ops.reset_launches()
+        with backward_checks() as (_, worst):
+            (tot, _), g = steps.value_and_grad(params, batch,
+                                               cfg.replace(remat=remat))
+        torch.cuda.synchronize()
+        peaks[remat] = (torch.cuda.max_memory_allocated() - base) / 2**30
+        got = _flash_counts(ops.launch_counts())
+        want = (L if remat == "none" else 2 * L, L)
+        if got != want or worst[0] != L:
+            raise AssertionError(f"remat {remat}: flash launches {got}, "
+                                 f"want {want}; {worst[0]} backward calls "
+                                 "held")
+        out[remat] = (tot, _flat(g))
+        del g
+    same = {r: torch.equal(out[r][0], out["none"][0]) and all(
+        torch.equal(v, out["none"][1][k]) for k, v in out[r][1].items())
+        for r in ("full", "dots")}
+    log(f"[train] minicpm3_4b at {L} of 62 layers, one batch of "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ}: loss and gradients torch.equal under "
+        f"remat full / dots and none: {same['full']} / {same['dots']}; flash "
+        f"{L} / {2 * L} / {2 * L} forward and {L} backward launches (none / "
+        f"full / dots); peak above the weights {peaks['none']:.2f} / "
+        f"{peaks['full']:.2f} / {peaks['dots']:.2f} GiB; {card}")
+    if not all(same.values()):
+        raise AssertionError(f"gradients differ across remats: {same}")
+
+
 def phase_train(card: str):
     """Training on the card: the backward kernel (``phase_train_kernels``);
-    launch.train.main at full width for gemma_2b and hubert_xlarge (48
-    layers), remat "none" as the launcher trains, 6 steps of 4 x 1024
-    tokens from seeded perturbed weights (``_launch_patched``), bf16:
-    finite losses and gradient norms, every layer of every leaf changed,
-    forward and backward launches = layers x steps, every backward call of
-    the first step held against the plain version on its own inputs
-    (``backward_checks``); gemma's gradients of one batch equal under
-    remat "full" and "none" (``_remat_and_drift``) and their norm's drift
-    from plain
-    attention printed; one HuBERT step from seeded embeds through
+    launch.train.main at full width for each of TRAIN_RUNS (gemma_2b,
+    hubert_xlarge, minicpm3_4b, deepseek_v2_lite_16b, zamba2_7b and
+    xlstm_1_3b at their depths and remats), 6 steps of 4 x 1024 tokens
+    from seeded perturbed weights (``_launch_patched``), bf16: finite
+    losses and gradient norms, MoE's aux finite and > 0, every layer of
+    every leaf changed, flash forward launches = attention layers x steps
+    (twice that under a remat that wraps them) and backward = attention
+    layers x steps, every backward call of the first step held against the
+    plain version on its own inputs (``backward_checks``); xlstm's device
+    busy share of one more step (host-paced: the sLSTM's loop over time);
+    gemma's gradients of one batch equal under remat "full" and "none"
+    (``_remat_and_drift``) and their norm's drift from plain attention
+    printed; MiniCPM3-4B's under "none", "full" and "dots"
+    (``_remat_grads_equal``); one HuBERT step from seeded embeds through
     frontend_proj and its serving entry ``prefill_step`` on them (every
     flash call held, ``layer_checks``); the restart: hubert_xlarge at
     RESTART_LAYERS layers, 6 steps, stopped after step 4 (its newest
-    checkpoint at 3) and resumed, the resumed losses equal to the uninterrupted run's. Step
-    time, tokens/s, peak memory and the achieved TFLOP/s against the
-    model's products are printed. Returns (the backward kernel's row,
-    {arch: flash forward and backward launches})."""
+    checkpoint at 3) and resumed, the resumed losses equal to the
+    uninterrupted run's. Step time, tokens/s, peak memory and the achieved
+    TFLOP/s against the model's products are printed. Returns (the
+    backward kernel's row, {arch: flash forward and backward launches})."""
     import gc
     import tempfile
     from repro_torch.checkpoint import ckpt
+    from repro_torch.configs import get_config
     from repro_torch.data.pipeline import DataConfig, batch_at
     from repro_torch.kernels import ops
     from repro_torch.launch import train
@@ -3308,53 +3793,85 @@ def phase_train(card: str):
         f"allocated before the phase; largest live tensors: "
         + ", ".join(f"{n / 2**20:.0f} MiB {shape} {dt}"
                     for n, shape, dt in live[:4]))
+    _memory_report()
+    torch.cuda.memory._record_memory_history(enabled=None)
     gen = torch.Generator(device="cuda").manual_seed(24)
     row = phase_train_kernels(gen)
-    launches = {}
-    for arch in TRAIN_ARCHS:
+    launches, opts = {}, {}
+    for arch, layers, remat in TRAIN_RUNS:
         torch.cuda.reset_peak_memory_stats()
         snap = {}
+        dc = DataConfig(vocab_size=get_config(arch).vocab_size,
+                        seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH)
+        # an untied embedding moves only at the tokens read: sample the
+        # first step's first tokens
+        seen = torch.as_tensor(batch_at(dc, 0)["tokens"][0, :2],
+                               device="cuda").long()
 
-        def snap_state(cfg, device, _make=_state_fn()):
+        def snap_state(cfg, device,
+                       _make=_state_fn(share=TRAIN_SHARE.get(arch, 1.0))):
             state = _make(cfg, device)
-            snap.update({k: _layer_sample(k, v, cfg.num_layers).clone()
+            rows = None if cfg.tie_embeddings else seen
+            snap.update({k: _layer_sample(k, v, rows).clone()
                          for k, v in _flat(state["params"]).items()})
             return state
-        losses, gns, step_s, counts, worst, state, cfg = _train_run(
-            arch, snap_state)
+        with _floor_overflows() as floor:
+            (losses, gns, auxs, step_s, counts, worst, state, cfg,
+             opt) = _train_run(arch, snap_state, layers, remat)
         peak = torch.cuda.max_memory_allocated() / 2**30
-        L, n_steps = cfg.num_layers, len(losses)
+        L, n_steps, A = cfg.num_layers, len(losses), _attn_layers(cfg)
+        twice = remat != "none" and cfg.family != "hybrid"
         fwd, bwd = _flash_counts(counts)
-        if (fwd, bwd) != (L * n_steps, L * n_steps):
+        want = (A * n_steps * (2 if twice else 1), A * n_steps)
+        if (fwd, bwd) != want:
             raise AssertionError(f"{arch}: flash launches {fwd} forward, "
-                                 f"{bwd} backward; want {L * n_steps} "
-                                 "each")
-        if not all(np.isfinite(losses)) or not all(np.isfinite(gns)):
-            raise AssertionError(f"{arch}: non-finite loss or grad norm")
+                                 f"{bwd} backward; want {want}")
+        if not all(np.isfinite(losses + gns + auxs)):
+            raise AssertionError(f"{arch}: non-finite loss, grad norm or "
+                                 "aux")
+        if (cfg.family == "moe") != all(a > 0 for a in auxs):
+            raise AssertionError(f"{arch}: aux losses {auxs}")
         # every layer of every leaf the token steps read; frontend_proj (a
         # stub frontend's, read only from embeds) gets a zero gradient, and
         # in bf16 its weight decay alone rounds away: the embeds step below
-        # moves it
-        unchanged = [(k, i) for k, v in _flat(state["params"]).items()
-                     if k != "frontend_proj"
-                     for i, moved in enumerate(
-                         (_layer_sample(k, v, L) != snap[k]).any(dim=1))
-                     if not moved]
-        if unchanged:
-            raise AssertionError(f"{arch}: (leaf, layer) unchanged "
-                                 f"{unchanged}")
-        if worst[0] != L:
+        # moves it. Each (leaf, layer) got a gradient (a second moment not
+        # all 0) and moved; one that did not move must be of a leaf that
+        # TRAIN_STUCK names, and the leaves with one must be those it names
+        no_grad, unmoved = _unmoved(
+            state, snap, None if cfg.tie_embeddings else seen)
+        stuck = {k for k, _, _ in unmoved}
+        if no_grad or stuck != TRAIN_STUCK.get(arch, set()):
+            raise AssertionError(
+                f"{arch}: (leaf, layer) with no gradient {no_grad}; "
+                f"unmoved {unmoved}, want only leaves "
+                f"{TRAIN_STUCK.get(arch, set())}")
+        if worst[0] != A:
             raise AssertionError(f"{arch}: {worst[0]} backward calls held, "
-                                 f"{L} expected")
+                                 f"{A} expected")
         launches[arch] = {"flash_attention": fwd, "flash_attention_bwd": bwd}
+        opts[arch] = opt
         b, s = TRAIN_BATCH, TRAIN_SEQ
         med = float(np.median(step_s[1:]))
         flops = _train_flops(cfg, b, s)
-        log(f"[train] {arch} ({L} layers, remat none): losses "
-            + " ".join(f"{x:.4f}" for x in losses) + "; grad norms "
-            + " ".join(f"{x:.4f}" for x in gns)
+        full_layers = get_config(arch).num_layers
+        share = TRAIN_SHARE.get(arch, 1.0)
+        log(f"[train] {arch} ({L} of {full_layers} layers, remat {remat}"
+            + (f", weights perturbed at {share} of their scale"
+               if share != 1.0 else "") + "): losses "
+            + " ".join(f"{x:.4f}" for x in losses)
+            + "; grad norms " + " ".join(f"{x:.4f}" for x in gns)
+            + ("; aux losses " + " ".join(f"{x:.6f}" for x in auxs)
+               if cfg.family == "moe" else "")
+            + (f"; the mLSTM floor exp(-m) overflowed at {floor[0]} "
+               f"entries over the forwards and recomputes (least m "
+               f"{floor[1]:.4g}), where autograd's exp would give the "
+               f"gradient NaN and _exp_floor gives 0" if floor else "")
             + f"; launches flash {fwd} forward, {bwd} backward; every "
-            f"layer of every leaf moved; every "
+            f"layer of every leaf got a gradient and moved, but "
+            f"{len(unmoved)} (leaf, layer) of {sorted(stuck)}"
+            + "".join(f"; unmoved {k} layer {i}: largest sqrt(v) {r:.3g}"
+                      for k, i, r in unmoved[:3])
+            + "; every "
             f"backward call of step 1 held ({worst[0]} calls, max_abs_err "
             f"{worst[1]:.3g}, slab rel err {worst[2]:.3g}); step s "
             + " ".join(f"{x:.3f}" for x in step_s)
@@ -3363,12 +3880,23 @@ def phase_train(card: str):
             f"products ({flops / 1e12:.1f} TFLOP a step), "
             f"{flops / med / PEAK_BF16_FLOPS:.3f} of "
             f"{PEAK_BF16_FLOPS / 1e12:.0f}; peak {peak:.2f} GiB; {card}")
-        dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=s, global_batch=1)
+        batch = None
         if arch == "gemma_2b":
+            one = DataConfig(vocab_size=cfg.vocab_size, seq_len=s,
+                             global_batch=1)
             batch = {k: torch.as_tensor(v, device="cuda")
-                     for k, v in batch_at(dc, 100).items()}
+                     for k, v in batch_at(one, 100).items()}
             _remat_and_drift(state["params"], cfg, batch, card)
-        else:
+        elif arch == "xlstm_1_3b":
+            batch = {k: torch.as_tensor(v, device="cuda")
+                     for k, v in batch_at(dc, 6).items()}
+            wall, busy = device_busy(
+                lambda: steps.train_step(state, batch, cfg))
+            log(f"[train] xlstm_1_3b, one more step under the profiler: "
+                f"{wall:.3f} s, the device busy {busy:.3f} s; idle (host-"
+                f"paced: the sLSTM's loop over {TRAIN_SEQ} steps, forward and "
+                f"backward) {1 - busy / wall:.3f} of it; {card}")
+        elif arch == "hubert_xlarge":
             rng = torch.Generator(device="cuda").manual_seed(25)
             emb = torch.randn(b, s, cfg.frontend_dim, generator=rng,
                               device="cuda").to(torch.bfloat16)
@@ -3403,6 +3931,12 @@ def phase_train(card: str):
         del state, snap, batch
         gc.collect()
         torch.cuda.empty_cache()
+    _xlstm_witness(opts["xlstm_1_3b"], card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    _remat_grads_equal(card)
+    gc.collect()
+    torch.cuda.empty_cache()
 
     # restart: 6 steps with checkpoints every 3, against a run stopped
     # after step 4 (its newest checkpoint is step 3's) and resumed
@@ -3410,7 +3944,7 @@ def phase_train(card: str):
         pass
     calls = []
 
-    def stop(state, metrics):
+    def stop(state, metrics, opt):
         calls.append(1)
         if len(calls) == 4:
             raise Stop
@@ -3478,9 +4012,14 @@ def main() -> int:
 
     def lap(name):
         marks.append(time.monotonic())
-        log(f"[time] {name}: {marks[-1] - marks[-2]:.1f}s")
+        log(f"[time] {name}: {marks[-1] - marks[-2]:.1f}s; "
+            f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated")
     line = phase_device()
     phase_build()
+    # the Python stack of every live allocation, for phase train's report
+    # of what the serving phases leave allocated (``_memory_report``)
+    torch.cuda.memory._record_memory_history(
+        enabled="state", context="alloc", stacks="python")
     lap("device and build")
     rows = phase_kernels()
     lap("kernels")

@@ -4,9 +4,9 @@ pass (decode, draft decode, verify, chunk; the ``SlotEngine``'s decode).
 A ``CompiledPass`` owns the pass's static inputs (``StaticInputs``: int32
 device buffers at fixed addresses, filled from one pinned host staging
 buffer by one non-blocking copy). On a CUDA device it runs the pass once,
-on a side stream, over *all-trash* inputs (every table row on the trash
-page, every length and ``q_valid`` 0, so the pass's K/V writes land only on
-the trash page): that builds and loads the kernel libraries, raises their
+on the card's one side stream (``side_stream``), over *all-trash* inputs
+(every table row on the trash page, every length and ``q_valid`` 0, so the
+pass's K/V writes land only on the trash page): that builds and loads the kernel libraries, raises their
 shared-memory limits and fills the ``rope_frequencies`` cache, none of
 which may happen under capture. Then it captures the pass as a CUDA graph
 with ``torch.cuda.graph`` and replays it for every later call; the capture
@@ -70,6 +70,23 @@ class StaticInputs:
         self._dev.copy_(self._host, non_blocking=True)
 
 
+# one side stream per card for every pass's warm-up and capture: cuBLAS
+# keeps a workspace (32 MiB on an H100) for each stream it has run a
+# product on, for the process's life, so a new stream per pass would leave
+# one workspace per pass ever built
+_side_streams: Dict[int, "torch.cuda.Stream"] = {}
+
+
+def side_stream(device) -> "torch.cuda.Stream":
+    """The card's one stream for warm-ups and captures."""
+    device = torch.device(device)
+    idx = (device.index if device.index is not None
+           else torch.cuda.current_device())
+    if idx not in _side_streams:
+        _side_streams[idx] = torch.cuda.Stream(idx)
+    return _side_streams[idx]
+
+
 def _capture_graph(fn, stream):
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph, stream=stream):
@@ -103,7 +120,7 @@ class CompiledPass:
         self.warm_up_s = self.capture_s = 0.0
         if self.device.type == "cuda":
             t0 = time.monotonic()
-            stream = torch.cuda.Stream(self.device)
+            stream = side_stream(self.device)
             self.warm_up(stream)
             t1 = time.monotonic()
             if capture:
@@ -124,7 +141,7 @@ class CompiledPass:
         self.inputs.push()
         restore = self._trash() if self._trash is not None else None
         if self.device.type == "cuda":
-            stream = stream or torch.cuda.Stream(self.device)
+            stream = stream or side_stream(self.device)
             stream.wait_stream(torch.cuda.current_stream(self.device))
             with torch.cuda.stream(stream):
                 self.fn()

@@ -5,12 +5,18 @@
     PYTHONPATH=src python -m repro_torch.launch.train --arch hubert_xlarge \
         --reduced --device cpu --param-dtype float32
 
-Runs on the card unless ``--device cpu`` asks for the host. The flags are
-the JAX launcher's plus ``--device``; as there, the model trains with
-``remat="none"``. Restart resumes from the newest complete checkpoint under
-``--ckpt-dir`` and replays the deterministic data stream from that step, so
-a resumed run's losses are the uninterrupted run's. Parameters start from
-``init_train_state`` with seed 0.
+Every registered config trains (``--arch``, one of ``ARCH_IDS``): the
+dense, vlm and audio GQA models, MLA in the dense and moe families (with
+the routers' aux loss), the hybrid and the ssm family. Runs on the card
+unless ``--device cpu`` asks for the host. The flags are the JAX
+launcher's plus ``--device``; as there, the model trains with
+``remat="none"``. On the card a config whose train state alone (bf16
+parameters and gradients, fp32 AdamW moments: 12 B a parameter) exceeds
+the card's memory raises ``ValueError`` with that reckoning before
+anything is allocated. Restart resumes from the newest complete checkpoint
+under ``--ckpt-dir`` and replays the deterministic data stream from that
+step, so a resumed run's losses are the uninterrupted run's. Parameters
+start from ``init_train_state`` with seed 0.
 """
 from __future__ import annotations
 
@@ -20,17 +26,41 @@ import time
 import numpy as np
 import torch
 
+from repro_torch import tree
 from repro_torch.checkpoint import ckpt
 from repro_torch.configs import ARCH_IDS, get_config, get_reduced_config
 from repro_torch.data.pipeline import DataConfig, batch_at
 from repro_torch.models import steps
+from repro_torch.models import transformer as tf
 from repro_torch.models.optim import OptConfig
+
+
+def param_count(cfg) -> int:
+    """The config's parameters, counted on the meta device (no memory)."""
+    params = tf.init_model(cfg, torch.Generator(), "meta")
+    return sum(t.numel() for t in tree.leaves(params))
+
+
+def check_fits(cfg, have: int):
+    """Raise ``ValueError`` when the train state alone (parameter and
+    gradient in the parameter dtype, fp32 m and v) exceeds ``have`` bytes
+    (the card's memory); activations come on top."""
+    n = param_count(cfg)
+    width = torch.finfo(getattr(torch, cfg.param_dtype)).bits // 8
+    need = n * (2 * width + 8)
+    if need > have:
+        raise ValueError(
+            f"{cfg.name}: {n / 1e9:.2f}B parameters x {2 * width + 8} B of "
+            f"train state (parameter and gradient at {width} B, fp32 m and "
+            f"v) = {need / 2**30:.1f} GiB, more than the card's "
+            f"{have / 2**30:.1f} GiB before any activation")
 
 
 def main(argv=None):
     """Train and return the loss of every step run."""
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="gemma_2b", choices=ARCH_IDS)
+    ap.add_argument("--arch", default="gemma_2b", choices=ARCH_IDS,
+                    help="any registered config: every family trains")
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--reduced", action="store_true",
                     help="use the smoke-scale config (CPU-friendly)")
@@ -58,6 +88,8 @@ def main(argv=None):
                     total_steps=args.steps)
     dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq,
                     global_batch=args.batch)
+    if device.type == "cuda":
+        check_fits(cfg, torch.cuda.get_device_properties(device).total_memory)
 
     gen = torch.Generator(device=device).manual_seed(0)
     state = steps.init_train_state(cfg, gen, device)

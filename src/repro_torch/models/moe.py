@@ -10,8 +10,11 @@ Two interchangeable implementations, as in the JAX package:
 * ``moe_dispatch_einsum``: the GShard capacity-based dispatch/combine
   einsums, dropping the rows past each expert's capacity as JAX does.
 
-Both keep every shape static and read no value back to the host (no
-``bincount``, ``repeat_interleave`` or boolean-mask indexing), so the
+Both run under autograd (training): the router's top-k weights and its
+aux through the mean probabilities take gradients, the one-hot density
+none, as in JAX; a row dropped past an expert's capacity gets a zero
+gradient. Both keep every shape static and read no value back to the host
+(no ``bincount``, ``repeat_interleave`` or boolean-mask indexing), so the
 SlotEngine's decode pass that runs them captures as a CUDA graph. Each
 row's routed outputs are summed over its ``k`` choices in a fixed order (a
 scatter of distinct rows, then a sum), not with atomics, so two runs agree
@@ -74,12 +77,31 @@ def _router(params, x2d, cfg: ModelConfig):
     return weights, idx, aux
 
 
+class _ContiguousGrad(torch.autograd.Function):
+    """The identity, whose backward hands on its gradient contiguous:
+    ``torch._grouped_mm``'s backward raises "Invalid strides/sizes" on a
+    stride-0 gradient (an ``expand``, as a ``sum``'s backward gives)."""
+
+    @staticmethod
+    def forward(ctx, y):
+        return y.view_as(y)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
+
+
 def ragged_dot(x, w, group_sizes):
     """JAX's ``lax.ragged_dot``: rows ``[o_g, o_g + group_sizes[g])`` of x
     (M, K) times ``w[g]`` (K, N), ``o_g`` the sizes before g; the rows past
-    the last group are left for the caller to mask."""
+    the last group are left for the caller to mask. Under autograd the
+    gradient is ``torch._grouped_mm``'s backward, given a contiguous
+    incoming gradient."""
     ends = torch.cumsum(group_sizes, 0).to(torch.int32)
-    return torch._grouped_mm(x, w, offs=ends)
+    y = torch._grouped_mm(x, w, offs=ends)
+    if torch.is_grad_enabled() and y.requires_grad:
+        y = _ContiguousGrad.apply(y)
+    return y
 
 
 def _capacity(tokens: int, k: int, num_experts: int, num_local: int,

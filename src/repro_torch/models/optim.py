@@ -8,7 +8,10 @@ delta)`` cast back to its dtype. Where the JAX package returns new trees,
 ``adamw_update`` writes the new parameters, ``m`` and ``v`` into the
 tensors it is given (a full-width train state holds two fp32 copies of
 every weight; a second state would double them) and returns the same
-trees.
+trees. The update is elementwise, so it walks each leaf in slices of at
+most ``SLICE_ELEMS`` along its first axis: the same values, with fp32
+temporaries of a slice rather than of a whole stacked leaf (MiniCPM3-4B's
+MLP ``wi`` is 2.0e9 entries, 8 GB a temporary).
 """
 from __future__ import annotations
 
@@ -19,6 +22,8 @@ from typing import Dict
 import torch
 
 from repro_torch import tree
+
+SLICE_ELEMS = 1 << 25
 
 
 @dataclass(frozen=True)
@@ -73,8 +78,12 @@ def adamw_update(params, grads, opt_state, opt: OptConfig):
     c2 = 1 - opt.b2 ** step.float()
 
     # JAX's operations in JAX's order, each rounded where JAX rounds it,
-    # written in place where a temporary would hold a whole fp32 leaf
-    def upd(p, g, m, v):
+    # written in place where a temporary would hold a whole fp32 slice
+    def upd(*leaf):
+        for piece in zip(*(_slices(t) for t in leaf)):
+            upd_slice(*piece)
+
+    def upd_slice(p, g, m, v):
         g = g.float() * scale
         m.mul_(opt.b1).add_((1 - opt.b1) * g)
         v.mul_(opt.b2).add_((1 - opt.b2) * g.square_())
@@ -85,3 +94,13 @@ def adamw_update(params, grads, opt_state, opt: OptConfig):
     tree.map_tree(upd, params, grads, opt_state["m"], opt_state["v"])
     return params, {"m": opt_state["m"], "v": opt_state["v"],
                     "step": step}, gnorm
+
+
+def _slices(t):
+    """Views of ``t`` along its first axis, each of at most SLICE_ELEMS
+    entries (one row where a row is larger; ``t`` itself if it is small or
+    0-d)."""
+    if t.ndim == 0 or t.numel() <= SLICE_ELEMS:
+        return (t,)
+    rows = max(1, SLICE_ELEMS // (t.numel() // t.shape[0]))
+    return torch.split(t, rows)

@@ -42,11 +42,10 @@ def _inputs(batch: Dict, cfg: ModelConfig) -> Dict:
 
 
 def loss_fn(params, batch: Dict, cfg: ModelConfig):
-    """Returns (loss + aux, (loss, aux)); aux is 0 for the families that
-    train here (no MoE load-balancing term)."""
-    logits, _ = tf.forward(params, cfg, mode="train", **_inputs(batch, cfg))
+    """Returns (loss + aux, (loss, aux)): aux is the MoE routers' summed
+    load-balancing loss (fp32; 0 without MoE layers)."""
+    logits, aux = tf.train_forward(params, cfg, **_inputs(batch, cfg))
     loss = cross_entropy(logits, batch["labels"], batch.get("mask"))
-    aux = torch.zeros((), dtype=torch.float32, device=loss.device)
     return loss + aux, (loss, aux)
 
 
@@ -62,7 +61,7 @@ def value_and_grad(params, batch: Dict, cfg: ModelConfig):
         grads = torch.autograd.grad(total, tree.leaves(live),
                                     allow_unused=True, materialize_grads=True)
     flat = dict(zip(tree.flatten(live), grads))
-    return ((total.detach(), (loss.detach(), aux)),
+    return ((total.detach(), (loss.detach(), aux.detach())),
             tree.unflatten(params, flat))
 
 

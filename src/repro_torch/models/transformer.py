@@ -16,12 +16,17 @@ its stacked ``(L, ...)`` layer layout, so ``weights.from_jax_params`` is a
 tree map; ``lax.scan`` over the stack becomes a Python loop over layer
 slices. Forward modes:
 
-  * "train": full-sequence logits ``(b, s, vocab)`` and no caches, for GQA
-    attention in the dense, vlm and audio families (encoder-only configs
-    run it non-causal; it is also HuBERT's serving entry). Under autograd
-    each layer body follows ``cfg.remat``: "full" recomputes it in the
-    backward (``torch.utils.checkpoint``, JAX's ``nothing_saveable``),
-    "none" saves its activations;
+  * "train": full-sequence logits ``(b, s, vocab)`` and no caches, for
+    every family (encoder-only configs run it non-causal; it is also
+    HuBERT's serving entry). ``train_forward`` also returns the routers'
+    load-balancing aux, summed in fp32 over the MoE layers. Under autograd
+    the layer bodies follow ``cfg.remat`` as JAX's ``_remat`` wraps them
+    (each block, Mamba2 body and mLSTM body; the hybrid's shared block and
+    the sLSTM are not wrapped): "full" recomputes a body in the backward
+    (``torch.utils.checkpoint``, JAX's ``nothing_saveable``), "dots" saves
+    the outputs of its matrix products and recomputes the rest (JAX's
+    ``dots_saveable``; the attention kernel is not a product, so its
+    forward is recomputed), "none" saves every activation;
   * "prefill": last-position logits, K/V and recurrent states written into
     the caches;
   * "decode": one-token logits against dense or paged caches, K/V and
@@ -31,11 +36,10 @@ slices. Forward modes:
   * "verify": the speculative draft-and-verify pass over paged caches,
     logits at every feed position.
 
-Training for MLA, MoE and the recurrent families, and ``remat="dots"``,
-arrive with later slices and raise ``NotImplementedError``; so do chunk and
-verify for MLA and the recurrent families, whose caches are not paged (as
-in the JAX package). An encoder-only config has no decode or cache path:
-every mode but "train" and the cache factories raise ``ValueError``.
+Chunk and verify raise ``NotImplementedError`` for MLA and the recurrent
+families, whose caches are not paged (as in the JAX package). An
+encoder-only config has no decode or cache path: every mode but "train"
+and the cache factories raise ``ValueError``.
 """
 from __future__ import annotations
 
@@ -44,6 +48,8 @@ from typing import Dict
 
 import torch
 import torch.utils.checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
@@ -67,21 +73,16 @@ def check_family(cfg: ModelConfig):
             "slices")
 
 
+REMATS = ("none", "full", "dots")
+
+
 def check_train(cfg: ModelConfig):
-    """Raise for a config whose training the port does not run yet: only
-    GQA attention in the dense, vlm and audio families trains, with
-    ``remat`` "full" or "none"."""
+    """Raise for a config the port cannot train: a family it does not
+    serve (``check_family``), or a ``remat`` outside JAX's "none",
+    "full" and "dots" (``ValueError``)."""
     check_family(cfg)
-    if cfg.family not in ("dense", "vlm", "audio") or cfg.attn_type != "gqa":
-        raise NotImplementedError(
-            f"training family={cfg.family!r}, attn_type={cfg.attn_type!r} "
-            f"({cfg.name}): the PyTorch port trains GQA attention in the "
-            "dense, vlm and audio families; MLA, MoE and the hybrid and ssm "
-            "families arrive with later training slices")
-    if cfg.remat not in ("full", "none"):
-        raise NotImplementedError(
-            f"remat={cfg.remat!r} (dots_saveable) arrives with a later "
-            "training slice of the PyTorch port; 'full' and 'none' train")
+    if cfg.remat not in REMATS:
+        raise ValueError(f"remat={cfg.remat!r}: one of {REMATS}")
 
 
 def check_serving(cfg: ModelConfig):
@@ -255,22 +256,72 @@ def _block_fwd(p, x, positions, cfg: ModelConfig, mode: str, cache,
             p["attn"], h, positions, cfg, cache)
     x = x + a
     h = apply_norm(p["ln2"], x, cfg)
+    aux = None
     if "moe" in p:
-        x = x + apply_moe(p["moe"], h, cfg)[0]
+        mo, aux = apply_moe(p["moe"], h, cfg)
+        x = x + mo
     else:
         x = x + apply_mlp(p["mlp"], h, cfg)
-    return x, new_cache
+    return x, new_cache, aux
 
 
-def _train_layer(p, x, positions, cfg: ModelConfig):
-    """One block of mode "train" (no cache), its body recomputed in the
-    backward under ``remat="full"`` when autograd records it."""
-    def body(p, x):
-        return _block_fwd(p, x, positions, cfg, "train", None)[0]
-    if cfg.remat == "full" and torch.is_grad_enabled():
-        return torch.utils.checkpoint.checkpoint(body, p, x,
-                                                 use_reentrant=False)
-    return body(p, x)
+# the products whose outputs remat "dots" saves (JAX's dots_saveable keeps
+# every dot_general's)
+_DOTS = ("mm", "bmm", "addmm", "baddbmm", "_grouped_mm")
+
+
+@functools.lru_cache(maxsize=None)
+def _dot_ops():
+    return frozenset(getattr(torch.ops.aten, n).default for n in _DOTS)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _dot_ops()
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _dots_context():
+    return create_selective_checkpoint_contexts(_dots_policy)
+
+
+def _remat(fn, cfg: ModelConfig):
+    """JAX's ``_remat`` for mode "train": ``fn`` itself under remat "none"
+    or when autograd does not record; else ``fn`` under
+    ``torch.utils.checkpoint``, its body recomputed in the backward
+    ("full"), or all of it but its matrix products' outputs ("dots")."""
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return fn
+    kw = {} if cfg.remat == "full" else {"context_fn": _dots_context}
+    return functools.partial(torch.utils.checkpoint.checkpoint, fn,
+                             use_reentrant=False, **kw)
+
+
+def _train_block(p, x, positions, cfg: ModelConfig):
+    """One attention block of mode "train": (x, its MoE aux or None)."""
+    x, _, aux = _block_fwd(p, x, positions, cfg, "train", None)
+    return x, aux
+
+
+def _train_mamba(p, x, cfg: ModelConfig):
+    return x + m2.mamba2_forward(p, x, cfg)[0]
+
+
+def _train_mlstm(p, x, cfg: ModelConfig):
+    return x + xl.mlstm_forward(p, x, cfg)[0]
+
+
+def _train_blocks(params, x, positions, cfg: ModelConfig):
+    """The attention blocks of mode "train", with no caches, each under
+    ``_remat``. Returns (x, the routers' aux summed in fp32 in layer
+    order, 0 without MoE layers)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    block = _remat(_train_block, cfg)
+    for pkey, _, n in _groups(cfg):
+        for p in unbind_layers(params[pkey], n):
+            x, a = block(p, x, positions, cfg)
+            if a is not None:
+                aux = aux + a
+    return x, aux
 
 
 def _groups(cfg: ModelConfig):
@@ -307,22 +358,34 @@ def _mamba_layer(params, x, i: int, cfg: ModelConfig, mode: str, state):
 def _hybrid(params, x, positions, cfg: ModelConfig, mode: str, caches):
     """Spans of ``shared_attn_every`` Mamba2 layers, each followed by the
     shared attention block over its own cache (application ``g`` reads
-    ``attn[g]``); the leftover Mamba2 layers come last."""
+    ``attn[g]``); the leftover Mamba2 layers come last. In mode "train"
+    (no caches, each scan from zeros) each Mamba2 body is under
+    ``_remat`` and the shared block is not, as in JAX."""
     state = caches["mamba"] if caches is not None else None
     attn_c = caches.get("attn") if caches is not None else None
+    if mode == "train":
+        body = _remat(_train_mamba, cfg)
+        layers = unbind_layers(params["mamba"], cfg.num_layers)
+
+        def mamba(x, i):
+            return body(layers[i], x, cfg)
+    else:
+        def mamba(x, i):
+            return _mamba_layer(params, x, i, cfg, mode, state)
     per = cfg.shared_attn_every
     lengths = []
     idx = 0
     for g in range(_n_apps(cfg)):
         for i in range(idx, idx + per):
-            x = _mamba_layer(params, x, i, cfg, mode, state)
+            x = mamba(x, i)
         ac = None if attn_c is None else layer_slice(attn_c, g)
-        x, nac = _block_fwd(params["shared"], x, positions, cfg, mode, ac)
+        x, nac, _ = _block_fwd(params["shared"], x, positions, cfg, mode,
+                               ac)
         if nac is not None:
             lengths.append(nac["length"])
         idx += per
     for i in range(idx, cfg.num_layers):
-        x = _mamba_layer(params, x, i, cfg, mode, state)
+        x = mamba(x, i)
     if caches is None:
         return x, None
     new = {"mamba": state}
@@ -335,12 +398,24 @@ def _ssm(params, x, cfg: ModelConfig, mode: str, caches):
     """Groups of ``slstm_every - 1`` mLSTM layers, each followed by one
     sLSTM. As in the JAX package, a prefill given caches starts each sLSTM
     from its cache's state (zeros from ``init_cache``), and without caches
-    from zeros with m = -1e30; the mLSTM prefill always starts fresh."""
+    from zeros with m = -1e30; the mLSTM prefill always starts fresh. In
+    mode "train" (no caches) each mLSTM body is under ``_remat`` and the
+    sLSTM is not, as in JAX."""
     n_groups, n_m_per, n_slstm = _ssm_layout(cfg)
     mstate = caches["mlstm"] if caches is not None else None
     sstate = caches.get("slstm") if caches is not None else None
-    for g in range(n_groups):
-        for i in range(g * n_m_per, (g + 1) * n_m_per):
+    if mode == "train":
+        body = _remat(_train_mlstm, cfg)
+        layers = unbind_layers(params["mlstm"], n_groups * n_m_per)
+        slstms = unbind_layers(params["slstm"], n_slstm) if n_slstm else ()
+
+        def mlstm(x, i):
+            return body(layers[i], x, cfg)
+
+        def slstm(x, g):
+            return x + xl.slstm_forward(slstms[g], x, cfg)[0]
+    else:
+        def mlstm(x, i):
             p = layer_slice(params["mlstm"], i)
             if mode == "decode":
                 y, _ = xl.mlstm_decode(p, x, cfg, layer_slice(mstate, i))
@@ -349,14 +424,20 @@ def _ssm(params, x, cfg: ModelConfig, mode: str, caches):
                                          return_state=mstate is not None)
                 if mstate is not None:
                     _put(layer_slice(mstate, i), st)
-            x = x + y
-        if n_slstm:
+            return x + y
+
+        def slstm(x, g):
             ss = None if sstate is None else layer_slice(sstate, g)
             y, new_ss = xl.slstm_forward(layer_slice(params["slstm"], g), x,
                                          cfg, state=ss)
             if ss is not None:
                 _put(ss, new_ss)
-            x = x + y
+            return x + y
+    for g in range(n_groups):
+        for i in range(g * n_m_per, (g + 1) * n_m_per):
+            x = mlstm(x, i)
+        if n_slstm:
+            x = slstm(x, g)
     if caches is None:
         return x, None
     new = {"mlstm": mstate}
@@ -384,7 +465,24 @@ def forward(params, cfg: ModelConfig, *, tokens=None, embeds=None,
     last committed token plus draft tokens, ``q_valid`` (b,) valid per row)
     written through the paged caches; the logits come back un-sliced,
     ``(b, s, vocab)``, since acceptance needs the argmax at every position.
+
+    mode="train" drops the aux that ``train_forward`` returns.
     """
+    return _run(params, cfg, tokens, embeds, mode, caches, q_valid)[:2]
+
+
+def train_forward(params, cfg: ModelConfig, *, tokens=None, embeds=None):
+    """Mode "train" (JAX's ``forward(mode="train")``): (logits ``(b, s,
+    vocab)``, the routers' load-balancing aux, a 0-d fp32 tensor summed
+    over the MoE layers in layer order, 0 for the other families)."""
+    logits, _, aux = _run(params, cfg, tokens, embeds, "train", None, None)
+    return logits, aux
+
+
+def _run(params, cfg: ModelConfig, tokens, embeds, mode: str, caches,
+         q_valid):
+    """``forward``'s body: (logits, new caches, the aux in mode "train",
+    else None)."""
     check_family(cfg)
     if mode == "train":
         check_train(cfg)
@@ -407,14 +505,13 @@ def forward(params, cfg: ModelConfig, *, tokens=None, embeds=None,
     positions = (None if mode in ("decode", "chunk", "verify") else
                  torch.arange(s, dtype=torch.int32, device=x.device)[None, :])
 
-    if mode == "train":
-        for p in unbind_layers(params["layers"], cfg.num_layers):
-            x = _train_layer(p, x, positions, cfg)
-        new_caches = None
-    elif cfg.family == "hybrid":
+    aux = new_caches = None
+    if cfg.family == "hybrid":
         x, new_caches = _hybrid(params, x, positions, cfg, mode, caches)
     elif cfg.family == "ssm":
         x, new_caches = _ssm(params, x, cfg, mode, caches)
+    elif mode == "train":
+        x, aux = _train_blocks(params, x, positions, cfg)
     else:
         new_caches = None if caches is None else {}
         for pkey, ckey, n in _groups(cfg):
@@ -422,8 +519,8 @@ def forward(params, cfg: ModelConfig, *, tokens=None, embeds=None,
             lengths = []
             for i in range(n):
                 cache_i = None if c is None else layer_slice(c, i)
-                x, nc = _block_fwd(layer_slice(params[pkey], i), x,
-                                   positions, cfg, mode, cache_i, q_valid)
+                x, nc, _ = _block_fwd(layer_slice(params[pkey], i), x,
+                                      positions, cfg, mode, cache_i, q_valid)
                 if nc is not None:
                     lengths.append(nc["length"])
             if c is not None:
@@ -451,9 +548,11 @@ def forward(params, cfg: ModelConfig, *, tokens=None, embeds=None,
         logits = x @ params["head"].to(x.dtype)
     logits = logits.to(getattr(torch, cfg.logits_dtype))
     logits = softcap(logits, cfg.logits_softcap)
+    if mode == "train" and aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=logits.device)
     if mode in ("verify", "train"):
-        return logits, new_caches
-    return logits[:, -1, :], new_caches
+        return logits, new_caches, aux
+    return logits[:, -1, :], new_caches, aux
 
 
 # ---------------------------------------------------------------------------

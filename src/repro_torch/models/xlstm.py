@@ -13,6 +13,13 @@ decide a rounding is the JAX package's: ``C * f + i k (x) v``, then ``q C``;
 ``mlstm_decode`` writes its state in place (``C``, ``n``, ``m``), where the
 JAX package returns a new one: the engine's CUDA graph reads the state at
 fixed addresses. Every state leaf is fp32.
+
+Under autograd the chunked mLSTM's denominator floor ``exp(-m)`` has the
+gradient 0 where it overflows to inf (``_exp_floor``): the output there is
+``num / inf = 0`` whatever ``m`` is, and autograd's ``exp`` backward would
+give ``0 x inf = NaN``, which the JAX package's gradient is there (a
+stabiliser below -88.7, which large gate pre-activations give). The
+forward is JAX's bit for bit.
 """
 from __future__ import annotations
 
@@ -54,6 +61,28 @@ def init_mlstm(init: Initializer, cfg: ModelConfig) -> Dict:
     }
 
 
+class _ExpFloor(torch.autograd.Function):
+    """``exp(-m)`` whose gradient is 0 where it overflows to inf (there the
+    only gradient it receives is 0, through the ``maximum`` it floors)."""
+
+    @staticmethod
+    def forward(ctx, m):
+        out = torch.exp(-m)
+        ctx.save_for_backward(out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        out, = ctx.saved_tensors
+        return torch.where(g == 0, 0.0, -g * out)
+
+
+def _exp_floor(m):
+    if torch.is_grad_enabled() and m.requires_grad:
+        return _ExpFloor.apply(m)
+    return torch.exp(-m)
+
+
 def _mlstm_chunked(q, k, v, li, lf, chunk: int):
     """Stabilized chunkwise mLSTM.
 
@@ -93,7 +122,7 @@ def _mlstm_chunked(q, k, v, li, lf, chunk: int):
         sw = (q_c @ k_c.transpose(-1, -2)) * w_intra     # scores * w_intra
         num = sw @ v_c + (q_c @ C_prev) * w_state[..., None]
         den = sw.sum(-1) + (q_c @ n_prev[..., None])[..., 0] * w_state
-        ys.append(num / torch.maximum(den.abs(), torch.exp(-m_t))[..., None])
+        ys.append(num / torch.maximum(den.abs(), _exp_floor(m_t))[..., None])
         # state update
         m_new = torch.maximum(cum_c[..., -1] + m_prev, mS_local[:, i])
         wS_st = torch.exp(wS[:, i] - m_new[..., None])   # (b,h,s)

@@ -948,3 +948,124 @@ def test_train_step_runs_through_both_flash_kernels(cuda, arch, remat):
     assert torch.isfinite(metrics["loss"]) and torch.isfinite(
         metrics["grad_norm"])
     assert not torch.equal(before, state["params"]["layers"]["attn"]["wq"])
+
+
+# the training shapes of MiniCPM3-4B (MLA 96/64 x 40 heads), DeepSeek-V2-
+# Lite (MLA 192/128 x 16) and Zamba2-7B's shared block (32 heads, d 112):
+# (b, s, nh, kvh, dq, dv), causal
+TRAIN_SHAPES = [(4, 1024, 40, 40, 96, 64), (4, 1024, 16, 16, 192, 128),
+                (4, 1024, 32, 32, 112, 112)]
+
+
+@pytest.mark.parametrize("shape", TRAIN_SHAPES)
+def test_flash_function_gradient_at_the_families_training_shapes(cuda,
+                                                                 shape):
+    """ops.flash_attention under autograd at the shapes the MLA and hybrid
+    families train at: the gradients (the backward kernel's, through
+    FlashAttentionFn) within the backward tolerance of the plain version,
+    and two launches torch.equal."""
+    b, s, nh, kvh, dq, dv = shape
+    rng = np.random.default_rng(67)
+    q, k, v, o, lse, do = _bwd_case(rng, cuda, b, s, s, nh, kvh, dq, dv,
+                                    True)
+
+    def grads():
+        leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        ops.flash_attention(*leaves).backward(do)
+        return [x.grad for x in leaves]
+    b0 = tfa.backward_launches
+    first, second = grads(), grads()
+    assert tfa.backward_launches == b0 + 2
+    assert all(torch.equal(x, y) for x, y in zip(first, second))
+    want = ref.flash_attention_bwd(q, k, v, o, lse, do, True)
+    for name, g, w in zip(("dq", "dk", "dv"), first, want):
+        _grad_close(name, g, w)
+
+
+def _fp32_calls(cuda):
+    """Each hand-written bf16 kernel's wrapper called on fp32 inputs of
+    shapes it takes."""
+    f = lambda *shape: torch.zeros(*shape, device=cuda)       # noqa: E731
+    lens = torch.ones(2, dtype=torch.int32, device=cuda)
+    tab = torch.zeros(2, 1, dtype=torch.int32, device=cuda)
+    q, pool = f(2, 8, 4, 32), f(3, 16, 1, 32)
+    lse = torch.zeros(2, 4, 8, device=cuda)
+    return {
+        "flash_attention": lambda: tfa.flash_attention(q, q, q),
+        "flash_attention_lse": lambda: tfa.flash_attention_lse(q, q, q),
+        "flash_attention_bwd": lambda: tfa.flash_attention_bwd(
+            q, q, q, q, lse, q),
+        "paged_decode_attention": lambda: tpa.paged_decode_attention(
+            q[:, :1], pool, pool, tab, lens),
+        "paged_verify_attention": lambda: tpa.paged_verify_attention(
+            q[:, :3], pool, pool, tab, lens),
+        "decode_attention": lambda: tda.decode_attention(
+            q[:, :1], f(2, 8, 1, 32), f(2, 8, 1, 32), lens),
+        "paged_chunk_attention": lambda: tpca.paged_chunk_attention(
+            q, pool, pool, tab, lens),
+    }
+
+
+@pytest.mark.parametrize("kernel", list(_fp32_calls(torch.device("cpu"))))
+def test_kernel_wrappers_refuse_fp32_naming_bf16(cuda, kernel):
+    """The reference's ops fall back to jnp for a dtype its Pallas kernels
+    do not take; the port's wrappers have no fallback: fp32 on the card
+    raises ValueError naming bf16 (the README's port section)."""
+    with pytest.raises(ValueError, match="bf16"):
+        _fp32_calls(cuda)[kernel]()
+
+
+def test_grouped_mm_backward_on_the_card(cuda):
+    """moe.ragged_dot's gradient in bf16 on the card, given an expanded
+    (stride-0) incoming gradient: the per-group products' gradients, an
+    empty group's zero."""
+    from repro_torch.models import moe
+    gen = torch.Generator(device=cuda).manual_seed(68)
+    x = torch.randn(96, 64, generator=gen, device=cuda).to(torch.bfloat16)
+    w = torch.randn(4, 64, 128, generator=gen, device=cuda).to(
+        torch.bfloat16)
+    sizes = torch.tensor([40, 0, 32, 24], device=cuda)
+    xg, wg = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+    moe.ragged_dot(xg, wg, sizes).sum().backward()
+    xr, wr = x.float().requires_grad_(True), w.float().requires_grad_(True)
+    lo = 0
+    for g, n in enumerate(sizes.tolist()):
+        (xr[lo:lo + n] @ wr[g]).sum().backward()
+        lo += n
+    torch.testing.assert_close(xg.grad.float(), xr.grad, **BF16)
+    torch.testing.assert_close(wg.grad.float(), wr.grad, atol=0.5,
+                               rtol=2e-2)
+    assert not wg.grad[1].any()
+
+
+@pytest.mark.parametrize("arch,remat", [("minicpm3_4b", "dots"),
+                                        ("deepseek_v2_lite_16b", "none"),
+                                        ("zamba2_7b", "full"),
+                                        ("xlstm_1_3b", "none")])
+def test_family_train_step_on_the_card(cuda, arch, remat):
+    """A reduced bf16 train step of each newly trained family on the card:
+    finite loss and grad norm, MoE's aux > 0, flash's forward launched
+    once an attention call (twice for a block under remat "full" or
+    "dots"; the hybrid's shared block is not rematerialised) and its
+    backward once."""
+    cfg = get_reduced_config(arch).replace(remat=remat)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    state = steps.init_train_state(cfg, gen, cuda)
+    for leaf in _leaves(state["params"]):
+        leaf.add_((torch.randn(leaf.shape, generator=gen, device=cuda)
+                   * 0.05).to(leaf.dtype))
+    rng = np.random.default_rng(69)
+    batch = {k: torch.tensor(rng.integers(0, cfg.vocab_size, (2, 64)),
+                             dtype=torch.int32, device=cuda)
+             for k in ("tokens", "labels")}
+    attn = {"hybrid": cfg.num_layers // max(1, cfg.shared_attn_every),
+            "ssm": 0}.get(cfg.family, cfg.num_layers)
+    twice = remat != "none" and cfg.family != "hybrid"
+    n0, b0 = tfa.launches, tfa.backward_launches
+    state, metrics = steps.train_step(state, batch, cfg)
+    torch.cuda.synchronize()
+    assert tfa.launches - n0 == attn * (2 if twice else 1)
+    assert tfa.backward_launches - b0 == attn
+    assert torch.isfinite(metrics["loss"]) and torch.isfinite(
+        metrics["grad_norm"])
+    assert (float(metrics["aux_loss"]) > 0) == (cfg.family == "moe")

@@ -247,8 +247,9 @@ def test_paths_of_later_slices_raise(models):
     """Chunked prefill, speculative decoding and dense decode run; MLA
     and the recurrent families (the reduced zamba2_7b and xlstm_1_3b) give
     the SlotEngine; a GQA MoE raises naming the later slices; training
-    runs for GQA (full-sequence logits, no caches) and raises for MLA,
-    naming its later training slice."""
+    runs for GQA (full-sequence logits, no caches), MLA's is admitted
+    (every family trains) and a GQA MoE's raises naming the later
+    slices."""
     _, _, tcfg, tparams = models
     kw = dict(params=tparams, max_batch=1, max_len=64, device="cpu")
     chunked = Engine(tcfg, config=EngineConfig(chunk_size=8), **kw)
@@ -278,8 +279,10 @@ def test_paths_of_later_slices_raise(models):
     tokens = torch.zeros(1, 4, dtype=torch.int32)
     logits, caches = ttf.forward(tparams, tcfg, tokens=tokens, mode="train")
     assert logits.shape == (1, 4, tcfg.vocab_size) and caches is None
-    with pytest.raises(NotImplementedError, match="later training slice"):
-        ttf.forward(tparams, mla, tokens=tokens, mode="train")
+    ttf.check_train(mla)
+    with pytest.raises(NotImplementedError, match="later slices"):
+        ttf.forward(tparams, tcfg.replace(family="moe"), tokens=tokens,
+                    mode="train")
     assert isinstance(make_engine(tcfg, **kw), Engine)
 
 

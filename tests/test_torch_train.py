@@ -9,7 +9,8 @@ same seeded numpy inputs and on weights carried by ``from_jax_params``:
 reduced ``gemma_2b`` and ``hubert_xlarge`` from JAX's state, remat "full"
 == "none", HuBERT's ``prefill_step``, checkpoints byte-identical to JAX's
 and read by either package, the msgpack writer's size classes, a resumed
-``launch.train`` run and the families that do not train yet."""
+``launch.train`` run. The other families' training is held in
+``test_torch_train_families.py``."""
 import dataclasses
 import functools
 import json
@@ -431,22 +432,3 @@ def test_launch_train_resumes_to_the_uninterrupted_losses(tmp_path,
     assert ckpt.latest_step(str(tmp_path)) == 6
     resumed = train.main(args + ck)
     assert len(whole) == 10 and resumed == whole[6:]
-
-
-@pytest.mark.parametrize("arch", ["minicpm3_4b", "deepseek_v2_lite_16b",
-                                  "zamba2_7b", "xlstm_1_3b"])
-def test_other_families_do_not_train_yet(arch):
-    cfg = get_reduced_config(arch).replace(**FP32)
-    tokens = torch.zeros(1, 8, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="later training slice"):
-        ttf.forward({}, cfg, tokens=tokens, mode="train")
-    with pytest.raises(NotImplementedError, match="later training slice"):
-        steps.train_step({"params": {}, "opt": {}},
-                         {"tokens": tokens, "labels": tokens}, cfg)
-
-
-def test_remat_dots_is_for_a_later_slice():
-    _, tcfg = _configs("gemma_2b", remat="dots")
-    with pytest.raises(NotImplementedError, match="dots"):
-        ttf.forward({}, tcfg, tokens=torch.zeros(1, 4, dtype=torch.int32),
-                    mode="train")

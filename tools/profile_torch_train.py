@@ -1,21 +1,24 @@
 #!/usr/bin/env python3
 """Where the time goes in a full-width train step of the port on the card.
 
-    python3 tools/profile_torch_train.py [--arch gemma_2b hubert_xlarge]
+    python3 tools/profile_torch_train.py [--arch gemma_2b minicpm3_4b ...]
                                          [--steps 3]
 
-For each config of ``chip_smoke.py``'s phase ``train`` (gemma_2b and
-hubert_xlarge, remat "none" as ``launch.train`` trains; ``--arch`` picks
-among them), from the phase's seeded perturbed weights at bf16, on batches of 4 x
+For each config of ``chip_smoke.py``'s phase ``train`` (``TRAIN_RUNS``:
+gemma_2b, hubert_xlarge, minicpm3_4b, deepseek_v2_lite_16b, zamba2_7b and
+xlstm_1_3b, each at the phase's depth and remat; ``--arch`` picks among
+them), from the phase's seeded perturbed weights at bf16, on batches of 4 x
 1024 tokens from ``data.pipeline.batch_at``, after two warm-up steps:
 
 1. timed: ``--steps`` steps, each split on the host clock (bracketed by
    ``torch.cuda.synchronize()``) into the forward and backward
    (``steps.value_and_grad``) and the optimizer (``optim.adamw_update``);
-2. profiled: the same number of steps under ``torch.profiler``, device
-   time by kernel name grouped into flash attention's forward, its backward
-   (the D, dK/dV, dQ and partial-sum kernels), matrix products and the
-   rest, and the device's idle share of the wall time.
+2. profiled: the same number of steps under ``torch.profiler`` (device
+   activity only), device time by kernel name grouped into flash
+   attention's forward, its backward (the D, dK/dV, dQ and partial-sum
+   kernels), matrix products and the rest, and the device's idle share of
+   the wall time;
+3. the peak memory allocated over the run.
 
 Prints one JSON line per config with every number and the card's name and
 power limit; needs one CUDA card and the CUDA toolkit (the kernels build at
@@ -74,14 +77,18 @@ def _step(state, batch, cfg, opt, marks=None):
     return loss
 
 
-def profile_arch(arch: str, n: int, b: int, s: int, card: str):
+def profile_arch(arch: str, layers, remat: str, n: int, b: int, s: int,
+                 card: str):
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import get_config
     from repro_torch.models.optim import OptConfig
-    cfg = get_config(arch).replace(remat="none")
+    cfg = get_config(arch)
+    cfg = cfg.replace(num_layers=layers or cfg.num_layers, remat=remat)
+    torch.cuda.reset_peak_memory_stats()
     opt = OptConfig(lr=3e-3, warmup_steps=2, total_steps=100)
-    state = cs._state_fn()(cfg, "cuda")
+    share = cs.TRAIN_SHARE.get(arch, 1.0)
+    state = cs._state_fn(share=share)(cfg, "cuda")
     batches = _batches(cfg, 2 + 2 * n, b, s)
     for batch in batches[:2]:
         _step(state, batch, cfg, opt)
@@ -92,8 +99,7 @@ def profile_arch(arch: str, n: int, b: int, s: int, card: str):
         _step(state, batch, cfg, opt, marks)
         fb.append(marks[1] - marks[0])
         op.append(marks[2] - marks[1])
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for batch in batches[2 + n:]:
             _step(state, batch, cfg, opt)
@@ -113,7 +119,7 @@ def profile_arch(arch: str, n: int, b: int, s: int, card: str):
     flops = cs._train_flops(cfg, b, s)
     step = float(np.median(np.add(fb, op)))
     return {
-        "arch": arch, "layers": cfg.num_layers, "remat": "none",
+        "arch": arch, "layers": cfg.num_layers, "remat": remat,
         "batch": b, "seq": s, "steps": n,
         "step_s": step, "fwd_bwd_s": float(np.median(fb)),
         "optimizer_s": float(np.median(op)), "tokens_per_s": b * s / step,
@@ -125,6 +131,7 @@ def profile_arch(arch: str, n: int, b: int, s: int, card: str):
         "device_s_per_step_by_group": dict(groups),
         "top_kernels": [{"device_s": t, "calls": c, "name": nm}
                         for t, c, nm in top[:12]],
+        "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
         "card": card,
     }
 
@@ -139,10 +146,10 @@ def main(argv=None) -> int:
         print("profile_torch_train: needs a CUDA card", file=sys.stderr)
         return 2
     card = cs.card_line()
-    for arch in cs.TRAIN_ARCHS:
+    for arch, layers, remat in cs.TRAIN_RUNS:
         if arch in args.arch:
-            out = profile_arch(arch, args.steps, cs.TRAIN_BATCH,
-                               cs.TRAIN_SEQ, card)
+            out = profile_arch(arch, layers, remat, args.steps,
+                               cs.TRAIN_BATCH, cs.TRAIN_SEQ, card)
             print(json.dumps(out), flush=True)
             torch.cuda.empty_cache()
     return 0
