@@ -179,11 +179,27 @@ raises on failure:
    step 4 with its newest checkpoint at step 3 and resumed: losses equal
    to the uninterrupted run's); step time, tokens/s, peak memory,
    achieved TFLOP/s of the model's products and their share of the peak;
-16. the ``kernels`` JSON line (flash's row also holds its MLA shapes and
+16. dist (after the training runs are freed): the sharded train step,
+   4 ranks on the one card over gloo (NCCL refuses two ranks on one
+   device), mesh ("data", "model") = DIST_MESH, each rank's exit code
+   checked: gemma_2b (6 of 18 layers: its one kv head's head dim split
+   over "model", the tied vocabulary split, flash forward and backward on
+   4 of 8 heads a rank) and deepseek_v2_lite_16b (3 of 27: MLA on 8 of 16
+   heads a rank, its MoE layers on 32 of 64 experts a rank) at full
+   width, 2 steps of 4 x 1024 tokens through ``steps.train_step(...,
+   rules=, mesh=)`` from seeded perturbed weights; flash launches counted
+   on every rank, every flash call of step 1 held (``layer_checks``,
+   ``backward_checks``), the replicated loss, aux and grad norm equal on
+   every rank, the loss against the same steps in one process on the card
+   within DIST_LOSS_RTOL, every gathered gradient leaf's cosine to the
+   one-process gradient >= DIST_COS (MoE: with the ranks' routing, the
+   free routing's cosine and flipped rows printed); each rank's step time
+   and peak memory, gloo-staged (not the card's collectives);
+17. the ``kernels`` JSON line (flash's row also holds its MLA shapes and
    launches, flash's and dense decode's their zamba2 shape and launches,
    flash's its training launches; the backward's row its other shapes
-   and ptxas report), the card line, and the last line ``{"ok": true,
-   "device": {...}}``.
+   and ptxas report; rows 1 and 7 add phase dist's launches), the card
+   line, and the last line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -332,7 +348,7 @@ def compare(name: str, got, want, of_max: bool = False):
     (the gradient kernel's form, for layer outputs that are sums which
     cancel: MoE, the recurrent decode steps)."""
     torch.cuda.synchronize()
-    got, want = got.float(), want.float()
+    got, want = got.detach().float(), want.detach().float()
     if not torch.isfinite(got).all():
         raise AssertionError(f"{name}: non-finite kernel output")
     err = (got - want).abs()
@@ -1539,11 +1555,12 @@ def layer_checks(gate_steps: bool = True):
             return out
         return run
 
-    def held_moe(p, x, cfg, mesh=None):
-        out, aux = moe_fn(p, x, cfg, mesh)
-        n = worst.get("apply_moe", (0,))[0]
-        note("apply_moe", *compare(f"apply_moe call {n}", out,
-                                   moe.moe_reference(p, x, cfg), True))
+    def held_moe(p, x, cfg, mesh=None, tp=None):
+        out, aux = moe_fn(p, x, cfg, mesh, tp)
+        if tp is None:    # a rank's shards have no one-card reference
+            n = worst.get("apply_moe", (0,))[0]
+            note("apply_moe", *compare(f"apply_moe call {n}", out,
+                                       moe.moe_reference(p, x, cfg), True))
         return out, aux
 
     def held_decode(name):
@@ -3977,6 +3994,333 @@ def phase_train(card: str):
     return row, launches
 
 
+# phase dist: several ranks on the one card over gloo (NCCL refuses two
+# ranks on one device), mesh ("data", "model") = DIST_MESH; full width,
+# depth the only cut (the one-process reference, the 4 ranks' state and
+# their CUDA contexts share the card's 80 GB: gemma_2b's 18 layers and
+# v2-lite's 27 would not fit beside it)
+DIST_MESH = (2, 2)
+DIST_RUNS = (("gemma_2b", 6), ("deepseek_v2_lite_16b", 3))
+DIST_STEPS, DIST_SEED = 2, 7
+# the sharded step's loss against the one-process step's (bf16, the same
+# weights and batch; other reduction orders): relative, per step. Read
+# 7.2e-5 (gemma_2b) and 7.3e-5 (v2-lite) on an H100 80GB HBM3 at 700 W
+DIST_LOSS_RTOL = 5e-4
+# each gradient leaf's cosine to the one-process gradient; for MoE with
+# the one process routed as the ranks routed: bf16 sums in another order
+# move a hidden state by an ulp, which flips the top-k of a token at a
+# near tie (v2-lite's free-routing cosines read 0.992 at 3 layers)
+DIST_COS = 0.999
+# the loss, aux and grad norm every rank reports (all-reduced, so alike up
+# to the order of a rank's own replicated sums): their relative spread
+DIST_SPREAD = 1e-6
+
+
+def _dist_batches(cfg):
+    from repro_torch.data.pipeline import DataConfig, batch_at
+    dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                    global_batch=TRAIN_BATCH)
+    return [{k: torch.as_tensor(v, device="cuda")
+             for k, v in batch_at(dc, i).items()} for i in range(DIST_STEPS)]
+
+
+def _dist_rank(rank, world, out_dir, mesh_shape=DIST_MESH, runs=DIST_RUNS):
+    """One rank of phase dist (and of ``tools/dist_cards.py``): for each
+    of ``runs`` at full width, its shards of seeded perturbed weights
+    (``full_width_params``, the same on every rank), the sharded gradient
+    of step 1 gathered to rank 0, then DIST_STEPS sharded train steps with
+    the launch counters reset just before and read just after, every
+    flash forward and backward call of step 1 held against its plain
+    version (``layer_checks``, ``backward_checks``); then rank 0 alone
+    runs the same steps in one process from the same weights and batches
+    and compares. Writes ``rank{r}.json`` to ``out_dir``."""
+    import gc
+    import torch.distributed as dist
+    from repro_torch import tree, weights
+    from repro_torch import distributed as D
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import compat_make_mesh
+    from repro_torch.models import sharding, steps
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.optim import OptConfig, init_opt_state
+    mesh = compat_make_mesh(mesh_shape, ("data", "model"))
+    rules = sharding.ShardingRules(mesh)
+    opt = OptConfig()
+    out = {"backend": dist.get_backend(), "device": torch.cuda.current_device()}
+    for arch, layers in runs:
+        cfg = get_config(arch).replace(num_layers=layers, remat="none")
+        full = full_width_params(cfg, DIST_SEED)
+        specs = sharding.tree_specs(rules, full, tf.param_axes(cfg))
+        params = weights.shard_params(full, specs, mesh)
+        del full
+        gc.collect()
+        torch.cuda.empty_cache()
+        batches = _dist_batches(cfg)
+        # step 1's sharded gradient, gathered leaf by leaf to rank 0's
+        # host, and each MoE layer's routing of the whole batch
+        with _routes_recorded() as routes:
+            _, grads = steps.value_and_grad(params, batches[0], cfg, rules,
+                                            mesh)
+        routes = [weights.gather_params(i, (("pod", "data"), None),
+                                        mesh).cpu() for i in routes]
+        flat_specs = tree.flatten(specs)
+        gathered = {}
+        for path, g in tree.flatten(grads).items():
+            whole = weights.gather_params(g, flat_specs[path], mesh)
+            if rank == 0:
+                gathered[path] = whole.cpu()
+            del whole
+        del grads
+        state = {"params": params, "opt": init_opt_state(params)}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        mets, secs = [], []
+
+        def step(batch):
+            nonlocal state
+            t0 = time.perf_counter()
+            state, met = steps.train_step(state, batch, cfg, opt,
+                                          rules=rules, mesh=mesh)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            mets.append({k: float(v) for k, v in met.items()})
+        with layer_checks() as held, backward_checks() as (_, worst):
+            step(batches[0])
+        for batch in batches[1:]:
+            step(batch)
+        counts = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        # the replicated metrics: their spread over every rank
+        m = torch.tensor([[x[k] for k in ("loss", "aux_loss", "grad_norm")]
+                          for x in mets], device="cuda")
+        hi, lo = m.clone(), -m
+        dist.all_reduce(hi, dist.ReduceOp.MAX)
+        dist.all_reduce(lo, dist.ReduceOp.MAX)
+        r = {"mets": mets, "secs": secs, "peak_gib": peak,
+             "fwd": counts["flash_attention"],
+             "bwd": counts["flash_attention_bwd"],
+             "fwd_held": held.get("flash_attention", (0, 0.0, 0.0)),
+             "bwd_held": list(worst),
+             "spread": float(((hi + lo) / hi.abs().clamp(min=1e-30)).max()),
+             "staged": D.staged_calls}
+        del state, params, batches
+        gc.collect()
+        torch.cuda.empty_cache()
+        dist.barrier()
+        if rank == 0:
+            r.update(_dist_one_process(cfg, opt, gathered, routes))
+        del gathered
+        dist.barrier()
+        out[arch] = r
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+@contextlib.contextmanager
+def _routes_recorded():
+    """Each MoE layer's expert choices (``moe._route``'s idx) while open,
+    in call order."""
+    from repro_torch.models import moe
+    saved, got = moe._route, []
+
+    def route(logits, cfg, data=None):
+        out = saved(logits, cfg, data)
+        got.append(out[1].detach().clone())
+        return out
+    moe._route = route
+    try:
+        yield got
+    finally:
+        moe._route = saved
+
+
+@contextlib.contextmanager
+def _routed_as(routes):
+    """While open, the single-card router takes the experts of ``routes``
+    (one (tokens, k) idx a call, in order) and computes its weights and
+    aux from its own probabilities at them, as ``moe._route`` does."""
+    from repro_torch.models import moe
+    saved, calls = moe._router, iter(routes)
+
+    def router(params, x2d, cfg):
+        m = cfg.moe
+        probs = torch.softmax(x2d.float() @ params["router"].float(), -1)
+        idx = next(calls).to(x2d.device)
+        w = torch.gather(probs, 1, idx)
+        w = w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9)
+        density = moe._one_hot(idx, m.num_experts).mean(dim=(0, 1))
+        aux = (m.num_experts * torch.sum(density * probs.mean(0))
+               * m.aux_loss_coef)
+        return w, idx, aux
+    moe._router = router
+    try:
+        yield
+    finally:
+        moe._router = saved
+
+
+def _dist_one_process(cfg, opt, gathered, routes):
+    """The same weights, batches and steps in this one process, no mesh:
+    the gradient of step 1 (each leaf's cosine to the sharded one,
+    ``gathered``; for MoE also with the ranks' routing, ``routes``, and
+    the tokens whose expert choices differ from the ranks'), the losses,
+    step seconds and peak memory."""
+    import gc
+    from repro_torch import tree
+    from repro_torch.models import steps
+    from repro_torch.models.optim import init_opt_state
+    params = full_width_params(cfg, DIST_SEED)
+    batches = _dist_batches(cfg)
+
+    def cosines(grads):
+        out = {}
+        for path, g in tree.flatten(grads).items():
+            a = g.float().flatten()
+            b = gathered[path].to(g.device).float().flatten()
+            den = float(a.norm() * b.norm())
+            out[path] = float(a @ b) / den if den else float(torch.equal(a, b))
+        return out
+    with _routes_recorded() as free:
+        _, grads = steps.value_and_grad(params, batches[0], cfg)
+    cos = cosines(grads)
+    del grads
+    out = {"cos": cos, "cos_routed": cos, "flipped": 0}
+    if routes:
+        with _routed_as(routes):
+            _, grads = steps.value_and_grad(params, batches[0], cfg)
+        out["cos_routed"] = cosines(grads)
+        del grads
+        out["flipped"] = sum(
+            int((a.sort(-1).values != b.to(a.device).sort(-1).values)
+                .any(-1).sum()) for a, b in zip(free, routes))
+        out["routed_rows"] = sum(int(a.shape[0]) for a in free)
+    gc.collect()
+    torch.cuda.empty_cache()
+    state = {"params": params, "opt": init_opt_state(params)}
+    torch.cuda.reset_peak_memory_stats()
+    mets, secs = [], []
+    for batch in batches:
+        t0 = time.perf_counter()
+        state, met = steps.train_step(state, batch, cfg, opt)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        mets.append({k: float(v) for k, v in met.items()})
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    del state, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {**out, "one_mets": mets, "one_secs": secs, "one_peak_gib": peak}
+
+
+def dist_report(tag, card, mesh_shape, ranks, transport):
+    """Gate and print one run of ``_dist_rank`` (``ranks``: each rank's
+    JSON): every flash forward and backward launch count equal to
+    attention layers x steps on every rank, every held call within its
+    tolerance (raised in the rank), the replicated loss, aux and grad norm
+    equal on every rank, each step's loss within DIST_LOSS_RTOL of the
+    one-process step's, every gathered gradient leaf's cosine to the
+    one-process gradient >= DIST_COS. Returns the flash forward and
+    backward launches summed over the ranks."""
+    from repro_torch.configs import get_config
+    fwd = bwd = 0
+    for arch, layers in DIST_RUNS:
+        want = layers * DIST_STEPS
+        per = [r[arch] for r in ranks]
+        for i, r in enumerate(per):
+            if (r["fwd"], r["bwd"]) != (want, want) or \
+                    r["fwd_held"][0] != layers or r["bwd_held"][0] != layers:
+                raise AssertionError(
+                    f"{tag} {arch} rank {i}: flash {r['fwd']}/{r['bwd']} "
+                    f"launches, {r['fwd_held'][0]}/{r['bwd_held'][0]} held; "
+                    f"want {want}/{want}, {layers}/{layers}")
+            if r["spread"] > DIST_SPREAD:
+                raise AssertionError(f"{tag} {arch}: the replicated metrics "
+                                     f"differ across ranks by "
+                                     f"{r['spread']} of their size")
+        fwd += sum(r["fwd"] for r in per)
+        bwd += sum(r["bwd"] for r in per)
+        r0 = per[0]
+        rel = [abs(a["loss"] - b["loss"]) / abs(b["loss"])
+               for a, b in zip(r0["mets"], r0["one_mets"])]
+        low = sorted(r0["cos_routed"].items(), key=lambda kv: kv[1])[:2]
+        free = sorted(r0["cos"].items(), key=lambda kv: kv[1])[:1]
+        if max(rel) > DIST_LOSS_RTOL or low[0][1] < DIST_COS or not all(
+                np.isfinite(x[k]) for x in r0["mets"] for k in x):
+            raise AssertionError(
+                f"{tag} {arch}: loss rel diff {rel}, least gradient cosine "
+                f"{low} (free routing {free})")
+        log(f"[{tag}] {arch} ({layers} of {get_config(arch).num_layers} "
+            f"layers, "
+            f"full width, bf16, mesh (data, model) = {mesh_shape}, "
+            f"{transport}): losses "
+            + " ".join(f"{x['loss']:.5f}" for x in r0["mets"])
+            + " vs one process " + " ".join(f"{x['loss']:.5f}"
+                                            for x in r0["one_mets"])
+            + f" (rel diff {max(rel):.3g}); aux "
+            + " ".join(f"{x['aux_loss']:.6g}" for x in r0["mets"])
+            + " (mean of the data shards') vs one process "
+            + " ".join(f"{x['aux_loss']:.6g}" for x in r0["one_mets"])
+            + "; grad norm " + " ".join(f"{x['grad_norm']:.5f}"
+                                        for x in r0["mets"])
+            + " vs " + " ".join(f"{x['grad_norm']:.5f}"
+                                for x in r0["one_mets"])
+            + f"; least gradient cosine {low[0][1]:.6f} ({low[0][0]}) over "
+            f"{len(r0['cos'])} leaves"
+            + (f" with the ranks' routing (free routing: {free[0][1]:.6f} "
+               f"({free[0][0]}), {r0['flipped']} of {r0['routed_rows']} "
+               f"routed rows chose other experts)"
+               if r0["flipped"] or "routed_rows" in r0 else "")
+            + f"; flash {want}/{want} launches a rank, "
+            f"step 1's {layers} forward and {layers} backward calls held "
+            f"on every rank (worst abs err "
+            f"{max(r['fwd_held'][1] for r in per):.3g} / "
+            f"{max(r['bwd_held'][1] for r in per):.3g}); step s a rank "
+            + "; ".join(" ".join(f"{t:.3f}" for t in r["secs"]) for r in per)
+            + f" vs one process " + " ".join(f"{t:.3f}"
+                                              for t in r0["one_secs"])
+            + "; peak GiB a rank "
+            + " ".join(f"{r['peak_gib']:.2f}" for r in per)
+            + f" vs one process {r0['one_peak_gib']:.2f}; collectives "
+            f"staged through host memory {r0['staged']}; {card}")
+    return fwd, bwd
+
+
+def phase_dist(card: str):
+    """Distribution on the one card: ``_dist_rank`` in 4 processes (mesh
+    ("data", "model") = DIST_MESH over gloo, several ranks a card), for
+    gemma_2b (MQA: its one kv head's head dim split over "model" and
+    gathered before rope, the tied vocabulary split over "model", flash
+    forward and backward on 4 of 8 heads a rank) and
+    deepseek_v2_lite_16b (MLA on 8 of 16 heads a rank, its MoE layers on
+    32 of 64 experts a rank); DIST_STEPS steps of TRAIN_BATCH x TRAIN_SEQ
+    tokens through ``steps.train_step(..., rules=, mesh=)``; each rank's
+    exit code checked (``mesh.spawn``), then ``dist_report``'s gates. The
+    ranks' times and memory are gloo's, which stages CUDA tensors through
+    host memory: not the card's collective speed. Returns the flash
+    forward and backward launches of the ranks' steps."""
+    import gc
+    import shutil
+    from repro_torch.launch import mesh
+    t0 = time.monotonic()
+    gc.collect()
+    torch.cuda.empty_cache()
+    out_dir = ROOT / "build" / "dist"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    world = int(np.prod(DIST_MESH))
+    mesh.spawn(_dist_rank, world, (str(out_dir),))
+    ranks = [json.loads((out_dir / f"rank{r}.json").read_text())
+             for r in range(world)]
+    fwd, bwd = dist_report("dist", card, DIST_MESH, ranks,
+                           f"{world} ranks on one card over gloo "
+                           f"({ranks[0]['backend']}): times and memory "
+                           f"gloo-staged, not the card's collectives")
+    log(f"[dist] phase seconds {time.monotonic() - t0:.1f}; {card}")
+    return fwd, bwd
+
+
 def kernels_line(rows, launches):
     out = []
     for name in KERNELS:
@@ -4060,6 +4404,11 @@ def main() -> int:
     rows["flash_attention"]["train_launches"] = {
         arch: n["flash_attention"] for arch, n in train_launches.items()}
     lap("train")
+    # the distributed steps' flash launches, summed over the ranks
+    fwd, bwd = phase_dist(line)
+    launches["flash_attention"] += fwd
+    launches["flash_attention_bwd"] += bwd
+    lap("dist")
     log(f"[done] all phases in {time.monotonic() - t0:.1f}s")
     log(json.dumps(kernels_line(rows, launches)))
     log(line)

@@ -1,0 +1,414 @@
+"""The sharded train step's collectives and layout (the port's counterpart
+of what XLA's SPMD partitioner and ``shard_map`` do for the JAX package).
+
+A rank holds its shards of every leaf (``weights.shard_params``) and its
+rows of the batch. Activations are replicated over the "model" axis and
+split over the data axes ("pod", "data"). The schedule is Megatron's:
+
+* **copy-in** (``copy_in``): the identity forward, an all-reduce of the
+  gradient backward. It goes in front of a product whose weight is
+  sharded on its output dim (each rank's gradient of the input is a
+  partial sum);
+* **reduce-out** (``reduce_out``): an all-reduce forward, the identity
+  backward. It goes after a product whose weight is sharded on its input
+  dim, and sums a vocabulary- or expert-parallel result;
+* **gather-along** (``gather``): a dim a rank holds a slice of, made whole
+  by writing the slice into a zero buffer at the rank's offset and
+  all-reducing it; backward, the gradient is all-reduced (the consumers
+  are each rank's own heads or experts) and the rank keeps its slice;
+* an all-reduce over the data axes for the gradients and the loss sums.
+
+Every collective is an ``all_reduce`` (sum or max; bf16 sums over more
+than two ranks taken in fp32), the one operation
+gloo carries for CUDA tensors as well as CPU ones (several ranks on one
+card run over gloo: NCCL refuses two ranks on one device). Where gloo
+refuses a CUDA tensor's all-reduce (a dtype it lacks), ``all_reduce``
+stages it through host memory explicitly, counts the call in
+``staged_calls`` and prints the first of each kind.
+
+``Plan`` resolves the layout of one config's param tree under
+``ShardingRules`` (each leaf's spec, the dim that "model" shards) and
+refuses what this schedule does not run: FSDP (weights over the data
+axes), ``seq_sharded``, and the hybrid, ssm and audio families.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional, Tuple
+
+import torch
+
+staged_calls = 0
+_staged_kinds: set = set()
+_refused: set = set()
+
+
+class Axis:
+    """One mesh-axis group as this rank sees it: its process group (None
+    when the group has one rank), its size and this rank's index in it
+    (the row-major coordinate over the group's axes, in their order, which
+    is the order JAX lays shards out)."""
+
+    def __init__(self, group, size: int, index: int,
+                 names: Tuple[str, ...]):
+        self.group, self.size, self.index, self.names = (group, size, index,
+                                                         names)
+
+    def __repr__(self):
+        return f"Axis({self.names}, size={self.size}, index={self.index})"
+
+
+ONE = Axis(None, 1, 0, ())
+_AXES: Dict = {}
+
+
+def axis(mesh, axes) -> Optional[Axis]:
+    """The group of ``axes`` (those the mesh has) containing this rank
+    (None for a rank outside the mesh). Every rank of the process group
+    creates every group of the partition, in one order, so each rank must
+    call this for the same meshes and axes in the same order (the sharded
+    step does: it is one program on every rank)."""
+    import torch.distributed as dist
+    from repro_torch.models.sharding import axis_names
+    names = axis_names(mesh)
+    axes = tuple(a for a in axes if a in names)
+    if not axes:
+        return ONE
+    key = (id(mesh), axes)
+    if key in _AXES:
+        return _AXES[key][1]
+    grid = mesh.mesh
+    size = math.prod(grid.shape[names.index(a)] for a in axes)
+    perm = ([i for i, a in enumerate(names) if a not in axes]
+            + [names.index(a) for a in axes])
+    me = dist.get_rank()
+    mine = None
+    for row in grid.permute(perm).reshape(-1, size).tolist():
+        group = dist.new_group(row) if size > 1 else None
+        if me in row:
+            mine = Axis(group, size, row.index(me), axes)
+    _AXES[key] = (mesh, mine)          # the mesh kept alive: ids stay unique
+    return mine
+
+
+def all_reduce(t: torch.Tensor, ax: Axis, op: str = "sum") -> torch.Tensor:
+    """In place over ``ax``: the sum (or max) of every rank's ``t``. A
+    bf16 or fp16 sum over more than two ranks is taken in fp32 and rounded
+    once, as one product's fp32 accumulator rounds a result that no rank
+    splits (over two ranks the backend's one add rounds once already)."""
+    global staged_calls
+    if ax.size == 1:
+        return t
+    if op == "sum" and t.dtype in (torch.bfloat16, torch.float16) \
+            and ax.size > 2:
+        return t.copy_(all_reduce(t.float(), ax, op))
+    import torch.distributed as dist
+    red = dist.ReduceOp.SUM if op == "sum" else dist.ReduceOp.MAX
+    kind = (t.dtype, op)
+    if t.is_cuda and kind in _refused:
+        host = t.cpu()
+        dist.all_reduce(host, red, group=ax.group)
+        t.copy_(host)
+        staged_calls += 1
+        return t
+    try:
+        dist.all_reduce(t, red, group=ax.group)
+    except RuntimeError as e:
+        if not t.is_cuda:
+            raise
+        _refused.add(kind)
+        if kind not in _staged_kinds:
+            _staged_kinds.add(kind)
+            print(f"[dist] all_reduce({op}) of a CUDA {t.dtype} tensor "
+                  f"refused by the backend ({str(e).splitlines()[0]}): "
+                  "staged through host memory from here on", flush=True)
+        return all_reduce(t, ax, op)
+    return t
+
+
+class _CopyIn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ax):
+        ctx.ax = ax
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g.clone(memory_format=torch.contiguous_format),
+                          ctx.ax), None
+
+
+class _ReduceOut(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ax):
+        return all_reduce(x.clone(memory_format=torch.contiguous_format), ax)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, ax, reduce_grad):
+        ctx.dim, ctx.ax, ctx.reduce_grad, ctx.n = dim, ax, reduce_grad, \
+            x.shape[dim]
+        shape = list(x.shape)
+        shape[dim] *= ax.size
+        full = x.new_zeros(shape)
+        full.narrow(dim, ax.index * x.shape[dim], x.shape[dim]).copy_(x)
+        return all_reduce(full, ax)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone(memory_format=torch.contiguous_format)
+        if ctx.reduce_grad:
+            all_reduce(g, ctx.ax)
+        return (g.narrow(ctx.dim, ctx.ax.index * ctx.n, ctx.n).contiguous(),
+                None, None, None)
+
+
+class _GradScale(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, s):
+        ctx.s = s
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.s, None
+
+
+def copy_in(x, ax: Axis):
+    return x if ax.size == 1 else _CopyIn.apply(x, ax)
+
+
+def reduce_out(x, ax: Axis):
+    return x if ax.size == 1 else _ReduceOut.apply(x, ax)
+
+
+def gather(x, dim: int, ax: Axis, reduce_grad: bool = True):
+    """Gather-along ``dim`` (see the module docstring). With
+    ``reduce_grad=False`` the backward only keeps the rank's slice, for a
+    whole tensor whose consumers every rank computes alike."""
+    if ax.size == 1:
+        return x
+    return _Gather.apply(x, dim % x.ndim, ax, reduce_grad)
+
+
+def grad_scale(x, s: float):
+    """The identity whose gradient is scaled by ``s``."""
+    return x if s == 1 else _GradScale.apply(x, s)
+
+
+def local_slice(t: torch.Tensor, dim: int, ax: Axis) -> torch.Tensor:
+    """This rank's block of ``t`` along ``dim`` over ``ax``."""
+    n = t.shape[dim] // ax.size
+    return t.narrow(dim, ax.index * n, n)
+
+
+# ---------------------------------------------------------------------------
+# layout
+# ---------------------------------------------------------------------------
+
+class Layout:
+    """The model-axis layout of one block (or one module) of the tree:
+    ``dim(name)`` is the dim of the per-layer leaf ``name`` (its "scan"
+    dim dropped) that "model" shards, or None; ``model`` and ``data`` are
+    this rank's axis groups."""
+
+    def __init__(self, dims: Dict[str, Optional[int]], specs: Dict,
+                 model: Axis, data: Axis, prefix: str = ""):
+        self.dims, self.specs, self.model, self.data = dims, specs, model, data
+        self.prefix = prefix
+
+    def _key(self, name: str) -> str:
+        return f"{self.prefix}.{name}" if self.prefix else name
+
+    def dim(self, name: str) -> Optional[int]:
+        return self.dims[self._key(name)]
+
+    def spec(self, name: str):
+        return self.specs[self._key(name)]
+
+    def sub(self, prefix: str) -> "Layout":
+        return Layout(self.dims, self.specs, self.model, self.data,
+                      self._key(prefix))
+
+    def copy_in(self, x):
+        return copy_in(x, self.model)
+
+    def reduce_out(self, x):
+        return reduce_out(x, self.model)
+
+    def gather(self, x, dim: int, reduce_grad: bool = True):
+        return gather(x, dim, self.model, reduce_grad)
+
+    def refuse(self, name: str, why: str):
+        raise NotImplementedError(
+            f"{self._key(name)}: spec {tuple(self.spec(name))} ({why}) is "
+            f"not run by the sharded schedule; it {_LATER}")
+
+
+_LATER = ("comes with a later slice of the PyTorch port's distribution "
+          "(ROADMAP Queue A, distribution)")
+
+
+def _model_dims(specs: Dict, axes: Dict[str, tuple]):
+    """path -> the per-layer dim "model" shards (or None); raises for a
+    spec that puts a data axis on a weight (FSDP)."""
+    dims = {}
+    for path, spec in specs.items():
+        stacked = axes[path][:1] == ("scan",)
+        found = None
+        for i, e in enumerate(spec):
+            if e is None:
+                continue
+            if e != "model":
+                raise NotImplementedError(
+                    f"{path}: spec {tuple(spec)} shards a weight over the "
+                    f"data axes (fsdp=True); FSDP execution {_LATER}")
+            found = i - 1 if stacked else i
+        dims[path] = found
+    return dims
+
+
+def check_rules(cfg, rules):
+    """Raise ``NotImplementedError`` for what the sharded schedule does not
+    run: FSDP (``fsdp=True``), ``seq_sharded``, the hybrid, ssm and audio
+    families under a mesh, and the MoE dispatch einsum with sharded
+    experts. Each names a leaf (or activation), its spec and the later
+    slice."""
+    from repro_torch.models import transformer as tf
+    axes = tf.param_axes(cfg)
+    shapes = tf.param_shapes(cfg)
+    if rules.fsdp:
+        path = "embed"
+        raise NotImplementedError(
+            f"{path}: spec {tuple(rules.spec(shapes[path], axes[path]))} "
+            f"under fsdp=True shards weights over the data axes; FSDP "
+            f"execution {_LATER}")
+    if rules.seq_sharded:
+        spec = rules.spec((1, 1, 1), ("batch", "seq", "embed"))
+        raise NotImplementedError(
+            f"activations ('batch', 'seq', 'embed'): spec {tuple(spec)} "
+            f"under seq_sharded=True shards the sequence; sequence-sharded "
+            f"execution {_LATER}")
+    if cfg.family in ("hybrid", "ssm", "audio"):
+        path = next(p for p in axes if p not in ("embed", "head",
+                                                 "frontend_proj")
+                    and not p.startswith("final_norm"))
+        raise NotImplementedError(
+            f"family={cfg.family!r} under a mesh: {path} spec "
+            f"{tuple(rules.spec(shapes[path], axes[path]))}; the "
+            f"{cfg.family} family's sharded step {_LATER}")
+    if cfg.family == "moe" and cfg.moe.impl == "dispatch_einsum":
+        path = "layers.moe.wi"
+        spec = rules.spec(shapes[path], axes[path])
+        if any(e is not None for e in spec):
+            raise NotImplementedError(
+                f"{path}: spec {tuple(spec)} with moe.impl "
+                f"'dispatch_einsum' (the port's expert parallelism is the "
+                f"ragged path's); {_LATER}")
+
+
+class Plan:
+    """One config's sharded train step on this rank: each leaf's spec
+    (``specs``, by JAX's dotted path) and model-sharded dim, and the
+    rank's "model" and data-axes groups."""
+
+    def __init__(self, cfg, rules, mesh):
+        from repro_torch.models import transformer as tf
+        check_rules(cfg, rules)
+        axes = tf.param_axes(cfg)
+        shapes = tf.param_shapes(cfg)
+        self.specs = {p: rules.spec(shapes[p], axes[p]) for p in axes}
+        self.dims = _model_dims(self.specs, axes)
+        if cfg.family == "moe":
+            _check_ep(cfg, rules, self.dims, self.specs, "layers.moe.")
+        self.model = axis(mesh, ("model",))
+        self.data = axis(mesh, ("pod", "data"))
+        self.cfg = cfg
+
+    def block(self, pkey: str) -> Layout:
+        return Layout(self.dims, self.specs, self.model, self.data, pkey)
+
+    def rows(self, t):
+        """This rank's rows of a global batch tensor (JAX's batch sharding
+        over ("pod", "data"))."""
+        return None if t is None else local_slice(t, 0, self.data)
+
+    def global_norm(self, grads) -> torch.Tensor:
+        """sqrt of the fp32 sum of squares of every leaf of the whole
+        tree: a model-sharded leaf's square sum is summed over the model
+        axis, a replicated leaf counted once."""
+        from repro_torch import tree
+        sharded, repl = [], []
+        for path, g in tree.flatten(grads).items():
+            sq = torch.sum(torch.square(g.float()))
+            (sharded if self.dims[path.replace("/", ".")] is not None
+             else repl).append(sq)
+        dev = tree.leaves(grads)[0].device
+        total = torch.zeros((), dtype=torch.float32, device=dev)
+        if sharded:
+            total = all_reduce(sum(sharded).reshape(()).clone(), self.model)
+        if repl:
+            total = total + sum(repl)
+        return torch.sqrt(total)
+
+
+_PLANS: Dict = {}
+
+
+def plan(cfg, rules, mesh) -> Optional[Plan]:
+    """The ``Plan`` of ``cfg`` under ``rules``/``mesh`` (cached), or None
+    without a mesh."""
+    if mesh is None and rules is None:
+        return None
+    if rules is None:
+        from repro_torch.models.sharding import ShardingRules
+        rules = ShardingRules(mesh)
+    key = (cfg, id(rules), id(mesh if mesh is not None else rules.mesh))
+    if key not in _PLANS:
+        _PLANS[key] = (rules, mesh, Plan(cfg, rules, mesh if mesh is not None
+                                         else rules.mesh))
+    return _PLANS[key][2]
+
+
+def moe_layout(cfg, mesh, rules=None) -> Layout:
+    """The layout of one MoE module's leaves (``moe.init_moe``'s tree,
+    paths "router", "wi", "shared.wi", ...) under ``rules`` (JAX's
+    defaults on ``mesh`` when None), for ``apply_moe`` called alone."""
+    from repro_torch.models.layers import Initializer
+    from repro_torch.models.moe import init_moe
+    from repro_torch.models.sharding import ShardingRules
+    rules = rules or ShardingRules(mesh)
+    init = Initializer(cfg, None, "meta", record=True)
+    tree = init_moe(init, cfg)
+    specs, axes = {}, {}
+
+    def walk(t, prefix):
+        if isinstance(t, dict):
+            for k, v in t.items():
+                walk(v, f"{prefix}.{k}" if prefix else k)
+        else:
+            axes[prefix] = init.axes[id(t)]
+            specs[prefix] = rules.spec(tuple(t.shape), axes[prefix])
+    walk(tree, "")
+    dims = _model_dims(specs, axes)
+    _check_ep(cfg, rules, dims, specs, "")
+    return Layout(dims, specs, axis(mesh, ("model",)),
+                  axis(mesh, ("pod", "data")))
+
+
+def _check_ep(cfg, rules, dims, specs, prefix):
+    """Raise where "model" (> 1) does not split the MoE experts: the rules
+    then lay ``wi``/``wo`` out on their ff dim, which the expert-parallel
+    schedule does not run."""
+    m = rules.axis_sizes.get("model", 1)
+    path = f"{prefix}wi"
+    if m > 1 and (cfg.moe.num_experts % m or dims[path] != 0):
+        raise NotImplementedError(
+            f"{path}: spec {tuple(specs[path])}: {cfg.moe.num_experts} "
+            f"experts on a 'model' axis of {m}; expert parallelism runs "
+            f"with the experts split over 'model', and this layout {_LATER}")

@@ -26,6 +26,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import local_slice
 from repro_torch.kernels import ops
 from repro_torch.models.layers import (Initializer, apply_norm, apply_rope,
                                        init_norm, proj_in)
@@ -39,25 +40,35 @@ def init_attention(init: Initializer, cfg: ModelConfig) -> Dict:
         m = cfg.mla
         p: Dict = {}
         if m.q_lora_rank:
-            p["wdq"] = init.w((d, m.q_lora_rank))
+            p["wdq"] = init.w((d, m.q_lora_rank), ("w_embed", "q_lora"))
             p["q_norm"] = init_norm(init, cfg, m.q_lora_rank)
         q_in = m.q_lora_rank or d
         p["wuq"] = init.w((q_in, cfg.num_heads,
-                           m.qk_nope_head_dim + m.qk_rope_head_dim))
-        p["wdkv"] = init.w((d, m.kv_lora_rank))
-        p["wkr"] = init.w((d, m.qk_rope_head_dim))
+                           m.qk_nope_head_dim + m.qk_rope_head_dim),
+                          ("q_lora" if m.q_lora_rank else "w_embed", "heads",
+                           "head_dim"))
+        p["wdkv"] = init.w((d, m.kv_lora_rank), ("w_embed", "kv_lora"))
+        p["wkr"] = init.w((d, m.qk_rope_head_dim), ("w_embed", "head_dim"))
         p["kv_norm"] = init_norm(init, cfg, m.kv_lora_rank)
-        p["wuk"] = init.w((m.kv_lora_rank, cfg.num_heads, m.qk_nope_head_dim))
-        p["wuv"] = init.w((m.kv_lora_rank, cfg.num_heads, m.v_head_dim))
-        p["wo"] = init.z((cfg.num_heads, m.v_head_dim, d))
+        p["wuk"] = init.w((m.kv_lora_rank, cfg.num_heads, m.qk_nope_head_dim),
+                          ("kv_lora", "heads", "head_dim"))
+        p["wuv"] = init.w((m.kv_lora_rank, cfg.num_heads, m.v_head_dim),
+                          ("kv_lora", "heads", "head_dim"))
+        p["wo"] = init.z((cfg.num_heads, m.v_head_dim, d),
+                         ("heads", "head_dim", "w_embed"))
         return p
     if cfg.attn_type != "gqa":
         raise NotImplementedError(f"attn_type={cfg.attn_type!r}")
+    # JAX tags head_dim "head_dim_shard" (it takes "model" where the heads
+    # cannot), or "head_dim" under shard_v2
+    hd_ax = "head_dim" if cfg.shard_v2 else "head_dim_shard"
     return {
-        "wq": init.w((d, cfg.num_heads, hd)),
-        "wk": init.w((d, cfg.num_kv_heads, hd)),
-        "wv": init.w((d, cfg.num_kv_heads, hd)),
-        "wo": init.z((cfg.num_heads, hd, d)),
+        "wq": init.w((d, cfg.num_heads, hd), ("w_embed", "heads", hd_ax)),
+        "wk": init.w((d, cfg.num_kv_heads, hd),
+                     ("w_embed", "kv_heads", hd_ax)),
+        "wv": init.w((d, cfg.num_kv_heads, hd),
+                     ("w_embed", "kv_heads", hd_ax)),
+        "wo": init.z((cfg.num_heads, hd, d), ("heads", hd_ax, "w_embed")),
     }
 
 
@@ -75,12 +86,100 @@ def _qkv(params, x, positions, cfg: ModelConfig):
     return q, k, v
 
 
+def _heads_shardable(cfg: ModelConfig, rules) -> bool:
+    """JAX's test: whether the query heads divide the "model" axis."""
+    if rules is None:
+        return True
+    return cfg.num_heads % rules.axis_sizes.get("model", 1) == 0
+
+
+def _qseq_constrain(q, cfg: ModelConfig, rules):
+    """JAX shards the query sequence over "model" where the heads do not
+    divide it: a layout XLA chooses, which changes no value. The port's
+    sharded schedule runs that attention replicated over "model"
+    (``_gqa_sharded``), so ``q`` is returned as it is."""
+    return q
+
+
+def _kv_for_heads(t, h0: int, n: int, group: int):
+    """The kv heads of whole ``t`` (b, s, kvh, d) that query heads ``h0 ..
+    h0 + n - 1`` meet (global query head h meets kv head h // group),
+    laid out so local query head i meets local kv head i // (n / kv
+    heads): the contiguous run where that holds, else one kv head a query
+    head."""
+    idx = [(h0 + i) // group for i in range(n)]
+    lo, hi = idx[0], idx[-1] + 1
+    per = n // (hi - lo)
+    if n % (hi - lo) == 0 and idx == [lo + i // per for i in range(n)]:
+        return t[:, :, lo:hi].contiguous()
+    return t[:, :, idx]
+
+
+def _gqa_sharded(params, x, positions, cfg: ModelConfig, tp):
+    """GQA on this rank's shards of the attention weights (``tp`` is the
+    block's ``attn`` layout). Query heads split over "model" (``wq`` and
+    ``wo`` on their heads dim): each rank attends with its heads, and a
+    rank's local query head i meets global kv head (h0 + i) // group,
+    h0 its first head; K/V come as the rules lay them, on their kv heads
+    (aligned with the local query heads), on the head dim (gathered along
+    it before rope, which rotates across its halves) or whole (copy-in).
+    Where the heads do not divide "model" and ``wq``/``wo`` split their
+    head dim instead, attention runs whole on every rank (JAX's
+    sequence-sharded layout there changes no value), each rank projects
+    its slice of the head dim out, and the ranks' projections are summed.
+    ``wo`` ends in a reduce-out."""
+    nh, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    dims = {n: tp.dim(n) for n in ("wq", "wk", "wv", "wo")}
+    if all(d is None for d in dims.values()):
+        return gqa_prefill(params, x, positions, cfg)[0]
+    ax = tp.model
+    xin = tp.copy_in(x)
+    heads_local = dims["wq"] == 1
+    if dims["wq"] not in (1, 2) or dims["wo"] != dims["wq"] - 1:
+        tp.refuse("wq", "query heads or head dim and wo alike")
+
+    def proj(name):
+        """The projection as the consumers need it: local heads, or
+        whole (gathered along the head dim, or copy-in of a replicated
+        product)."""
+        d = dims[name]
+        if d is None:
+            return tp.copy_in(proj_in(x, params[name])), False
+        t = proj_in(xin, params[name])
+        if d == 2:
+            return tp.gather(t, -1), False
+        if not heads_local:          # kv heads split, attention whole
+            return tp.gather(t, -2), False
+        return t, True
+
+    q, _ = proj("wq")
+    (k, k_local), (v, v_local) = proj("wk"), proj("wv")
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    if heads_local:
+        n = nh // ax.size
+        h0, group = ax.index * n, nh // kvh
+        if not k_local:
+            k = _kv_for_heads(k, h0, n, group)
+        if not v_local:
+            v = _kv_for_heads(v, h0, n, group)
+    out = ops.flash_attention(q, k, v, causal=not cfg.encoder_only,
+                              scale=hd ** -0.5)
+    if not heads_local:              # this rank's slice of the head dim
+        out = local_slice(out, -1, ax)
+    return tp.reduce_out(_proj_out(out, params["wo"]))
+
+
 def gqa_prefill(params, x, positions, cfg: ModelConfig,
-                cache: Optional[Dict] = None
+                cache: Optional[Dict] = None, tp=None
                 ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """Full-sequence attention. If ``cache`` is given (a pre-allocated
     ``(b, S, kvh, hd)`` layer slice), the computed K/V are written into its
-    first ``s`` positions in place (inference prefill)."""
+    first ``s`` positions in place (inference prefill). Under a mesh
+    (``tp``: the block's ``attn`` layout, mode "train") it runs on the
+    rank's shards (``_gqa_sharded``)."""
+    if tp is not None:
+        return _gqa_sharded(params, x, positions, cfg, tp), None
     hd = cfg.resolved_head_dim
     q, k, v = _qkv(params, x, positions, cfg)
     out = ops.flash_attention(q, k, v, causal=not cfg.encoder_only,
@@ -272,14 +371,62 @@ def _mla_scale(cfg: ModelConfig) -> float:
     return (cfg.mla.qk_nope_head_dim + cfg.mla.qk_rope_head_dim) ** -0.5
 
 
+def _mla_sharded(params, x, positions, cfg: ModelConfig, tp):
+    """MLA on this rank's shards (``tp``: the block's ``attn`` layout):
+    the per-head products ``wuq``, ``wuk``, ``wuv`` and ``wo`` on the
+    rank's heads; the latents ``x @ wdkv`` (and ``x @ wdq``) computed on
+    the rank's ``kv_lora`` (``q_lora``) slice and gathered along it before
+    their norms, which normalise the whole latent (the gather's backward
+    keeps the rank's slice; the copy-in after the norm sums the heads'
+    gradients, so the norm's gamma gets the whole one); the shared rope
+    key whole (copy-in); ``wo`` ends in a reduce-out."""
+    m = cfg.mla
+    for name in ("wuq", "wuk", "wuv"):
+        if tp.dim(name) != 1:
+            tp.refuse(name, "MLA runs with its heads split over 'model'")
+    if tp.dim("wo") != 0 or tp.dim("wkr") is not None:
+        tp.refuse("wo", "MLA runs with its heads split over 'model'")
+    xin = tp.copy_in(x)
+
+    def latent(w, norm):
+        # whole on every rank, normalised, then copy-in: the norm's gamma
+        # takes the whole gradient, summed over the ranks' heads
+        if tp.dim(w) is None:
+            c = x @ params[w]
+        elif tp.dim(w) == 1:
+            c = tp.gather(xin @ params[w], -1, reduce_grad=False)
+        else:
+            tp.refuse(w, "a latent split on its rank dim")
+        return tp.copy_in(apply_norm(params[norm], c, cfg))
+    cq = latent("wdq", "q_norm") if m.q_lora_rank else xin
+    q = proj_in(cq, params["wuq"])
+    q_nope, q_rope = q[..., :m.qk_nope_head_dim], q[..., m.qk_nope_head_dim:]
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    c_kv = latent("wdkv", "kv_norm")
+    k_rope = tp.copy_in(apply_rope((x @ params["wkr"])[:, :, None, :],
+                                   positions, cfg.rope_theta))
+    k_nope = proj_in(c_kv, params["wuk"])
+    v = proj_in(c_kv, params["wuv"])
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope.expand(*k_nope.shape[:3],
+                                         m.qk_rope_head_dim)], dim=-1)
+    out = ops.flash_attention(q, k, v, causal=not cfg.encoder_only,
+                              scale=_mla_scale(cfg))
+    return tp.reduce_out(_proj_out(out, params["wo"]))
+
+
 def mla_prefill(params, x, positions, cfg: ModelConfig,
-                cache: Optional[Dict] = None
+                cache: Optional[Dict] = None, tp=None
                 ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """Full-sequence MLA: K/V re-expanded from the latent, the rope key
     shared by every head, through ``ops.flash_attention`` at dq = nope +
     rope, dv = v_head_dim. If ``cache`` is given (a pre-allocated ``(b, S,
     kv_lora)`` / ``(b, S, rope)`` layer slice), the latent and the rope key
-    are written into its first ``s`` positions in place."""
+    are written into its first ``s`` positions in place. Under a mesh
+    (``tp``, mode "train") it runs on the rank's shards
+    (``_mla_sharded``)."""
+    if tp is not None:
+        return _mla_sharded(params, x, positions, cfg, tp), None
     m = cfg.mla
     q_nope, q_rope = _mla_q(params, x, positions, cfg)
     c_kv, k_rope = _mla_latent(params, x, positions, cfg)

@@ -3,7 +3,7 @@
 from __future__ import annotations
 
 import functools
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -17,33 +17,75 @@ class Initializer:
     in the order the model builds them. ``w`` is truncated-normal fan-in
     init; ``z`` is zero init (output projections and norm gammas start at
     zero, as in the JAX package); ``ones`` and ``const`` fill a leaf with
-    ones or with given values."""
+    ones or with given values.
 
-    def __init__(self, cfg: ModelConfig, generator: torch.Generator,
-                 device):
+    Each method also takes the leaf's logical axes (JAX's ``Initializer``
+    records them by path). With ``record=True`` the initializer keeps them
+    in ``axes``, keyed by the leaf's ``id`` (the leaves are kept alive, so
+    an id stays unique); on the ``meta`` device it allocates nothing and
+    draws nothing, so a full-width config's tree costs no memory
+    (``transformer.param_axes``)."""
+
+    def __init__(self, cfg: ModelConfig, generator: Optional[torch.Generator],
+                 device, record: bool = False):
         self.cfg = cfg
         self.gen = generator
         self.device = torch.device(device)
         self.dtype = getattr(torch, cfg.param_dtype)
+        self.axes: Optional[Dict[int, Tuple]] = {} if record else None
+        self._kept: list = []
 
-    def w(self, shape, scale: Optional[float] = None) -> torch.Tensor:
+    def _note(self, t: torch.Tensor, axes) -> torch.Tensor:
+        if self.axes is not None:
+            if axes is None or len(axes) != t.ndim:
+                raise ValueError(f"logical axes {axes} for shape "
+                                 f"{tuple(t.shape)}")
+            self.axes[id(t)] = tuple(axes)
+            self._kept.append(t)
+        return t
+
+    def stacked(self, block, stack):
+        """Record the axes of the ``(n, ...)`` leaves of ``stack`` as those
+        of ``block``'s matching leaves with JAX's "scan" axis in front."""
+        if self.axes is None:
+            return
+        if isinstance(block, dict):
+            for k in block:
+                self.stacked(block[k], stack[k])
+            return
+        self.axes[id(stack)] = ("scan",) + self.axes[id(block)]
+        self._kept.append(stack)
+
+    def _meta(self) -> bool:
+        return self.device.type == "meta"
+
+    def w(self, shape, axes=None, scale: Optional[float] = None
+          ) -> torch.Tensor:
+        if self._meta():
+            return self._note(torch.empty(shape, dtype=self.dtype,
+                                          device="meta"), axes)
         if scale is None:
             fan_in = shape[0] if len(shape) >= 2 else shape[-1]
             scale = 1.0 / np.sqrt(max(1, fan_in))
         t = torch.empty(shape, dtype=torch.float32, device=self.device)
         torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0,
                                     generator=self.gen)
-        return (t * scale).to(self.dtype)
+        return self._note((t * scale).to(self.dtype), axes)
 
-    def z(self, shape) -> torch.Tensor:
-        return torch.zeros(shape, dtype=self.dtype, device=self.device)
+    def z(self, shape, axes=None) -> torch.Tensor:
+        return self._note(torch.zeros(shape, dtype=self.dtype,
+                                      device=self.device), axes)
 
-    def ones(self, shape) -> torch.Tensor:
-        return torch.ones(shape, dtype=self.dtype, device=self.device)
+    def ones(self, shape, axes=None) -> torch.Tensor:
+        return self._note(torch.ones(shape, dtype=self.dtype,
+                                     device=self.device), axes)
 
-    def const(self, value: np.ndarray) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(value, np.float32)).to(
-            device=self.device, dtype=self.dtype)
+    def const(self, value: np.ndarray, axes=None) -> torch.Tensor:
+        if self._meta():
+            return self._note(torch.empty(np.shape(value), dtype=self.dtype,
+                                          device="meta"), axes)
+        return self._note(torch.as_tensor(np.asarray(value, np.float32)).to(
+            device=self.device, dtype=self.dtype), axes)
 
 
 # ---------------------------------------------------------------------------
@@ -69,8 +111,9 @@ def layer_norm(x, gamma, beta, eps: float):
 
 def init_norm(init: Initializer, cfg: ModelConfig, dim: int):
     if cfg.norm_type == "layernorm":
-        return {"gamma": init.z((dim,)), "beta": init.z((dim,))}
-    return {"gamma": init.z((dim,))}
+        return {"gamma": init.z((dim,), ("norm",)),
+                "beta": init.z((dim,), ("norm",))}
+    return {"gamma": init.z((dim,), ("norm",))}
 
 
 def apply_norm(params, x, cfg: ModelConfig):
@@ -115,8 +158,10 @@ def init_mlp(init: Initializer, cfg: ModelConfig,
              d_ff: Optional[int] = None):
     d, f = cfg.d_model, (d_ff or cfg.d_ff)
     if cfg.mlp_type in ("swiglu", "geglu"):
-        return {"wi": init.w((d, 2, f)), "wo": init.z((f, d))}
-    return {"wi": init.w((d, f)), "wo": init.z((f, d))}     # relu2 | gelu
+        return {"wi": init.w((d, 2, f), ("w_embed", None, "ff")),
+                "wo": init.z((f, d), ("ff", "w_embed"))}
+    return {"wi": init.w((d, f), ("w_embed", "ff")),          # relu2 | gelu
+            "wo": init.z((f, d), ("ff", "w_embed"))}
 
 
 def gelu(x):
@@ -131,7 +176,18 @@ def proj_in(x, w):
     return (x @ w.reshape(w.shape[0], -1)).unflatten(-1, w.shape[1:])
 
 
-def apply_mlp(params, x, cfg: ModelConfig):
+def apply_mlp(params, x, cfg: ModelConfig, tp=None):
+    """The MLP; under a mesh (``tp``, its ``distributed.Layout``) with
+    ``ff`` sharded over "model", ``wi`` is column-parallel (copy-in in
+    front) and ``wo`` row-parallel (reduce-out after)."""
+    if tp is not None and tp.dim("wo") is not None:
+        if tp.dim("wo") != 0 or tp.dim("wi") != params["wi"].ndim - 1:
+            tp.refuse("wi", "the MLP shards its ff dim")
+        return tp.reduce_out(_mlp(params, tp.copy_in(x), cfg))
+    return _mlp(params, x, cfg)
+
+
+def _mlp(params, x, cfg: ModelConfig):
     if cfg.mlp_type in ("swiglu", "geglu"):
         h = proj_in(x, params["wi"])
         gate, up = h[..., 0, :], h[..., 1, :]

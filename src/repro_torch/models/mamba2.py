@@ -41,14 +41,16 @@ def init_mamba2(init: Initializer, cfg: ModelConfig) -> Dict:
     d_in, nh, n, hd, cw = _dims(cfg)
     conv_dim = d_in + 2 * n
     return {
-        "in_proj": init.w((d, 2 * d_in + 2 * n + nh)),
-        "conv_w": init.w((cw, conv_dim), scale=1.0 / cw),
-        "conv_b": init.z((conv_dim,)),
-        "A_log": init.const(np.zeros((nh,))),
-        "D": init.ones((nh,)),
-        "dt_bias": init.z((nh,)),
-        "norm": init.z((d_in,)),
-        "out_proj": init.z((d_in, d)),
+        "in_proj": init.w((d, 2 * d_in + 2 * n + nh),
+                          ("w_embed", "ssm_inner")),
+        "conv_w": init.w((cw, conv_dim), ("conv", "ssm_inner"),
+                         scale=1.0 / cw),
+        "conv_b": init.z((conv_dim,), ("ssm_inner",)),
+        "A_log": init.const(np.zeros((nh,)), ("ssm_heads",)),
+        "D": init.ones((nh,), ("ssm_heads",)),
+        "dt_bias": init.z((nh,), ("ssm_heads",)),
+        "norm": init.z((d_in,), ("ssm_inner",)),
+        "out_proj": init.z((d_in, d), ("ssm_inner", "w_embed")),
     }
 
 

@@ -18,8 +18,8 @@ gradient. Both keep every shape static and read no value back to the host
 SlotEngine's decode pass that runs them captures as a CUDA graph. Each
 row's routed outputs are summed over its ``k`` choices in a fixed order (a
 scatter of distinct rows, then a sum), not with atomics, so two runs agree
-bit for bit. Expert parallelism (JAX's ``shard_map`` over the "model"
-axis) arrives with the distribution slice: a mesh raises here.
+bit for bit. Under a mesh ``moe_ragged`` runs expert parallelism (JAX's
+``shard_map`` over the "model" axis) on the rank's shards.
 ``moe_reference`` is the dense loop-over-experts oracle, for tests.
 """
 from __future__ import annotations
@@ -30,6 +30,7 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch import distributed as dist_
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import Initializer, apply_mlp, gelu, init_mlp
 
@@ -39,9 +40,11 @@ def init_moe(init: Initializer, cfg: ModelConfig) -> Dict:
     f = m.expert_d_ff
     glu = cfg.mlp_type in ("swiglu", "geglu")
     p = {
-        "router": init.w((d, m.num_experts), scale=d ** -0.5),
-        "wi": init.w((m.num_experts, d, 2 * f if glu else f)),
-        "wo": init.z((m.num_experts, f, d)),
+        "router": init.w((d, m.num_experts), ("w_embed", "experts"),
+                         scale=d ** -0.5),
+        "wi": init.w((m.num_experts, d, 2 * f if glu else f),
+                     ("experts", "w_embed", "ff")),
+        "wo": init.z((m.num_experts, f, d), ("experts", "ff", "w_embed")),
     }
     if m.num_shared_experts:
         p["shared"] = init_mlp(init, cfg, d_ff=m.shared_d_ff)
@@ -66,14 +69,29 @@ def _one_hot(idx, n: int):
 
 def _router(params, x2d, cfg: ModelConfig):
     """x2d (T, d) -> (weights (T, k) fp32, idx (T, k), aux loss)."""
+    return _route(x2d.float() @ params["router"].float(), cfg)
+
+
+def _route(logits, cfg: ModelConfig, data=None):
+    """Router logits (T, E) fp32 -> (weights, idx, aux). With ``data`` (an
+    axis group holding the other rows of the batch) the aux's means are
+    over every rank's rows, as one program over the whole batch takes
+    them."""
     m = cfg.moe
-    logits = x2d.float() @ params["router"].float()
     probs = torch.softmax(logits, dim=-1)
     weights, idx = torch.topk(probs, m.top_k, dim=-1)
     weights = weights / torch.clamp(weights.sum(-1, keepdim=True), min=1e-9)
     # switch-style load-balancing aux loss
-    density = _one_hot(idx, m.num_experts).mean(dim=(0, 1))
-    aux = m.num_experts * torch.sum(density * probs.mean(0)) * m.aux_loss_coef
+    if data is None or data.size == 1:
+        density = _one_hot(idx, m.num_experts).mean(dim=(0, 1))
+        mean_probs = probs.mean(0)
+    else:
+        T = probs.shape[0] * data.size
+        hits = dist_.all_reduce(_one_hot(idx, m.num_experts).sum((0, 1)),
+                                data)
+        density = hits / (T * m.top_k)
+        mean_probs = dist_.reduce_out(probs.sum(0), data) / T
+    aux = m.num_experts * torch.sum(density * mean_probs) * m.aux_loss_coef
     return weights, idx, aux
 
 
@@ -112,31 +130,39 @@ def _capacity(tokens: int, k: int, num_experts: int, num_local: int,
     return min(max(cap, 8), tokens * k)
 
 
-def _moe_local(x2d, wi, wo, weights, idx, cfg: ModelConfig, capacity: int):
-    """Every expert's contribution to every token on one card: x2d (T, d),
-    wi (E, d, F), wo (E, f, d), weights/idx (T, k). Returns (T, d).
+def _moe_local(x2d, wi, wo, weights, idx, cfg: ModelConfig,
+               expert_offset: int, num_local: int, capacity: int):
+    """Contribution of experts ``[expert_offset, expert_offset +
+    num_local)`` to every token: x2d (T, d), wi (num_local, d, F), wo
+    (num_local, f, d), weights/idx (T, k). Returns (T, d).
 
-    The ``T·k`` routed rows are sorted by expert (stable) and the first
-    ``capacity`` taken; group sizes come from a scatter-add of ones, cut
-    where the take ends, so a row past the capacity is dropped as in JAX.
+    The ``T·k`` routed rows are sorted by local expert (stable; rows of
+    other shards' experts sort last) and the first ``capacity`` taken;
+    group sizes come from a scatter-add of ones, cut where the take ends,
+    so a row past the capacity (or of another shard's expert) is dropped
+    as in JAX.
     """
     T, d = x2d.shape
-    E = wi.shape[0]
     k = idx.shape[1]
     rows = T * k
     eid = idx.reshape(rows)
     tok = torch.arange(T, device=x2d.device)[:, None].expand(T, k).reshape(-1)
     w = weights.reshape(rows)
-    order = torch.argsort(eid, stable=True)      # rows grouped by expert
+    local = (eid >= expert_offset) & (eid < expert_offset + num_local)
+    local_eid = torch.where(local, eid - expert_offset, num_local)
+    order = torch.argsort(local_eid, stable=True)   # local rows by expert
     capacity = min(capacity, rows)
     take = order[:capacity]
-    x_sel = x2d[tok[take]]
     w_sel = w[take]
-    counts = torch.zeros(E, dtype=torch.int64, device=x2d.device)
-    counts.scatter_add_(0, eid, torch.ones_like(eid))
+    counts = torch.zeros(num_local + 1, dtype=torch.int64, device=x2d.device)
+    counts.scatter_add_(0, local_eid, torch.ones_like(local_eid))
+    counts = counts[:num_local]
     cum = torch.cumsum(counts, 0)
     gs = torch.clamp(counts - torch.clamp(cum - capacity, min=0), min=0)
     valid = (torch.arange(capacity, device=x2d.device) < gs.sum())[:, None]
+    # ragged_dot leaves the rows past the last group unwritten: their
+    # gradient is dropped here (JAX's ragged_dot gives them zeros)
+    x_sel = torch.where(valid, x2d[tok[take]], 0.0)
     h = _activate(ragged_dot(x_sel, wi, gs), cfg)
     y = ragged_dot(h, wo, gs)
     y = torch.where(valid, y, 0.0) * w_sel[:, None].to(y.dtype)
@@ -146,33 +172,111 @@ def _moe_local(x2d, wi, wo, weights, idx, cfg: ModelConfig, capacity: int):
     return per_row.view(T, k, d).sum(1)
 
 
-def moe_ragged(params, x, cfg: ModelConfig,
-               mesh=None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x (..., d) -> (same shape, aux loss), every expert on one card."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "expert parallelism over a mesh arrives with the distribution "
-            "slice of the PyTorch port")
+def _moe_global_cut(x2d, wi, wo, weights, idx, cfg: ModelConfig,
+                    capacity: int, data):
+    """Every expert on this rank over its rows of a batch split over the
+    data axes (``data``), with JAX's one stable sort over the whole batch:
+    a row's place in it is the rows of lower experts on every rank, then
+    the rows of its expert on earlier ranks, then its place among this
+    rank's; the rows at places past ``capacity`` are dropped. One
+    all-reduce of a (ranks x experts) count matrix gives the places."""
+    T, d = x2d.shape
+    E = wi.shape[0]
+    k = idx.shape[1]
+    rows = T * k
+    eid = idx.reshape(rows)
+    tok = torch.arange(T, device=x2d.device)[:, None].expand(T, k).reshape(-1)
+    w = weights.reshape(rows)
+    counts = torch.zeros(E, dtype=torch.int64, device=x2d.device)
+    counts.scatter_add_(0, eid, torch.ones_like(eid))
+    grid = torch.zeros(data.size, E, dtype=torch.int64, device=x2d.device)
+    grid[data.index] = counts
+    dist_.all_reduce(grid, data)
+    total = grid.sum(0)
+    base = (torch.cumsum(total, 0) - total) + grid[:data.index].sum(0)
+    capacity = min(capacity, rows * data.size)
+    taken = torch.clamp(capacity - base, min=0)       # per expert, this rank
+    order = torch.argsort(eid, stable=True)
+    e_sorted = eid[order]
+    start = torch.cumsum(counts, 0) - counts
+    place = torch.arange(rows, device=x2d.device) - start[e_sorted]
+    valid = (place < taken[e_sorted])[:, None]
+    h = _activate(ragged_dot(x2d[tok[order]], wi, counts), cfg)
+    y = ragged_dot(h, wo, counts)
+    y = torch.where(valid, y, 0.0) * w[order][:, None].to(y.dtype)
+    per_row = y.new_zeros(rows, d).index_copy_(0, order, y)
+    return per_row.view(T, k, d).sum(1)
+
+
+def moe_ragged(params, x, cfg: ModelConfig, mesh=None, tp=None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x (..., d) -> (same shape, aux loss). Under a mesh (``tp``, the
+    module's ``distributed.Layout``; built from ``mesh`` when only it is
+    given) ``params`` and ``x`` are this rank's shards and rows.
+
+    Expert parallelism holds, as in JAX, when "model" is in the mesh,
+    larger than 1 and divides the experts: each model rank holds ``wi``/
+    ``wo`` of its ``num_local`` experts and the router's columns of them
+    (stored split on ``experts``; its logits are gathered along them
+    before the softmax and top-k, as JAX's shard_map takes the router
+    whole), routes its data shard's rows, takes JAX's per-shard capacity
+    ``_capacity(T_local, k, E, num_local, slack)`` and sums the experts'
+    contributions over "model" (reduce-out: JAX's ``psum``). The aux is
+    each data shard's own, as JAX's shard map computes it (its ``pmean``
+    over "model" averages equal values; its gradient is shared over the
+    model ranks). Without expert parallelism over data shards every rank
+    holds every expert and cuts the capacity over the whole batch
+    (``_moe_global_cut``), as JAX's one program does."""
+    if tp is None and mesh is not None:
+        tp = dist_.moe_layout(cfg, mesh)
     m = cfg.moe
     shape = x.shape
     x2d = x.reshape(-1, shape[-1])
     T = x2d.shape[0]
-    weights, idx, aux = _router(params, x2d, cfg)
-    cap = _capacity(T, m.top_k, m.num_experts, m.num_experts,
+    if tp is None or (tp.model.size == 1 and tp.data.size == 1):
+        weights, idx, aux = _router(params, x2d, cfg)
+        cap = _capacity(T, m.top_k, m.num_experts, m.num_experts,
+                        m.capacity_slack)
+        out = _moe_local(x2d, params["wi"], params["wo"], weights, idx, cfg,
+                         0, m.num_experts, cap)
+        return out.reshape(shape).to(x.dtype), aux
+    M = tp.model.size
+    if M > 1:
+        if (m.num_experts % M or tp.dim("wi") != 0 or tp.dim("wo") != 0
+                or tp.dim("router") != 1):
+            tp.refuse("wi", "expert parallelism needs the experts split "
+                      "over 'model'")
+        num_local = m.num_experts // M
+        xin = tp.copy_in(x2d)
+        logits = tp.gather(xin.float() @ params["router"].float(), -1)
+        weights, idx, aux = _route(logits, cfg)
+        cap = _capacity(T, m.top_k, m.num_experts, num_local,
+                        m.capacity_slack)
+        out = _moe_local(xin, params["wi"], params["wo"], weights, idx, cfg,
+                         tp.model.index * num_local, num_local, cap)
+        # every model rank's aux gradient reaches the router's logits
+        # through the gather's summed backward: each carries 1/M of it
+        aux = dist_.grad_scale(aux, 1.0 / M)
+        return tp.reduce_out(out).reshape(shape).to(x.dtype), aux
+    weights, idx, aux = _route(x2d.float() @ params["router"].float(), cfg,
+                               tp.data)
+    cap = _capacity(T * tp.data.size, m.top_k, m.num_experts, m.num_experts,
                     m.capacity_slack)
-    out = _moe_local(x2d, params["wi"], params["wo"], weights, idx, cfg, cap)
-    return out.reshape(shape).to(x.dtype), aux
+    out = _moe_global_cut(x2d, params["wi"], params["wo"], weights, idx, cfg,
+                          cap, tp.data)
+    # the aux is the whole batch's on every data rank; the loss averages
+    # it over them, so each rank's share of its gradient is scaled back
+    return (out.reshape(shape).to(x.dtype),
+            dist_.grad_scale(aux, float(tp.data.size)))
 
 
 def moe_dispatch_einsum(params, x, cfg: ModelConfig, mesh=None,
                         group_size: int = 4096
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The GShard dispatch/combine formulation: each expert takes at most
-    ``cap_per_e`` of a group's assignments, in (token, choice) order."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "expert parallelism over a mesh arrives with the distribution "
-            "slice of the PyTorch port")
+    ``cap_per_e`` of a group's assignments, in (token, choice) order.
+    ``mesh`` is taken and not used, as in JAX (whose compiler lays the
+    einsums out)."""
     m = cfg.moe
     shape = x.shape
     x2d = x.reshape(-1, shape[-1])
@@ -212,14 +316,17 @@ def moe_dispatch_einsum(params, x, cfg: ModelConfig, mesh=None,
     return out.reshape(shape).to(x.dtype), aux
 
 
-def apply_moe(params, x, cfg: ModelConfig,
-              mesh=None) -> Tuple[torch.Tensor, torch.Tensor]:
+def apply_moe(params, x, cfg: ModelConfig, mesh=None, tp=None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    if tp is None and mesh is not None:
+        tp = dist_.moe_layout(cfg, mesh)
     if cfg.moe.impl == "dispatch_einsum":
         out, aux = moe_dispatch_einsum(params, x, cfg, mesh)
     else:
-        out, aux = moe_ragged(params, x, cfg, mesh)
+        out, aux = moe_ragged(params, x, cfg, mesh, tp)
     if cfg.moe.num_shared_experts:
-        out = out + apply_mlp(params["shared"], x, cfg)
+        out = out + apply_mlp(params["shared"], x, cfg,
+                              None if tp is None else tp.sub("shared"))
     return out, aux
 
 

@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -66,13 +66,17 @@ def global_norm(grads) -> torch.Tensor:
 
 
 @torch.no_grad()
-def adamw_update(params, grads, opt_state, opt: OptConfig):
+def adamw_update(params, grads, opt_state, opt: OptConfig,
+                 gnorm: Optional[torch.Tensor] = None):
     """One AdamW step, in place (see the module docstring). Returns
     (params, {"m", "v", "step"}, the gradients' global norm before
-    clipping)."""
+    clipping). ``gnorm`` is that norm where the caller has it (the sharded
+    step sums it over the shards); the update itself is elementwise, so on
+    a rank's shards it is the same formulas, bit for bit."""
     step = opt_state["step"] + 1
     lr = lr_at(opt, step)
-    gnorm = global_norm(grads)
+    if gnorm is None:
+        gnorm = global_norm(grads)
     scale = torch.clamp(opt.grad_clip / (gnorm + 1e-9), max=1.0)
     c1 = 1 - opt.b1 ** step.float()
     c2 = 1 - opt.b2 ** step.float()

@@ -14,6 +14,7 @@ from typing import Dict, Optional
 
 import torch
 
+from repro_torch import distributed as dist_
 from repro_torch import tree
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer as tf
@@ -41,42 +42,122 @@ def _inputs(batch: Dict, cfg: ModelConfig) -> Dict:
     return {"tokens": batch["tokens"]}
 
 
-def loss_fn(params, batch: Dict, cfg: ModelConfig):
+def vocab_parallel_nll(logits, labels, ax):
+    """Per-token negative log-likelihood (fp32) from this rank's slice of
+    the vocabulary (``logits`` (b, s, V / n), ranks in order over ``ax``):
+    the row max by all-reduce(max), the sum of exponentials by
+    all-reduce(sum), the label's logit from the rank that holds it."""
+    lg = logits.float()
+    n = lg.shape[-1]
+    gmax = dist_.all_reduce(lg.detach().amax(-1), ax, "max")
+    logz = gmax + torch.log(dist_.reduce_out(
+        torch.exp(lg - gmax[..., None]).sum(-1), ax))
+    local = labels.long() - ax.index * n
+    inside = (local >= 0) & (local < n)
+    gold = torch.gather(lg, -1, torch.where(inside, local, 0)[..., None])
+    return logz - dist_.reduce_out(torch.where(inside, gold[..., 0], 0.0),
+                                   ax)
+
+
+def _sharded_loss(logits, batch: Dict, cfg: ModelConfig, plan):
+    """The global batch's mean nll from this rank's block of the logits:
+    ``sum(nll)`` and ``sum(mask)`` (or the token count) summed over the
+    data axes before the one division, JAX's ``sum(nll) / max(sum(mask),
+    1)`` over the whole batch (a mean of per-rank means differs where the
+    masks do)."""
+    labels, mask = plan.rows(batch["labels"]), plan.rows(batch.get("mask"))
+    if tf.vocab_sharded(cfg, plan):
+        nll = vocab_parallel_nll(logits, labels, plan.model)
+    else:
+        lg = logits.float()
+        nll = (torch.logsumexp(lg, dim=-1)
+               - torch.gather(lg, -1, labels.long()[..., None])[..., 0])
+    if mask is not None:
+        nll = nll * mask
+        den = torch.clamp(dist_.all_reduce(
+            torch.sum(mask.detach()).float(), plan.data), min=1.0)
+    else:
+        den = labels.numel() * plan.data.size
+    return dist_.reduce_out(torch.sum(nll), plan.data) / den
+
+
+def loss_fn(params, batch: Dict, cfg: ModelConfig, rules=None, mesh=None):
     """Returns (loss + aux, (loss, aux)): aux is the MoE routers' summed
-    load-balancing loss (fp32; 0 without MoE layers)."""
-    logits, aux = tf.train_forward(params, cfg, **_inputs(batch, cfg))
-    loss = cross_entropy(logits, batch["labels"], batch.get("mask"))
+    load-balancing aux (fp32; 0 without MoE layers).
+
+    Under ``rules``/``mesh`` (JAX's arguments) ``params`` are this rank's
+    shards and ``batch`` the global batch; the loss is the global batch's
+    (vocabulary-parallel, ``_sharded_loss``) and the aux the mean of the
+    data shards' (each shard routes its own rows, as in JAX's shard map),
+    both equal on every rank. Each rank's autograd graph holds its own
+    share of them, so the gradients summed over the data axes are the
+    gradient of the whole (``value_and_grad``)."""
+    plan = dist_.plan(cfg, rules, mesh)
+    logits, aux = tf.train_forward(params, cfg, rules=rules, mesh=mesh,
+                                   **_inputs(batch, cfg))
+    if plan is None:
+        loss = cross_entropy(logits, batch["labels"], batch.get("mask"))
+    else:
+        loss = _sharded_loss(logits, batch, cfg, plan)
+        aux = dist_.reduce_out(aux, plan.data) / plan.data.size
     return loss + aux, (loss, aux)
 
 
-def value_and_grad(params, batch: Dict, cfg: ModelConfig):
+def value_and_grad(params, batch: Dict, cfg: ModelConfig, rules=None,
+                   mesh=None):
     """((total, (loss, aux)), grads): ``jax.value_and_grad(loss_fn,
     has_aux=True)``. The gradients come in the parameters' dtypes; a tied
-    embedding's sums its lookup and its use as the head."""
+    embedding's sums its lookup and its use as the head. Under a mesh
+    they are this rank's shards of the whole batch's gradient (summed over
+    the data axes)."""
     live = tree.map_tree(lambda t: t.detach().requires_grad_(True), params)
     with torch.enable_grad():
-        total, (loss, aux) = loss_fn(live, batch, cfg)
+        total, (loss, aux) = loss_fn(live, batch, cfg, rules, mesh)
         # a leaf the loss does not read (the token embedding when a stub
         # frontend's embeds come in) gets zeros, as in JAX
         grads = torch.autograd.grad(total, tree.leaves(live),
                                     allow_unused=True, materialize_grads=True)
+    plan = dist_.plan(cfg, rules, mesh)
+    if plan is not None:
+        for g in grads:
+            dist_.all_reduce(g, plan.data)
     flat = dict(zip(tree.flatten(live), grads))
     return ((total.detach(), (loss.detach(), aux.detach())),
             tree.unflatten(params, flat))
 
 
 def train_step(state: Dict, batch: Dict, cfg: ModelConfig,
-               opt: OptConfig = OptConfig()):
+               opt: OptConfig = OptConfig(), rules=None, mesh=None):
     """One AdamW step on ``batch`` (``tokens`` or ``embeds``, ``labels``,
     optional ``mask``). The state's tensors are updated in place and
     returned as the new state, with metrics ``loss``, ``aux_loss`` and
-    ``grad_norm`` (0-d fp32 tensors)."""
-    tf.check_train(cfg)
-    (_, (loss, aux)), grads = value_and_grad(state["params"], batch, cfg)
-    params, new_opt, gnorm = adamw_update(state["params"], grads,
-                                          state["opt"], opt)
+    ``grad_norm`` (0-d fp32 tensors).
+
+    With ``rules``/``mesh`` (JAX's sharded step) every rank calls it with
+    its shards of the state (``weights.shard_params`` with
+    ``state_specs``) and the global batch: data, tensor and expert
+    parallelism as the rules lay the leaves out. The gradient norm sums
+    each sharded leaf over the ranks that shard it, and AdamW runs on the
+    local shards. A layout this schedule does not run raises
+    ``NotImplementedError`` (``transformer.check_train``)."""
+    tf.check_train(cfg, rules, mesh)
+    plan = dist_.plan(cfg, rules, mesh)
+    (_, (loss, aux)), grads = value_and_grad(state["params"], batch, cfg,
+                                             rules, mesh)
+    params, new_opt, gnorm = adamw_update(
+        state["params"], grads, state["opt"], opt,
+        gnorm=None if plan is None else plan.global_norm(grads))
     return ({"params": params, "opt": new_opt},
             {"loss": loss, "aux_loss": aux, "grad_norm": gnorm})
+
+
+def state_specs(param_specs) -> Dict:
+    """The specs of a train state from its params' (``sharding.tree_specs``):
+    AdamW's moments as their params, the step replicated."""
+    from repro_torch.models.sharding import PartitionSpec
+    return {"params": param_specs,
+            "opt": {"m": param_specs, "v": param_specs,
+                    "step": PartitionSpec()}}
 
 
 def init_train_state(cfg: ModelConfig, generator: torch.Generator,

@@ -51,6 +51,7 @@ import torch.utils.checkpoint
 from torch.utils.checkpoint import (CheckpointPolicy,
                                     create_selective_checkpoint_contexts)
 
+from repro_torch import distributed as dist_
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba2 as m2
@@ -76,13 +77,17 @@ def check_family(cfg: ModelConfig):
 REMATS = ("none", "full", "dots")
 
 
-def check_train(cfg: ModelConfig):
+def check_train(cfg: ModelConfig, rules=None, mesh=None):
     """Raise for a config the port cannot train: a family it does not
     serve (``check_family``), or a ``remat`` outside JAX's "none",
-    "full" and "dots" (``ValueError``)."""
+    "full" and "dots" (``ValueError``); under a mesh, a layout the sharded
+    schedule does not run (``distributed.check_rules``:
+    ``NotImplementedError``)."""
     check_family(cfg)
     if cfg.remat not in REMATS:
         raise ValueError(f"remat={cfg.remat!r}: one of {REMATS}")
+    if rules is not None or mesh is not None:
+        dist_.plan(cfg, rules, mesh)
 
 
 def check_serving(cfg: ModelConfig):
@@ -140,11 +145,11 @@ def _init_block(init: Initializer, cfg: ModelConfig,
     return p
 
 
-def _init_layers(n: int, build) -> Dict:
+def _init_layers(init: Initializer, n: int, build) -> Dict:
     """``n`` stacked ``(n, ...)`` blocks, drawn block by block in layer
     order by ``build()`` and written into leaves allocated once: the same
     tensors as stacking ``n`` block trees, without holding every layer
-    twice."""
+    twice. A recording ``init`` gets the stack's axes, "scan" in front."""
     def alloc(t):
         if isinstance(t, dict):
             return {k: alloc(v) for k, v in t.items()}
@@ -159,7 +164,9 @@ def _init_layers(n: int, build) -> Dict:
     out = None
     for i in range(n):
         block = build()
-        out = alloc(block) if out is None else out
+        if out is None:
+            out = alloc(block)
+            init.stacked(block, out)
         put(out, block, i)
         del block
     return out
@@ -189,32 +196,68 @@ def init_model(cfg: ModelConfig, generator: torch.Generator,
     """Random parameters (truncated-normal fan-in weights, zero output
     projections and norm gammas, as the JAX package) drawn from
     ``generator`` on ``device``."""
+    return _build(cfg, Initializer(cfg, generator, device))
+
+
+def param_axes(cfg: ModelConfig) -> Dict[str, tuple]:
+    """The logical axes of every leaf, by JAX's dotted path ("embed",
+    "layers.attn.wq", ...; stacked leaves lead with "scan"): what JAX's
+    ``init_model(cfg, key)[1]`` gives. The tree is built on the ``meta``
+    device, so a full-width config costs no memory."""
+    return dict(_abstract(cfg)[1])
+
+
+def param_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
+    """The shape of every leaf, by the paths of ``param_axes``."""
+    return dict(_abstract(cfg)[0])
+
+
+@functools.lru_cache(maxsize=64)
+def _abstract(cfg: ModelConfig):
+    init = Initializer(cfg, None, "meta", record=True)
+    params = _build(cfg, init)
+    shapes, axes = {}, {}
+
+    def walk(t, prefix):
+        if isinstance(t, dict):
+            for k, v in t.items():
+                walk(v, f"{prefix}.{k}" if prefix else k)
+        else:
+            shapes[prefix] = tuple(t.shape)
+            axes[prefix] = init.axes[id(t)]
+    walk(params, "")
+    return shapes, axes
+
+
+def _build(cfg: ModelConfig, init: Initializer) -> Dict:
     check_family(cfg)
-    init = Initializer(cfg, generator, device)
     d = cfg.d_model
     # N(0, 1/d) embeddings + sqrt(d) input scaling (gemma-style)
-    params: Dict = {"embed": init.w((cfg.vocab_size, d), scale=d ** -0.5)}
+    params: Dict = {"embed": init.w((cfg.vocab_size, d),
+                                    ("vocab", "w_embed"), scale=d ** -0.5)}
     if cfg.stub_frontend:
-        params["frontend_proj"] = init.w((cfg.frontend_dim, d))
+        params["frontend_proj"] = init.w((cfg.frontend_dim, d),
+                                         (None, "w_embed"))
     params["final_norm"] = init_norm(init, cfg, d)
     if not cfg.tie_embeddings:
-        params["head"] = init.w((d, cfg.vocab_size), scale=d ** -0.5)
+        params["head"] = init.w((d, cfg.vocab_size), ("w_embed", "vocab"),
+                                scale=d ** -0.5)
     if cfg.family == "hybrid":
         params["mamba"] = _init_layers(
-            cfg.num_layers, lambda: m2.init_mamba2(init, cfg))
+            init, cfg.num_layers, lambda: m2.init_mamba2(init, cfg))
         params["shared"] = _init_block(init, cfg)
     elif cfg.family == "ssm":
         n_groups, n_m_per, n_slstm = _ssm_layout(cfg)
         params["mlstm"] = _init_layers(
-            n_groups * n_m_per, lambda: xl.init_mlstm(init, cfg))
+            init, n_groups * n_m_per, lambda: xl.init_mlstm(init, cfg))
         if n_slstm:
             params["slstm"] = _init_layers(
-                n_slstm, lambda: xl.init_slstm(init, cfg))
+                init, n_slstm, lambda: xl.init_slstm(init, cfg))
     else:
         for pkey, _, n in _groups(cfg):
             moe_layer = cfg.family == "moe" and pkey == "layers"
             params[pkey] = _init_layers(
-                n, lambda: _init_block(init, cfg, moe_layer))
+                init, n, lambda: _init_block(init, cfg, moe_layer))
     return params
 
 
@@ -234,7 +277,7 @@ def _rounded_sqrt(n: int, dtype: str) -> float:
 
 
 def _block_fwd(p, x, positions, cfg: ModelConfig, mode: str, cache,
-               q_valid=None):
+               q_valid=None, tp=None):
     h = apply_norm(p["ln1"], x, cfg)
     mla = cfg.attn_type == "mla"
     if mla and mode in ("chunk", "verify"):
@@ -253,15 +296,18 @@ def _block_fwd(p, x, positions, cfg: ModelConfig, mode: str, cache,
                                              q_valid)
     else:
         a, new_cache = (attn.mla_prefill if mla else attn.gqa_prefill)(
-            p["attn"], h, positions, cfg, cache)
+            p["attn"], h, positions, cfg, cache,
+            tp=None if tp is None else tp.sub("attn"))
     x = x + a
     h = apply_norm(p["ln2"], x, cfg)
     aux = None
     if "moe" in p:
-        mo, aux = apply_moe(p["moe"], h, cfg)
+        mo, aux = apply_moe(p["moe"], h, cfg,
+                            tp=None if tp is None else tp.sub("moe"))
         x = x + mo
     else:
-        x = x + apply_mlp(p["mlp"], h, cfg)
+        x = x + apply_mlp(p["mlp"], h, cfg,
+                          tp=None if tp is None else tp.sub("mlp"))
     return x, new_cache, aux
 
 
@@ -296,9 +342,10 @@ def _remat(fn, cfg: ModelConfig):
                              use_reentrant=False, **kw)
 
 
-def _train_block(p, x, positions, cfg: ModelConfig):
-    """One attention block of mode "train": (x, its MoE aux or None)."""
-    x, _, aux = _block_fwd(p, x, positions, cfg, "train", None)
+def _train_block(p, x, positions, cfg: ModelConfig, tp=None):
+    """One attention block of mode "train": (x, its MoE aux or None);
+    under a mesh ``tp`` is the block's ``distributed.Layout``."""
+    x, _, aux = _block_fwd(p, x, positions, cfg, "train", None, tp=tp)
     return x, aux
 
 
@@ -310,15 +357,16 @@ def _train_mlstm(p, x, cfg: ModelConfig):
     return x + xl.mlstm_forward(p, x, cfg)[0]
 
 
-def _train_blocks(params, x, positions, cfg: ModelConfig):
+def _train_blocks(params, x, positions, cfg: ModelConfig, plan=None):
     """The attention blocks of mode "train", with no caches, each under
     ``_remat``. Returns (x, the routers' aux summed in fp32 in layer
     order, 0 without MoE layers)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     block = _remat(_train_block, cfg)
     for pkey, _, n in _groups(cfg):
+        tp = None if plan is None else plan.block(pkey)
         for p in unbind_layers(params[pkey], n):
-            x, a = block(p, x, positions, cfg)
+            x, a = block(p, x, positions, cfg, tp)
             if a is not None:
                 aux = aux + a
     return x, aux
@@ -447,7 +495,8 @@ def _ssm(params, x, cfg: ModelConfig, mode: str, caches):
 
 
 def forward(params, cfg: ModelConfig, *, tokens=None, embeds=None,
-            mode: str = "prefill", caches=None, q_valid=None):
+            mode: str = "prefill", caches=None, q_valid=None, rules=None,
+            mesh=None):
     """Returns ``(logits, new_caches)``; logits in ``cfg.logits_dtype``,
     ``(b, vocab)`` at the last position, except in mode "verify".
 
@@ -466,21 +515,55 @@ def forward(params, cfg: ModelConfig, *, tokens=None, embeds=None,
     written through the paged caches; the logits come back un-sliced,
     ``(b, s, vocab)``, since acceptance needs the argmax at every position.
 
-    mode="train" drops the aux that ``train_forward`` returns.
+    mode="train" drops the aux that ``train_forward`` returns. With
+    ``rules``/``mesh`` (JAX's arguments) mode "train" runs sharded on this
+    rank's shards of ``params`` (``weights.shard_params``), see
+    ``train_forward``; the other modes under a mesh raise
+    ``NotImplementedError`` (a later slice).
     """
-    return _run(params, cfg, tokens, embeds, mode, caches, q_valid)[:2]
+    plan = dist_.plan(cfg, rules, mesh)
+    return _run(params, cfg, tokens, embeds, mode, caches, q_valid,
+                plan)[:2]
 
 
-def train_forward(params, cfg: ModelConfig, *, tokens=None, embeds=None):
+def train_forward(params, cfg: ModelConfig, *, tokens=None, embeds=None,
+                  rules=None, mesh=None):
     """Mode "train" (JAX's ``forward(mode="train")``): (logits ``(b, s,
     vocab)``, the routers' load-balancing aux, a 0-d fp32 tensor summed
-    over the MoE layers in layer order, 0 for the other families)."""
-    logits, _, aux = _run(params, cfg, tokens, embeds, "train", None, None)
+    over the MoE layers in layer order, 0 for the other families).
+
+    Under ``rules``/``mesh`` ``params`` are this rank's shards and
+    ``tokens``/``embeds`` the global batch: the rank runs its rows (the
+    data axes' share) and returns its block of the logits, its rows and
+    its slice of the vocabulary where "model" shards the vocabulary (the
+    logits are never gathered whole), and its data shard's aux."""
+    logits, _, aux = _run(params, cfg, tokens, embeds, "train", None, None,
+                          dist_.plan(cfg, rules, mesh))
     return logits, aux
 
 
+def _vocab_lookup(embed, tokens, compute, ax):
+    """The embedding of ``tokens`` from this rank's vocabulary rows: a
+    masked lookup, summed over the model axis (reduce-out)."""
+    n = embed.shape[0]
+    local = tokens.long() - ax.index * n
+    inside = (local >= 0) & (local < n)
+    x = embed.to(compute)[torch.where(inside, local, 0)]
+    return dist_.reduce_out(torch.where(inside[..., None], x, 0.0), ax)
+
+
+def vocab_sharded(cfg: ModelConfig, plan) -> bool:
+    """Whether the logits' vocabulary is split over "model" under
+    ``plan`` (the head's, or the tied embedding's, vocab dim)."""
+    if plan is None:
+        return False
+    if cfg.tie_embeddings:
+        return plan.dims["embed"] == 0
+    return plan.dims["head"] == 1
+
+
 def _run(params, cfg: ModelConfig, tokens, embeds, mode: str, caches,
-         q_valid):
+         q_valid, plan=None):
     """``forward``'s body: (logits, new caches, the aux in mode "train",
     else None)."""
     check_family(cfg)
@@ -490,6 +573,12 @@ def _run(params, cfg: ModelConfig, tokens, embeds, mode: str, caches,
         check_serving(cfg)
     else:
         raise ValueError(f"mode={mode!r}")
+    if plan is not None:
+        if mode != "train":
+            raise NotImplementedError(
+                f"mode={mode!r} under a mesh: the serve, prefill and decode "
+                f"steps under a mesh {dist_._LATER}")
+        tokens, embeds = plan.rows(tokens), plan.rows(embeds)
     if prefill_chunk(cfg) and mode in ("chunk", "verify"):
         raise NotImplementedError(
             f"mode={mode!r} runs over paged caches; family={cfg.family!r} "
@@ -499,7 +588,10 @@ def _run(params, cfg: ModelConfig, tokens, embeds, mode: str, caches,
     if embeds is not None:
         x = embeds.to(compute) @ params["frontend_proj"].to(compute)
     else:
-        x = params["embed"].to(compute)[tokens]
+        if plan is not None and plan.dims["embed"] == 0:
+            x = _vocab_lookup(params["embed"], tokens, compute, plan.model)
+        else:
+            x = params["embed"].to(compute)[tokens]
         x = x * embed_scale(cfg)
     s = x.shape[1]
     positions = (None if mode in ("decode", "chunk", "verify") else
@@ -511,7 +603,7 @@ def _run(params, cfg: ModelConfig, tokens, embeds, mode: str, caches,
     elif cfg.family == "ssm":
         x, new_caches = _ssm(params, x, cfg, mode, caches)
     elif mode == "train":
-        x, aux = _train_blocks(params, x, positions, cfg)
+        x, aux = _train_blocks(params, x, positions, cfg, plan)
     else:
         new_caches = None if caches is None else {}
         for pkey, ckey, n in _groups(cfg):
@@ -534,6 +626,10 @@ def _run(params, cfg: ModelConfig, tokens, embeds, mode: str, caches,
     elif mode == "chunk":
         idx = torch.clamp(q_valid.long() - 1, min=0)
         x = x[torch.arange(x.shape[0], device=x.device), idx][:, None]
+    if vocab_sharded(cfg, plan):
+        # vocabulary-parallel logits: each rank its slice (copy-in: the
+        # gradient of x sums the ranks' slices)
+        x = dist_.copy_in(x, plan.model)
     if cfg.tie_embeddings and mode == "train":
         logits = x @ params["embed"].to(x.dtype).T
     elif cfg.tie_embeddings:

@@ -49,15 +49,17 @@ def init_mlstm(init: Initializer, cfg: ModelConfig) -> Dict:
     d = cfg.d_model
     d_in, nh, hd = _mlstm_dims(cfg)
     return {
-        "up": init.w((d, 2, d_in)),
-        "wq": init.w((d_in, d_in)),
-        "wk": init.w((d_in, d_in)),
-        "wv": init.w((d_in, d_in)),
-        "wif": init.w((d_in, 2, nh), scale=0.01),
+        "up": init.w((d, 2, d_in), ("w_embed", None, "ssm_inner")),
+        "wq": init.w((d_in, d_in), ("ssm_inner", None)),
+        "wk": init.w((d_in, d_in), ("ssm_inner", None)),
+        "wv": init.w((d_in, d_in), ("ssm_inner", None)),
+        "wif": init.w((d_in, 2, nh), ("ssm_inner", None, "ssm_heads"),
+                      scale=0.01),
         "b_if": init.const(np.concatenate([np.full((1, nh), -3.0),
-                                           np.full((1, nh), 3.0)])),
-        "norm": init.z((d_in,)),
-        "down": init.z((d_in, d)),
+                                           np.full((1, nh), 3.0)]),
+                           (None, "ssm_heads")),
+        "norm": init.z((d_in,), ("ssm_inner",)),
+        "down": init.z((d_in, d), ("ssm_inner", "w_embed")),
     }
 
 
@@ -205,14 +207,16 @@ def init_slstm(init: Initializer, cfg: ModelConfig) -> Dict:
     hd = d // nh
     f_up = int(cfg.xlstm.proj_factor_slstm * d)
     return {
-        "wx": init.w((d, 4, d)),
-        "r": init.w((nh, hd, 4, hd), scale=hd ** -0.5),
+        "wx": init.w((d, 4, d), ("w_embed", None, "ssm_inner")),
+        "r": init.w((nh, hd, 4, hd), ("ssm_heads", None, None, None),
+                    scale=hd ** -0.5),
         "b": init.const(np.concatenate([np.zeros((2, nh, hd)),
                                         np.full((1, nh, hd), 3.0),
-                                        np.zeros((1, nh, hd))])),
-        "norm": init.z((d,)),
-        "ff_wi": init.w((d, 2, f_up)),
-        "ff_wo": init.z((f_up, d)),
+                                        np.zeros((1, nh, hd))]),
+                        (None, "ssm_heads", None)),
+        "norm": init.z((d,), ("norm",)),
+        "ff_wi": init.w((d, 2, f_up), ("w_embed", None, "ff")),
+        "ff_wo": init.z((f_up, d), ("ff", "w_embed")),
     }
 
 

@@ -45,3 +45,38 @@ def to_numpy(params) -> Dict:
     if t.dtype == torch.bfloat16:
         t = t.float()
     return t.numpy()
+
+
+def shard_params(full, specs, mesh, device=None) -> Dict:
+    """This rank's shards of a whole tree: each leaf sliced along each dim
+    its spec (a tree of ``sharding.PartitionSpec`` of the same structure)
+    gives a mesh-axis group, at the rank's coordinate in that group, in
+    the group's axis order (the order JAX lays shards out). Each shard is
+    a copy (on ``device`` when given), so the whole tree can be freed.
+    Every rank calls it alike (its first use of an axis group creates the
+    group on every rank)."""
+    from repro_torch import distributed
+    if isinstance(full, dict):
+        return {k: shard_params(v, specs[k], mesh, device)
+                for k, v in full.items()}
+    t = full
+    for dim, e in enumerate(specs):
+        if e is not None:
+            ax = distributed.axis(mesh, (e,) if isinstance(e, str) else e)
+            t = distributed.local_slice(t, dim, ax)
+    return t.to(device=device or t.device, copy=True)
+
+
+@torch.no_grad()
+def gather_params(local, specs, mesh) -> Dict:
+    """The whole tree from every rank's shards (``shard_params``'s
+    inverse), on every rank, as new tensors; for checks and tests."""
+    from repro_torch import distributed
+    if isinstance(local, dict):
+        return {k: gather_params(v, specs[k], mesh) for k, v in local.items()}
+    t = local.clone()             # a copy even where nothing is gathered
+    for dim, e in enumerate(specs):
+        if e is not None:
+            ax = distributed.axis(mesh, (e,) if isinstance(e, str) else e)
+            t = distributed.gather(t, dim, ax)
+    return t

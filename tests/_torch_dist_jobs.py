@@ -1,0 +1,268 @@
+"""Rank side of ``tests/test_torch_distributed.py``: each rank of a gloo
+process group on the CPU runs these jobs of the port's sharded path
+(imports torch and ``repro_torch`` only). Inputs and outputs are ``.npz``
+files of flattened trees ("/"-joined paths) in a directory the test
+gives; rank 0 writes the outputs."""
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import time
+
+import numpy as np
+import torch
+
+
+def save_tree(path, tree):
+    from repro_torch import tree as T
+    np.savez(path, **{k: (v.detach().float().numpy() if torch.is_tensor(v)
+                          else np.asarray(v))
+                      for k, v in T.flatten(tree).items()})
+
+
+def load_tree(path, dtype=None):
+    out = {}
+    with np.load(path) as z:
+        for k in z.files:
+            node = out
+            *head, last = k.split("/")
+            for h in head:
+                node = node.setdefault(h, {})
+            t = torch.from_numpy(np.array(z[k]))
+            node[last] = t.to(dtype) if dtype is not None and \
+                t.is_floating_point() else t
+    return out
+
+
+def _cfg(spec):
+    from repro_torch.configs import get_reduced_config
+    cfg = get_reduced_config(spec["arch"]).replace(**spec.get("replace", {}))
+    if "moe" in spec:
+        cfg = cfg.replace(moe=dataclasses.replace(cfg.moe, **spec["moe"]))
+    return cfg
+
+
+def _mesh(shape, axes):
+    """The mesh over ranks 0 .. prod(shape) - 1, its axis groups made on
+    every rank (a rank outside it gets None)."""
+    from repro_torch import distributed as D
+    from repro_torch.launch.mesh import compat_make_mesh
+    mesh = compat_make_mesh(shape, axes, device="cpu")
+    model = D.axis(mesh, ("model",))
+    data = D.axis(mesh, ("pod", "data"))
+    return mesh, model is not None and data is not None
+
+
+def _moe_specs(layout, tree, prefix=""):
+    if isinstance(tree, dict):
+        return {k: _moe_specs(layout, v, f"{prefix}.{k}" if prefix else k)
+                for k, v in tree.items()}
+    return layout.specs[prefix]
+
+
+def job_ep(rank, d, spec):
+    """apply_moe on the rank's shards: EP on (2, 4) at each capacity
+    slack, and every expert on 8 data ranks (mesh ("data",)) at each."""
+    from repro_torch import distributed as D
+    from repro_torch import weights
+    from repro_torch.models import moe
+    p = load_tree(f"{d}/ep_params.npz")
+    x = torch.from_numpy(np.load(f"{d}/ep_x.npy"))
+    out = {}
+    for tag, shape, axes in (("ep", (2, 4), ("data", "model")),
+                             ("cut", (8,), ("data",))):
+        mesh, member = _mesh(shape, axes)
+        for slack in spec["slacks"]:
+            cfg = _cfg({**spec, "moe": {"capacity_slack": slack}})
+            lay = D.moe_layout(cfg, mesh)
+            local = weights.shard_params(p, _moe_specs(lay, p), mesh)
+            with torch.no_grad():
+                y, aux = moe.apply_moe(local, D.local_slice(x, 0, lay.data),
+                                       cfg, mesh=mesh)
+                y = D.gather(y, 0, lay.data)
+                auxes = D.gather(aux.reshape(1), 0, lay.data)
+            out[f"{tag}_{slack}_y"] = y
+            out[f"{tag}_{slack}_aux"] = auxes
+    if rank == 0:
+        save_tree(f"{d}/out_ep.npz", out)
+
+
+def job_train(rank, d, spec):
+    """Two sharded train steps from the given state (their metrics), the
+    state after step 1 gathered, and step 2 again from JAX's state after
+    step 1 (its metrics and the state after it, gathered). Also the round
+    trip of the initial state through shard_params / gather_params."""
+    from repro_torch import tree as T
+    from repro_torch import weights
+    from repro_torch.models import optim, sharding, steps
+    from repro_torch.models import transformer as tf
+    name = spec["name"]
+    mesh, member = _mesh(tuple(spec["mesh"]), tuple(spec["axes"]))
+    if not member:
+        return
+    cfg = _cfg(spec)
+    rules = sharding.ShardingRules(mesh)
+    pspecs = sharding.tree_specs(rules, tf.param_shapes(cfg),
+                                 tf.param_axes(cfg))
+    sspecs = steps.state_specs(_nest(pspecs))
+    full = load_tree(f"{d}/{name}_state0.npz")
+    full["opt"]["step"] = full["opt"]["step"].to(torch.int32)
+    opt = optim.OptConfig(**spec["opt"])
+    batches = [load_tree(f"{d}/{name}_batch{i}.npz") for i in range(2)]
+    state = weights.shard_params(full, sspecs, mesh)
+    back = weights.gather_params(state, sspecs, mesh)
+    out = {"roundtrip": torch.tensor(float(all(
+        torch.equal(a, T.flatten(full)[k])
+        for k, a in T.flatten(back).items())))}
+    for i, batch in enumerate(batches):
+        state, met = steps.train_step(state, batch, cfg, opt, rules=rules,
+                                      mesh=mesh)
+        for k, v in met.items():
+            out[f"chain{i}_{k}"] = v
+        if i == 0:
+            out["state1"] = weights.gather_params(state, sspecs, mesh)
+    # step 2 again from JAX's state after step 1, which the JAX process
+    # writes while the ranks run
+    path = f"{d}/{name}_jstate1.npz"
+    for _ in range(3000):
+        if os.path.exists(path):
+            break
+        time.sleep(0.1)
+    carried = load_tree(path)
+    carried["opt"]["step"] = carried["opt"]["step"].to(torch.int32)
+    st = weights.shard_params(carried, sspecs, mesh)
+    st, met = steps.train_step(st, batches[1], cfg, opt, rules=rules,
+                               mesh=mesh)
+    for k, v in met.items():
+        out[f"carried_{k}"] = v
+    out["state2"] = weights.gather_params(st, sspecs, mesh)
+    if rank == 0:
+        save_tree(f"{d}/out_{name}.npz", out)
+
+
+def _nest(flat_dotted):
+    """A dotted-path dict -> the nested tree."""
+    if not isinstance(flat_dotted, dict) or not any(
+            "." in k for k in flat_dotted):
+        return flat_dotted
+    out = {}
+    for k, v in flat_dotted.items():
+        node = out
+        *head, last = k.split(".")
+        for h in head:
+            node = node.setdefault(h, {})
+        node[last] = v
+    return out
+
+
+def job_heads(rank, d, spec):
+    """Sharded value_and_grad == the one-process port's at the head counts
+    of ``spec["heads"]`` (a local query head meets the right kv head)."""
+    from repro_torch import tree as T
+    from repro_torch import weights
+    from repro_torch.models import sharding, steps
+    from repro_torch.models import transformer as tf
+    mesh, member = _mesh(tuple(spec["mesh"]), tuple(spec["axes"]))
+    out = {}
+    for nh, kvh in spec["heads"]:
+        cfg = _cfg({**spec, "replace": {**spec["replace"], "num_heads": nh,
+                                        "num_kv_heads": kvh}})
+        gen = torch.Generator().manual_seed(nh * 10 + kvh)
+        p = tf.init_model(cfg, gen, "cpu")
+        p = T.map_tree(lambda t: t + 0.1 * torch.randn(t.shape,
+                                                       generator=gen), p)
+        batch = {"tokens": torch.randint(0, cfg.vocab_size, (8, 12),
+                                         generator=gen),
+                 "labels": torch.randint(0, cfg.vocab_size, (8, 12),
+                                         generator=gen)}
+        rules = sharding.ShardingRules(mesh)
+        pspecs = _nest(sharding.tree_specs(rules, tf.param_shapes(cfg),
+                                           tf.param_axes(cfg)))
+        local = weights.shard_params(p, pspecs, mesh)
+        (_, (loss, _)), g = steps.value_and_grad(local, batch, cfg, rules,
+                                                 mesh)
+        g = weights.gather_params(g, pspecs, mesh)
+        if rank == 0:
+            (_, (loss1, _)), g1 = steps.value_and_grad(p, batch, cfg)
+            g1 = T.flatten(g1)
+            out[f"{nh}_{kvh}_loss"] = torch.stack([loss, loss1])
+            out[f"{nh}_{kvh}_grad_err"] = torch.tensor(max(
+                float((a - g1[k]).abs().max() / g1[k].abs().max())
+                for k, a in T.flatten(g).items()))
+            out[f"{nh}_{kvh}_wk_spec"] = torch.tensor(
+                [e == "model" for e in pspecs["layers"]["attn"]["wk"]])
+    if rank == 0:
+        save_tree(f"{d}/out_heads.npz", out)
+
+
+def job_mask(rank, d, spec):
+    """loss_fn on a batch whose masks differ across the data ranks."""
+    from repro_torch.models import sharding, steps
+    from repro_torch.models import transformer as tf
+    mesh, member = _mesh(tuple(spec["mesh"]), tuple(spec["axes"]))
+    cfg = _cfg(spec)
+    rules = sharding.ShardingRules(mesh)
+    from repro_torch import weights
+    pspecs = _nest(sharding.tree_specs(rules, tf.param_shapes(cfg),
+                                       tf.param_axes(cfg)))
+    p = weights.shard_params(load_tree(f"{d}/mask_params.npz"), pspecs, mesh)
+    batch = load_tree(f"{d}/mask_batch.npz")
+    with torch.no_grad():
+        total, (loss, aux) = steps.loss_fn(p, batch, cfg, rules, mesh)
+    if rank == 0:
+        save_tree(f"{d}/out_mask.npz", {"loss": loss})
+
+
+def card(rank, world, d, shape):
+    """On the card: reduced gemma_2b (bf16) on mesh ("data", "model") =
+    ``shape``, its sharded gradient and train step against the same in
+    one process (rank 0) from the same weights and batch, the flash
+    kernels counted; rank 0 writes ``card.json``."""
+    from repro_torch import tree as T
+    from repro_torch import weights
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import compat_make_mesh
+    from repro_torch.models import optim, sharding, steps
+    from repro_torch.models import transformer as tf
+    mesh = compat_make_mesh(shape, ("data", "model"))
+    cfg = get_reduced_config("gemma_2b").replace(remat="none")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    full = T.map_tree(lambda t: t + (0.1 * torch.randn(
+        t.shape, generator=gen, device="cuda")).to(t.dtype),
+        tf.init_model(cfg, gen, "cuda"))
+    batch = {k: torch.randint(0, cfg.vocab_size, (8, 128), generator=gen,
+                              device="cuda") for k in ("tokens", "labels")}
+    rules = sharding.ShardingRules(mesh)
+    specs = sharding.tree_specs(rules, full, tf.param_axes(cfg))
+    local = weights.shard_params(full, specs, mesh)
+    ops.reset_launches()
+    (_, (loss, _)), g = steps.value_and_grad(local, batch, cfg, rules, mesh)
+    counts = ops.launch_counts()
+    g = T.flatten(weights.gather_params(g, specs, mesh))
+    state = {"params": local, "opt": optim.init_opt_state(local)}
+    _, met = steps.train_step(state, batch, cfg, rules=rules, mesh=mesh)
+    if rank == 0:
+        (_, (loss1, _)), g1 = steps.value_and_grad(full, batch, cfg)
+        one = {"params": full, "opt": optim.init_opt_state(full)}
+        _, met1 = steps.train_step(one, batch, cfg)
+        g1 = T.flatten(g1)
+        cos = {k: float((a.float().flatten() @ g1[k].float().flatten())
+                        / (a.float().norm() * g1[k].float().norm()))
+               for k, a in g.items()}
+        with open(os.path.join(d, "card.json"), "w") as f:
+            json.dump({"loss": [float(loss), float(loss1)],
+                       "step_loss": [float(met["loss"]),
+                                     float(met1["loss"])],
+                       "cos": cos, "fwd": counts["flash_attention"],
+                       "bwd": counts["flash_attention_bwd"]}, f)
+
+
+def run(rank, world, d):
+    """Every job of ``jobs.json`` in order, on every rank."""
+    torch.set_num_threads(1)
+    with open(os.path.join(d, "jobs.json")) as f:
+        jobs = json.load(f)
+    for spec in jobs:
+        globals()[f"job_{spec['job']}"](rank, d, spec)

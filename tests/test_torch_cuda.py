@@ -1069,3 +1069,36 @@ def test_family_train_step_on_the_card(cuda, arch, remat):
     assert torch.isfinite(metrics["loss"]) and torch.isfinite(
         metrics["grad_norm"])
     assert (float(metrics["aux_loss"]) > 0) == (cfg.family == "moe")
+
+
+# the sharded step against one process on the same card, bf16: the
+# loss's relative difference and each gradient leaf's cosine (phase dist's
+# gates, chip_smoke.DIST_LOSS_RTOL and DIST_COS)
+DIST_LOSS_RTOL, DIST_COS = 2e-3, 0.999
+
+
+def _sharded_gemma(tmp_path, world, shape):
+    import json
+
+    import _torch_dist_jobs as jobs
+    from repro_torch.launch import mesh
+    mesh.spawn(jobs.card, world, (str(tmp_path), shape))
+    out = json.loads((tmp_path / "card.json").read_text())
+    layers = get_reduced_config("gemma_2b").num_layers
+    assert (out["fwd"], out["bwd"]) == (layers, layers)
+    for a, b in (out["loss"], out["step_loss"]):
+        assert abs(a - b) <= DIST_LOSS_RTOL * abs(b), out
+    assert min(out["cos"].values()) >= DIST_COS, out["cos"]
+
+
+def test_sharded_gemma_step_two_gloo_ranks_on_one_card(cuda, tmp_path):
+    """Two ranks on the one card over gloo, mesh ("data", "model") = (1,
+    2): reduced gemma_2b's sharded step through both flash kernels (2 of
+    4 heads a rank) equals the one-process step."""
+    _sharded_gemma(tmp_path, 2, (1, 2))
+
+
+def test_sharded_gemma_step_four_cards_over_nccl(cuda, tmp_path):
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four cards (one NCCL rank a card)")
+    _sharded_gemma(tmp_path, 4, (2, 2))

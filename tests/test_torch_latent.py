@@ -220,11 +220,22 @@ def test_moe_reference_matches_jax():
                                atol=LAYER_ATOL, rtol=0)
 
 
+class _StubMesh:
+    """A mesh as ``ShardingRules`` reads it: axis names, a device array."""
+
+    def __init__(self, shape, names):
+        self.axis_names = tuple(names)
+        self.devices = np.empty(shape, dtype=object)
+
+
 def test_moe_refuses_a_mesh():
-    """Expert parallelism waits for the distribution slice."""
+    """Expert parallelism runs under a mesh (``tests/test_torch_
+    distributed.py``); a mesh whose "model" axis does not divide the
+    experts still raises, naming the leaf and its spec."""
     _, tcfg, _, tp, x = _moe_case()
-    with pytest.raises(NotImplementedError, match="distribution"):
-        tmoe.moe_ragged(tp, torch.tensor(x), tcfg, mesh=object())
+    with pytest.raises(NotImplementedError, match="wi: spec .*experts"):
+        tmoe.moe_ragged(tp, torch.tensor(x), tcfg,
+                        mesh=_StubMesh((1, 3), ("data", "model")))
 
 
 def _jax_logits(params, cfg, prompt, cache_dtype):
