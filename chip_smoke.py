@@ -195,11 +195,26 @@ raises on failure:
    one-process gradient >= DIST_COS (MoE: with the ranks' routing, the
    free routing's cosine and flipped rows printed); each rank's step time
    and peak memory, gloo-staged (not the card's collectives);
-17. the ``kernels`` JSON line (flash's row also holds its MLA shapes and
+17. dist_serve: serving under a mesh, 4 ranks on the one card over gloo
+   as phase dist runs them, DIST_SERVE_RUNS at full width (gemma_2b 6 of
+   18 layers on (2, 2): its one kv head whole on every model rank;
+   llama3_70b 4 of 80 on (1, 4): 16 of 64 query heads and 2 of 8 kv heads
+   a rank; deepseek_v2_lite_16b 3 of 27 on (2, 2), naive and absorbed:
+   the whole latent, 32 of 64 experts a rank), each rank making only its
+   shards of the seeded weights (``seeded_params``); ``prefill_step`` of 8
+   x 512 tokens and 32 ``serve_step``s under ``rules``/``mesh``, the
+   prefill's and first step's flash and ``decode_attention`` calls held
+   (``layer_checks``), launches counted on every rank; against one
+   process on the same weights fed the ranks' tokens (MoE routed as the
+   ranks routed): each pass's logits within LOGIT_TOL, the first tokens
+   where the margin is sure, each layer's gathered cache against one
+   process's projection of that layer's own inputs;
+18. the ``kernels`` JSON line (flash's row also holds its MLA shapes and
    launches, flash's and dense decode's their zamba2 shape and launches,
    flash's its training launches; the backward's row its other shapes
-   and ptxas report; rows 1 and 7 add phase dist's launches), the card
-   line, and the last line ``{"ok": true, "device": {...}}``.
+   and ptxas report; rows 1 and 7 add phase dist's launches, rows 1 and
+   dense decode's phase dist_serve's), the card line, and the last line
+   ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -1287,36 +1302,38 @@ def phase_rag():
 NOISE_ELEMS = 2 ** 28
 
 
+def _weight_std(cfg, path, shape) -> float:
+    """A leaf's scale: its fan-in's (``shape`` the stacked leaf's), 0.1 for
+    norm gammas, d ** -0.5 for the embedding, so activations stay O(1) at
+    full width."""
+    if path == "embed":
+        return cfg.d_model ** -0.5
+    if path.endswith(("gamma", "beta")):    # norms (beta: layernorm)
+        return 0.1
+    # the hybrid's one shared block is not stacked
+    per_layer = shape if path.startswith("shared.") else shape[1:]
+    if ".moe.w" in path:              # (experts, fan-in, fan-out)
+        return per_layer[1] ** -0.5
+    if path == "slstm.r":             # (heads, fan-in, 4, head dim)
+        return per_layer[1] ** -0.5
+    fan_in = (int(np.prod(per_layer[:-1])) if path.endswith("wo")
+              else per_layer[0])
+    return fan_in ** -0.5
+
+
 def _perturb(params, cfg, gen, share: float = 1.0):
     """Add seeded noise to every leaf in place: ``share`` of each weight's
-    fan-in scale (0.1 for norm gammas), so activations stay O(1) at full
-    width. The noise is drawn one layer slice of a stacked leaf at a time,
-    and in blocks of rows of at most NOISE_ELEMS values elsewhere, so that
-    it never needs the fp32 size of a whole leaf."""
-    d = cfg.d_model
-
-    def std(path, shape):
-        if path == "embed":
-            return d ** -0.5
-        if path.endswith(("gamma", "beta")):    # norms (beta: layernorm)
-            return 0.1
-        # the hybrid's one shared block is not stacked
-        per_layer = shape if path.startswith("shared.") else shape[1:]
-        if ".moe.w" in path:              # (experts, fan-in, fan-out)
-            return per_layer[1] ** -0.5
-        if path == "slstm.r":             # (heads, fan-in, 4, head dim)
-            return per_layer[1] ** -0.5
-        fan_in = (int(np.prod(per_layer[:-1])) if path.endswith("wo")
-                  else per_layer[0])
-        return fan_in ** -0.5
-
+    scale (``_weight_std``). The noise is drawn one layer slice of a
+    stacked leaf at a time, and in blocks of rows of at most NOISE_ELEMS
+    values elsewhere, so that it never needs the fp32 size of a whole
+    leaf."""
     def walk(tree, prefix):
         for k, v in tree.items():
             path = f"{prefix}.{k}" if prefix else k
             if isinstance(v, dict):
                 walk(v, path)
                 continue
-            sd = share * std(path, v.shape)
+            sd = share * _weight_std(cfg, path, v.shape)
             rows = (1 if path.startswith("layers.")
                     else max(1, NOISE_ELEMS // max(1, v[0].numel())))
             # an MoE layer's experts (DeepSeek-V2-236B: 2.5e9 values) one
@@ -4321,6 +4338,410 @@ def phase_dist(card: str):
     return fwd, bwd
 
 
+# phase dist_serve: serving under a mesh, 4 ranks on the one card over
+# gloo as phase dist runs them; (arch, layers, mesh (data, model),
+# MLA absorbed). Full width, depth the only cut (the ranks, their CUDA
+# contexts and the one-process reference share the card's 80 GB)
+DIST_SERVE_RUNS = (("gemma_2b", 6, (2, 2), False),
+                   ("llama3_70b", 4, (1, 4), False),
+                   ("deepseek_v2_lite_16b", 3, (2, 2), False),
+                   ("deepseek_v2_lite_16b", 3, (2, 2), True))
+DIST_SERVE_BATCH, DIST_SERVE_PROMPT, DIST_SERVE_STEPS = 8, 512, 32
+# seeded weights are drawn in blocks of at most this many values, each
+# block from its own generator (``seeded_params``)
+SEED_ELEMS = 2 ** 26
+
+
+def _seed_of(*key) -> int:
+    import zlib
+    return zlib.crc32(repr(key).encode())
+
+
+def _seeded(shape, sd: float, key, dtype):
+    """N(0, sd^2) of ``shape`` on the card, drawn in blocks of rows of at
+    most SEED_ELEMS values, block j from a generator seeded by ``key`` and
+    j."""
+    out = torch.empty(shape, dtype=dtype, device="cuda")
+    rows = max(1, SEED_ELEMS // max(1, int(np.prod(shape[1:]))))
+    for j, part in enumerate(out.split(rows)):
+        gen = torch.Generator(device="cuda").manual_seed(_seed_of(*key, j))
+        part.copy_(torch.randn(part.shape, generator=gen, device="cuda")
+                   * sd)
+    return out
+
+
+def _nested(flat):
+    out = {}
+    for path, v in flat.items():
+        node = out
+        *head, last = path.split(".")
+        for h in head:
+            node = node.setdefault(h, {})
+        node[last] = v
+    return out
+
+
+def seeded_params(cfg, seed: int, rules=None, mesh=None):
+    """Seeded weights on the card, leaf by leaf and layer by layer: each
+    layer of each leaf N(0, ``_weight_std``^2) from generators seeded by
+    (``seed``, leaf path, layer) (``_seeded``). With ``rules``/``mesh``
+    only this rank's shards are kept: each layer's whole leaf exists only
+    while its shard is cut (``weights.shard_params``), so no rank holds
+    the whole model, and the shards are those of the whole tree."""
+    from repro_torch import weights
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.sharding import PartitionSpec
+    dtype = getattr(torch, cfg.param_dtype)
+    axes = tf.param_axes(cfg)
+    flat = {}
+    for path, shape in tf.param_shapes(cfg).items():
+        stacked = axes[path][:1] == ("scan",)
+        spec = None if rules is None else rules.spec(shape, axes[path])
+        sd = _weight_std(cfg, path, shape)
+        out = None
+        for i in (range(shape[0]) if stacked else (None,)):
+            part = _seeded(shape[1:] if stacked else shape, sd,
+                           (seed, path, i), dtype)
+            if spec is not None:
+                part = weights.shard_params(
+                    part, PartitionSpec(*spec[1:]) if stacked else spec,
+                    mesh)
+            if not stacked:
+                out = part
+                break
+            if out is None:
+                out = part.new_empty((shape[0], *part.shape))
+            out[i] = part
+            del part
+        flat[path] = out
+    return _nested(flat)
+
+
+def _serve_cfg(arch, layers, absorb=False):
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config(arch).replace(num_layers=layers)
+    if absorb:
+        cfg = cfg.replace(mla=dataclasses.replace(cfg.mla, absorb=True))
+    return cfg
+
+
+def _serve_tag(arch, absorb) -> str:
+    return arch + (" absorbed" if absorb else "")
+
+
+def _serve_prompts(cfg, batch=DIST_SERVE_BATCH, n=DIST_SERVE_PROMPT):
+    rng = np.random.default_rng(DIST_SEED)
+    return torch.as_tensor(rng.integers(0, cfg.vocab_size, (batch, n)),
+                           dtype=torch.int32, device="cuda")
+
+
+def _serve_passes(cfg, params, prompts, max_len, n_steps, rules=None,
+                  mesh=None, feed=None, checked=True):
+    """``prefill_step`` then ``n_steps`` ``serve_step``s (under
+    ``rules``/``mesh`` when given), fed their own greedy tokens or those
+    of ``feed``; with ``checked`` the prefill and the first step run
+    inside ``layer_checks``. Returns (each pass's logits on the host, the
+    tokens fed, the caches, each pass's seconds, the held readings)."""
+    from repro_torch.models import steps
+    logits, fed, secs, state = [], [], [], {}
+
+    def run(i):
+        t0 = time.perf_counter()
+        if i == 0:
+            lg, state["caches"] = steps.prefill_step(
+                params, {"tokens": prompts}, cfg, max_len, rules, mesh)
+        else:
+            tok = state["tok"] if feed is None else feed[i - 1]
+            fed.append(tok)
+            _, lg, state["caches"] = steps.serve_step(
+                params, tok[:, None], state["caches"], cfg, rules, mesh)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        state["tok"] = torch.argmax(lg, -1).to(torch.int32)
+        logits.append(lg.float().cpu())
+    with torch.no_grad():
+        with (layer_checks() if checked else contextlib.nullcontext(
+                _Held())) as held:
+            run(0)
+            run(1)
+        for i in range(2, n_steps + 1):
+            run(i)
+    return logits, fed, state["caches"], secs, held
+
+
+def _dist_serve_rank(rank, world, out_dir, runs=DIST_SERVE_RUNS):
+    """One rank of phase dist_serve (and of ``tools/dist_cards.py``): for
+    each of ``runs`` at full width, its shards of the seeded weights
+    (``seeded_params``, the same on every rank), ``prefill_step`` of
+    DIST_SERVE_BATCH prompts of DIST_SERVE_PROMPT tokens and
+    DIST_SERVE_STEPS ``serve_step``s under the mesh, the launch counters
+    reset just before and read just after, the prefill's and the first
+    step's flash and ``decode_attention`` calls held against their plain
+    versions (``layer_checks``), each MoE layer's routing recorded; the
+    caches gathered to rank 0, which then runs the same passes in one
+    process from the whole weights, fed the ranks' tokens (MoE routed as
+    the ranks routed), and holds each layer's cache against its own
+    (``compare``). Writes ``rank{r}.json`` to ``out_dir``."""
+    import gc
+    import torch.distributed as dist
+    from repro_torch import distributed as D
+    from repro_torch import weights
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import compat_make_mesh
+    from repro_torch.models import sharding
+    from repro_torch.models import transformer as tf
+    out = {"backend": dist.get_backend(),
+           "device": torch.cuda.current_device()}
+    for arch, layers, shape, absorb in runs:
+        mesh = compat_make_mesh(shape, ("data", "model"))
+        rules = sharding.ShardingRules(mesh)
+        cfg = _serve_cfg(arch, layers, absorb)
+        params = seeded_params(cfg, DIST_SEED, rules, mesh)
+        prompts = _serve_prompts(cfg)
+        max_len = DIST_SERVE_PROMPT + DIST_SERVE_STEPS
+        staged = D.staged_calls
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        with _routes_recorded() as routes, _block_inputs() as xs:
+            logits, fed, caches, secs, held = _serve_passes(
+                cfg, params, prompts, max_len, DIST_SERVE_STEPS, rules,
+                mesh)
+        counts = ops.launch_counts()
+        r = {"secs": secs, "staged": D.staged_calls - staged,
+             "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+             "launches": {k: counts[k] for k in ("flash_attention",
+                                                 "decode_attention")},
+             "held": dict(held)}
+        whole = weights.gather_params(
+            caches, tf.cache_specs(cfg, rules, DIST_SERVE_BATCH, max_len),
+            mesh)
+        routes = [weights.gather_params(i, (("pod", "data"), None),
+                                        mesh).cpu() for i in routes]
+        # each layer's input over the passes, the whole batch
+        n = sum(k for _, _, k in tf._groups(cfg))
+        xs = [torch.cat([weights.gather_params(
+            x, (("pod", "data"), None, None), mesh)
+            for x in xs[j::n]], dim=1).cpu() for j in range(n)]
+        whole = {g: {k: v.cpu() for k, v in c.items()}
+                 for g, c in whole.items()} if rank == 0 else None
+        del params, caches
+        gc.collect()
+        torch.cuda.empty_cache()
+        dist.barrier()
+        if rank == 0:
+            r.update(_serve_one_process(cfg, prompts, logits, fed, whole,
+                                        routes, xs))
+        del whole, logits, xs
+        dist.barrier()
+        out[_serve_tag(arch, absorb)] = r
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+@contextlib.contextmanager
+def _block_inputs():
+    """Each attention block's input while open, in call order (pass by
+    pass, layer by layer)."""
+    from repro_torch.models import transformer as tf
+    saved, got = tf._block_fwd, []
+
+    def block(p, x, *args, **kw):
+        got.append(x.detach().clone())
+        return saved(p, x, *args, **kw)
+    tf._block_fwd = block
+    try:
+        yield got
+    finally:
+        tf._block_fwd = saved
+
+
+def _layer_caches(cfg, params, xs):
+    """Each layer's cache entries as this one process projects them from
+    ``xs`` (each layer's inputs over the passes, (b, prompt + steps, d)):
+    K/V, or MLA's latent and rope key, at positions 0 .. prompt + steps -
+    1, as the prefill and the decode steps write them."""
+    from repro_torch.models import attention as attn
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.layers import apply_norm
+    out, j = {}, 0
+    for pkey, ckey, n in tf._groups(cfg):
+        out[ckey] = []
+        for i in range(n):
+            p = tf.layer_slice(params[pkey], i)
+            x = xs[j].cuda()
+            pos = torch.arange(x.shape[1], dtype=torch.int32,
+                               device=x.device)[None, :]
+            h = apply_norm(p["ln1"], x, cfg)
+            if cfg.attn_type == "mla":
+                _, _, c_kv, k_rope = attn._mla_inputs(p["attn"], h, pos, cfg)
+                out[ckey].append({"c_kv": c_kv, "k_rope": k_rope[:, :, 0]})
+            else:
+                _, k, v = attn._qkv(p["attn"], h, pos, cfg)
+                out[ckey].append({"k": k, "v": v})
+            j += 1
+    return out
+
+
+def _serve_one_process(cfg, prompts, logits, fed, caches, routes, xs):
+    """The same passes in this one process from the whole seeded weights,
+    fed the ranks' tokens, MoE routed as the ranks routed (``routes``):
+    each pass's largest logit difference as a share of the largest logit,
+    the first token's agreement wherever this process's top-2 margin
+    exceeds twice the row's largest difference, the stream tokens that
+    equal this process's argmax, and how far its caches drifted from the
+    ranks'. Each layer's gathered cache is held against what this process
+    projects from that layer's own inputs in the ranks' run (``xs``;
+    ``compare``, the elementwise bound of the largest entry), as
+    ``layer_checks`` holds a layer: rounding compounded through the
+    layers does not enter."""
+    import gc
+    params = seeded_params(cfg, DIST_SEED)
+    ctx = _routed_as(routes) if routes else contextlib.nullcontext()
+    with ctx:
+        one, _, one_caches, secs, _ = _serve_passes(
+            cfg, params, prompts, DIST_SERVE_PROMPT + DIST_SERVE_STEPS,
+            DIST_SERVE_STEPS, feed=fed, checked=False)
+    share = [float((a - b).abs().max() / b.abs().max())
+             for a, b in zip(logits, one)]
+    diff = (logits[0] - one[0]).abs().amax(-1)
+    top2 = one[0].topk(2, dim=-1).values
+    sure = (top2[:, 0] - top2[:, 1]) > 2 * diff
+    first_equal = logits[0].argmax(-1) == one[0].argmax(-1)
+    stream = [f.cpu() for f in fed] + [logits[-1].argmax(-1)]
+    equal = sum(int((s == o.argmax(-1)).sum()) for s, o in zip(stream, one))
+    drift, worst = {}, {}
+    with torch.no_grad():
+        mine = _layer_caches(cfg, params, xs)
+    for g, c in caches.items():
+        if not torch.equal(c["length"], one_caches[g]["length"].cpu()):
+            raise AssertionError(f"cache {g}: lengths differ")
+        for k, v in c.items():
+            if k == "length":
+                continue
+            ref = one_caches[g][k].cpu().float()
+            d = v.shape[-1]
+            drift[k] = max(drift.get(k, 0.0), float(
+                ((v.float() - ref).reshape(-1, d).norm(dim=1)
+                 / ref.reshape(-1, d).norm(dim=1).clamp(min=1e-30)).max()))
+            for i in range(v.shape[0]):
+                e, row = compare(f"{cfg.name} cache {g}.{k} layer {i}",
+                                 v[i].cuda(), mine[g][i][k], of_max=True)
+                w = worst.get(k, (0.0, 0.0))
+                worst[k] = (max(w[0], e), max(w[1], row))
+    del params, one_caches, mine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"share": share, "first_sure": int(sure.sum()),
+            "first_sure_equal": int((first_equal & sure).sum()),
+            "first_equal": int(first_equal.sum()),
+            "stream_equal": equal, "stream_tokens": sum(
+                int(s.numel()) for s in stream),
+            "cache_worst": worst, "cache_drift": drift, "one_secs": secs,
+            "finite": all(bool(torch.isfinite(x).all()) for x in logits)}
+
+
+def dist_serve_report(tag, card, ranks, transport, runs=DIST_SERVE_RUNS):
+    """Gate and print one run of ``_dist_serve_rank`` (``ranks``: each
+    rank's JSON): on every rank flash launches = attention layers (the
+    prefill) and ``decode_attention`` launches = GQA layers x steps, the
+    prefill's and first step's calls all held; on rank 0 (against one
+    process) each pass's logits within LOGIT_TOL of the largest, finite,
+    the first token equal wherever the one process's margin is sure.
+    Returns the flash and decode_attention launches summed over the
+    ranks."""
+    from repro_torch.configs import get_config
+    total = {"flash_attention": 0, "decode_attention": 0}
+    for arch, layers, shape, absorb in runs:
+        name = _serve_tag(arch, absorb)
+        mla = get_config(arch).attn_type == "mla"
+        want = {"flash_attention": layers,
+                "decode_attention": 0 if mla else layers * DIST_SERVE_STEPS}
+        held = {"flash_attention": layers}
+        if not mla:
+            held["decode_attention"] = layers
+        per = [r[name] for r in ranks]
+        for i, r in enumerate(per):
+            got_held = {k: n for k, (n, _, _) in r["held"].items()}
+            if r["launches"] != want or got_held != held:
+                raise AssertionError(
+                    f"{tag} {name} rank {i}: launches {r['launches']}, held "
+                    f"{got_held}; want {want}, {held}")
+        for k in total:
+            total[k] += sum(r["launches"][k] for r in per)
+        r0 = per[0]
+        if max(r0["share"]) > LOGIT_TOL or not r0["finite"] or \
+                r0["first_sure_equal"] != r0["first_sure"]:
+            raise AssertionError(
+                f"{tag} {name}: logits off one process by {r0['share']} of "
+                f"max |logit|, first tokens {r0['first_sure_equal']} of "
+                f"{r0['first_sure']} sure rows equal, finite "
+                f"{r0['finite']}")
+        errs = {k: max(r["held"][k][1] for r in per) for k in held}
+        pre = [r["secs"][0] for r in per]
+        step = [float(np.mean(r["secs"][2:])) for r in per]
+        log(f"[{tag}] {name} ({layers} of {get_config(arch).num_layers} "
+            f"layers, full width, bf16, mesh (data, model) = {shape}, "
+            f"{transport}): prefill {DIST_SERVE_BATCH} x "
+            f"{DIST_SERVE_PROMPT} + {DIST_SERVE_STEPS} serve_steps; logits "
+            f"vs one process: largest share of max |logit| "
+            f"{max(r0['share']):.4g} (limit {LOGIT_TOL}; prefill "
+            f"{r0['share'][0]:.4g}); first tokens equal "
+            f"{r0['first_equal']}/{DIST_SERVE_BATCH} "
+            f"({r0['first_sure_equal']}/{r0['first_sure']} rows with a "
+            f"sure margin); stream tokens equal to one process's argmax "
+            f"{r0['stream_equal']}/{r0['stream_tokens']}; each layer's "
+            f"cache vs one process's projection of that layer's inputs: "
+            + ", ".join(f"{k} max_abs_err={e:.3g} max_row_rel_err={row:.3g}"
+                        for k, (e, row) in r0["cache_worst"].items())
+            + f" (atol {ATOL} of max, rtol {RTOL}, row {ROW_RTOL}); drift "
+            "from one process's own caches, largest row " + ", ".join(
+                f"{k} {v:.3g}" for k, v in r0["cache_drift"].items())
+            + f"; launches a rank {want} (held "
+            + ", ".join(f"{k} {n} calls max_abs_err={errs[k]:.3g}"
+                        for k, n in held.items())
+            + f"); prefill s a rank " + " ".join(f"{t:.3f}" for t in pre)
+            + f" vs one process {r0['one_secs'][0]:.3f}; step s a rank "
+            + " ".join(f"{t:.4f}" for t in step)
+            + f" vs one process {np.mean(r0['one_secs'][2:]):.4f}; peak "
+            f"GiB a rank " + " ".join(f"{r['peak_gib']:.2f}" for r in per)
+            + f"; collectives staged through host memory {r0['staged']}; "
+            f"{card}")
+    return total
+
+
+def phase_dist_serve(card: str):
+    """Serving under a mesh on the one card: ``_dist_serve_rank`` in 4
+    processes over gloo, for DIST_SERVE_RUNS: gemma_2b (MQA: its one kv
+    head whole on every model rank, the tied vocabulary split),
+    llama3_70b (16 of 64 query heads and 2 of 8 kv heads a rank on
+    (1, 4)), deepseek_v2_lite_16b naive and absorbed (MLA on 8 of 16
+    heads and the whole latent, 32 of 64 experts a rank); each rank's
+    exit code checked (``mesh.spawn``), then ``dist_serve_report``'s
+    gates. Times are gloo's, staged through host memory. Returns the
+    flash and decode_attention launches of the ranks' passes."""
+    import gc
+    import shutil
+    from repro_torch.launch import mesh
+    t0 = time.monotonic()
+    gc.collect()
+    torch.cuda.empty_cache()
+    out_dir = ROOT / "build" / "dist_serve"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    world = 4
+    mesh.spawn(_dist_serve_rank, world, (str(out_dir),))
+    ranks = [json.loads((out_dir / f"rank{r}.json").read_text())
+             for r in range(world)]
+    total = dist_serve_report(
+        "dist_serve", card, ranks,
+        f"{world} ranks on one card over gloo ({ranks[0]['backend']}): "
+        f"times gloo-staged, not the card's collectives")
+    log(f"[dist_serve] phase seconds {time.monotonic() - t0:.1f}; {card}")
+    return total
+
+
 def kernels_line(rows, launches):
     out = []
     for name in KERNELS:
@@ -4409,6 +4830,10 @@ def main() -> int:
     launches["flash_attention"] += fwd
     launches["flash_attention_bwd"] += bwd
     lap("dist")
+    # serving under a mesh: the ranks' flash and dense decode launches
+    for name, n in phase_dist_serve(line).items():
+        launches[name] += n
+    lap("dist_serve")
     log(f"[done] all phases in {time.monotonic() - t0:.1f}s")
     log(json.dumps(kernels_line(rows, launches)))
     log(line)

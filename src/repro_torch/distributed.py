@@ -29,7 +29,13 @@ stages it through host memory explicitly, counts the call in
 ``Plan`` resolves the layout of one config's param tree under
 ``ShardingRules`` (each leaf's spec, the dim that "model" shards) and
 refuses what this schedule does not run: FSDP (weights over the data
-axes), ``seq_sharded``, and the hybrid, ssm and audio families.
+axes), ``seq_sharded``, and the hybrid and ssm families. The serving
+steps under a plan also refuse ``shard_v2`` (its ``cache_seq`` shards the
+cache's sequence) and paged caches (``check_serving``).
+
+A spec entry is a mesh axis, a tuple of them, None, or ``HeadsRead``:
+the kv heads a rank's query heads read, the port's layout of a GQA cache
+where JAX's rules put "model" on the head dim.
 """
 from __future__ import annotations
 
@@ -207,6 +213,66 @@ def local_slice(t: torch.Tensor, dim: int, ax: Axis) -> torch.Tensor:
     return t.narrow(dim, ax.index * n, n)
 
 
+class HeadsRead:
+    """A spec entry for the kv-heads dim of GQA K/V: on each "model" rank,
+    the kv heads its query heads (``nh / size`` of them, in order) read,
+    global query head h meeting kv head h // (nh / kvh). They are laid
+    out so that local query head i meets local kv head i // (n / local kv
+    heads): the contiguous run of kv heads where that holds, else one kv
+    head a query head (``heads``). Where several ranks read a kv head,
+    each holds a copy."""
+
+    def __init__(self, num_heads: int, num_kv_heads: int):
+        self.nh, self.kvh = num_heads, num_kv_heads
+
+    def __eq__(self, other):
+        return (isinstance(other, HeadsRead)
+                and (self.nh, self.kvh) == (other.nh, other.kvh))
+
+    def __hash__(self):
+        return hash((HeadsRead, self.nh, self.kvh))
+
+    def __repr__(self):
+        return f"HeadsRead({self.nh}/{self.kvh} over 'model')"
+
+    def heads(self, index: int, size: int):
+        """The global kv head of each local kv head of model rank
+        ``index`` of ``size``."""
+        n, group = self.nh // size, self.nh // self.kvh
+        idx = [(index * n + i) // group for i in range(n)]
+        lo, hi = idx[0], idx[-1] + 1
+        per = n // (hi - lo)
+        if n % (hi - lo) == 0 and idx == [lo + i // per for i in range(n)]:
+            return list(range(lo, hi))
+        return idx
+
+    def take(self, t: torch.Tensor, dim: int, ax: Axis) -> torch.Tensor:
+        """This rank's kv heads of the whole ``t`` along ``dim``."""
+        idx = self.heads(ax.index, ax.size)
+        if idx == list(range(idx[0], idx[-1] + 1)):
+            return t.narrow(dim, idx[0], len(idx))
+        return t.index_select(dim, torch.tensor(idx, device=t.device))
+
+    @torch.no_grad()
+    def whole(self, t: torch.Tensor, dim: int, ax: Axis) -> torch.Tensor:
+        """The whole tensor from every rank's ``take``: each kv head
+        written by the lowest rank that holds it (the rank of its first
+        query head), then summed over the model axis."""
+        n, group = self.nh // ax.size, self.nh // self.kvh
+        shape = list(t.shape)
+        shape[dim] = self.kvh
+        full = t.new_zeros(shape)
+        seen = set()
+        for p, g in enumerate(self.heads(ax.index, ax.size)):
+            if g not in seen and (g * group) // n == ax.index:
+                full.narrow(dim, g, 1).copy_(t.narrow(dim, p, 1))
+            seen.add(g)
+        return all_reduce(full, ax)
+
+    def local_size(self, ax: Axis) -> int:
+        return len(self.heads(ax.index, ax.size))
+
+
 # ---------------------------------------------------------------------------
 # layout
 # ---------------------------------------------------------------------------
@@ -275,7 +341,7 @@ def _model_dims(specs: Dict, axes: Dict[str, tuple]):
 
 def check_rules(cfg, rules):
     """Raise ``NotImplementedError`` for what the sharded schedule does not
-    run: FSDP (``fsdp=True``), ``seq_sharded``, the hybrid, ssm and audio
+    run: FSDP (``fsdp=True``), ``seq_sharded``, the hybrid and ssm
     families under a mesh, and the MoE dispatch einsum with sharded
     experts. Each names a leaf (or activation), its spec and the later
     slice."""
@@ -294,7 +360,7 @@ def check_rules(cfg, rules):
             f"activations ('batch', 'seq', 'embed'): spec {tuple(spec)} "
             f"under seq_sharded=True shards the sequence; sequence-sharded "
             f"execution {_LATER}")
-    if cfg.family in ("hybrid", "ssm", "audio"):
+    if cfg.family in ("hybrid", "ssm"):
         path = next(p for p in axes if p not in ("embed", "head",
                                                  "frontend_proj")
                     and not p.startswith("final_norm"))
@@ -312,10 +378,47 @@ def check_rules(cfg, rules):
                 f"ragged path's); {_LATER}")
 
 
+def check_serving(cfg, rules, mode: str, caches=None):
+    """Raise ``NotImplementedError`` for what the serving steps under a
+    mesh do not run: ``cfg.shard_v2`` (JAX's v2 cache layout, whose
+    ``cache_seq`` shards the cache's sequence), and paged caches, which
+    modes "chunk" and "verify" take (JAX gives their pools no logical
+    axes and runs none of them sharded). Each names the cache leaf, its
+    spec and the later slice."""
+    from repro_torch.models import attention as attn
+    if cfg.shard_v2:
+        axes = attn.cache_axes(cfg)
+        name = "c_kv" if cfg.attn_type == "mla" else "k"
+        shape = attn.cache_spec(cfg, 1, 1)[name][0]
+        raise NotImplementedError(
+            f"attn.{name}: spec {tuple(rules.spec(shape, axes[name]))} of "
+            f"axes {axes[name]} under shard_v2 (cache_seq shards the "
+            f"cache's sequence); the v2 cache layout under a mesh {_LATER}")
+    paged = [k for k, c in (caches or {}).items()
+             if isinstance(c, dict) and "k_pool" in c]
+    if paged or mode in ("chunk", "verify"):
+        raise NotImplementedError(
+            f"{(paged or ['attn'])[0]}.k_pool: spec None (JAX gives paged "
+            f"pools no logical axes) in mode {mode!r}; paged caches, "
+            f"chunk_step and verify_step under a mesh {_LATER}")
+
+
+def local_shape(shape, spec, mesh) -> tuple:
+    """The shape of this rank's shard of a ``shape`` leaf laid out by
+    ``spec`` (``weights.shard_params``'s)."""
+    out = list(shape)
+    for i, e in enumerate(spec):
+        if isinstance(e, HeadsRead):
+            out[i] = e.local_size(axis(mesh, ("model",)))
+        elif e is not None:
+            out[i] //= axis(mesh, (e,) if isinstance(e, str) else e).size
+    return tuple(out)
+
+
 class Plan:
-    """One config's sharded train step on this rank: each leaf's spec
-    (``specs``, by JAX's dotted path) and model-sharded dim, and the
-    rank's "model" and data-axes groups."""
+    """One config's sharded step on this rank: each leaf's spec
+    (``specs``, by JAX's dotted path) and model-sharded dim, the rules,
+    and the rank's "model" and data-axes groups."""
 
     def __init__(self, cfg, rules, mesh):
         from repro_torch.models import transformer as tf
@@ -328,15 +431,20 @@ class Plan:
             _check_ep(cfg, rules, self.dims, self.specs, "layers.moe.")
         self.model = axis(mesh, ("model",))
         self.data = axis(mesh, ("pod", "data"))
-        self.cfg = cfg
+        self.cfg, self.rules, self.mesh = cfg, rules, mesh
 
     def block(self, pkey: str) -> Layout:
         return Layout(self.dims, self.specs, self.model, self.data, pkey)
 
     def rows(self, t):
         """This rank's rows of a global batch tensor (JAX's batch sharding
-        over ("pod", "data"))."""
-        return None if t is None else local_slice(t, 0, self.data)
+        over ("pod", "data")); the batch must divide over them."""
+        if t is None:
+            return None
+        if t.shape[0] % self.data.size:
+            raise ValueError(f"a batch of {t.shape[0]} rows does not divide "
+                             f"over the data axes ({self.data.size} ranks)")
+        return local_slice(t, 0, self.data)
 
     def global_norm(self, grads) -> torch.Tensor:
         """sqrt of the fp32 sum of squares of every leaf of the whole
@@ -360,14 +468,18 @@ class Plan:
 _PLANS: Dict = {}
 
 
-def plan(cfg, rules, mesh) -> Optional[Plan]:
+def plan(cfg, rules, mesh, mode: str = "train", caches=None
+         ) -> Optional[Plan]:
     """The ``Plan`` of ``cfg`` under ``rules``/``mesh`` (cached), or None
-    without a mesh."""
+    without a mesh. For a serving ``mode`` (over ``caches``) it first
+    refuses what the serving steps do not run (``check_serving``)."""
     if mesh is None and rules is None:
         return None
     if rules is None:
         from repro_torch.models.sharding import ShardingRules
         rules = ShardingRules(mesh)
+    if mode != "train":
+        check_serving(cfg, rules, mode, caches)
     key = (cfg, id(rules), id(mesh if mesh is not None else rules.mesh))
     if key not in _PLANS:
         _PLANS[key] = (rules, mesh, Plan(cfg, rules, mesh if mesh is not None

@@ -26,7 +26,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed import local_slice
+from repro_torch.distributed import HeadsRead, local_slice
 from repro_torch.kernels import ops
 from repro_torch.models.layers import (Initializer, apply_norm, apply_rope,
                                        init_norm, proj_in)
@@ -77,78 +77,54 @@ def _proj_out(o, w):
     return o.flatten(-2) @ w.reshape(-1, w.shape[-1])
 
 
-def _qkv(params, x, positions, cfg: ModelConfig):
-    q = proj_in(x, params["wq"])
-    k = proj_in(x, params["wk"])
-    v = proj_in(x, params["wv"])
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
-    return q, k, v
-
-
-def _heads_shardable(cfg: ModelConfig, rules) -> bool:
-    """JAX's test: whether the query heads divide the "model" axis."""
-    if rules is None:
-        return True
-    return cfg.num_heads % rules.axis_sizes.get("model", 1) == 0
-
-
-def _qseq_constrain(q, cfg: ModelConfig, rules):
-    """JAX shards the query sequence over "model" where the heads do not
-    divide it: a layout XLA chooses, which changes no value. The port's
-    sharded schedule runs that attention replicated over "model"
-    (``_gqa_sharded``), so ``q`` is returned as it is."""
-    return q
-
-
-def _kv_for_heads(t, h0: int, n: int, group: int):
-    """The kv heads of whole ``t`` (b, s, kvh, d) that query heads ``h0 ..
-    h0 + n - 1`` meet (global query head h meets kv head h // group),
-    laid out so local query head i meets local kv head i // (n / kv
-    heads): the contiguous run where that holds, else one kv head a query
-    head."""
-    idx = [(h0 + i) // group for i in range(n)]
-    lo, hi = idx[0], idx[-1] + 1
-    per = n // (hi - lo)
-    if n % (hi - lo) == 0 and idx == [lo + i // per for i in range(n)]:
-        return t[:, :, lo:hi].contiguous()
-    return t[:, :, idx]
-
-
-def _gqa_sharded(params, x, positions, cfg: ModelConfig, tp):
-    """GQA on this rank's shards of the attention weights (``tp`` is the
-    block's ``attn`` layout). Query heads split over "model" (``wq`` and
-    ``wo`` on their heads dim): each rank attends with its heads, and a
-    rank's local query head i meets global kv head (h0 + i) // group,
-    h0 its first head; K/V come as the rules lay them, on their kv heads
-    (aligned with the local query heads), on the head dim (gathered along
-    it before rope, which rotates across its halves) or whole (copy-in).
-    Where the heads do not divide "model" and ``wq``/``wo`` split their
-    head dim instead, attention runs whole on every rank (JAX's
-    sequence-sharded layout there changes no value), each rank projects
-    its slice of the head dim out, and the ranks' projections are summed.
-    ``wo`` ends in a reduce-out."""
-    nh, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
-    dims = {n: tp.dim(n) for n in ("wq", "wk", "wv", "wo")}
-    if all(d is None for d in dims.values()):
-        return gqa_prefill(params, x, positions, cfg)[0]
-    ax = tp.model
-    xin = tp.copy_in(x)
-    heads_local = dims["wq"] == 1
-    if dims["wq"] not in (1, 2) or dims["wo"] != dims["wq"] - 1:
+def _attn_split(tp) -> Optional[str]:
+    """How a GQA block's attention splits over "model" under its layout
+    ``tp``: "heads" (``wq``/``wo`` on their heads: each rank attends with
+    its query heads), "whole" (the heads do not divide "model" and
+    ``wq``/``wo`` split their head dim: attention whole on every rank),
+    or None (nothing sharded)."""
+    if tp is None:
+        return None
+    dims = [tp.dim(n) for n in ("wq", "wk", "wv", "wo")]
+    if all(d is None for d in dims):
+        return None
+    if dims[0] not in (1, 2) or dims[3] != dims[0] - 1:
         tp.refuse("wq", "query heads or head dim and wo alike")
+    return "heads" if dims[0] == 1 else "whole"
+
+
+def _qkv(params, x, positions, cfg: ModelConfig, tp=None):
+    """q, k, v ``(b, s, heads, hd)``, rope applied at ``positions``.
+
+    Under a mesh (``tp``: the block's ``attn`` layout) on the rank's
+    shards: with ``_attn_split`` "heads", q holds the rank's query heads
+    and k/v the kv heads they read (``distributed.HeadsRead``: local
+    query head i meets local kv head i // (n / local kv heads)); K/V come
+    as the rules lay them, on their kv heads (aligned with the local
+    query heads), on the head dim (gathered along it before rope, which
+    rotates across its halves) or whole (copy-in). With "whole" (JAX's
+    sequence-sharded layout there changes no value) q, k and v are whole
+    on every rank, gathered along the head dim."""
+    split = _attn_split(tp)
+    if split is None:
+        q = proj_in(x, params["wq"])
+        k = proj_in(x, params["wk"])
+        v = proj_in(x, params["wv"])
+        return (apply_rope(q, positions, cfg.rope_theta),
+                apply_rope(k, positions, cfg.rope_theta), v)
+    xin = tp.copy_in(x)
 
     def proj(name):
         """The projection as the consumers need it: local heads, or
         whole (gathered along the head dim, or copy-in of a replicated
-        product)."""
-        d = dims[name]
+        product); and whether it is on the rank's kv heads already."""
+        d = tp.dim(name)
         if d is None:
             return tp.copy_in(proj_in(x, params[name])), False
         t = proj_in(xin, params[name])
         if d == 2:
             return tp.gather(t, -1), False
-        if not heads_local:          # kv heads split, attention whole
+        if split == "whole":             # kv heads split, attention whole
             return tp.gather(t, -2), False
         return t, True
 
@@ -156,17 +132,24 @@ def _gqa_sharded(params, x, positions, cfg: ModelConfig, tp):
     (k, k_local), (v, v_local) = proj("wk"), proj("wv")
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    if heads_local:
-        n = nh // ax.size
-        h0, group = ax.index * n, nh // kvh
+    if split == "heads":
+        read = HeadsRead(cfg.num_heads, cfg.num_kv_heads)
         if not k_local:
-            k = _kv_for_heads(k, h0, n, group)
+            k = read.take(k, 2, tp.model)
         if not v_local:
-            v = _kv_for_heads(v, h0, n, group)
-    out = ops.flash_attention(q, k, v, causal=not cfg.encoder_only,
-                              scale=hd ** -0.5)
-    if not heads_local:              # this rank's slice of the head dim
-        out = local_slice(out, -1, ax)
+            v = read.take(v, 2, tp.model)
+    return q, k, v
+
+
+def _attn_out(out, params, tp=None):
+    """The output projection ``wo``; under a mesh the rank's heads (or its
+    slice of the head dim, where attention ran whole), summed over
+    "model" (reduce-out)."""
+    split = _attn_split(tp)
+    if split is None:
+        return _proj_out(out, params["wo"])
+    if split == "whole":
+        out = local_slice(out, -1, tp.model)
     return tp.reduce_out(_proj_out(out, params["wo"]))
 
 
@@ -176,12 +159,12 @@ def gqa_prefill(params, x, positions, cfg: ModelConfig,
     """Full-sequence attention. If ``cache`` is given (a pre-allocated
     ``(b, S, kvh, hd)`` layer slice), the computed K/V are written into its
     first ``s`` positions in place (inference prefill). Under a mesh
-    (``tp``: the block's ``attn`` layout, mode "train") it runs on the
-    rank's shards (``_gqa_sharded``)."""
-    if tp is not None:
-        return _gqa_sharded(params, x, positions, cfg, tp), None
+    (``tp``: the block's ``attn`` layout) it runs on the rank's shards
+    (``_qkv``) and the cache is the rank's (``transformer.cache_specs``:
+    its rows, and the kv heads its query heads read, or whole where
+    attention runs whole)."""
     hd = cfg.resolved_head_dim
-    q, k, v = _qkv(params, x, positions, cfg)
+    q, k, v = _qkv(params, x, positions, cfg, tp)
     out = ops.flash_attention(q, k, v, causal=not cfg.encoder_only,
                               scale=hd ** -0.5)
     new_cache = None
@@ -191,11 +174,11 @@ def gqa_prefill(params, x, positions, cfg: ModelConfig,
         cache["v"][:, :s] = v
         new_cache = {"k": cache["k"], "v": cache["v"],
                      "length": torch.full_like(cache["length"], s)}
-    return _proj_out(out, params["wo"]), new_cache
+    return _attn_out(out, params, tp), new_cache
 
 
-def gqa_decode(params, x, cfg: ModelConfig,
-               cache: Dict) -> Tuple[torch.Tensor, Dict]:
+def gqa_decode(params, x, cfg: ModelConfig, cache: Dict, tp=None
+               ) -> Tuple[torch.Tensor, Dict]:
     """One-token decode against a dense per-slot cache.
 
     x: (b, 1, d); cache k/v: (b, S, kvh, hd); cache["length"]: (b,) valid
@@ -203,21 +186,24 @@ def gqa_decode(params, x, cfg: ModelConfig,
     ``length``, clamped to ``S - 1`` as JAX's ``dynamic_update_slice``
     clamps it (the ``SlotEngine``'s dead slots keep stale, growing lengths).
     A paged cache (``k_pool`` present) routes to ``gqa_decode_paged``.
+    Under a mesh (``tp``) the rank's rows, heads and cache, as
+    ``gqa_prefill``: the kernel sees the rank's query heads over the kv
+    heads they read, and the new K/V goes into the rank's own cache.
     """
     if "k_pool" in cache:
         return gqa_decode_paged(params, x, cfg, cache)
     hd = cfg.resolved_head_dim
     lengths = cache["length"]
     k_cache, v_cache = cache["k"], cache["v"]
-    q, k, v = _qkv(params, x, lengths[:, None], cfg)
+    q, k, v = _qkv(params, x, lengths[:, None], cfg, tp)
     rows = torch.arange(x.shape[0], device=x.device)
     at = torch.clamp(lengths, max=k_cache.shape[1] - 1).long()
     k_cache[rows, at] = k[:, 0].to(k_cache.dtype)
     v_cache[rows, at] = v[:, 0].to(v_cache.dtype)
     out = ops.decode_attention(q, k_cache, v_cache, lengths + 1,
                                scale=hd ** -0.5)
-    return _proj_out(out, params["wo"]), {"k": k_cache, "v": v_cache,
-                                          "length": lengths + 1}
+    return _attn_out(out, params, tp), {"k": k_cache, "v": v_cache,
+                                        "length": lengths + 1}
 
 
 def gqa_decode_paged(params, x, cfg: ModelConfig,
@@ -371,15 +357,20 @@ def _mla_scale(cfg: ModelConfig) -> float:
     return (cfg.mla.qk_nope_head_dim + cfg.mla.qk_rope_head_dim) ** -0.5
 
 
-def _mla_sharded(params, x, positions, cfg: ModelConfig, tp):
-    """MLA on this rank's shards (``tp``: the block's ``attn`` layout):
-    the per-head products ``wuq``, ``wuk``, ``wuv`` and ``wo`` on the
-    rank's heads; the latents ``x @ wdkv`` (and ``x @ wdq``) computed on
-    the rank's ``kv_lora`` (``q_lora``) slice and gathered along it before
-    their norms, which normalise the whole latent (the gather's backward
-    keeps the rank's slice; the copy-in after the norm sums the heads'
-    gradients, so the norm's gamma gets the whole one); the shared rope
-    key whole (copy-in); ``wo`` ends in a reduce-out."""
+def _mla_inputs(params, x, positions, cfg: ModelConfig, tp=None):
+    """(q_nope, q_rope, c_kv, k_rope): ``_mla_q`` and ``_mla_latent``.
+    Under a mesh (``tp``: the block's ``attn`` layout) the per-head
+    products ``wuq`` (and, after, ``wuk``, ``wuv`` and ``wo``) are on the
+    rank's heads; the latents ``x @ wdkv`` (and ``x @ wdq``) are computed
+    on the rank's ``kv_lora`` (``q_lora``) slice and gathered along it
+    before their norms, which normalise the whole latent (the gather's
+    backward keeps the rank's slice; the copy-in after the norm sums the
+    heads' gradients, so the norm's gamma gets the whole one); the shared
+    rope key is whole (copy-in). So ``c_kv`` and ``k_rope`` are whole on
+    every rank, the latent cache's layout under a mesh."""
+    if tp is None:
+        return (*_mla_q(params, x, positions, cfg),
+                *_mla_latent(params, x, positions, cfg))
     m = cfg.mla
     for name in ("wuq", "wuk", "wuv"):
         if tp.dim(name) != 1:
@@ -402,17 +393,14 @@ def _mla_sharded(params, x, positions, cfg: ModelConfig, tp):
     q = proj_in(cq, params["wuq"])
     q_nope, q_rope = q[..., :m.qk_nope_head_dim], q[..., m.qk_nope_head_dim:]
     q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
-    c_kv = latent("wdkv", "kv_norm")
     k_rope = tp.copy_in(apply_rope((x @ params["wkr"])[:, :, None, :],
                                    positions, cfg.rope_theta))
-    k_nope = proj_in(c_kv, params["wuk"])
-    v = proj_in(c_kv, params["wuv"])
-    q = torch.cat([q_nope, q_rope], dim=-1)
-    k = torch.cat([k_nope, k_rope.expand(*k_nope.shape[:3],
-                                         m.qk_rope_head_dim)], dim=-1)
-    out = ops.flash_attention(q, k, v, causal=not cfg.encoder_only,
-                              scale=_mla_scale(cfg))
-    return tp.reduce_out(_proj_out(out, params["wo"]))
+    return q_nope, q_rope, latent("wdkv", "kv_norm"), k_rope
+
+
+def _mla_out(out, params, tp=None):
+    out = _proj_out(out, params["wo"])
+    return out if tp is None else tp.reduce_out(out)
 
 
 def mla_prefill(params, x, positions, cfg: ModelConfig,
@@ -423,13 +411,11 @@ def mla_prefill(params, x, positions, cfg: ModelConfig,
     rope, dv = v_head_dim. If ``cache`` is given (a pre-allocated ``(b, S,
     kv_lora)`` / ``(b, S, rope)`` layer slice), the latent and the rope key
     are written into its first ``s`` positions in place. Under a mesh
-    (``tp``, mode "train") it runs on the rank's shards
-    (``_mla_sharded``)."""
-    if tp is not None:
-        return _mla_sharded(params, x, positions, cfg, tp), None
+    (``tp``) it runs on the rank's heads and rows (``_mla_inputs``); the
+    cache holds the rank's rows of the whole latent."""
     m = cfg.mla
-    q_nope, q_rope = _mla_q(params, x, positions, cfg)
-    c_kv, k_rope = _mla_latent(params, x, positions, cfg)
+    q_nope, q_rope, c_kv, k_rope = _mla_inputs(params, x, positions, cfg,
+                                               tp)
     k_nope = proj_in(c_kv, params["wuk"])
     v = proj_in(c_kv, params["wuv"])
     q = torch.cat([q_nope, q_rope], dim=-1)
@@ -444,23 +430,25 @@ def mla_prefill(params, x, positions, cfg: ModelConfig,
         cache["k_rope"][:, :s] = k_rope[:, :, 0]
         new_cache = {"c_kv": cache["c_kv"], "k_rope": cache["k_rope"],
                      "length": torch.full_like(cache["length"], s)}
-    return _proj_out(out, params["wo"]), new_cache
+    return _mla_out(out, params, tp), new_cache
 
 
-def mla_decode(params, x, cfg: ModelConfig,
-               cache: Dict) -> Tuple[torch.Tensor, Dict]:
+def mla_decode(params, x, cfg: ModelConfig, cache: Dict, tp=None
+               ) -> Tuple[torch.Tensor, Dict]:
     """One-token MLA decode against the dense latent cache. The new
     token's latent and rope key are written in place at ``length``
     (clamped to ``S - 1``, as in ``gqa_decode``). Naive: K/V re-expanded
     from the whole latent cache; ``cfg.mla.absorb``: attention in the
     latent space, ``wuk`` folded into the query and ``wuv`` applied after.
     JAX's rounding order: the einsums and their scaled sum in the compute
-    dtype, the mask and softmax in fp32, the probabilities cast back."""
+    dtype, the mask and softmax in fp32, the probabilities cast back.
+    Under a mesh (``tp``) the einsums run on the rank's heads against
+    the rank's rows of the whole latent, written from the gathered
+    projection."""
     m = cfg.mla
     lengths = cache["length"]
     pos = lengths[:, None]
-    q_nope, q_rope = _mla_q(params, x, pos, cfg)
-    c_new, kr_new = _mla_latent(params, x, pos, cfg)
+    q_nope, q_rope, c_new, kr_new = _mla_inputs(params, x, pos, cfg, tp)
     c_kv, k_rope = cache["c_kv"], cache["k_rope"]
     rows = torch.arange(x.shape[0], device=x.device)
     at = torch.clamp(lengths, max=c_kv.shape[1] - 1).long()
@@ -485,8 +473,8 @@ def mla_decode(params, x, cfg: ModelConfig,
         scores = torch.where(valid[:, None, :], scores.float(), NEG_INF)
         probs = torch.softmax(scores, dim=-1).to(v.dtype)
         out = _einsum("bnS,bSnh->bnh", probs, v)[:, None]
-    return _proj_out(out, params["wo"]), {"c_kv": c_kv, "k_rope": k_rope,
-                                          "length": lengths + 1}
+    return _mla_out(out, params, tp), {"c_kv": c_kv, "k_rope": k_rope,
+                                       "length": lengths + 1}
 
 
 # ---------------------------------------------------------------------------
@@ -510,6 +498,25 @@ def cache_spec(cfg: ModelConfig, batch: int, max_len: int,
         "v": ((batch, max_len, cfg.num_kv_heads, hd), dtype),
         "length": ((batch,), torch.int32),
     }
+
+
+def cache_axes(cfg: ModelConfig, seq_sharded: bool = False
+               ) -> Dict[str, tuple]:
+    """The logical axes of ``cache_spec``'s leaves, JAX's entry for entry
+    (``seq_sharded`` is taken and unused, as in JAX): the sequence is
+    "cache_seq" under ``shard_v2``, else "seq"; GQA's head dim is
+    "head_dim_shard" (it takes "model" where the kv heads cannot), or
+    None under ``shard_v2``. Under a mesh the port keeps the head dim and
+    MLA's latent whole (``transformer.cache_specs``)."""
+    seq_ax = "cache_seq" if cfg.shard_v2 else "seq"
+    if cfg.attn_type == "mla":
+        return {"c_kv": ("batch", seq_ax, "kv_lora"),
+                "k_rope": ("batch", seq_ax, None),
+                "length": ("batch",)}
+    hd_ax = None if cfg.shard_v2 else "head_dim_shard"
+    return {"k": ("batch", seq_ax, "kv_heads", hd_ax),
+            "v": ("batch", seq_ax, "kv_heads", hd_ax),
+            "length": ("batch",)}
 
 
 def paged_cache_spec(cfg: ModelConfig, num_pages: int, block_tokens: int,

@@ -207,6 +207,12 @@ def mamba2_state_spec(cfg: ModelConfig, batch: int):
     }
 
 
+def mamba2_state_axes() -> Dict[str, tuple]:
+    """The logical axes of ``mamba2_state_spec``'s leaves (JAX's)."""
+    return {"conv": ("batch", None, "ssm_inner"),
+            "ssm": ("batch", "ssm_heads", None, None)}
+
+
 def mamba2_reference(params, x, cfg: ModelConfig):
     """Naive token-by-token recurrence (oracle for tests)."""
     d_in, nh, n, hd, cw = _dims(cfg)

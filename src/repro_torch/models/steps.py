@@ -166,50 +166,74 @@ def init_train_state(cfg: ModelConfig, generator: torch.Generator,
     return {"params": params, "opt": init_opt_state(params)}
 
 
-def prefill_step(params, batch: Dict, cfg: ModelConfig, max_len: int):
+def prefill_step(params, batch: Dict, cfg: ModelConfig, max_len: int,
+                 rules=None, mesh=None):
     """Full-sequence prefill into fresh ``max_len`` dense caches on the
     inputs' device: ``batch["tokens"]``, or for a stub-frontend config
     ``batch["embeds"]`` where given. Returns (last_logits, caches). An
     encoder-only config's is its encoder forward (mode "train"): logits
-    (b, s, V) at every position and no caches."""
+    (b, s, V) at every position and no caches.
+
+    With ``rules``/``mesh`` (JAX's sharded step) every rank calls it with
+    its shards of ``params`` and the global batch: the caches returned
+    are the rank's (``transformer.init_cache`` under the mesh), the
+    logits the whole batch's, whole on every rank."""
     inputs = _inputs(batch, cfg)
     if cfg.encoder_only:
-        return tf.forward(params, cfg, mode="train", **inputs)[0], None
+        plan = dist_.plan(cfg, rules, mesh)
+        logits = tf.forward(params, cfg, mode="train", rules=rules,
+                            mesh=mesh, **inputs)[0]
+        return (logits if plan is None
+                else tf.whole_logits(logits, cfg, plan)), None
     x = next(iter(inputs.values()))
-    caches = tf.init_cache(cfg, x.shape[0], max_len, x.device)
-    return tf.forward(params, cfg, mode="prefill", caches=caches, **inputs)
+    caches = tf.init_cache(cfg, x.shape[0], max_len, x.device, rules, mesh)
+    return tf.forward(params, cfg, mode="prefill", caches=caches,
+                      rules=rules, mesh=mesh, **inputs)
 
 
-def serve_step(params, tokens, caches, cfg: ModelConfig):
+def serve_step(params, tokens, caches, cfg: ModelConfig, rules=None,
+               mesh=None):
     """One decode step over dense or paged caches: tokens (b, 1) ->
-    (new_token (b,) int32, logits, caches)."""
+    (new_token (b,) int32, logits, caches); the new token is the argmax,
+    the lowest index of the maximum as in JAX. Under ``rules``/``mesh``
+    ``tokens`` is the global batch, ``params`` and ``caches`` the rank's
+    shards (``prefill_step``'s); the logits and tokens are the whole
+    batch's on every rank, the caches the rank's, written in place."""
     logits, caches = tf.forward(params, cfg, tokens=tokens, mode="decode",
-                                caches=caches)
+                                caches=caches, rules=rules, mesh=mesh)
     return torch.argmax(logits, dim=-1).to(torch.int32), logits, caches
 
 
-def chunk_step(params, tokens, q_valid, caches, cfg: ModelConfig):
+def chunk_step(params, tokens, q_valid, caches, cfg: ModelConfig,
+               rules=None, mesh=None):
     """One chunked-prefill step: tokens (b, s) holds a left-aligned chunk
     per row and q_valid (b,) its valid length (0 for rows not chunking this
     pass). Returns (new_token (b,) int32, logits (b, V), caches):
     ``new_token`` is the greedy continuation after each row's last valid
     chunk position, meaningful only for rows whose chunk completes the
-    prompt. ``caches`` are the paged pools."""
+    prompt. ``caches`` are the paged pools; JAX gives them no logical
+    axes, and under ``rules``/``mesh`` this raises
+    ``NotImplementedError``."""
     logits, caches = tf.forward(params, cfg, tokens=tokens, mode="chunk",
-                                caches=caches, q_valid=q_valid)
+                                caches=caches, q_valid=q_valid, rules=rules,
+                                mesh=mesh)
     return torch.argmax(logits, dim=-1).to(torch.int32), logits, caches
 
 
-def verify_step(params, tokens, q_valid, caches, cfg: ModelConfig):
+def verify_step(params, tokens, q_valid, caches, cfg: ModelConfig,
+                rules=None, mesh=None):
     """One speculative-verify step: tokens (b, s) holds a left-aligned feed
     per row (the last committed token, then its draft continuation) and
     q_valid (b,) its length (0 for rows sitting this pass out). Returns
     (greedy (b, s) int32, logits (b, s, V), caches): ``greedy[:, j]`` is
     the argmax after feed position j, what sequential one-token decode
     would emit there. ``caches`` are the paged pools, with fork-grown
-    tables covering ``length + q_valid`` positions per live row."""
+    tables covering ``length + q_valid`` positions per live row. Under
+    ``rules``/``mesh`` it raises ``NotImplementedError``, as
+    ``chunk_step`` does: paged pools have no sharded layout."""
     logits, caches = tf.forward(params, cfg, tokens=tokens, mode="verify",
-                                caches=caches, q_valid=q_valid)
+                                caches=caches, q_valid=q_valid, rules=rules,
+                                mesh=mesh)
     return torch.argmax(logits, dim=-1).to(torch.int32), logits, caches
 
 

@@ -40,6 +40,11 @@ Chunk and verify raise ``NotImplementedError`` for MLA and the recurrent
 families, whose caches are not paged (as in the JAX package). An
 encoder-only config has no decode or cache path: every mode but "train"
 and the cache factories raise ``ValueError``.
+
+Under a mesh (``rules``/``mesh``, JAX's arguments) the attention families
+run sharded in modes "train", "prefill" and "decode" (``distributed.Plan``:
+rows over the data axes, heads, ff and vocabulary over "model", experts
+in the MoE layers), with the dense caches laid out by ``cache_specs``.
 """
 from __future__ import annotations
 
@@ -59,6 +64,7 @@ from repro_torch.models import xlstm as xl
 from repro_torch.models.layers import (Initializer, apply_mlp, apply_norm,
                                        init_mlp, init_norm, softcap)
 from repro_torch.models.moe import apply_moe, init_moe
+from repro_torch.models.sharding import PartitionSpec
 
 
 def check_family(cfg: ModelConfig):
@@ -285,9 +291,10 @@ def _block_fwd(p, x, positions, cfg: ModelConfig, mode: str, cache,
                 else "speculative verify")
         raise NotImplementedError(f"{what} supports gqa-family attention "
                                   "only (paged KV)")
+    atp = None if tp is None else tp.sub("attn")
     if mode == "decode":
         a, new_cache = (attn.mla_decode if mla else attn.gqa_decode)(
-            p["attn"], h, cfg, cache)
+            p["attn"], h, cfg, cache, atp)
     elif mode == "chunk":
         a, new_cache = attn.gqa_prefill_paged(p["attn"], h, cfg, cache,
                                               q_valid)
@@ -296,8 +303,7 @@ def _block_fwd(p, x, positions, cfg: ModelConfig, mode: str, cache,
                                              q_valid)
     else:
         a, new_cache = (attn.mla_prefill if mla else attn.gqa_prefill)(
-            p["attn"], h, positions, cfg, cache,
-            tp=None if tp is None else tp.sub("attn"))
+            p["attn"], h, positions, cfg, cache, atp)
     x = x + a
     h = apply_norm(p["ln2"], x, cfg)
     aux = None
@@ -516,12 +522,16 @@ def forward(params, cfg: ModelConfig, *, tokens=None, embeds=None,
     ``(b, s, vocab)``, since acceptance needs the argmax at every position.
 
     mode="train" drops the aux that ``train_forward`` returns. With
-    ``rules``/``mesh`` (JAX's arguments) mode "train" runs sharded on this
-    rank's shards of ``params`` (``weights.shard_params``), see
-    ``train_forward``; the other modes under a mesh raise
-    ``NotImplementedError`` (a later slice).
+    ``rules``/``mesh`` (JAX's arguments) the forward runs sharded on this
+    rank's shards of ``params`` (``weights.shard_params``) and the global
+    ``tokens``/``embeds``: mode "train" as ``train_forward`` says; modes
+    "prefill" and "decode" over the rank's dense caches
+    (``init_cache(..., rules, mesh)``), their logits whole on every rank
+    (``whole_logits``). Paged caches, modes "chunk" and "verify" and
+    ``shard_v2`` raise ``NotImplementedError`` there
+    (``distributed.check_serving``).
     """
-    plan = dist_.plan(cfg, rules, mesh)
+    plan = dist_.plan(cfg, rules, mesh, mode, caches)
     return _run(params, cfg, tokens, embeds, mode, caches, q_valid,
                 plan)[:2]
 
@@ -562,6 +572,15 @@ def vocab_sharded(cfg: ModelConfig, plan) -> bool:
     return plan.dims["head"] == 1
 
 
+def whole_logits(logits, cfg: ModelConfig, plan):
+    """Serving logits whole on every rank: the rank's block (its rows, and
+    its slice of the vocabulary where ``vocab_sharded``) gathered over
+    "model" and the data axes."""
+    if vocab_sharded(cfg, plan):
+        logits = dist_.gather(logits, -1, plan.model)
+    return dist_.gather(logits, 0, plan.data)
+
+
 def _run(params, cfg: ModelConfig, tokens, embeds, mode: str, caches,
          q_valid, plan=None):
     """``forward``'s body: (logits, new caches, the aux in mode "train",
@@ -574,10 +593,6 @@ def _run(params, cfg: ModelConfig, tokens, embeds, mode: str, caches,
     else:
         raise ValueError(f"mode={mode!r}")
     if plan is not None:
-        if mode != "train":
-            raise NotImplementedError(
-                f"mode={mode!r} under a mesh: the serve, prefill and decode "
-                f"steps under a mesh {dist_._LATER}")
         tokens, embeds = plan.rows(tokens), plan.rows(embeds)
     if prefill_chunk(cfg) and mode in ("chunk", "verify"):
         raise NotImplementedError(
@@ -608,11 +623,13 @@ def _run(params, cfg: ModelConfig, tokens, embeds, mode: str, caches,
         new_caches = None if caches is None else {}
         for pkey, ckey, n in _groups(cfg):
             c = caches[ckey] if caches is not None else None
+            tp = None if plan is None else plan.block(pkey)
             lengths = []
             for i in range(n):
                 cache_i = None if c is None else layer_slice(c, i)
                 x, nc, _ = _block_fwd(layer_slice(params[pkey], i), x,
-                                      positions, cfg, mode, cache_i, q_valid)
+                                      positions, cfg, mode, cache_i, q_valid,
+                                      tp)
                 if nc is not None:
                     lengths.append(nc["length"])
             if c is not None:
@@ -644,6 +661,8 @@ def _run(params, cfg: ModelConfig, tokens, embeds, mode: str, caches,
         logits = x @ params["head"].to(x.dtype)
     logits = logits.to(getattr(torch, cfg.logits_dtype))
     logits = softcap(logits, cfg.logits_softcap)
+    if plan is not None and mode != "train":
+        logits = whole_logits(logits, cfg, plan)
     if mode == "train" and aux is None:
         aux = torch.zeros((), dtype=torch.float32, device=logits.device)
     if mode in ("verify", "train"):
@@ -655,39 +674,108 @@ def _run(params, cfg: ModelConfig, tokens, embeds, mode: str, caches,
 # cache factories
 # ---------------------------------------------------------------------------
 
-def _zeros_tree(spec, n: int, device):
-    return {k: torch.zeros((n, *shape), dtype=dt, device=device)
-            for k, (shape, dt) in spec.items()}
+def _stacked(spec, n: int):
+    return {k: ((n, *shape), dt) for k, (shape, dt) in spec.items()}
 
 
-def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda"):
-    """Dense prefill caches, one ``(L, ...)`` stack a group of blocks: GQA
-    ``(L, b, max_len, kvh, hd)`` K/V, or MLA's latent and rope key (bf16,
-    as the JAX package's ``cache_spec`` default). The hybrid's are the
-    Mamba2 states (``mamba``) and the shared block's K/V, one ``(n_apps,
-    ...)`` stack (``attn``); the ssm family's the mLSTM and sLSTM states
-    (``mlstm``, ``slstm``). All start at zeros. An encoder-only config has
-    none (``ValueError``)."""
+def _scanned(axes):
+    return {k: ("scan", *a) for k, a in axes.items()}
+
+
+def init_cache_spec(cfg: ModelConfig, batch: int, max_len: int):
+    """JAX's ``init_cache_spec``: (spec, axes), the dense caches' shapes
+    and dtypes (``(shape, dtype)`` leaves) and their logical axes, one
+    ``(L, ...)`` stack a group ("scan" in front): GQA ``(L, b, max_len,
+    kvh, hd)`` K/V, or MLA's latent and rope key (bf16, as JAX's
+    ``cache_spec`` default); the moe family's ``dense_attn`` and
+    ``attn``; the hybrid's Mamba2 states (``mamba``) and the shared
+    block's K/V, one ``(n_apps, ...)`` stack (``attn``); the ssm family's
+    mLSTM and sLSTM states (``mlstm``, ``slstm``); the Mamba2 conv
+    window in the compute dtype, which JAX's spec gives as bf16 and its
+    steps return in the compute dtype (``mamba2_state_spec``). Every
+    family has one, the encoder-only audio family too (as in JAX)."""
     check_family(cfg)
-    check_serving(cfg)
     if cfg.family == "hybrid":
-        out = {"mamba": _zeros_tree(m2.mamba2_state_spec(cfg, batch),
-                                    cfg.num_layers, device)}
+        spec = {"mamba": _stacked(m2.mamba2_state_spec(cfg, batch),
+                                  cfg.num_layers)}
+        axes = {"mamba": _scanned(m2.mamba2_state_axes())}
         if _n_apps(cfg):
-            out["attn"] = _zeros_tree(attn.cache_spec(cfg, batch, max_len),
-                                      _n_apps(cfg), device)
-        return out
+            spec["attn"] = _stacked(attn.cache_spec(cfg, batch, max_len),
+                                    _n_apps(cfg))
+            axes["attn"] = _scanned(attn.cache_axes(cfg))
+        return spec, axes
     if cfg.family == "ssm":
         n_groups, n_m_per, n_slstm = _ssm_layout(cfg)
-        out = {"mlstm": _zeros_tree(xl.mlstm_state_spec(cfg, batch),
-                                    n_groups * n_m_per, device)}
+        spec = {"mlstm": _stacked(xl.mlstm_state_spec(cfg, batch),
+                                  n_groups * n_m_per)}
+        axes = {"mlstm": _scanned(xl.mlstm_state_axes())}
         if n_slstm:
-            out["slstm"] = _zeros_tree(xl.slstm_state_spec(cfg, batch),
-                                       n_slstm, device)
-        return out
-    spec = attn.cache_spec(cfg, batch, max_len)
-    return {ckey: _zeros_tree(spec, n, device)
-            for _, ckey, n in _groups(cfg)}
+            spec["slstm"] = _stacked(xl.slstm_state_spec(cfg, batch),
+                                     n_slstm)
+            axes["slstm"] = _scanned(xl.slstm_state_axes())
+        return spec, axes
+    base = attn.cache_spec(cfg, batch, max_len)
+    return ({ckey: _stacked(base, n) for _, ckey, n in _groups(cfg)},
+            {ckey: _scanned(attn.cache_axes(cfg))
+             for _, ckey, _ in _groups(cfg)})
+
+
+def cache_specs(cfg: ModelConfig, rules, batch: int, max_len: int):
+    """The port's layout of the dense caches under ``rules`` (a tree of
+    ``PartitionSpec``s, as ``init_cache_spec``'s): JAX's specs (its
+    ``tree_specs`` of ``init_cache_spec``), the rows over the data axes
+    and the kv heads over "model", but for one deliberate divergence.
+    Where JAX's rules put "model" on a dim the attention kernel needs
+    whole on a rank (GQA's "head_dim_shard" when the kv heads do not
+    divide "model"; MLA's "kv_lora"), the port keeps that dim whole: a
+    GQA rank holds the kv heads its own query heads read
+    (``distributed.HeadsRead``) at the whole head dim, or every kv head
+    where the query heads do not divide "model" either (attention runs
+    whole there); MLA keeps the whole latent on every rank. The new
+    token's K/V (or latent) is written from the gathered projection, the
+    gather the train path does already. It costs memory on every model
+    rank: gemma_2b's one kv head, 18 layers x 256 x 2 (K and V) x 2 B =
+    18 KiB a token, and deepseek_v2_lite_16b's latent, 27 layers x (512 +
+    64) x 2 B = 30.4 KiB a token, are held whole by each."""
+    spec, axes = init_cache_spec(cfg, batch, max_len)
+    m = rules.axis_sizes.get("model", 1)
+    read = (dist_.HeadsRead(cfg.num_heads, cfg.num_kv_heads)
+            if m > 1 and cfg.num_heads % m == 0 else None)
+    out = {}
+    for g, leaves in spec.items():
+        out[g] = {}
+        for k, (shape, _) in leaves.items():
+            ax = axes[g][k]
+            entries = list(rules.spec(shape, ax))
+            for i, a in enumerate(ax):
+                if a in ("head_dim_shard", "kv_lora"):
+                    entries[i] = None
+                elif a == "kv_heads" and entries[i] is None:
+                    entries[i] = read
+            out[g][k] = PartitionSpec(*entries)
+    return out
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda",
+               rules=None, mesh=None):
+    """Dense prefill caches at zeros, laid out as ``init_cache_spec``. An
+    encoder-only config has none
+    (``ValueError``). Under ``rules``/``mesh`` ``batch`` is the global
+    batch and the caches are this rank's (``cache_specs``: its rows, its
+    kv heads or whole ones, the whole latent); ``shard_v2`` raises
+    (``distributed.check_serving``)."""
+    check_family(cfg)
+    check_serving(cfg)
+    spec, _ = init_cache_spec(cfg, batch, max_len)
+    plan = dist_.plan(cfg, rules, mesh, "prefill")
+    if plan is not None:
+        specs = cache_specs(cfg, plan.rules, batch, max_len)
+        spec = {g: {k: (dist_.local_shape(shape, specs[g][k], plan.mesh),
+                        dt) for k, (shape, dt) in leaves.items()}
+                for g, leaves in spec.items()}
+    return {g: {k: torch.zeros(shape, dtype=dt, device=device)
+                for k, (shape, dt) in leaves.items()}
+            for g, leaves in spec.items()}
 
 
 def init_paged_cache(cfg: ModelConfig, batch: int, num_blocks: int,
@@ -706,6 +794,7 @@ def init_paged_cache(cfg: ModelConfig, batch: int, num_blocks: int,
             "recurrent state has no pages to share")
     spec = attn.paged_cache_spec(cfg, num_blocks + 1, block_tokens, batch,
                                  max_blocks)
-    g = _zeros_tree(spec, cfg.num_layers, device)
+    g = {k: torch.zeros((cfg.num_layers, *shape), dtype=dt, device=device)
+         for k, (shape, dt) in spec.items()}
     g["block_tables"].fill_(num_blocks)
     return {"attn": g}

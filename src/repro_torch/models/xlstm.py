@@ -197,6 +197,13 @@ def mlstm_state_spec(cfg: ModelConfig, batch: int):
             "m": ((batch, nh), torch.float32)}
 
 
+def mlstm_state_axes() -> Dict[str, tuple]:
+    """The logical axes of ``mlstm_state_spec``'s leaves (JAX's)."""
+    return {"C": ("batch", "ssm_heads", None, None),
+            "n": ("batch", "ssm_heads", None),
+            "m": ("batch", "ssm_heads")}
+
+
 # ---------------------------------------------------------------------------
 # sLSTM
 # ---------------------------------------------------------------------------
@@ -282,3 +289,9 @@ def slstm_state_spec(cfg: ModelConfig, batch: int):
     hd = cfg.d_model // nh
     sd = ((batch, nh, hd), torch.float32)
     return {"c": sd, "n": sd, "h": sd, "m": sd}
+
+
+def slstm_state_axes() -> Dict[str, tuple]:
+    """The logical axes of ``slstm_state_spec``'s leaves (JAX's)."""
+    a = ("batch", "ssm_heads", None)
+    return {"c": a, "n": a, "h": a, "m": a}

@@ -53,15 +53,19 @@ def shard_params(full, specs, mesh, device=None) -> Dict:
     gives a mesh-axis group, at the rank's coordinate in that group, in
     the group's axis order (the order JAX lays shards out). Each shard is
     a copy (on ``device`` when given), so the whole tree can be freed.
-    Every rank calls it alike (its first use of an axis group creates the
-    group on every rank)."""
+    A ``distributed.HeadsRead`` entry takes the kv heads the rank's query
+    heads read. It serves caches as well as params (``transformer.
+    cache_specs``). Every rank calls it alike (its first use of an axis
+    group creates the group on every rank)."""
     from repro_torch import distributed
     if isinstance(full, dict):
         return {k: shard_params(v, specs[k], mesh, device)
                 for k, v in full.items()}
     t = full
     for dim, e in enumerate(specs):
-        if e is not None:
+        if isinstance(e, distributed.HeadsRead):
+            t = e.take(t, dim, distributed.axis(mesh, ("model",)))
+        elif e is not None:
             ax = distributed.axis(mesh, (e,) if isinstance(e, str) else e)
             t = distributed.local_slice(t, dim, ax)
     return t.to(device=device or t.device, copy=True)
@@ -76,7 +80,9 @@ def gather_params(local, specs, mesh) -> Dict:
         return {k: gather_params(v, specs[k], mesh) for k, v in local.items()}
     t = local.clone()             # a copy even where nothing is gathered
     for dim, e in enumerate(specs):
-        if e is not None:
+        if isinstance(e, distributed.HeadsRead):
+            t = e.whole(t, dim, distributed.axis(mesh, ("model",)))
+        elif e is not None:
             ax = distributed.axis(mesh, (e,) if isinstance(e, str) else e)
             t = distributed.gather(t, dim, ax)
     return t

@@ -1,6 +1,7 @@
-"""Rank side of ``tests/test_torch_distributed.py``: each rank of a gloo
-process group on the CPU runs these jobs of the port's sharded path
-(imports torch and ``repro_torch`` only). Inputs and outputs are ``.npz``
+"""Rank side of ``tests/test_torch_distributed.py`` and
+``tests/test_torch_dist_serve.py``: each rank of a gloo process group on
+the CPU runs these jobs of the port's sharded path (imports torch and
+``repro_torch`` only). Inputs and outputs are ``.npz``
 files of flattened trees ("/"-joined paths) in a directory the test
 gives; rank 0 writes the outputs."""
 from __future__ import annotations
@@ -40,6 +41,8 @@ def _cfg(spec):
     cfg = get_reduced_config(spec["arch"]).replace(**spec.get("replace", {}))
     if "moe" in spec:
         cfg = cfg.replace(moe=dataclasses.replace(cfg.moe, **spec["moe"]))
+    if "mla" in spec:
+        cfg = cfg.replace(mla=dataclasses.replace(cfg.mla, **spec["mla"]))
     return cfg
 
 
@@ -212,6 +215,103 @@ def job_mask(rank, d, spec):
         total, (loss, aux) = steps.loss_fn(p, batch, cfg, rules, mesh)
     if rank == 0:
         save_tree(f"{d}/out_mask.npz", {"loss": loss})
+
+
+def _local_params(d, name, cfg, mesh):
+    """(rules, this rank's shards of ``{name}_params.npz``)."""
+    from repro_torch import weights
+    from repro_torch.models import sharding
+    from repro_torch.models import transformer as tf
+    rules = sharding.ShardingRules(mesh)
+    pspecs = _nest(sharding.tree_specs(rules, tf.param_shapes(cfg),
+                                       tf.param_axes(cfg)))
+    return rules, weights.shard_params(load_tree(f"{d}/{name}_params.npz"),
+                                       pspecs, mesh)
+
+
+def _fp32_caches(init_cache):
+    """``transformer.init_cache`` with its bf16 leaves in fp32 (over bf16
+    caches one fp32 ulp can round an entry to the other bf16 neighbour;
+    the JAX references run over fp32 caches too)."""
+    def init(*args, **kw):
+        return {g: {k: v.float() if v.dtype == torch.bfloat16 else v
+                    for k, v in c.items()}
+                for g, c in init_cache(*args, **kw).items()}
+    return init
+
+
+def job_serve(rank, d, spec):
+    """The sharded ``prefill_step`` (over fp32 caches) then
+    ``spec["steps"]`` ``serve_step``s, each fed its own greedy tokens:
+    every step's logits and tokens, and the caches gathered
+    (``gather_params`` with ``cache_specs``) after the prefill and after
+    the last step."""
+    from repro_torch import weights
+    from repro_torch.models import steps
+    from repro_torch.models import transformer as tf
+    name = spec["name"]
+    mesh, member = _mesh(tuple(spec["mesh"]), tuple(spec["axes"]))
+    if not member:
+        return
+    cfg = _cfg(spec)
+    rules, local = _local_params(d, name, cfg, mesh)
+    batch = load_tree(f"{d}/{name}_batch.npz")
+    b = next(iter(batch.values())).shape[0]
+    cspecs = tf.cache_specs(cfg, rules, b, spec["max_len"])
+    out = {}
+    init_cache, tf.init_cache = tf.init_cache, _fp32_caches(tf.init_cache)
+    try:
+        with torch.no_grad():
+            logits, caches = steps.prefill_step(local, batch, cfg,
+                                                spec["max_len"], rules, mesh)
+    finally:
+        tf.init_cache = init_cache
+    with torch.no_grad():
+        out["prefill"] = logits
+        out["cache_prefill"] = weights.gather_params(caches, cspecs, mesh)
+        tok = torch.argmax(logits, -1).to(torch.int32)
+        for i in range(spec["steps"]):
+            tok, logits, caches = steps.serve_step(local, tok[:, None],
+                                                   caches, cfg, rules, mesh)
+            out[f"logits{i}"], out[f"tokens{i}"] = logits, tok
+        out["cache"] = weights.gather_params(caches, cspecs, mesh)
+    out["local_k_shape"] = torch.tensor(
+        caches["attn"]["c_kv" if cfg.attn_type == "mla" else "k"].shape)
+    if rank == 0:
+        save_tree(f"{d}/out_{name}.npz", out)
+
+
+def job_encoder(rank, d, spec):
+    """An encoder-only config's sharded ``prefill_step`` (its forward,
+    logits whole on every rank) and one sharded ``train_step`` from the
+    params with AdamW's moments at 0: the metrics and the state after it,
+    gathered."""
+    from repro_torch import weights
+    from repro_torch.models import optim, sharding, steps
+    from repro_torch.models import transformer as tf
+    name = spec["name"]
+    mesh, member = _mesh(tuple(spec["mesh"]), tuple(spec["axes"]))
+    if not member:
+        return
+    cfg = _cfg(spec)
+    rules, local = _local_params(d, name, cfg, mesh)
+    batch = load_tree(f"{d}/{name}_batch.npz")
+    out = {}
+    with torch.no_grad():
+        out["prefill"], caches = steps.prefill_step(
+            local, {"embeds": batch["embeds"]}, cfg, spec["max_len"], rules,
+            mesh)
+    assert caches is None
+    sspecs = steps.state_specs(_nest(sharding.tree_specs(
+        rules, tf.param_shapes(cfg), tf.param_axes(cfg))))
+    state = {"params": local, "opt": optim.init_opt_state(local)}
+    state, met = steps.train_step(state, batch, cfg,
+                                  optim.OptConfig(**spec["opt"]),
+                                  rules=rules, mesh=mesh)
+    out.update({f"met_{k}": v for k, v in met.items()})
+    out["state"] = weights.gather_params(state, sspecs, mesh)
+    if rank == 0:
+        save_tree(f"{d}/out_{name}.npz", out)
 
 
 def card(rank, world, d, shape):

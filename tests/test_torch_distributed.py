@@ -28,7 +28,8 @@ devices, as ``tests/test_distributed.py`` runs them. Held:
     .py``'s rule (1e-5 plus what the m and v differences make through
     AdamW's normalised step);
 (g) unequal masks across data ranks give JAX's global mean;
-(h) the layouts the schedule does not run raise, naming leaf and spec.
+(h) the layouts the schedule does not run raise, naming leaf and spec
+    (serving under a mesh: ``tests/test_torch_dist_serve.py``).
 
 The aux under data shards is a reference fact: JAX's sharded step leaves
 each data shard's own aux on its devices (``out_specs`` ``P()`` with the
@@ -36,6 +37,7 @@ replication check off), so the value it reports depends on the device;
 the port's is their mean, and v2-lite's reference step here is JAX's
 single-device step with that mean (``_jax_shard_aux_step``).
 """
+import dataclasses
 import functools
 import json
 import os
@@ -365,10 +367,17 @@ def test_shrink_rule_matches_jax(n, monkeypatch):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("what", ["fsdp", "seq_sharded", "zamba2_7b",
-                                  "xlstm_1_3b", "hubert_xlarge"])
+                                  "xlstm_1_3b", "dispatch_einsum"])
 def test_unrun_layouts_raise_naming_leaf_and_spec(what):
-    arch = what if what in ARCH_IDS else "internlm2_20b"
+    """The audio family trains under a mesh (``tests/test_torch_dist_
+    serve.py``); the MoE dispatch einsum with sharded experts still
+    raises."""
+    arch = {"dispatch_einsum": "deepseek_v2_lite_16b"}.get(
+        what, what if what in ARCH_IDS else "internlm2_20b")
     cfg = get_reduced_config(arch)
+    if what == "dispatch_einsum":
+        cfg = cfg.replace(moe=dataclasses.replace(cfg.moe,
+                                                  impl="dispatch_einsum"))
     kw = {what: True} if what in ("fsdp", "seq_sharded") else {}
     rules = tsharding.ShardingRules(
         _StubMesh((2, 2), ("data", "model")), **kw)
@@ -376,7 +385,8 @@ def test_unrun_layouts_raise_naming_leaf_and_spec(what):
         tsteps.train_step(None, None, cfg, rules=rules, mesh=rules.mesh)
     msg = str(e.value)
     assert "spec (" in msg and "later slice" in msg, msg
-    want = {"fsdp": "embed: spec (", "seq_sharded": "'seq'"}.get(
+    want = {"fsdp": "embed: spec (", "seq_sharded": "'seq'",
+            "dispatch_einsum": "layers.moe.wi: spec ("}.get(
         what, f"family={cfg.family!r}")
     assert want in msg, msg
 

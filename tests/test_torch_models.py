@@ -293,3 +293,7 @@ def test_port_sources_never_name_jax_or_repro_imports():
     assert hits == []
     smoke = (SRC.parent / "chip_smoke.py").read_text()
     assert "import jax" not in smoke and not pat.search(smoke)
+    # the card's tools (tools/dist_cards.py serves over four cards)
+    tools = [str(p) for p in (SRC.parent / "tools").glob("*.py")
+             if pat.search(p.read_text())]
+    assert tools == []
