@@ -209,11 +209,28 @@ raises on failure:
    ranks routed): each pass's logits within LOGIT_TOL, the first tokens
    where the margin is sure, each layer's gathered cache against one
    process's projection of that layer's own inputs;
-18. the ``kernels`` JSON line (flash's row also holds its MLA shapes and
+18. dist_recurrent: dense decode with its lse output at one data rank's
+   slice of JAX's long_500k cell (1, 262,148, 16/16 heads, d 112) against
+   its plain version (rows and lse), ``out`` ``torch.equal`` to the call
+   without the lse, timed beside the bound and one
+   scaled_dot_product_attention call; then the recurrent families served
+   under a mesh by the same 4 gloo ranks, DIST_RECURRENT_RUNS at full
+   width (zamba2_7b 14 of 81 layers on (2, 2), and again under
+   ``seq_sharded``, batch 1, a 4096-token prompt in 8200 positions split
+   over the data ranks, 16 steps across the boundary; xlstm_1_3b 8 of 48
+   on (1, 4)), each rank making only its shards of the seeded weights;
+   the prefill's and first step's flash, dense decode (and its lse),
+   merged decode (against the plain decode over the cache gathered from
+   the data ranks) and Mamba2 / mLSTM decode calls held
+   (``layer_checks``), launches counted; against one process fed the
+   ranks' tokens: each pass's logits within LOGIT_TOL, the sure first
+   tokens equal;
+19. the ``kernels`` JSON line (flash's row also holds its MLA shapes and
    launches, flash's and dense decode's their zamba2 shape and launches,
-   flash's its training launches; the backward's row its other shapes
-   and ptxas report; rows 1 and 7 add phase dist's launches, rows 1 and
-   dense decode's phase dist_serve's), the card line, and the last line
+   flash's its training launches; dense decode's its long_500k slice; the
+   backward's row its other shapes and ptxas report; rows 1 and 7 add
+   phase dist's launches, rows 1 and dense decode's phases dist_serve's
+   and dist_recurrent's), the card line, and the last line
    ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -624,6 +641,30 @@ def _decode_work(lengths, nh, kvh, d, cap, table_ints=0, s=1):
     return nbytes, 4 * nh * d * pairs
 
 
+# dense decode's lse output against the plain lse: fp32 on both sides
+# (bf16 x bf16 scores are exact in fp32), only the order of the sums and
+# exp/log differ: within LSE_RTOL of max(1, |lse|)
+LSE_RTOL = 1e-5
+
+
+def _check_lse(name, got, want, lengths):
+    """The largest lse difference of the live rows (each within LSE_RTOL
+    of max(1, |plain lse|)); a length-0 row's must be -inf on both
+    sides."""
+    torch.cuda.synchronize()
+    dead = torch.tensor([n <= 0 for n in lengths], device=got.device)
+    if not (torch.isneginf(got[dead]).all()
+            and torch.isneginf(want[dead]).all()):
+        raise AssertionError(f"{name}: a length-0 row's lse is not -inf")
+    g, w = got[~dead], want[~dead]
+    if not torch.isfinite(g).all():
+        raise AssertionError(f"{name}: non-finite lse of a live row")
+    err = (g - w).abs()
+    if (err > LSE_RTOL * w.abs().clamp(min=1.0)).any():
+        raise AssertionError(f"{name}: lse off by {float(err.max()):.4g}")
+    return float(err.max()) if err.numel() else 0.0
+
+
 def _check_rows(name, got, want, lengths, s=1):
     """compare() over the rows whose attended length is > 0 (a length-0
     decode row must only be finite). Returns (max abs, max row rel)."""
@@ -631,6 +672,8 @@ def _check_rows(name, got, want, lengths, s=1):
     torch.cuda.synchronize()
     if not torch.isfinite(got.float()).all():
         raise AssertionError(f"{name}: non-finite kernel output")
+    if not live:                # a sequence slice no row reaches yet
+        return 0.0, 0.0
     return compare(name, got[live], want[live])
 
 
@@ -1502,6 +1545,7 @@ class _Held(dict):
     def __init__(self):
         super().__init__()
         self.controls, self.bounds = {}, {}
+        self.lse = 0.0          # dense decode's largest lse difference
 
 
 def _step_errors(got, want, ctrl):
@@ -1537,17 +1581,23 @@ def layer_checks(gate_steps: bool = True):
     only: that elementwise bound, STEP_ROW_RTOL per row, and a control
     that must fail the row check, the fp32 step given the state as it was
     before the last write (``_step_errors``; ``gate_steps=False`` only
-    records the readings). Each layer is so held
+    records the readings); dense decode's lse, where a caller asks for it,
+    against the plain lse (``_check_lse``), and under ``seq_sharded`` each
+    merged decode (``attention.seq_decode_attention``) against the plain
+    decode over the whole sequence gathered from the data ranks. Each
+    layer is so held
     at the activations the model gives it, whatever the depth: rounding
     that compounds through the layers does not enter. Yields a ``_Held``
     of each checked call's (calls, max abs error, max row error), by
     name."""
     from repro_torch.kernels import ops, ref
+    from repro_torch.models import attention as attn
     from repro_torch.models import mamba2 as m2
     from repro_torch.models import moe
     from repro_torch.models import transformer as tf
     from repro_torch.models import xlstm as xl
     saved = {n: getattr(ops, n) for n in ATTN_KERNELS}
+    merge_fn = attn.seq_decode_attention
     moe_fn = tf.apply_moe
     decodes = {"mamba2_decode": m2, "mlstm_decode": xl}
     saved_dec = {n: getattr(mod, n) for n, mod in decodes.items()}
@@ -1564,13 +1614,36 @@ def layer_checks(gate_steps: bool = True):
             n = worst.get(name, (0,))[0]
             want = plain(*args, **kw)
             if name == "decode_attention":
-                e, r = _check_rows(f"{name} call {n}", out, want,
-                                   args[3].tolist())
+                lengths = args[3].tolist()
+                if kw.get("return_lse"):
+                    worst.lse = max(worst.lse, _check_lse(
+                        f"{name} call {n} lse", out[1], want[1], lengths))
+                    e, r = _check_rows(f"{name} call {n}", out[0], want[0],
+                                       lengths)
+                else:
+                    e, r = _check_rows(f"{name} call {n}", out, want,
+                                       lengths)
             else:
                 e, r = compare(f"{name} call {n}", out, want)
             note(name, e, r)
             return out
         return run
+
+    def held_merge(q, k_cache, v_cache, lengths, scale, ax):
+        # the slices' merged output against the plain decode over the
+        # whole sequence gathered from the ranks (positions over ``ax``),
+        # at each row's whole length (the sum of the local ones)
+        out = merge_fn(q, k_cache, v_cache, lengths, scale, ax)
+        from repro_torch import distributed as D
+        k_all = D.gather(k_cache, 1, ax)
+        v_all = D.gather(v_cache, 1, ax)
+        total = D.all_reduce(lengths.clone(), ax)
+        n = worst.get("seq_decode_attention", (0,))[0]
+        note("seq_decode_attention", *_check_rows(
+            f"seq_decode_attention call {n}", out,
+            ref.decode_attention(q, k_all, v_all, total, scale=scale),
+            total.tolist()))
+        return out
 
     def held_moe(p, x, cfg, mesh=None, tp=None):
         out, aux = moe_fn(p, x, cfg, mesh, tp)
@@ -1585,20 +1658,22 @@ def layer_checks(gate_steps: bool = True):
         # each state's copy before the last step wrote it, by address
         before = {}
 
-        def run(p, x, cfg, state):
+        def run(p, x, cfg, state, tp=None):
             # the fp32 steps first, on copies: the bf16 step writes state
+            # (under a mesh, ``tp``, every rank runs the same three steps,
+            # so their collectives pair up)
             p32, x32 = _fp32_tree(p), x.float()
             cfg32 = cfg.replace(param_dtype="float32",
                                 compute_dtype="float32")
             s_in = _fp32_tree(state)
-            want, _ = step(p32, x32, cfg32, _fp32_tree(state))
+            want, _ = step(p32, x32, cfg32, _fp32_tree(state), tp=tp)
             # the control: the state as it was before the last write (of
             # the step before, or zeros where the prefill wrote it)
             key = next(_leaves(state)).data_ptr()
             ctrl, _ = step(p32, x32, cfg32, before.get(key) or {
-                k: torch.zeros_like(v) for k, v in s_in.items()})
+                k: torch.zeros_like(v) for k, v in s_in.items()}, tp=tp)
             before[key] = s_in
-            out = step(p, x, cfg, state)
+            out = step(p, x, cfg, state, tp=tp)
             n = worst.get(name, (0,))[0]
             e, ratio, r, rc = _step_errors(out[0], want, ctrl)
             note(name, e, r)
@@ -1615,6 +1690,7 @@ def layer_checks(gate_steps: bool = True):
     for n in ATTN_KERNELS:
         setattr(ops, n, held(n, saved[n], getattr(ref, n)))
     tf.apply_moe = held_moe
+    attn.seq_decode_attention = held_merge
     for n, mod in decodes.items():
         setattr(mod, n, held_decode(n))
     try:
@@ -1623,6 +1699,7 @@ def layer_checks(gate_steps: bool = True):
         for n, fn in saved.items():
             setattr(ops, n, fn)
         tf.apply_moe = moe_fn
+        attn.seq_decode_attention = merge_fn
         for n, mod in decodes.items():
             setattr(mod, n, saved_dec[n])
 
@@ -4381,31 +4458,64 @@ def _nested(flat):
     return out
 
 
-def seeded_params(cfg, seed: int, rules=None, mesh=None):
+# the stacked layers whose seeded weights ``seeded_params`` draws around
+# the init: their block initializers
+_LAYER_INITS = {"mamba": ("mamba2", "init_mamba2"),
+                "mlstm": ("xlstm", "init_mlstm"),
+                "slstm": ("xlstm", "init_slstm")}
+
+
+def _init_layer(cfg, group: str, seed: int, i: int):
+    """Layer ``i`` of the stack ``group`` as the init draws it (on the
+    card, from a generator seeded by ``seed``, the group and ``i``), by
+    leaf name."""
+    import importlib
+    from repro_torch.models.layers import Initializer
+    mod, fn = _LAYER_INITS[group]
+    init = getattr(importlib.import_module(f"repro_torch.models.{mod}"), fn)
+    gen = torch.Generator(device="cuda").manual_seed(
+        _seed_of(seed, group, i, "init"))
+    return _flat(init(Initializer(cfg, gen, "cuda"), cfg))
+
+
+def seeded_params(cfg, seed: int, rules=None, mesh=None, share: float = 1.0):
     """Seeded weights on the card, leaf by leaf and layer by layer: each
-    layer of each leaf N(0, ``_weight_std``^2) from generators seeded by
-    (``seed``, leaf path, layer) (``_seeded``). With ``rules``/``mesh``
-    only this rank's shards are kept: each layer's whole leaf exists only
-    while its shard is cut (``weights.shard_params``), so no rank holds
-    the whole model, and the shards are those of the whole tree."""
+    layer of each leaf N(0, (``share`` x ``_weight_std``)^2) from
+    generators seeded by (``seed``, leaf path, layer) (``_seeded``); the
+    Mamba2, mLSTM and sLSTM layers are the init's (``_init_layer``: its
+    fan-in draws, zero projections, the gates' biases, D) plus that
+    noise, as ``full_width_params`` perturbs a whole model by ``share``:
+    their regime (a forget gate's bias of 3, D of 1) is the one the
+    recurrent steps' checks were set at. With
+    ``rules``/``mesh`` only this rank's shards are kept (the port's
+    layout, ``transformer.param_specs``): each layer's whole leaf exists
+    only while its shard is cut (``weights.shard_params``), so no rank
+    holds the whole model, and the shards are those of the whole tree."""
     from repro_torch import weights
     from repro_torch.models import transformer as tf
     from repro_torch.models.sharding import PartitionSpec
     dtype = getattr(torch, cfg.param_dtype)
     axes = tf.param_axes(cfg)
+    shapes = tf.param_shapes(cfg)
+    specs = None if rules is None else tf.param_specs(cfg, rules)
+
+    def cut(part, path, stacked):
+        if specs is None:
+            return part
+        spec = specs[path]
+        return weights.shard_params(
+            part, PartitionSpec(*spec[1:]) if stacked else spec, mesh)
+    inited = {p.split(".")[0] for p in shapes} & set(_LAYER_INITS)
     flat = {}
-    for path, shape in tf.param_shapes(cfg).items():
+    for path, shape in shapes.items():
         stacked = axes[path][:1] == ("scan",)
-        spec = None if rules is None else rules.spec(shape, axes[path])
-        sd = _weight_std(cfg, path, shape)
+        if path.split(".")[0] in inited:
+            continue
+        sd = share * _weight_std(cfg, path, shape)
         out = None
         for i in (range(shape[0]) if stacked else (None,)):
-            part = _seeded(shape[1:] if stacked else shape, sd,
-                           (seed, path, i), dtype)
-            if spec is not None:
-                part = weights.shard_params(
-                    part, PartitionSpec(*spec[1:]) if stacked else spec,
-                    mesh)
+            part = cut(_seeded(shape[1:] if stacked else shape, sd,
+                               (seed, path, i), dtype), path, stacked)
             if not stacked:
                 out = part
                 break
@@ -4414,6 +4524,19 @@ def seeded_params(cfg, seed: int, rules=None, mesh=None):
             out[i] = part
             del part
         flat[path] = out
+    for group in sorted(inited):
+        n = next(shape[0] for p, shape in shapes.items()
+                 if p.startswith(group + "."))
+        for i in range(n):
+            for leaf, v in _init_layer(cfg, group, seed, i).items():
+                path = f"{group}.{leaf}"
+                sd = share * _weight_std(cfg, path, shapes[path])
+                part = cut((v.float() + _seeded(v.shape, sd, (seed, path, i),
+                                                torch.float32)).to(dtype),
+                           path, True)
+                if path not in flat:
+                    flat[path] = part.new_empty((n, *part.shape))
+                flat[path][i] = part
     return _nested(flat)
 
 
@@ -4603,14 +4726,7 @@ def _serve_one_process(cfg, prompts, logits, fed, caches, routes, xs):
         one, _, one_caches, secs, _ = _serve_passes(
             cfg, params, prompts, DIST_SERVE_PROMPT + DIST_SERVE_STEPS,
             DIST_SERVE_STEPS, feed=fed, checked=False)
-    share = [float((a - b).abs().max() / b.abs().max())
-             for a, b in zip(logits, one)]
-    diff = (logits[0] - one[0]).abs().amax(-1)
-    top2 = one[0].topk(2, dim=-1).values
-    sure = (top2[:, 0] - top2[:, 1]) > 2 * diff
-    first_equal = logits[0].argmax(-1) == one[0].argmax(-1)
-    stream = [f.cpu() for f in fed] + [logits[-1].argmax(-1)]
-    equal = sum(int((s == o.argmax(-1)).sum()) for s, o in zip(stream, one))
+    agree = _logit_agreement(logits, one, fed)
     drift, worst = {}, {}
     with torch.no_grad():
         mine = _layer_caches(cfg, params, xs)
@@ -4633,12 +4749,29 @@ def _serve_one_process(cfg, prompts, logits, fed, caches, routes, xs):
     del params, one_caches, mine
     gc.collect()
     torch.cuda.empty_cache()
+    return {**agree, "cache_worst": worst, "cache_drift": drift,
+            "one_secs": secs}
+
+
+def _logit_agreement(logits, one, fed):
+    """The ranks' passes (``logits``, the tokens ``fed``) against one
+    process's (``one``): each pass's largest logit difference as a share
+    of the largest logit, the first token's agreement wherever the one
+    process's top-2 margin exceeds twice the row's largest difference,
+    the stream tokens that equal the one process's argmax, finiteness."""
+    share = [float((a - b).abs().max() / b.abs().max())
+             for a, b in zip(logits, one)]
+    diff = (logits[0] - one[0]).abs().amax(-1)
+    top2 = one[0].topk(2, dim=-1).values
+    sure = (top2[:, 0] - top2[:, 1]) > 2 * diff
+    first_equal = logits[0].argmax(-1) == one[0].argmax(-1)
+    stream = [f.cpu() for f in fed] + [logits[-1].argmax(-1)]
+    equal = sum(int((s == o.argmax(-1)).sum()) for s, o in zip(stream, one))
     return {"share": share, "first_sure": int(sure.sum()),
             "first_sure_equal": int((first_equal & sure).sum()),
             "first_equal": int(first_equal.sum()),
             "stream_equal": equal, "stream_tokens": sum(
                 int(s.numel()) for s in stream),
-            "cache_worst": worst, "cache_drift": drift, "one_secs": secs,
             "finite": all(bool(torch.isfinite(x).all()) for x in logits)}
 
 
@@ -4742,6 +4875,275 @@ def phase_dist_serve(card: str):
     return total
 
 
+# phase dist_recurrent: the recurrent families served under a mesh, 4
+# ranks on the one card over gloo as phase dist_serve runs them: (arch,
+# layers, mesh (data, model), seq_sharded, batch, prompt, cache positions,
+# steps). Full width, bf16, depth the only cut: zamba2_7b at 14 of 81
+# layers (one shared-block application), and again under seq_sharded with
+# batch 1, a 4096-token prompt (the chunked scan takes multiples of 256)
+# in an 8200-position cache, two slices of 4100, so that its 16 steps
+# cross from data rank 0's slice into rank 1's; xlstm_1_3b at 8 of 48 (7
+# mLSTM + 1 sLSTM) on (1, 4), one head a rank
+DIST_RECURRENT_RUNS = (
+    ("zamba2_7b", 14, (2, 2), False, 8, 512, 544, 32),
+    ("zamba2_7b", 14, (2, 2), True, 1, 4096, 8200, 16),
+    ("xlstm_1_3b", 8, (1, 4), False, 8, 512, 544, 32),
+)
+# the long_500k cell's decode on one data rank of (2, 2) (tools/
+# dist_cards.py long): batch 1, half of zamba2_7b's 524,296-position
+# cache, its 16 of 32 kv heads a model rank, d 112
+LONG_SLICE = 524_296 // 2
+
+
+def _recurrent_tag(arch, seq) -> str:
+    return arch + (" seq_sharded" if seq else "")
+
+
+def _dist_recurrent_rank(rank, world, out_dir, runs=DIST_RECURRENT_RUNS):
+    """One rank of phase dist_recurrent: for each of ``runs`` at full
+    width, its shards of the seeded weights (``seeded_params``, xlstm's at
+    TRAIN_SHARE), ``prefill_step`` and ``serve_step``s
+    under the mesh, the launch counters reset just before and read just
+    after, the prefill's and first step's flash, ``decode_attention``
+    (with its lse under seq_sharded), merged decode, Mamba2 and mLSTM
+    decode calls held (``layer_checks``); the caches gathered to rank 0,
+    which then runs the same passes in one process, fed the ranks'
+    tokens. Writes ``rank{r}.json`` to ``out_dir``."""
+    import gc
+    import torch.distributed as dist
+    from repro_torch import distributed as D
+    from repro_torch import weights
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import compat_make_mesh
+    from repro_torch.models import sharding
+    from repro_torch.models import transformer as tf
+    out = {"backend": dist.get_backend(),
+           "device": torch.cuda.current_device()}
+    for arch, layers, shape, seq, batch, n, max_len, n_steps in runs:
+        mesh = compat_make_mesh(shape, ("data", "model"))
+        rules = sharding.ShardingRules(mesh, seq_sharded=seq)
+        cfg = _serve_cfg(arch, layers)
+        share = TRAIN_SHARE.get(arch, 1.0)
+        params = seeded_params(cfg, DIST_SEED, rules, mesh, share)
+        prompts = _serve_prompts(cfg, batch, n)
+        staged = D.staged_calls
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        logits, fed, caches, secs, held = _serve_passes(
+            cfg, params, prompts, max_len, n_steps, rules, mesh)
+        counts = ops.launch_counts()
+        r = {"secs": secs, "staged": D.staged_calls - staged,
+             "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+             "launches": {k: counts[k] for k in ("flash_attention",
+                                                 "decode_attention")},
+             "held": dict(held), "controls": held.controls,
+             "bounds": held.bounds, "lse": held.lse}
+        whole = weights.gather_params(
+            caches, tf.cache_specs(cfg, rules, batch, max_len), mesh)
+        whole = {g: {k: v.cpu() for k, v in c.items()}
+                 for g, c in whole.items()} if rank == 0 else None
+        del params, caches
+        gc.collect()
+        torch.cuda.empty_cache()
+        dist.barrier()
+        if rank == 0:
+            r.update(_recurrent_one_process(cfg, share, prompts, logits, fed,
+                                            whole, max_len, n_steps))
+        del whole, logits
+        dist.barrier()
+        out[_recurrent_tag(arch, seq)] = r
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def _recurrent_one_process(cfg, share, prompts, logits, fed, caches,
+                           max_len, n_steps):
+    """The same passes in this one process from the whole seeded weights,
+    fed the ranks' tokens: ``_logit_agreement``, and each state and K/V
+    leaf's drift from this process's, its largest row (last dim) error
+    relative to the row (printed, not gated: it compounds through the
+    layers and steps)."""
+    import gc
+    params = seeded_params(cfg, DIST_SEED, share=share)
+    one, _, one_caches, secs, _ = _serve_passes(
+        cfg, params, prompts, max_len, n_steps, feed=fed, checked=False)
+    drift = {}
+    for g, c in caches.items():
+        for k, v in c.items():
+            ref_ = one_caches[g][k].cpu()
+            if k == "length":
+                if not torch.equal(v, ref_):
+                    raise AssertionError(f"cache {g}: lengths differ")
+                continue
+            d = v.shape[-1]
+            ref_ = ref_.float().reshape(-1, d)
+            drift[f"{g}.{k}"] = float(
+                ((v.float().reshape(-1, d) - ref_).norm(dim=1)
+                 / ref_.norm(dim=1).clamp(min=1e-30)).max())
+    del params, one_caches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {**_logit_agreement(logits, one, fed), "cache_drift": drift,
+            "one_secs": secs}
+
+
+def dist_recurrent_report(tag, card, ranks, transport,
+                          runs=DIST_RECURRENT_RUNS):
+    """Gate and print one run of ``_dist_recurrent_rank``: on every rank
+    flash launches = shared-block applications (the prefill) and
+    ``decode_attention`` launches = applications x steps (none for the
+    ssm family), the prefill's and first step's calls all held (flash,
+    dense decode and its lse, under seq_sharded each merged decode, every
+    Mamba2 / mLSTM decode step); on rank 0 each pass's logits within
+    LOGIT_TOL of one process's, finite, the first token equal wherever
+    the one process's margin is sure. Returns the flash and
+    decode_attention launches summed over the ranks."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tf
+    total = {"flash_attention": 0, "decode_attention": 0}
+    for arch, layers, shape, seq, batch, n, max_len, n_steps in runs:
+        name = _recurrent_tag(arch, seq)
+        cfg = _serve_cfg(arch, layers)
+        apps = tf._n_apps(cfg)
+        want = {"flash_attention": apps,
+                "decode_attention": apps * n_steps}
+        if cfg.family == "hybrid":
+            held = {"flash_attention": apps, "decode_attention": apps,
+                    "mamba2_decode": layers}
+            if seq:
+                held["seq_decode_attention"] = apps
+        else:
+            n_groups, n_m, _ = tf._ssm_layout(cfg)
+            held = {"mlstm_decode": n_groups * n_m}
+        per = [r[name] for r in ranks]
+        for i, r in enumerate(per):
+            got_held = {k: c for k, (c, _, _) in r["held"].items()}
+            if r["launches"] != want or got_held != held:
+                raise AssertionError(
+                    f"{tag} {name} rank {i}: launches {r['launches']}, held "
+                    f"{got_held}; want {want}, {held}")
+        for k in total:
+            total[k] += sum(r["launches"][k] for r in per)
+        r0 = per[0]
+        if max(r0["share"]) > LOGIT_TOL or not r0["finite"] or \
+                r0["first_sure_equal"] != r0["first_sure"]:
+            raise AssertionError(
+                f"{tag} {name}: logits off one process by {r0['share']} of "
+                f"max |logit|, first tokens {r0['first_sure_equal']} of "
+                f"{r0['first_sure']} sure rows equal, finite "
+                f"{r0['finite']}")
+        errs = {k: max(r["held"][k][1] for r in per) for k in held}
+        rows = {k: max(r["held"][k][2] for r in per) for k in held}
+        steps_txt = "".join(
+            f"; {k}: elementwise <= {max(r['bounds'][k] for r in per):.3g} "
+            f"of its bound, row error <= {rows[k]:.4g} (limit "
+            f"{STEP_ROW_RTOL[k]}), control's >= "
+            f"{min(r['controls'][k] for r in per):.4g}"
+            for k in held if k in STEP_ROW_RTOL)
+        pre = [r["secs"][0] for r in per]
+        step = [float(np.mean(r["secs"][2:])) for r in per]
+        log(f"[{tag}] {name} ({layers} of {get_config(arch).num_layers} "
+            f"layers, full width, bf16, mesh (data, model) = {shape}"
+            f"{', seq_sharded' if seq else ''}, {transport}): prefill "
+            f"{batch} x {n} in a {max_len}-position cache + {n_steps} "
+            f"serve_steps; logits vs one process: largest share of max "
+            f"|logit| {max(r0['share']):.4g} (limit {LOGIT_TOL}; prefill "
+            f"{r0['share'][0]:.4g}); first tokens equal "
+            f"{r0['first_equal']}/{batch} ({r0['first_sure_equal']}/"
+            f"{r0['first_sure']} rows with a sure margin); stream tokens "
+            f"equal to one process's argmax {r0['stream_equal']}/"
+            f"{r0['stream_tokens']}; drift of the gathered states and K/V "
+            "from one process's, largest row " + ", ".join(
+                f"{k} {v:.3g}" for k, v in r0["cache_drift"].items())
+            + f"; launches a rank {want}; held: " + ", ".join(
+                f"{k} {c} calls max_abs_err={errs[k]:.3g} "
+                f"max_row_rel_err={rows[k]:.3g}" for k, c in held.items())
+            + (f", dense decode lse max |err| "
+               f"{max(r['lse'] for r in per):.3g} (limit {LSE_RTOL} of "
+               f"max(1, |lse|))" if seq else "")
+            + f" (atol {ATOL}, rtol {RTOL}, row {ROW_RTOL}){steps_txt}; "
+            f"prefill s a rank " + " ".join(f"{t:.3f}" for t in pre)
+            + f" vs one process {r0['one_secs'][0]:.3f}; step s a rank "
+            + " ".join(f"{t:.4f}" for t in step)
+            + f" vs one process {np.mean(r0['one_secs'][2:]):.4f}; peak "
+            f"GiB a rank " + " ".join(f"{r['peak_gib']:.2f}" for r in per)
+            + f"; collectives staged through host memory {r0['staged']}; "
+            f"{card}")
+    return total
+
+
+def phase_long_kernel():
+    """Dense decode with its lse at the long_500k cell's shape on one data
+    rank (batch 1, LONG_SLICE positions, 16/16 heads, d 112): against its
+    plain version (output rows and lse), ``out`` ``torch.equal`` to the
+    call without the lse, and timed with the host queue held beside its
+    plain version, one scaled_dot_product_attention call on the same
+    slice and the byte bound. Returns the kernels-line entry."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import ref
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    S, h, d = LONG_SLICE, ZAMBA_HEADS // 2, ZAMBA_D
+    q, k, v, lens = _dense_case(gen, 1, S, h, h, d, [S])
+    out, lse = da.decode_attention(q, k, v, lens, return_lse=True)
+    want, wlse = ref.decode_attention(q, k, v, lens, return_lse=True)
+    e, r = _check_rows("decode_attention long_500k slice", out, want, [S])
+    le = _check_lse("decode_attention long_500k slice lse", lse, wlse, [S])
+    if not torch.equal(out, da.decode_attention(q, k, v, lens)):
+        raise AssertionError("decode_attention: out with the lse differs "
+                             "from out without it")
+    del want, wlse
+    nbytes, ops_ = _decode_work([S], h, h, d, S)
+    t = _decode_times(
+        f"decode_attention with lse, long_500k slice (1, {S}, {h}/{h}, {d})",
+        lambda: da.decode_attention(q, k, v, lens, return_lse=True),
+        lambda: ref.decode_attention(q, k, v, lens, return_lse=True),
+        _sdpa_dense(q, k, v, lens), (nbytes + 4 * h, ops_))
+    bound_ms, by = bound(*t.pop("bound"), PEAK_BF16_FLOPS)
+    log(f"[dist_recurrent] decode_attention with lse at the long_500k "
+        f"slice: max_abs_err={e:.3g} max_row_rel_err={r:.3g}, lse max |err| "
+        f"{le:.3g} (limit {LSE_RTOL} of max(1, |lse|)); out torch.equal "
+        f"to the call without the lse")
+    del q, k, v
+    torch.cuda.empty_cache()
+    return dict(shape=[1, S, h, h, d], max_abs_err=e, max_row_rel_err=r,
+                lse_max_abs_err=le, bound_ms=bound_ms, bound_by=by, **t)
+
+
+def phase_dist_recurrent(card: str):
+    """The recurrent families served under a mesh on the one card: dense
+    decode with its lse at the long_500k slice (``phase_long_kernel``),
+    then ``_dist_recurrent_rank`` in 4 processes over gloo for
+    DIST_RECURRENT_RUNS (zamba2_7b on (2, 2): 16 of 32 heads and 56 of
+    112 Mamba2 heads a rank, the rows over the data ranks, then under
+    seq_sharded with the cache's positions over them; xlstm_1_3b on (1,
+    4): one mLSTM and sLSTM head a rank); each rank's exit code checked
+    (``mesh.spawn``), then ``dist_recurrent_report``'s gates. Times are
+    gloo's, staged through host memory. Returns (the ranks' flash and
+    decode_attention launches, the long_500k kernels-line entry)."""
+    import gc
+    import shutil
+    from repro_torch.launch import mesh
+    t0 = time.monotonic()
+    gc.collect()
+    torch.cuda.empty_cache()
+    long_row = phase_long_kernel()
+    out_dir = ROOT / "build" / "dist_recurrent"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    world = 4
+    mesh.spawn(_dist_recurrent_rank, world, (str(out_dir),))
+    ranks = [json.loads((out_dir / f"rank{r}.json").read_text())
+             for r in range(world)]
+    total = dist_recurrent_report(
+        "dist_recurrent", card, ranks,
+        f"{world} ranks on one card over gloo ({ranks[0]['backend']}): "
+        f"times gloo-staged, not the card's collectives")
+    log(f"[dist_recurrent] phase seconds {time.monotonic() - t0:.1f}; "
+        f"{card}")
+    return total, long_row
+
+
 def kernels_line(rows, launches):
     out = []
     for name in KERNELS:
@@ -4761,7 +5163,7 @@ def kernels_line(rows, launches):
         out[-1].update({k: r[k] for k in ("mla_shapes", "mla_launches",
                                           "zamba2_shape", "zamba2_launches",
                                           "train_launches", "shapes",
-                                          "ptxas")
+                                          "ptxas", "long_500k")
                         if k in r})
     return {"kernels": out}
 
@@ -4834,6 +5236,13 @@ def main() -> int:
     for name, n in phase_dist_serve(line).items():
         launches[name] += n
     lap("dist_serve")
+    # the recurrent families under a mesh: the ranks' flash and dense
+    # decode launches; dense decode with its lse at the long_500k slice
+    counts, rows["decode_attention"]["long_500k"] = phase_dist_recurrent(
+        line)
+    for name, n in counts.items():
+        launches[name] += n
+    lap("dist_recurrent")
     log(f"[done] all phases in {time.monotonic() - t0:.1f}s")
     log(json.dumps(kernels_line(rows, launches)))
     log(line)

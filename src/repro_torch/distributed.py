@@ -27,15 +27,26 @@ stages it through host memory explicitly, counts the call in
 ``staged_calls`` and prints the first of each kind.
 
 ``Plan`` resolves the layout of one config's param tree under
-``ShardingRules`` (each leaf's spec, the dim that "model" shards) and
-refuses what this schedule does not run: FSDP (weights over the data
-axes), ``seq_sharded``, and the hybrid and ssm families. The serving
-steps under a plan also refuse ``shard_v2`` (its ``cache_seq`` shards the
-cache's sequence) and paged caches (``check_serving``).
+``ShardingRules`` (each leaf's spec, the dim that "model" shards; the
+port's layout, ``transformer.param_specs``) and refuses what this
+schedule does not run (``check_rules``): FSDP (weights over the data
+axes) and the MoE dispatch einsum with sharded experts in every mode; in
+mode "train" also ``seq_sharded`` and the hybrid and ssm families, and in
+the serving modes MLA under ``seq_sharded``. The serving steps under a
+plan also refuse ``shard_v2`` (its ``cache_seq`` shards the cache's
+sequence) and paged caches (``check_serving``).
 
-A spec entry is a mesh axis, a tuple of them, None, or ``HeadsRead``:
-the kv heads a rank's query heads read, the port's layout of a GQA cache
-where JAX's rules put "model" on the head dim.
+Under ``seq_sharded`` (serving only, JAX's long-context rule) the batch is
+replicated and the data axes split the dense caches' sequence instead:
+data rank r holds positions [r S / n, (r + 1) S / n). Every data rank runs
+the whole batch alike; a decode step attends over each rank's slice and
+merges the slices by their log-sum-exp with all-reduces over the data
+axes (``attention.merge_slices``).
+
+A spec entry is a mesh axis, a tuple of them, None, ``HeadsRead`` (the kv
+heads a rank's query heads read, the port's layout of a GQA cache where
+JAX's rules put "model" on the head dim) or ``Mamba2Read`` (a Mamba2
+leaf's concatenated channels as a rank's heads read them).
 """
 from __future__ import annotations
 
@@ -273,6 +284,65 @@ class HeadsRead:
         return len(self.heads(ax.index, ax.size))
 
 
+class Mamba2Read:
+    """A spec entry for the concatenated channel dim of a Mamba2 leaf:
+    ``in_proj``'s z | x | B | C | dt, and x | B | C of ``conv_w``,
+    ``conv_b`` and the conv window. On each "model" rank it holds its
+    heads' slices of the parts that follow the heads (z, x, dt) and the
+    parts every head reads whole (B and C, one group), in the leaf's
+    order, so that the rank's slice splits as the whole leaf does at the
+    rank's d_inner and heads. JAX's rules split the concatenated dim
+    contiguously, which does not follow the heads. ``parts``: (size,
+    split over "model") of each part in order."""
+
+    def __init__(self, parts):
+        self.parts = tuple((int(n), bool(split)) for n, split in parts)
+
+    @classmethod
+    def in_proj(cls, d_in: int, state: int, heads: int) -> "Mamba2Read":
+        return cls(((d_in, True), (d_in, True), (2 * state, False),
+                    (heads, True)))
+
+    @classmethod
+    def conv(cls, d_in: int, state: int) -> "Mamba2Read":
+        return cls(((d_in, True), (2 * state, False)))
+
+    def __eq__(self, other):
+        return isinstance(other, Mamba2Read) and self.parts == other.parts
+
+    def __hash__(self):
+        return hash((Mamba2Read, self.parts))
+
+    def __repr__(self):
+        return ("Mamba2Read(" + " | ".join(
+            f"{n}{'/model' if split else ''}" for n, split in self.parts)
+            + ")")
+
+    def take(self, t: torch.Tensor, dim: int, ax: Axis) -> torch.Tensor:
+        """This rank's channels of the whole ``t`` along ``dim``."""
+        out, off = [], 0
+        for n, split in self.parts:
+            part = t.narrow(dim, off, n)
+            out.append(local_slice(part, dim, ax) if split else part)
+            off += n
+        return torch.cat(out, dim)
+
+    @torch.no_grad()
+    def whole(self, t: torch.Tensor, dim: int, ax: Axis) -> torch.Tensor:
+        """The whole tensor from every rank's ``take``: the split parts
+        gathered along ``dim``, the whole ones as this rank holds them."""
+        out, off = [], 0
+        for n, split in self.parts:
+            k = n // ax.size if split else n
+            part = t.narrow(dim, off, k)
+            out.append(gather(part, dim, ax) if split else part)
+            off += k
+        return torch.cat(out, dim)
+
+    def local_size(self, ax: Axis) -> int:
+        return sum(n // ax.size if split else n for n, split in self.parts)
+
+
 # ---------------------------------------------------------------------------
 # layout
 # ---------------------------------------------------------------------------
@@ -281,12 +351,14 @@ class Layout:
     """The model-axis layout of one block (or one module) of the tree:
     ``dim(name)`` is the dim of the per-layer leaf ``name`` (its "scan"
     dim dropped) that "model" shards, or None; ``model`` and ``data`` are
-    this rank's axis groups."""
+    this rank's axis groups; ``seq`` is the data axes' group where they
+    split the caches' sequence (``seq_sharded``), else None."""
 
     def __init__(self, dims: Dict[str, Optional[int]], specs: Dict,
-                 model: Axis, data: Axis, prefix: str = ""):
+                 model: Axis, data: Axis, prefix: str = "",
+                 seq: Optional[Axis] = None):
         self.dims, self.specs, self.model, self.data = dims, specs, model, data
-        self.prefix = prefix
+        self.prefix, self.seq = prefix, seq
 
     def _key(self, name: str) -> str:
         return f"{self.prefix}.{name}" if self.prefix else name
@@ -299,7 +371,35 @@ class Layout:
 
     def sub(self, prefix: str) -> "Layout":
         return Layout(self.dims, self.specs, self.model, self.data,
-                      self._key(prefix))
+                      self._key(prefix), self.seq)
+
+    def split(self, names, want, what: str) -> bool:
+        """Whether the module whose leaves are ``names`` runs on the
+        rank's share of "model": False where no leaf is sharded; True
+        where each leaf is sharded on the dim of ``want`` (None: left
+        whole); else ``refuse`` (``what`` says the layout the schedule
+        runs)."""
+        dims = [self.dim(n) for n in names]
+        if all(d is None for d in dims):
+            return False
+        if dims != list(want):
+            bad = next(n for n, d, w in zip(names, dims, want) if d != w)
+            self.refuse(bad, what)
+        return True
+
+    def sum_model(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` summed over the model axis, in place (no gradient)."""
+        return all_reduce(t, self.model)
+
+    def row_parallel(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        """``x @ w`` where both hold the rank's slice of the contracted dim
+        (no gradient): each rank's partial product kept in fp32 (its
+        accumulator unrounded), summed over "model" in fp32 and rounded
+        to ``x``'s dtype once, as one product over the whole dim rounds
+        its accumulator. A reduce-out of bf16 partials would round each
+        partial and then their sum."""
+        from repro_torch.models.layers import mm_fp32
+        return all_reduce(mm_fp32(x, w), self.model).to(x.dtype)
 
     def copy_in(self, x):
         return copy_in(x, self.model)
@@ -330,7 +430,7 @@ def _model_dims(specs: Dict, axes: Dict[str, tuple]):
         for i, e in enumerate(spec):
             if e is None:
                 continue
-            if e != "model":
+            if e != "model" and not isinstance(e, Mamba2Read):
                 raise NotImplementedError(
                     f"{path}: spec {tuple(spec)} shards a weight over the "
                     f"data axes (fsdp=True); FSDP execution {_LATER}")
@@ -339,12 +439,15 @@ def _model_dims(specs: Dict, axes: Dict[str, tuple]):
     return dims
 
 
-def check_rules(cfg, rules):
+def check_rules(cfg, rules, mode: str = "train"):
     """Raise ``NotImplementedError`` for what the sharded schedule does not
-    run: FSDP (``fsdp=True``), ``seq_sharded``, the hybrid and ssm
-    families under a mesh, and the MoE dispatch einsum with sharded
-    experts. Each names a leaf (or activation), its spec and the later
-    slice."""
+    run in ``mode``: FSDP (``fsdp=True``) and the MoE dispatch einsum with
+    sharded experts in every mode; in mode "train" ``seq_sharded`` (JAX's
+    dry run sets it for decode only) and the hybrid and ssm families; in
+    the serving modes MLA's latent cache under ``seq_sharded``, and a
+    Mamba2 layer whose heads do not divide "model" where JAX's rules put
+    "model" on its channels. Each names a leaf (or activation), its spec
+    and the later slice."""
     from repro_torch.models import transformer as tf
     axes = tf.param_axes(cfg)
     shapes = tf.param_shapes(cfg)
@@ -354,20 +457,39 @@ def check_rules(cfg, rules):
             f"{path}: spec {tuple(rules.spec(shapes[path], axes[path]))} "
             f"under fsdp=True shards weights over the data axes; FSDP "
             f"execution {_LATER}")
-    if rules.seq_sharded:
+    if rules.seq_sharded and mode == "train":
         spec = rules.spec((1, 1, 1), ("batch", "seq", "embed"))
         raise NotImplementedError(
             f"activations ('batch', 'seq', 'embed'): spec {tuple(spec)} "
             f"under seq_sharded=True shards the sequence; sequence-sharded "
-            f"execution {_LATER}")
-    if cfg.family in ("hybrid", "ssm"):
+            f"training {_LATER}")
+    if cfg.family in ("hybrid", "ssm") and mode == "train":
         path = next(p for p in axes if p not in ("embed", "head",
                                                  "frontend_proj")
                     and not p.startswith("final_norm"))
         raise NotImplementedError(
             f"family={cfg.family!r} under a mesh: {path} spec "
             f"{tuple(rules.spec(shapes[path], axes[path]))}; the "
-            f"{cfg.family} family's sharded step {_LATER}")
+            f"{cfg.family} family's sharded train step {_LATER}")
+    if rules.seq_sharded and cfg.attn_type == "mla":
+        from repro_torch.models import attention as attn
+        shape = attn.cache_spec(cfg, 1, 1)["c_kv"][0]
+        ax = attn.cache_axes(cfg)["c_kv"]
+        raise NotImplementedError(
+            f"attn.c_kv: spec {tuple(rules.spec(shape, ax))} of axes {ax} "
+            f"under seq_sharded=True (the latent cache's sequence over the "
+            f"data axes); MLA under seq_sharded {_LATER}")
+    if cfg.family == "hybrid":
+        from repro_torch.models import mamba2 as m2
+        d_in, nh = m2._dims(cfg)[:2]
+        path = "mamba.in_proj"
+        spec = rules.spec(shapes[path], axes[path])
+        m = rules.axis_sizes.get("model", 1)
+        if spec[-1] == "model" and (nh % m or d_in % m):
+            raise NotImplementedError(
+                f"{path}: spec {tuple(spec)}: {nh} Mamba2 heads on a "
+                f"'model' axis of {m}; the Mamba2 layer runs with its heads "
+                f"split over 'model', and this layout {_LATER}")
     if cfg.family == "moe" and cfg.moe.impl == "dispatch_einsum":
         path = "layers.moe.wi"
         spec = rules.spec(shapes[path], axes[path])
@@ -408,7 +530,7 @@ def local_shape(shape, spec, mesh) -> tuple:
     ``spec`` (``weights.shard_params``'s)."""
     out = list(shape)
     for i, e in enumerate(spec):
-        if isinstance(e, HeadsRead):
+        if isinstance(e, (HeadsRead, Mamba2Read)):
             out[i] = e.local_size(axis(mesh, ("model",)))
         elif e is not None:
             out[i] //= axis(mesh, (e,) if isinstance(e, str) else e).size
@@ -417,30 +539,35 @@ def local_shape(shape, spec, mesh) -> tuple:
 
 class Plan:
     """One config's sharded step on this rank: each leaf's spec
-    (``specs``, by JAX's dotted path) and model-sharded dim, the rules,
-    and the rank's "model" and data-axes groups."""
+    (``specs``, by JAX's dotted path: the port's layout,
+    ``transformer.param_specs``) and model-sharded dim, the rules, and the
+    rank's "model" and data-axes groups; ``seq`` is the data-axes group
+    under ``seq_sharded`` (the caches' sequence split over it, the batch
+    whole on every rank), else None."""
 
     def __init__(self, cfg, rules, mesh):
         from repro_torch.models import transformer as tf
-        check_rules(cfg, rules)
+        check_rules(cfg, rules, "prefill")
         axes = tf.param_axes(cfg)
-        shapes = tf.param_shapes(cfg)
-        self.specs = {p: rules.spec(shapes[p], axes[p]) for p in axes}
+        self.specs = tf.param_specs(cfg, rules)
         self.dims = _model_dims(self.specs, axes)
         if cfg.family == "moe":
             _check_ep(cfg, rules, self.dims, self.specs, "layers.moe.")
         self.model = axis(mesh, ("model",))
         self.data = axis(mesh, ("pod", "data"))
+        self.seq = self.data if rules.seq_sharded else None
         self.cfg, self.rules, self.mesh = cfg, rules, mesh
 
     def block(self, pkey: str) -> Layout:
-        return Layout(self.dims, self.specs, self.model, self.data, pkey)
+        return Layout(self.dims, self.specs, self.model, self.data, pkey,
+                      self.seq)
 
     def rows(self, t):
         """This rank's rows of a global batch tensor (JAX's batch sharding
-        over ("pod", "data")); the batch must divide over them."""
-        if t is None:
-            return None
+        over ("pod", "data")); the batch must divide over them. Under
+        ``seq_sharded`` the batch is replicated: ``t`` itself."""
+        if t is None or self.seq is not None:
+            return t
         if t.shape[0] % self.data.size:
             raise ValueError(f"a batch of {t.shape[0]} rows does not divide "
                              f"over the data axes ({self.data.size} ranks)")
@@ -478,6 +605,7 @@ def plan(cfg, rules, mesh, mode: str = "train", caches=None
     if rules is None:
         from repro_torch.models.sharding import ShardingRules
         rules = ShardingRules(mesh)
+    check_rules(cfg, rules, mode)
     if mode != "train":
         check_serving(cfg, rules, mode, caches)
     key = (cfg, id(rules), id(mesh if mesh is not None else rules.mesh))

@@ -54,13 +54,18 @@ extern "C" int decode_attention_smem_bytes(int d) {
 // q (b, 1, nh, d); k_cache/v_cache (b, S, kvh, d); lengths (b,) int32 (may
 // exceed S: read as S); out (b, 1, nh, d). bf16, contiguous; d % 8 == 0,
 // d <= 256, nh / kvh <= 16 (the Python wrapper checks). scratch:
-// b·nh·n_splits(S)·(d + 2) fp32. Launches the split kernel and the merge;
-// returns the CUDA error (0 = cudaSuccess).
+// b·nh·n_splits(S)·(d + 2) fp32. lse: null, or (b, nh) fp32 that the merge
+// fills with each row's log-sum-exp of its scaled scores (-inf for a
+// length-0 row); `out` is the same either way. Launches the split kernel
+// and the merge; returns the CUDA error (0 = cudaSuccess). Every offset
+// into the caches and the scratch is 64-bit: at b = 1, S x kvh x d may
+// come within a few percent of 2^31 (a 512k-token cache of 32 kv heads at
+// d = 112 is 1.88e9 elements).
 extern "C" int decode_attention_bf16(const void* q, const void* k_cache,
                                      const void* v_cache, const void* lengths,
                                      void* out, void* scratch, int b, int S,
                                      int nh, int kvh, int d, float scale,
-                                     void* stream) {
+                                     void* lse, void* stream) {
   const int smem = decode_smem_bytes(d);
   const bool half = d % 16 != 0;  // Q K^T ends on a half k16 step
   const auto kernel = half ? decode_kernel<true> : decode_kernel<false>;
@@ -79,5 +84,5 @@ extern "C" int decode_attention_bf16(const void* q, const void* k_cache,
     if (int err = (int)cudaGetLastError()) return err;
   }
   return launch_merge(acc, ml, (const int*)lengths, (bf16*)out, rows, 1, nh,
-                      d, nsplit, S, 0, st);
+                      d, nsplit, S, 0, st, static_cast<float*>(lse));
 }

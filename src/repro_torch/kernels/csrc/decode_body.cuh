@@ -26,6 +26,11 @@
 // nothing persists between calls (no counters to zero or to lose to an
 // aborted launch, no race between streams), and the order of the sum is
 // fixed by construction. A length-0 row merges no split and gives zeros.
+// Where the caller asks for it (dense decode's `lse`), the merge also
+// writes each row's log-sum-exp of its scaled scores in fp32, M + log of
+// the summed l, from the (m, l) pairs it holds already; -inf for a
+// length-0 row. That is what a caller needs to merge the outputs of
+// several calls over slices of one sequence.
 //
 // The kernels differ only in where token row p of K/V lives (`kv_of`),
 // which output row each of the 16 mma rows holds (`row_of`) and how long
@@ -333,13 +338,15 @@ __device__ __forceinline__ void decode_split_block(
 // 0 .. ceil(len / kSplit) - 1 are summed in that order by every thread
 // (their weights staged in shared memory, kMergeThreads splits at a time).
 // Every live split's m is finite (its first token is unmasked), so m_i - M
-// never meets -inf - (-inf), and the split holding M has l >= 1. Launched
+// never meets -inf - (-inf), and the split holding M has l >= 1. With
+// `lse` (one fp32 a row, or null) thread 0 writes M + log(l) there. Launched
 // as a programmatic dependent of the split kernel: it may start early and
 // waits for that grid before it reads anything.
 __global__ void __launch_bounds__(kMergeThreads) decode_merge_kernel(
     const float* __restrict__ part_acc, const float2* __restrict__ part_ml,
-    const int* __restrict__ lengths, bf16* __restrict__ out, int s, int nh,
-    int d, int nsplit, int cap, int verify) {
+    const int* __restrict__ lengths, bf16* __restrict__ out,
+    float* __restrict__ lse, int s, int nh, int d, int nsplit, int cap,
+    int verify) {
   __shared__ float sW[kMergeThreads], sL[kMergeThreads];
   __shared__ float sMax[kMergeThreads / 32];
   asm volatile("griddepcontrol.wait;\n" ::: "memory");
@@ -389,6 +396,8 @@ __global__ void __launch_bounds__(kMergeThreads) decode_merge_kernel(
     *reinterpret_cast<uint2*>(out + r * d + c) = make_uint2(
         pack_f32(o0 * inv, o1 * inv), pack_f32(o2 * inv, o3 * inv));
   }
+  // every thread summed l over the same splits in the same order
+  if (lse != nullptr && tid == 0) lse[r] = n > 0 ? m + logf(l) : -INFINITY;
 }
 
 // Scratch layout of `rows` output rows at `nsplit` splits of head dim d:
@@ -399,11 +408,12 @@ inline float2* part_ml_of(void* scratch, long rows, int nsplit, int d) {
 }
 
 // Launch the merge of `rows` = b·s·nh output rows right behind the split
-// kernel (programmatic stream serialisation); returns the CUDA error.
+// kernel (programmatic stream serialisation), writing each row's lse too
+// where `lse` is not null; returns the CUDA error.
 inline int launch_merge(const float* part_acc, const float2* part_ml,
                         const int* lengths, bf16* out, long rows, int s,
                         int nh, int d, int nsplit, int cap, int verify,
-                        cudaStream_t stream) {
+                        cudaStream_t stream, float* lse = nullptr) {
   cudaLaunchAttribute attr;
   attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
   attr.val.programmaticStreamSerializationAllowed = 1;
@@ -414,7 +424,8 @@ inline int launch_merge(const float* part_acc, const float2* part_ml,
   cfg.attrs = &attr;
   cfg.numAttrs = 1;
   return (int)cudaLaunchKernelEx(&cfg, decode_merge_kernel, part_acc, part_ml,
-                                 lengths, out, s, nh, d, nsplit, cap, verify);
+                                 lengths, out, lse, s, nh, d, nsplit, cap,
+                                 verify);
 }
 
 }  // namespace repro_attn

@@ -82,12 +82,15 @@ def flash_attention(q, k, v, *, causal: bool = True,
 
 
 def decode_attention(q, k_cache, v_cache, lengths, *,
-                     scale: Optional[float] = None):
+                     scale: Optional[float] = None, return_lse: bool = False):
     """One-token decode attention against a padded per-row cache (see
-    ``decode_attention.py`` for the contract)."""
+    ``decode_attention.py`` for the contract); with ``return_lse`` also
+    each row's log-sum-exp, ``(b, nh)`` fp32, -inf for a length-0 row."""
     if q.is_cuda:
-        return _da.decode_attention(q, k_cache, v_cache, lengths, scale=scale)
-    return _ref.decode_attention(q, k_cache, v_cache, lengths, scale=scale)
+        return _da.decode_attention(q, k_cache, v_cache, lengths, scale=scale,
+                                    return_lse=return_lse)
+    return _ref.decode_attention(q, k_cache, v_cache, lengths, scale=scale,
+                                 return_lse=return_lse)
 
 
 def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths, *,

@@ -129,13 +129,16 @@ def chunked_flash_attention(q, k, v, *, causal: bool = True,
 
 
 def decode_attention(q, k_cache, v_cache, lengths, *,
-                     scale: Optional[float] = None):
+                     scale: Optional[float] = None, return_lse: bool = False):
     """One-token decode attention against a padded cache.
 
     q: (b, 1, nh, dq); k_cache/v_cache: (b, S, kvh, d*); lengths: (b,) number
     of valid cache entries (mask is ``pos < lengths``). Operands stay in the
     cache dtype with fp32 accumulation; probabilities are cast to the cache
-    dtype before P·V, as in the JAX oracle.
+    dtype before P·V, as in the JAX oracle. With ``return_lse`` it returns
+    (out, lse): lse ``(b, nh)`` fp32 is the log-sum-exp of each row's
+    scaled scores over its valid positions, -inf for a length-0 row (whose
+    output is the mean of the padding: it carries weight 0 in a merge).
     """
     b, _, nh, dq = q.shape
     S, kvh = k_cache.shape[1], k_cache.shape[2]
@@ -153,7 +156,13 @@ def decode_attention(q, k_cache, v_cache, lengths, *,
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgS,bSkh->bkgh", probs.to(v_cache.dtype).float(),
                        v_cache.float())
-    return out.reshape(b, 1, nh, v_cache.shape[-1]).to(q.dtype)
+    out = out.reshape(b, 1, nh, v_cache.shape[-1]).to(q.dtype)
+    if not return_lse:
+        return out
+    live = torch.clamp(lengths.to(q.device), max=S) > 0
+    lse = torch.where(live[:, None, None], torch.logsumexp(scores, dim=-1),
+                      float("-inf"))
+    return out, lse.reshape(b, nh)
 
 
 def gather_paged_kv(pool, block_tables):

@@ -12,6 +12,13 @@ the new tokens' K/V into the layer's slice of the cache with index writes,
 which saves a whole-cache copy per layer per step. The returned cache dict
 still names the (same) tensors, so callers read like the JAX package's.
 
+Under ``seq_sharded`` (a layout's ``seq``) a rank's GQA cache holds its
+data rank's slice of the positions: prefill writes the rank's slice of
+the prompt's K/V, and decode writes the new token where its position
+falls, attends over the rank's slice (``ops.decode_attention`` with the
+row's log-sum-exp) and merges the slices over the data axes
+(``merge_slices``).
+
 MLA prefill also goes through ``ops.flash_attention``, with query and key
 at ``qk_nope + qk_rope`` and value at ``v_head_dim`` (dq != dv); its decode
 is einsums over the latent cache (``c_kv``, ``k_rope``), as in the JAX
@@ -25,6 +32,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from repro_torch import distributed as dist_
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed import HeadsRead, local_slice
 from repro_torch.kernels import ops
@@ -144,12 +152,16 @@ def _qkv(params, x, positions, cfg: ModelConfig, tp=None):
 def _attn_out(out, params, tp=None):
     """The output projection ``wo``; under a mesh the rank's heads (or its
     slice of the head dim, where attention ran whole), summed over
-    "model" (reduce-out)."""
+    "model": a reduce-out under autograd, else the fp32 partial products'
+    sum rounded once (``Layout.row_parallel``)."""
     split = _attn_split(tp)
     if split is None:
         return _proj_out(out, params["wo"])
     if split == "whole":
         out = local_slice(out, -1, tp.model)
+    if not torch.is_grad_enabled():
+        wo = params["wo"]
+        return tp.row_parallel(out.flatten(-2), wo.reshape(-1, wo.shape[-1]))
     return tp.reduce_out(_proj_out(out, params["wo"]))
 
 
@@ -162,7 +174,8 @@ def gqa_prefill(params, x, positions, cfg: ModelConfig,
     (``tp``: the block's ``attn`` layout) it runs on the rank's shards
     (``_qkv``) and the cache is the rank's (``transformer.cache_specs``:
     its rows, and the kv heads its query heads read, or whole where
-    attention runs whole)."""
+    attention runs whole). Under ``seq_sharded`` (``tp.seq``) every data
+    rank computes the whole prompt and keeps its slice of the positions."""
     hd = cfg.resolved_head_dim
     q, k, v = _qkv(params, x, positions, cfg, tp)
     out = ops.flash_attention(q, k, v, causal=not cfg.encoder_only,
@@ -170,8 +183,14 @@ def gqa_prefill(params, x, positions, cfg: ModelConfig,
     new_cache = None
     if cache is not None:
         s = k.shape[1]
-        cache["k"][:, :s] = k
-        cache["v"][:, :s] = v
+        lo, n = 0, s
+        seq = None if tp is None else tp.seq
+        if seq is not None and seq.size > 1:
+            n_loc = cache["k"].shape[1]
+            lo = seq.index * n_loc
+            n = max(0, min(s - lo, n_loc))
+        cache["k"][:, :n] = k[:, lo:lo + n]
+        cache["v"][:, :n] = v[:, lo:lo + n]
         new_cache = {"k": cache["k"], "v": cache["v"],
                      "length": torch.full_like(cache["length"], s)}
     return _attn_out(out, params, tp), new_cache
@@ -189,6 +208,11 @@ def gqa_decode(params, x, cfg: ModelConfig, cache: Dict, tp=None
     Under a mesh (``tp``) the rank's rows, heads and cache, as
     ``gqa_prefill``: the kernel sees the rank's query heads over the kv
     heads they read, and the new K/V goes into the rank's own cache.
+    Under ``seq_sharded`` (``tp.seq``) the rank holding global position
+    ``min(length, S - 1)`` (JAX's clamp over the whole cache) writes the
+    new K/V; each rank attends over its slice, with its local lengths
+    ``clamp(length + 1 - start, 0, S / n)``, and ``merge_slices`` merges
+    the slices.
     """
     if "k_pool" in cache:
         return gqa_decode_paged(params, x, cfg, cache)
@@ -197,13 +221,70 @@ def gqa_decode(params, x, cfg: ModelConfig, cache: Dict, tp=None
     k_cache, v_cache = cache["k"], cache["v"]
     q, k, v = _qkv(params, x, lengths[:, None], cfg, tp)
     rows = torch.arange(x.shape[0], device=x.device)
-    at = torch.clamp(lengths, max=k_cache.shape[1] - 1).long()
-    k_cache[rows, at] = k[:, 0].to(k_cache.dtype)
-    v_cache[rows, at] = v[:, 0].to(v_cache.dtype)
-    out = ops.decode_attention(q, k_cache, v_cache, lengths + 1,
-                               scale=hd ** -0.5)
+    seq = None if tp is None else tp.seq
+    if seq is None or seq.size == 1:
+        at = torch.clamp(lengths, max=k_cache.shape[1] - 1).long()
+        k_cache[rows, at] = k[:, 0].to(k_cache.dtype)
+        v_cache[rows, at] = v[:, 0].to(v_cache.dtype)
+        out = ops.decode_attention(q, k_cache, v_cache, lengths + 1,
+                                   scale=hd ** -0.5)
+    else:
+        n_loc = k_cache.shape[1]
+        start = seq.index * n_loc
+        at = (torch.clamp(lengths, max=n_loc * seq.size - 1).long()
+              - start)
+        mine = ((at >= 0) & (at < n_loc))[:, None, None]
+        at = torch.clamp(at, 0, n_loc - 1)
+        k_cache[rows, at] = torch.where(mine, k[:, 0].to(k_cache.dtype),
+                                        k_cache[rows, at])
+        v_cache[rows, at] = torch.where(mine, v[:, 0].to(v_cache.dtype),
+                                        v_cache[rows, at])
+        local = torch.clamp(lengths + 1 - start, 0, n_loc).to(torch.int32)
+        out = seq_decode_attention(q, k_cache, v_cache, local, hd ** -0.5,
+                                   seq)
     return _attn_out(out, params, tp), {"k": k_cache, "v": v_cache,
                                         "length": lengths + 1}
+
+
+def seq_decode_attention(q, k_cache, v_cache, lengths, scale: float, ax):
+    """Decode attention over one sequence split over ``ax``: the rank's
+    slice of the cache at its local ``lengths`` through
+    ``ops.decode_attention`` with the rows' log-sum-exp, merged over
+    ``ax`` (``merge_slices``)."""
+    out, lse = ops.decode_attention(q, k_cache, v_cache, lengths,
+                                    scale=scale, return_lse=True)
+    return merge_slices(out, lse, ax)
+
+
+def merge_slices(out, lse, ax):
+    """The attention output over a whole sequence from each rank's output
+    over its slice, ``out`` ``(b, 1, nh, d)``, and its rows' log-sum-exp
+    ``lse`` ``(b, nh)`` (-inf for an empty slice), with all-reduces only
+    over ``ax``: the max M of the lse values, then the sums of
+    ``exp(lse - M) out`` and of ``exp(lse - M)``, in fp32 (one
+    all-reduce), the output their quotient in ``out``'s dtype. An empty
+    slice weighs exactly 0 (its output, the kernel's zeros or the plain
+    version's mean of the padding, is not read)."""
+    return _merge(out, lse, lambda t, op: dist_.all_reduce(t, ax, op))
+
+
+def merge_stacked(outs, lses):
+    """``merge_slices`` in one process: the outputs and lse values of the
+    slices as lists, merged by the same arithmetic."""
+    def reduce(t, op):
+        return (t.amax(0, keepdim=True) if op == "max"
+                else t.sum(0, keepdim=True)).expand_as(t)
+    return _merge(torch.stack(outs), torch.stack(lses), reduce)[0]
+
+
+def _merge(out, lse, reduce):
+    """``merge_slices``' arithmetic, ``reduce(t, op)`` giving the max
+    ("max") or sum ("sum") of ``t`` over the slices in ``t``'s shape."""
+    m = reduce(lse.clone(), "max")
+    w = torch.exp(lse - m)[..., None, :, None]            # (b, 1, nh, 1)
+    num = torch.where(w > 0, out.float(), 0.0) * w
+    both = reduce(torch.cat([num, w], dim=-1), "sum")
+    return (both[..., :-1] / both[..., -1:]).to(out.dtype)
 
 
 def gqa_decode_paged(params, x, cfg: ModelConfig,

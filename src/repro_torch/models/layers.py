@@ -100,6 +100,20 @@ def rms_norm(x, gamma, eps: float):
     return (out * (1.0 + gamma.float())).to(dt)
 
 
+def rms_norm_split(x, gamma, eps: float, tp=None):
+    """``rms_norm`` over a last dim that "model" splits (``tp``: the
+    module's ``distributed.Layout``; ``x`` and ``gamma`` the rank's slices
+    of it): the rank's fp32 sum of squares summed over "model", divided by
+    the whole dim. ``rms_norm`` itself without ``tp``."""
+    if tp is None:
+        return rms_norm(x, gamma, eps)
+    dt = x.dtype
+    x = x.float()
+    ss = tp.sum_model(x.square().sum(dim=-1, keepdim=True))
+    out = x * torch.rsqrt(ss / (x.shape[-1] * tp.model.size) + eps)
+    return (out * (1.0 + gamma.float())).to(dt)
+
+
 def layer_norm(x, gamma, beta, eps: float):
     dt = x.dtype
     x = x.float()
@@ -176,28 +190,49 @@ def proj_in(x, w):
     return (x @ w.reshape(w.shape[0], -1)).unflatten(-1, w.shape[1:])
 
 
+def mm_fp32(x, w):
+    """``x`` (..., k) @ ``w`` (k, n) with the fp32 accumulator returned
+    unrounded: on the card bf16 operands go through one product with an
+    fp32 output (``torch.mm(..., out_dtype=torch.float32)``); on the CPU
+    the operands are upcast (exact) and multiplied in fp32."""
+    if x.dtype == w.dtype == torch.float32:
+        return x @ w
+    if x.is_cuda:
+        flat = torch.mm(x.reshape(-1, x.shape[-1]), w,
+                        out_dtype=torch.float32)
+        return flat.reshape(*x.shape[:-1], w.shape[-1])
+    return x.float() @ w.float()
+
+
 def apply_mlp(params, x, cfg: ModelConfig, tp=None):
     """The MLP; under a mesh (``tp``, its ``distributed.Layout``) with
     ``ff`` sharded over "model", ``wi`` is column-parallel (copy-in in
-    front) and ``wo`` row-parallel (reduce-out after)."""
+    front) and ``wo`` row-parallel: a reduce-out after it under autograd,
+    else the fp32 partial products' sum rounded once
+    (``Layout.row_parallel``)."""
     if tp is not None and tp.dim("wo") is not None:
         if tp.dim("wo") != 0 or tp.dim("wi") != params["wi"].ndim - 1:
             tp.refuse("wi", "the MLP shards its ff dim")
+        if not torch.is_grad_enabled():
+            return tp.row_parallel(_mlp_hidden(params, x, cfg), params["wo"])
         return tp.reduce_out(_mlp(params, tp.copy_in(x), cfg))
     return _mlp(params, x, cfg)
 
 
-def _mlp(params, x, cfg: ModelConfig):
+def _mlp_hidden(params, x, cfg: ModelConfig):
+    """The MLP's activation, the input of ``wo``."""
     if cfg.mlp_type in ("swiglu", "geglu"):
         h = proj_in(x, params["wi"])
         gate, up = h[..., 0, :], h[..., 1, :]
         act = F.silu(gate) if cfg.mlp_type == "swiglu" else gelu(gate)
-        h = act * up
-    elif cfg.mlp_type == "relu2":
-        h = torch.relu(x @ params["wi"]).square()
-    else:  # gelu
-        h = gelu(x @ params["wi"])
-    return h @ params["wo"]
+        return act * up
+    if cfg.mlp_type == "relu2":
+        return torch.relu(x @ params["wi"]).square()
+    return gelu(x @ params["wi"])                       # gelu
+
+
+def _mlp(params, x, cfg: ModelConfig):
+    return _mlp_hidden(params, x, cfg) @ params["wo"]
 
 
 def softcap(logits, cap: float):

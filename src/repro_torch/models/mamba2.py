@@ -14,6 +14,15 @@ where the JAX package returns a new one: the engine's CUDA graph reads the
 state at fixed addresses. The state's dtypes are those the JAX package
 computes it in: the SSM state in fp32, the conv window in the compute
 dtype (``mamba2_state_spec``).
+
+Under a mesh (``tp``: the layer's ``distributed.Layout``) a "model" rank
+runs its own heads: ``in_proj``, the conv and its window hold the rank's
+z, x and dt channels and B and C whole (``distributed.Mamba2Read``), so
+B and C are computed whole on every rank; ``A_log``, ``D``, ``dt_bias``,
+``norm`` and ``out_proj`` hold the rank's heads. The gated RMSNorm runs
+over the whole d_inner (the rank's sum of squares summed over "model")
+and ``out_proj`` is row-parallel, its partial products summed in fp32
+(``Layout.row_parallel``). No other collective runs.
 """
 from __future__ import annotations
 
@@ -24,7 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import Initializer, rms_norm
+from repro_torch.models.layers import Initializer, rms_norm, rms_norm_split
 
 NEG_INF = -1e30
 
@@ -54,8 +63,30 @@ def init_mamba2(init: Initializer, cfg: ModelConfig) -> Dict:
     }
 
 
-def _split_proj(zxbcdt, cfg: ModelConfig):
-    d_in, nh, n, hd, _ = _dims(cfg)
+_LEAVES = ("in_proj", "conv_w", "conv_b", "A_log", "D", "dt_bias", "norm",
+           "out_proj")
+# the dim "model" shards of each leaf when the layer splits its heads
+_SPLIT = (1, 1, 0, 0, 0, 0, 0, 0)
+
+
+def split_heads(tp) -> bool:
+    """Whether the layer runs on the rank's heads under its layout ``tp``
+    (None: one process); raises for a layout the schedule does not run."""
+    if tp is None:
+        return False
+    return tp.split(_LEAVES, _SPLIT, "the Mamba2 layer splits its heads "
+                    "over 'model'")
+
+
+def _local_dims(cfg: ModelConfig, tp):
+    """``_dims`` on the rank: its share of d_inner and of the heads."""
+    d_in, nh, n, hd, cw = _dims(cfg)
+    m = tp.model.size if split_heads(tp) else 1
+    return d_in // m, nh // m, n, hd, cw
+
+
+def _split_proj(zxbcdt, cfg: ModelConfig, tp=None):
+    d_in, nh, n, hd, _ = _local_dims(cfg, tp)
     z = zxbcdt[..., :d_in]
     xbc = zxbcdt[..., d_in:d_in + d_in + 2 * n]
     dt = zxbcdt[..., d_in + d_in + 2 * n:]
@@ -141,10 +172,11 @@ def _ssd_chunked(xh, dt, B, C, A, chunk: int):
     return y.reshape(b, l, h, p), state
 
 
-def _gates(params, zxbcdt, cfg: ModelConfig, conv_state=None):
-    """(z, x heads (b, l, h, p), B, C, dt fp32, A fp32, new conv window)."""
-    d_in, nh, n, hd, _ = _dims(cfg)
-    z, xbc, dt_raw = _split_proj(zxbcdt, cfg)
+def _gates(params, zxbcdt, cfg: ModelConfig, conv_state=None, tp=None):
+    """(z, x heads (b, l, h, p), B, C, dt fp32, A fp32, new conv window);
+    under ``tp`` the rank's heads."""
+    d_in, nh, n, hd, _ = _local_dims(cfg, tp)
+    z, xbc, dt_raw = _split_proj(zxbcdt, cfg, tp)
     xbc, window = _causal_conv(xbc, params["conv_w"], params["conv_b"],
                                conv_state)
     xs = xbc[..., :d_in]
@@ -156,30 +188,38 @@ def _gates(params, zxbcdt, cfg: ModelConfig, conv_state=None):
     return z, xh, B, C, dt, A, window
 
 
-def _out(params, y, z, x, cfg: ModelConfig):
-    """y (b, l, h, p) fp32 with the D skip added -> the block's output."""
-    d_in = _dims(cfg)[0]
+def _out(params, y, z, x, cfg: ModelConfig, tp=None):
+    """y (b, l, h, p) fp32 with the D skip added -> the block's output;
+    under ``tp`` from the rank's heads, summed over "model"."""
+    d_in = _local_dims(cfg, tp)[0]
     y = y.reshape(*x.shape[:2], d_in).to(x.dtype)
     y = y * F.silu(z)
-    y = rms_norm(y, params["norm"], cfg.norm_eps)
-    return y @ params["out_proj"]
+    if not split_heads(tp):
+        y = rms_norm(y, params["norm"], cfg.norm_eps)
+        return y @ params["out_proj"]
+    y = rms_norm_split(y, params["norm"], cfg.norm_eps, tp)
+    return tp.row_parallel(y, params["out_proj"])
 
 
-def mamba2_forward(params, x, cfg: ModelConfig, return_state: bool = False):
-    """x: (b, l, d) -> (y (b, l, d), state dict or None)."""
-    z, xh, B, C, dt, A, window = _gates(params, x @ params["in_proj"], cfg)
+def mamba2_forward(params, x, cfg: ModelConfig, return_state: bool = False,
+                   tp=None):
+    """x: (b, l, d) -> (y (b, l, d), state dict or None); under ``tp``
+    (the layer's layout) on the rank's heads, the state the rank's."""
+    z, xh, B, C, dt, A, window = _gates(params, x @ params["in_proj"], cfg,
+                                        tp=tp)
     y, final = _ssd_chunked(xh, dt, B, C, A, cfg.ssm.chunk_size)
     y = y + params["D"].float()[None, None, :, None] * xh.float()
-    out = _out(params, y, z, x, cfg)
+    out = _out(params, y, z, x, cfg, tp)
     state = {"conv": window, "ssm": final} if return_state else None
     return out, state
 
 
-def mamba2_decode(params, x, cfg: ModelConfig, state: Dict):
+def mamba2_decode(params, x, cfg: ModelConfig, state: Dict, tp=None):
     """One-token step. x: (b, 1, d); state: conv (b, w-1, C), ssm (b, h, n,
-    p), both written in place. Returns (y (b, 1, d), state)."""
+    p), both written in place. Returns (y (b, 1, d), state). Under ``tp``
+    the rank's heads and state."""
     z, xh, B, C, dt, A, window = _gates(params, x @ params["in_proj"], cfg,
-                                        conv_state=state["conv"])
+                                        conv_state=state["conv"], tp=tp)
     state["conv"].copy_(window)
     xh = xh[:, 0].float()                                # (b,h,p)
     dt = dt[:, 0]                                        # (b,h)
@@ -191,7 +231,7 @@ def mamba2_decode(params, x, cfg: ModelConfig, state: Dict):
     ssm.mul_(decay[..., None, None]).add_(contrib)
     y = (C[:, 0].float()[:, None, None, :] @ ssm)[:, :, 0]   # (b,h,p)
     y = y + params["D"].float()[None, :, None] * xh
-    return _out(params, y[:, None], z, x, cfg), state
+    return _out(params, y[:, None], z, x, cfg, tp), state
 
 
 def mamba2_state_spec(cfg: ModelConfig, batch: int):

@@ -42,9 +42,14 @@ encoder-only config has no decode or cache path: every mode but "train"
 and the cache factories raise ``ValueError``.
 
 Under a mesh (``rules``/``mesh``, JAX's arguments) the attention families
-run sharded in modes "train", "prefill" and "decode" (``distributed.Plan``:
-rows over the data axes, heads, ff and vocabulary over "model", experts
-in the MoE layers), with the dense caches laid out by ``cache_specs``.
+run sharded in modes "train", "prefill" and "decode", and the hybrid and
+ssm families in modes "prefill" and "decode" (``distributed.Plan``: rows
+over the data axes; heads, ff and vocabulary over "model", the Mamba2,
+mLSTM and sLSTM heads too; experts in the MoE layers), with the params
+laid out by ``param_specs`` and the dense caches and recurrent states by
+``cache_specs``. Under ``seq_sharded`` (serving, GQA caches or none) the
+batch is whole on every rank and the data axes split the caches'
+sequence instead.
 """
 from __future__ import annotations
 
@@ -396,25 +401,31 @@ def _put(dst: Dict, src: Dict):
         dst[k].copy_(v)
 
 
-def _mamba_layer(params, x, i: int, cfg: ModelConfig, mode: str, state):
+def _mamba_layer(params, x, i: int, cfg: ModelConfig, mode: str, state,
+                 tp=None):
     """Mamba2 layer ``i`` with its residual; its state (``state``: the
-    ``mamba`` cache, or None) is written in place."""
+    ``mamba`` cache, or None) is written in place. ``tp``: the layer's
+    layout under a mesh."""
     p = layer_slice(params["mamba"], i)
     if mode == "decode":
-        y, _ = m2.mamba2_decode(p, x, cfg, layer_slice(state, i))
+        y, _ = m2.mamba2_decode(p, x, cfg, layer_slice(state, i), tp=tp)
     else:
-        y, st = m2.mamba2_forward(p, x, cfg, return_state=state is not None)
+        y, st = m2.mamba2_forward(p, x, cfg, return_state=state is not None,
+                                  tp=tp)
         if state is not None:
             _put(layer_slice(state, i), st)
     return x + y
 
 
-def _hybrid(params, x, positions, cfg: ModelConfig, mode: str, caches):
+def _hybrid(params, x, positions, cfg: ModelConfig, mode: str, caches,
+            plan=None):
     """Spans of ``shared_attn_every`` Mamba2 layers, each followed by the
     shared attention block over its own cache (application ``g`` reads
     ``attn[g]``); the leftover Mamba2 layers come last. In mode "train"
     (no caches, each scan from zeros) each Mamba2 body is under
-    ``_remat`` and the shared block is not, as in JAX."""
+    ``_remat`` and the shared block is not, as in JAX. Under ``plan`` the
+    Mamba2 layers run on the rank's heads and the shared block as the
+    dense families' blocks do."""
     state = caches["mamba"] if caches is not None else None
     attn_c = caches.get("attn") if caches is not None else None
     if mode == "train":
@@ -424,8 +435,11 @@ def _hybrid(params, x, positions, cfg: ModelConfig, mode: str, caches):
         def mamba(x, i):
             return body(layers[i], x, cfg)
     else:
+        mtp = None if plan is None else plan.block("mamba")
+
         def mamba(x, i):
-            return _mamba_layer(params, x, i, cfg, mode, state)
+            return _mamba_layer(params, x, i, cfg, mode, state, mtp)
+    stp = None if plan is None else plan.block("shared")
     per = cfg.shared_attn_every
     lengths = []
     idx = 0
@@ -434,7 +448,7 @@ def _hybrid(params, x, positions, cfg: ModelConfig, mode: str, caches):
             x = mamba(x, i)
         ac = None if attn_c is None else layer_slice(attn_c, g)
         x, nac, _ = _block_fwd(params["shared"], x, positions, cfg, mode,
-                               ac)
+                               ac, tp=stp)
         if nac is not None:
             lengths.append(nac["length"])
         idx += per
@@ -448,13 +462,14 @@ def _hybrid(params, x, positions, cfg: ModelConfig, mode: str, caches):
     return x, new
 
 
-def _ssm(params, x, cfg: ModelConfig, mode: str, caches):
+def _ssm(params, x, cfg: ModelConfig, mode: str, caches, plan=None):
     """Groups of ``slstm_every - 1`` mLSTM layers, each followed by one
     sLSTM. As in the JAX package, a prefill given caches starts each sLSTM
     from its cache's state (zeros from ``init_cache``), and without caches
     from zeros with m = -1e30; the mLSTM prefill always starts fresh. In
     mode "train" (no caches) each mLSTM body is under ``_remat`` and the
-    sLSTM is not, as in JAX."""
+    sLSTM is not, as in JAX. Under ``plan`` each layer runs on the rank's
+    heads."""
     n_groups, n_m_per, n_slstm = _ssm_layout(cfg)
     mstate = caches["mlstm"] if caches is not None else None
     sstate = caches.get("slstm") if caches is not None else None
@@ -469,13 +484,18 @@ def _ssm(params, x, cfg: ModelConfig, mode: str, caches):
         def slstm(x, g):
             return x + xl.slstm_forward(slstms[g], x, cfg)[0]
     else:
+        mtp = None if plan is None else plan.block("mlstm")
+        stp = None if plan is None else plan.block("slstm")
+
         def mlstm(x, i):
             p = layer_slice(params["mlstm"], i)
             if mode == "decode":
-                y, _ = xl.mlstm_decode(p, x, cfg, layer_slice(mstate, i))
+                y, _ = xl.mlstm_decode(p, x, cfg, layer_slice(mstate, i),
+                                       tp=mtp)
             else:
                 y, st = xl.mlstm_forward(p, x, cfg,
-                                         return_state=mstate is not None)
+                                         return_state=mstate is not None,
+                                         tp=mtp)
                 if mstate is not None:
                     _put(layer_slice(mstate, i), st)
             return x + y
@@ -483,7 +503,7 @@ def _ssm(params, x, cfg: ModelConfig, mode: str, caches):
         def slstm(x, g):
             ss = None if sstate is None else layer_slice(sstate, g)
             y, new_ss = xl.slstm_forward(layer_slice(params["slstm"], g), x,
-                                         cfg, state=ss)
+                                         cfg, state=ss, tp=stp)
             if ss is not None:
                 _put(ss, new_ss)
             return x + y
@@ -523,13 +543,14 @@ def forward(params, cfg: ModelConfig, *, tokens=None, embeds=None,
 
     mode="train" drops the aux that ``train_forward`` returns. With
     ``rules``/``mesh`` (JAX's arguments) the forward runs sharded on this
-    rank's shards of ``params`` (``weights.shard_params``) and the global
-    ``tokens``/``embeds``: mode "train" as ``train_forward`` says; modes
-    "prefill" and "decode" over the rank's dense caches
-    (``init_cache(..., rules, mesh)``), their logits whole on every rank
-    (``whole_logits``). Paged caches, modes "chunk" and "verify" and
-    ``shard_v2`` raise ``NotImplementedError`` there
-    (``distributed.check_serving``).
+    rank's shards of ``params`` (``weights.shard_params`` with
+    ``param_specs``) and the global ``tokens``/``embeds``: mode "train" as
+    ``train_forward`` says; modes "prefill" and "decode" over the rank's
+    dense caches and states (``init_cache(..., rules, mesh)``), their
+    logits whole on every rank (``whole_logits``). Paged caches, modes
+    "chunk" and "verify" and ``shard_v2`` raise ``NotImplementedError``
+    there (``distributed.check_serving``), as do the layouts
+    ``distributed.check_rules`` names.
     """
     plan = dist_.plan(cfg, rules, mesh, mode, caches)
     return _run(params, cfg, tokens, embeds, mode, caches, q_valid,
@@ -575,9 +596,12 @@ def vocab_sharded(cfg: ModelConfig, plan) -> bool:
 def whole_logits(logits, cfg: ModelConfig, plan):
     """Serving logits whole on every rank: the rank's block (its rows, and
     its slice of the vocabulary where ``vocab_sharded``) gathered over
-    "model" and the data axes."""
+    "model" and the data axes (under ``seq_sharded`` every rank has every
+    row already)."""
     if vocab_sharded(cfg, plan):
         logits = dist_.gather(logits, -1, plan.model)
+    if plan.seq is not None:
+        return logits
     return dist_.gather(logits, 0, plan.data)
 
 
@@ -614,9 +638,10 @@ def _run(params, cfg: ModelConfig, tokens, embeds, mode: str, caches,
 
     aux = new_caches = None
     if cfg.family == "hybrid":
-        x, new_caches = _hybrid(params, x, positions, cfg, mode, caches)
+        x, new_caches = _hybrid(params, x, positions, cfg, mode, caches,
+                                plan)
     elif cfg.family == "ssm":
-        x, new_caches = _ssm(params, x, cfg, mode, caches)
+        x, new_caches = _ssm(params, x, cfg, mode, caches, plan)
     elif mode == "train":
         x, aux = _train_blocks(params, x, positions, cfg, plan)
     else:
@@ -720,11 +745,33 @@ def init_cache_spec(cfg: ModelConfig, batch: int, max_len: int):
              for _, ckey, _ in _groups(cfg)})
 
 
+def param_specs(cfg: ModelConfig, rules) -> Dict[str, PartitionSpec]:
+    """The port's layout of the param tree under ``rules``, by JAX's
+    dotted path (``param_axes``'s): JAX's specs, but for the Mamba2
+    leaves whose concatenated channels JAX's rules split over "model"
+    (``in_proj``, ``conv_w``, ``conv_b``): JAX splits them contiguously,
+    which does not follow the heads, and the port lays them out as a
+    rank's heads read them (``distributed.Mamba2Read``: its z, x and dt
+    channels, and B and C whole on every model rank)."""
+    axes, shapes = param_axes(cfg), param_shapes(cfg)
+    out = {p: rules.spec(shapes[p], axes[p]) for p in axes}
+    if cfg.family == "hybrid":
+        d_in, nh, n = m2._dims(cfg)[:3]
+        for name, read in (("in_proj", dist_.Mamba2Read.in_proj(d_in, n, nh)),
+                           ("conv_w", dist_.Mamba2Read.conv(d_in, n)),
+                           ("conv_b", dist_.Mamba2Read.conv(d_in, n))):
+            path = f"mamba.{name}"
+            if out[path][-1] == "model":
+                out[path] = PartitionSpec(*out[path][:-1], read)
+    return out
+
+
 def cache_specs(cfg: ModelConfig, rules, batch: int, max_len: int):
     """The port's layout of the dense caches under ``rules`` (a tree of
     ``PartitionSpec``s, as ``init_cache_spec``'s): JAX's specs (its
     ``tree_specs`` of ``init_cache_spec``), the rows over the data axes
-    and the kv heads over "model", but for one deliberate divergence.
+    (or, under ``seq_sharded``, the sequence) and the kv heads over
+    "model", but for two deliberate divergences.
     Where JAX's rules put "model" on a dim the attention kernel needs
     whole on a rank (GQA's "head_dim_shard" when the kv heads do not
     divide "model"; MLA's "kv_lora"), the port keeps that dim whole: a
@@ -736,11 +783,15 @@ def cache_specs(cfg: ModelConfig, rules, batch: int, max_len: int):
     gather the train path does already. It costs memory on every model
     rank: gemma_2b's one kv head, 18 layers x 256 x 2 (K and V) x 2 B =
     18 KiB a token, and deepseek_v2_lite_16b's latent, 27 layers x (512 +
-    64) x 2 B = 30.4 KiB a token, are held whole by each."""
+    64) x 2 B = 30.4 KiB a token, are held whole by each. And the Mamba2
+    conv window is laid out as its weights are (``param_specs``: B and C
+    whole on every model rank)."""
     spec, axes = init_cache_spec(cfg, batch, max_len)
     m = rules.axis_sizes.get("model", 1)
     read = (dist_.HeadsRead(cfg.num_heads, cfg.num_kv_heads)
             if m > 1 and cfg.num_heads % m == 0 else None)
+    conv = (dist_.Mamba2Read.conv(m2._dims(cfg)[0], cfg.ssm.state_dim)
+            if cfg.family == "hybrid" else None)
     out = {}
     for g, leaves in spec.items():
         out[g] = {}
@@ -752,6 +803,8 @@ def cache_specs(cfg: ModelConfig, rules, batch: int, max_len: int):
                     entries[i] = None
                 elif a == "kv_heads" and entries[i] is None:
                     entries[i] = read
+                elif (g, k) == ("mamba", "conv") and entries[i] == "model":
+                    entries[i] = conv
             out[g][k] = PartitionSpec(*entries)
     return out
 
@@ -762,13 +815,20 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda",
     encoder-only config has none
     (``ValueError``). Under ``rules``/``mesh`` ``batch`` is the global
     batch and the caches are this rank's (``cache_specs``: its rows, its
-    kv heads or whole ones, the whole latent); ``shard_v2`` raises
-    (``distributed.check_serving``)."""
+    kv heads or whole ones, the whole latent; its heads' recurrent
+    states; under ``seq_sharded`` every row and its slice of the
+    positions, which must then divide over the data axes); ``shard_v2``
+    raises (``distributed.check_serving``)."""
     check_family(cfg)
     check_serving(cfg)
     spec, _ = init_cache_spec(cfg, batch, max_len)
     plan = dist_.plan(cfg, rules, mesh, "prefill")
     if plan is not None:
+        if plan.seq is not None and max_len % plan.seq.size \
+                and "attn" in spec:
+            raise ValueError(
+                f"seq_sharded: a cache of {max_len} positions does not "
+                f"divide over the data axes ({plan.seq.size} ranks)")
         specs = cache_specs(cfg, plan.rules, batch, max_len)
         spec = {g: {k: (dist_.local_shape(shape, specs[g][k], plan.mesh),
                         dt) for k, (shape, dt) in leaves.items()}

@@ -14,6 +14,21 @@ decide a rounding is the JAX package's: ``C * f + i k (x) v``, then ``q C``;
 JAX package returns a new one: the engine's CUDA graph reads the state at
 fixed addresses. Every state leaf is fp32.
 
+Under a mesh (``tp``: the layer's ``distributed.Layout``) a "model" rank
+runs its own heads. The mLSTM's ``up`` is column-parallel (the rank's
+slice of d_inner, which is its heads'); ``wq``, ``wk``, ``wv`` and
+``wif`` are row-parallel as JAX's rules lay them (on their input
+d_inner): their fp32 partial products are summed over "model" in one
+all-reduce (``Layout.row_parallel``), then the rank takes its heads; the
+norm over the whole d_inner sums the rank's squares over "model", and
+``down`` is row-parallel too. The sLSTM's ``wx`` gives the rank its
+heads' pre-activations, ``r`` and ``b`` are its heads', and its loop over
+time runs with no collective; y is gathered whole for the norm over d,
+and the FFN tail is column- then row-parallel where "model" splits
+``ff`` (whole on every rank where it does not).
+These serving paths run without autograd (the recurrent families do not
+train under a mesh yet).
+
 Under autograd the chunked mLSTM's denominator floor ``exp(-m)`` has the
 gradient 0 where it overflows to inf (``_exp_floor``): the output there is
 ``num / inf = 0`` whatever ``m`` is, and autograd's ``exp`` backward would
@@ -30,7 +45,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import Initializer, gelu, proj_in, rms_norm
+from repro_torch.models.layers import (Initializer, gelu, mm_fp32, proj_in,
+                                       rms_norm, rms_norm_split)
 from repro_torch.models.mamba2 import NEG_INF, check_chunks
 
 
@@ -138,41 +154,78 @@ def _mlstm_chunked(q, k, v, li, lf, chunk: int):
     return y.reshape(b, l, h, p), (C_prev, n_prev, m_prev)
 
 
-def _mlstm_in(params, x, cfg: ModelConfig):
-    """(q, k, v (b, l, h, p), li, lf (b, l, h) fp32, gate)."""
+_MLSTM_LEAVES = ("up", "wq", "wk", "wv", "wif", "b_if", "norm", "down")
+_MLSTM_SPLIT = (2, 0, 0, 0, 0, 1, 0, 0)
+
+
+def mlstm_split(tp) -> bool:
+    """Whether the mLSTM runs on the rank's heads under its layout ``tp``
+    (None: one process); raises for a layout the schedule does not run."""
+    if tp is None:
+        return False
+    return tp.split(_MLSTM_LEAVES, _MLSTM_SPLIT, "the mLSTM splits its heads "
+                    "over 'model'")
+
+
+def _mlstm_in(params, x, cfg: ModelConfig, tp=None):
+    """(q, k, v (b, l, h, p), li, lf (b, l, h) fp32, gate); under ``tp``
+    the rank's heads and its slice of the gate."""
     d_in, nh, hd = _mlstm_dims(cfg)
     h2 = proj_in(x, params["up"])
     core_in, gate = h2[..., 0, :], h2[..., 1, :]
-    q = (core_in @ params["wq"]).reshape(*x.shape[:2], nh, hd)
-    k = (core_in @ params["wk"]).reshape(*x.shape[:2], nh, hd)
-    v = (core_in @ params["wv"]).reshape(*x.shape[:2], nh, hd)
-    if_gates = (proj_in(core_in, params["wif"])
-                + params["b_if"][None].to(x.dtype))
+    if mlstm_split(tp):
+        # row-parallel: the rank's fp32 partial products q | k | v |
+        # if-gates summed over "model" in one all-reduce and rounded once
+        # (``Layout.row_parallel``'s arithmetic), then its heads' columns
+        m, r = tp.model.size, tp.model.index
+        wif = params["wif"]
+        full = tp.sum_model(torch.cat(
+            [mm_fp32(core_in, params[n]) for n in ("wq", "wk", "wv")]
+            + [mm_fp32(core_in, wif.reshape(wif.shape[0], -1))],
+            dim=-1)).to(x.dtype)
+        n_l, dl = nh // m, d_in // m
+        q, k, v = (full[..., i * d_in + r * dl:i * d_in + (r + 1) * dl]
+                   .reshape(*x.shape[:2], n_l, hd) for i in range(3))
+        gates = full[..., 3 * d_in:].unflatten(-1, (2, nh))
+        if_gates = (gates[..., r * n_l:(r + 1) * n_l]
+                    + params["b_if"][None].to(x.dtype))
+    else:
+        q = (core_in @ params["wq"]).reshape(*x.shape[:2], nh, hd)
+        k = (core_in @ params["wk"]).reshape(*x.shape[:2], nh, hd)
+        v = (core_in @ params["wv"]).reshape(*x.shape[:2], nh, hd)
+        if_gates = (proj_in(core_in, params["wif"])
+                    + params["b_if"][None].to(x.dtype))
     li = if_gates[..., 0, :].float()                     # log input gate
     lf = F.logsigmoid(if_gates[..., 1, :].float())
     return q, k, v, li, lf, gate
 
 
-def _mlstm_out(params, y, gate, x, cfg: ModelConfig):
-    y = y.reshape(*x.shape[:2], _mlstm_dims(cfg)[0]).to(x.dtype)
-    y = rms_norm(y, params["norm"], cfg.norm_eps)
+def _mlstm_out(params, y, gate, x, cfg: ModelConfig, tp=None):
+    y = y.reshape(*x.shape[:2], gate.shape[-1]).to(x.dtype)
+    if not mlstm_split(tp):
+        y = rms_norm(y, params["norm"], cfg.norm_eps)
+        y = y * F.silu(gate)
+        return y @ params["down"]
+    y = rms_norm_split(y, params["norm"], cfg.norm_eps, tp)
     y = y * F.silu(gate)
-    return y @ params["down"]
+    return tp.row_parallel(y, params["down"])
 
 
-def mlstm_forward(params, x, cfg: ModelConfig, return_state: bool = False):
-    q, k, v, li, lf, gate = _mlstm_in(params, x, cfg)
+def mlstm_forward(params, x, cfg: ModelConfig, return_state: bool = False,
+                  tp=None):
+    q, k, v, li, lf, gate = _mlstm_in(params, x, cfg, tp)
     y, state = _mlstm_chunked(q, k, v, li, lf, cfg.xlstm.chunk_size)
-    out = _mlstm_out(params, y, gate, x, cfg)
+    out = _mlstm_out(params, y, gate, x, cfg, tp)
     return out, ({"C": state[0], "n": state[1], "m": state[2]}
                  if return_state else None)
 
 
-def mlstm_decode(params, x, cfg: ModelConfig, state: Dict):
+def mlstm_decode(params, x, cfg: ModelConfig, state: Dict, tp=None):
     """One-token step. x: (b, 1, d); state C (b, h, p, p), n (b, h, p), m
-    (b, h), written in place. Returns (y (b, 1, d), state)."""
+    (b, h), written in place. Returns (y (b, 1, d), state). Under ``tp``
+    the rank's heads and state."""
     hd = _mlstm_dims(cfg)[2]
-    q, k, v, li, lf, gate = _mlstm_in(params, x, cfg)
+    q, k, v, li, lf, gate = _mlstm_in(params, x, cfg, tp)
     q = q[:, 0].float() * (hd ** -0.5)                   # (b,h,p)
     k, v = k[:, 0].float(), v[:, 0].float()
     li, lf = li[:, 0], lf[:, 0]                          # (b,h)
@@ -187,7 +240,7 @@ def mlstm_decode(params, x, cfg: ModelConfig, state: Dict):
     num = (q[..., None, :] @ C)[..., 0, :]               # (b,h,p)
     den = torch.maximum((q * n).sum(-1).abs(), torch.exp(-m_new))
     y = (num / den[..., None])[:, None]                  # (b,1,h,p)
-    return _mlstm_out(params, y, gate, x, cfg), state
+    return _mlstm_out(params, y, gate, x, cfg, tp), state
 
 
 def mlstm_state_spec(cfg: ModelConfig, batch: int):
@@ -228,12 +281,13 @@ def init_slstm(init: Initializer, cfg: ModelConfig) -> Dict:
 
 
 def _slstm_step(r, bias, carry, gx, cfg: ModelConfig):
-    """carry: (c, n, h, m) each (b, nh, hd); gx: (b, 4, d) pre-activations;
-    r: the recurrent weights in fp32 as (nh, hd, 4 hd), bias: ``b`` in
-    fp32 (both converted once a call, where the JAX package converts them
-    a step and XLA hoists it)."""
-    nh = cfg.num_heads
-    hd = cfg.d_model // nh
+    """carry: (c, n, h, m) each (b, nh, hd); gx: (b, 4, nh hd)
+    pre-activations; r: the recurrent weights in fp32 as (nh, hd, 4 hd),
+    bias: ``b`` in fp32 (both converted once a call, where the JAX package
+    converts them a step and XLA hoists it). ``nh`` is ``r``'s: a rank's
+    heads under a mesh."""
+    nh = r.shape[0]
+    hd = cfg.d_model // cfg.num_heads
     c, n, h, m = carry
     # rec[b,g,k,x] = sum_h h[b,k,h] r[k,h,g,x]: one matmul per head
     rec = h.transpose(0, 1) @ r                            # (nh, b, 4hd)
@@ -252,16 +306,32 @@ def _slstm_step(r, bias, carry, gx, cfg: ModelConfig):
     return (c_new, n_new, h_new, m_new)
 
 
+_SLSTM_LEAVES = ("wx", "r", "b")
+_SLSTM_SPLIT = (2, 0, 1)
+
+
+def slstm_split(tp) -> bool:
+    """Whether the sLSTM's recurrence runs on the rank's heads under its
+    layout ``tp`` (None: one process); raises for a layout the schedule
+    does not run."""
+    if tp is None:
+        return False
+    return tp.split(_SLSTM_LEAVES, _SLSTM_SPLIT, "the sLSTM splits its "
+                    "heads over 'model'")
+
+
 def slstm_forward(params, x, cfg: ModelConfig, state=None,
-                  return_state: bool = False):
+                  return_state: bool = False, tp=None):
     """x: (b, l, d), a loop over time from ``state`` (c, n, h, m: (b, nh,
     hd) each), or from zeros with m = -1e30. Returns (y, the new state when
     ``state`` was given or ``return_state``, else None); ``state`` itself
-    is not written."""
+    is not written. Under ``tp`` the loop runs on the rank's heads (and
+    state), y gathered whole after it."""
     b, l, d = x.shape
-    nh = cfg.num_heads
-    hd = d // nh
-    gx = proj_in(x, params["wx"])                          # (b,l,4,d)
+    split = slstm_split(tp)
+    nh = params["r"].shape[0]
+    hd = d // cfg.num_heads
+    gx = proj_in(x, params["wx"])                          # (b,l,4,nh hd)
     if state is None:
         zeros = x.new_zeros((b, nh, hd), dtype=torch.float32)
         carry = (zeros, zeros, zeros, torch.full_like(zeros, NEG_INF))
@@ -273,11 +343,19 @@ def slstm_forward(params, x, cfg: ModelConfig, state=None,
     for t in range(l):
         carry = _slstm_step(r, bias, carry, gx[:, t], cfg)
         hs.append(carry[2])
-    y = torch.stack(hs, 1).reshape(b, l, d).to(x.dtype)
+    y = torch.stack(hs, 1).reshape(b, l, nh * hd).to(x.dtype)
+    if split:
+        y = tp.gather(y, -1)
     y = rms_norm(y, params["norm"], cfg.norm_eps)
-    # gated FFN tail (proj_factor_slstm)
+    # gated FFN tail (proj_factor_slstm); under ``tp`` column- then
+    # row-parallel where "model" splits ff
     hff = proj_in(y, params["ff_wi"])
-    y = (gelu(hff[..., 0, :]) * hff[..., 1, :]) @ params["ff_wo"]
+    h = gelu(hff[..., 0, :]) * hff[..., 1, :]
+    if tp is not None and tp.split(("ff_wi", "ff_wo"), (2, 0),
+                                   "the sLSTM's FFN shards its ff dim"):
+        y = tp.row_parallel(h, params["ff_wo"])
+    else:
+        y = h @ params["ff_wo"]
     new_state = None
     if return_state or state is not None:
         new_state = dict(zip("cnhm", carry))

@@ -54,16 +54,17 @@ def shard_params(full, specs, mesh, device=None) -> Dict:
     the group's axis order (the order JAX lays shards out). Each shard is
     a copy (on ``device`` when given), so the whole tree can be freed.
     A ``distributed.HeadsRead`` entry takes the kv heads the rank's query
-    heads read. It serves caches as well as params (``transformer.
-    cache_specs``). Every rank calls it alike (its first use of an axis
-    group creates the group on every rank)."""
+    heads read, a ``distributed.Mamba2Read`` entry its heads' Mamba2
+    channels and B and C whole. It serves caches as well as params
+    (``transformer.cache_specs``). Every rank calls it alike (its first
+    use of an axis group creates the group on every rank)."""
     from repro_torch import distributed
     if isinstance(full, dict):
         return {k: shard_params(v, specs[k], mesh, device)
                 for k, v in full.items()}
     t = full
     for dim, e in enumerate(specs):
-        if isinstance(e, distributed.HeadsRead):
+        if isinstance(e, (distributed.HeadsRead, distributed.Mamba2Read)):
             t = e.take(t, dim, distributed.axis(mesh, ("model",)))
         elif e is not None:
             ax = distributed.axis(mesh, (e,) if isinstance(e, str) else e)
@@ -80,7 +81,7 @@ def gather_params(local, specs, mesh) -> Dict:
         return {k: gather_params(v, specs[k], mesh) for k, v in local.items()}
     t = local.clone()             # a copy even where nothing is gathered
     for dim, e in enumerate(specs):
-        if isinstance(e, distributed.HeadsRead):
+        if isinstance(e, (distributed.HeadsRead, distributed.Mamba2Read)):
             t = e.whole(t, dim, distributed.axis(mesh, ("model",)))
         elif e is not None:
             ax = distributed.axis(mesh, (e,) if isinstance(e, str) else e)

@@ -217,16 +217,17 @@ def job_mask(rank, d, spec):
         save_tree(f"{d}/out_mask.npz", {"loss": loss})
 
 
-def _local_params(d, name, cfg, mesh):
-    """(rules, this rank's shards of ``{name}_params.npz``)."""
+def _local_params(d, name, cfg, mesh, seq_sharded=False, full=None):
+    """(rules, this rank's shards of ``{name}_params.npz``, or of
+    ``full``, laid out by ``transformer.param_specs``)."""
     from repro_torch import weights
     from repro_torch.models import sharding
     from repro_torch.models import transformer as tf
-    rules = sharding.ShardingRules(mesh)
-    pspecs = _nest(sharding.tree_specs(rules, tf.param_shapes(cfg),
-                                       tf.param_axes(cfg)))
-    return rules, weights.shard_params(load_tree(f"{d}/{name}_params.npz"),
-                                       pspecs, mesh)
+    rules = sharding.ShardingRules(mesh, seq_sharded=seq_sharded)
+    pspecs = _nest(tf.param_specs(cfg, rules))
+    if full is None:
+        full = load_tree(f"{d}/{name}_params.npz")
+    return rules, weights.shard_params(full, pspecs, mesh)
 
 
 def _fp32_caches(init_cache):
@@ -245,7 +246,10 @@ def job_serve(rank, d, spec):
     ``spec["steps"]`` ``serve_step``s, each fed its own greedy tokens:
     every step's logits and tokens, and the caches gathered
     (``gather_params`` with ``cache_specs``) after the prefill and after
-    the last step."""
+    the last step; whether the params' shards gather back to the whole
+    leaves bit for bit. Inputs are ``{spec["data"]}_*.npz`` (default the
+    case's name); ``spec["seq_sharded"]`` sets the rules' flag."""
+    from repro_torch import tree as T
     from repro_torch import weights
     from repro_torch.models import steps
     from repro_torch.models import transformer as tf
@@ -254,8 +258,16 @@ def job_serve(rank, d, spec):
     if not member:
         return
     cfg = _cfg(spec)
-    rules, local = _local_params(d, name, cfg, mesh)
-    batch = load_tree(f"{d}/{name}_batch.npz")
+    data = spec.get("data", name)
+    full = load_tree(f"{d}/{data}_params.npz")
+    rules, local = _local_params(d, data, cfg, mesh,
+                                 spec.get("seq_sharded", False), full)
+    back = weights.gather_params(local, _nest(tf.param_specs(cfg, rules)),
+                                 mesh)
+    flat = T.flatten(full)
+    roundtrip = all(torch.equal(a, flat[k])
+                    for k, a in T.flatten(back).items())
+    batch = load_tree(f"{d}/{data}_batch.npz")
     b = next(iter(batch.values())).shape[0]
     cspecs = tf.cache_specs(cfg, rules, b, spec["max_len"])
     out = {}
@@ -275,8 +287,10 @@ def job_serve(rank, d, spec):
                                                    caches, cfg, rules, mesh)
             out[f"logits{i}"], out[f"tokens{i}"] = logits, tok
         out["cache"] = weights.gather_params(caches, cspecs, mesh)
-    out["local_k_shape"] = torch.tensor(
-        caches["attn"]["c_kv" if cfg.attn_type == "mla" else "k"].shape)
+    out["roundtrip"] = torch.tensor(float(roundtrip))
+    if "attn" in caches:
+        out["local_k_shape"] = torch.tensor(
+            caches["attn"]["c_kv" if cfg.attn_type == "mla" else "k"].shape)
     if rank == 0:
         save_tree(f"{d}/out_{name}.npz", out)
 

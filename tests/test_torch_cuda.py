@@ -1,5 +1,7 @@
 """PyTorch port on the card: each CUDA kernel against its plain PyTorch
-version, the two bitwise contracts between the decode-shaped kernels, the
+version, the two bitwise contracts between the decode-shaped kernels (and
+dense decode's lse output: the same ``out``, the plain lse, offsets near
+2^31 elements), the
 chunk kernel's rows against the flash kernel's, and the paths through the
 kernels (the paged, chunked, dense slot and speculative engines, the
 recurrent families' slot engines, the disaggregated prefill/decode workers
@@ -289,6 +291,92 @@ def test_decode_shaped_kernels_agree_bitwise(cuda, d, g, lengths, mb):
                        ops.paged_decode_attention(q0, kp, vp, tab, lens + 3))
     assert torch.equal(ops.decode_attention(q0, k, v, lens),
                        ops.paged_decode_attention(q0, kp, vp, tab, lens))
+
+
+# the lse the merge writes: fp32 on both sides (bf16 x bf16 scores are
+# exact in fp32), only the order of the sums and exp/log differ; within
+# LSE_RTOL of max(1, |lse|)
+LSE_RTOL = 1e-5
+
+
+def _assert_lse_close(got, want, lengths):
+    """Each live row's lse within LSE_RTOL; a length-0 row's is -inf."""
+    live = torch.tensor([n > 0 for n in lengths], device=got.device)
+    assert torch.isneginf(got[~live]).all() and torch.isneginf(
+        want[~live]).all()
+    g, w = got[live], want[live]
+    assert torch.isfinite(g).all()
+    assert ((g - w).abs() <= LSE_RTOL * w.abs().clamp(min=1.0)).all(), \
+        float((g - w).abs().max())
+
+
+@pytest.mark.parametrize("lengths,mb", [
+    ([700, 1, 130, 64], None),
+    (STRADDLE + [700], None),
+    (SHORT, 256),
+])
+@pytest.mark.parametrize("d,g", [(112, 1), (256, 8), (16, 4), (8, 4)])
+def test_decode_kernel_lse(cuda, d, g, lengths, mb):
+    """The dense decode kernel's lse output (``return_lse``): within
+    LSE_RTOL of the plain lse, -inf for a length-0 row; ``out`` with the
+    lse requested ``torch.equal`` to ``out`` without it, and to paged
+    decode on the same logical cache."""
+    rng = np.random.default_rng(39)
+    q, kp, vp, tab, lens = _pool(rng, cuda, d, g, 16, lengths, s=1, mb=mb,
+                                 kvh=2)
+    k, v = ref.gather_paged_kv(kp, tab), ref.gather_paged_kv(vp, tab)
+    n0 = tda.launches
+    out, lse = ops.decode_attention(q, k, v, lens, return_lse=True)
+    torch.cuda.synchronize()
+    assert tda.launches == n0 + 1
+    assert lse.shape == (len(lengths), 2 * g) and lse.dtype == torch.float32
+    assert torch.equal(out, ops.decode_attention(q, k, v, lens))
+    assert torch.equal(out, ops.paged_decode_attention(q, kp, vp, tab, lens))
+    want, wlse = ref.decode_attention(q, k, v, lens, return_lse=True)
+    _assert_live_close(out, want, lengths)
+    _assert_lse_close(lse, wlse, lengths)
+
+
+def test_decode_kernel_offsets_near_2_31(cuda):
+    """At b = 1 and S x kvh x d just under 2^31 (32 kv heads at d = 112,
+    zamba2_7b's shared block, S = 599,186: 8.6 GB of K/V) the kernel's
+    output and lse against the plain version over eight slices of the
+    cache merged by their lse (``attention.merge_stacked``, the arithmetic
+    ``tests/test_torch_dist_recurrent.py`` holds equal to the whole)."""
+    from repro_torch.models import attention as tattn
+    kvh, d = 32, 112
+    S = (2 ** 31 - 1) // (kvh * d)
+    gen = torch.Generator(device=cuda).manual_seed(40)
+    q = torch.randn(1, 1, kvh, d, generator=gen, device=cuda).to(
+        torch.bfloat16)
+    k = torch.randn(1, S, kvh, d, generator=gen, device=cuda,
+                    dtype=torch.bfloat16)
+    v = torch.randn(1, S, kvh, d, generator=gen, device=cuda,
+                    dtype=torch.bfloat16)
+    lens = torch.tensor([S], dtype=torch.int32, device=cuda)
+    out, lse = ops.decode_attention(q, k, v, lens, return_lse=True)
+    bounds = np.linspace(0, S, 9).astype(int)
+    outs, lses = [], []
+    for lo, hi in zip(bounds[:-1], bounds[1:]):
+        o, l_ = ref.decode_attention(
+            q, k[:, lo:hi], v[:, lo:hi],
+            torch.tensor([hi - lo], dtype=torch.int32, device=cuda),
+            return_lse=True)
+        outs.append(o.float())
+        lses.append(l_)
+    want = tattn.merge_stacked(outs, lses)
+    wlse = torch.logsumexp(torch.stack(lses), 0)
+    _assert_live_close(out, want.to(torch.bfloat16), [S])
+    _assert_lse_close(lse, wlse, [S])
+
+
+def test_decode_kernel_refuses_more_splits_than_the_grid_holds(cuda):
+    q = torch.zeros(1, 1, 1, 8, device=cuda, dtype=torch.bfloat16)
+    S = tda.MAX_SPLITS * _build.DECODE_SPLIT + 1
+    k = torch.zeros(1, S, 1, 8, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="splits"):
+        ops.decode_attention(q, k, k, torch.ones(1, dtype=torch.int32,
+                                                 device=cuda))
 
 
 @pytest.mark.parametrize("d,g", [(256, 8), (16, 4), (8, 4)])

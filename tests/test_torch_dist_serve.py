@@ -27,7 +27,9 @@ data shard's capacity), its sharded steps. Held:
 (d) v2-lite at capacity slack 1.0, where each data shard drops rows past
     its own capacity: the sharded steps == JAX's sharded steps, and apart
     from its single-device ones;
-(e) what serving under a mesh does not run raises, naming leaf and spec.
+(e) what serving under a mesh does not run raises, naming leaf and spec
+    (the recurrent families and ``seq_sharded`` run: their tests are in
+    ``tests/test_torch_dist_recurrent.py``).
 
 Both packages' ``prefill_step`` allocate bf16 caches; at fp32 one ulp of
 a K/V entry can round it to the other bf16 neighbour. So the JAX
@@ -402,10 +404,16 @@ def test_heads_read_meets_each_query_heads_kv_head(nh, kvh, m):
 # ---------------------------------------------------------------------------
 
 def _raising(what):
-    """(config, rules, a call that must raise, what the message names)."""
-    arch = {"zamba2_7b": "zamba2_7b", "xlstm_1_3b": "xlstm_1_3b",
+    """(config, rules, a call that must raise, what the message names).
+    ``what`` names the layout, and for "mla_seq_sharded" (MLA under
+    ``seq_sharded``), "hybrid_shard_v2" and "hybrid_fsdp" also the
+    family's config."""
+    arch = {"hybrid_shard_v2": "zamba2_7b", "hybrid_fsdp": "zamba2_7b",
+            "mla_seq_sharded": "deepseek_v2_lite_16b",
             "dispatch_einsum": "deepseek_v2_lite_16b"}.get(what, "llama3_70b")
     cfg = get_reduced_config(arch)
+    what = {"hybrid_shard_v2": "shard_v2", "hybrid_fsdp": "fsdp",
+            "mla_seq_sharded": "seq_sharded"}.get(what, what)
     if what == "shard_v2":
         cfg = cfg.replace(shard_v2=True)
     if what == "dispatch_einsum":
@@ -425,7 +433,7 @@ def _raising(what):
                 "verify_step": lambda: tsteps.verify_step(
                     None, tokens, q_valid, paged, cfg, rules)}[what]
         return call, "attn.k_pool: spec None"
-    names = {"fsdp": "embed: spec (", "seq_sharded": "'seq'",
+    names = {"fsdp": "embed: spec (", "seq_sharded": "attn.c_kv: spec (",
              "shard_v2": "attn.k: spec (", "dispatch_einsum":
              "layers.moe.wi: spec ("}
     return (lambda: tsteps.prefill_step(None, {"tokens": tokens}, cfg, 8,
@@ -433,11 +441,14 @@ def _raising(what):
             names.get(what, f"family={cfg.family!r}"))
 
 
-@pytest.mark.parametrize("what", ["fsdp", "seq_sharded", "shard_v2",
-                                  "zamba2_7b", "xlstm_1_3b",
+@pytest.mark.parametrize("what", ["fsdp", "mla_seq_sharded", "shard_v2",
+                                  "hybrid_shard_v2", "hybrid_fsdp",
                                   "dispatch_einsum", "paged", "chunk_step",
                                   "verify_step"])
 def test_unrun_serving_layouts_raise_naming_leaf_and_spec(what):
+    """The recurrent families and ``seq_sharded`` serve under a mesh
+    (``tests/test_torch_dist_recurrent.py``); MLA under ``seq_sharded``,
+    ``shard_v2`` and FSDP, with the hybrid too, still raise."""
     call, want = _raising(what)
     with pytest.raises(NotImplementedError) as e:
         call()

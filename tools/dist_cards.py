@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """The sharded steps on four cards, one rank a card over NCCL:
 
-    python3 tools/dist_cards.py [train] [serve] [probe]
+    python3 tools/dist_cards.py [train] [serve] [long] [probe]
 
-With no argument it runs both parts.
+With no argument it runs train and serve.
 
 ``train``: ``chip_smoke.py``'s phase dist on a host with four H100s: for
 each mesh ("data", "model") of MESHES, gemma_2b and deepseek_v2_lite_16b
@@ -32,6 +32,35 @@ launches; and, for layers 1, 40 and 80 (GATE_LAYERS), the sharded
 block's output against the same block run unsharded on card 0 from its
 gathered weights on the same input (``compare``, the elementwise bound
 of the largest entry).
+
+``long``: JAX's long_500k cell (524,288 tokens, batch 1, decode, its dry
+run's ``seq_sharded`` rule) on the four-card analogue of its ("data",
+"model") mesh: zamba2_7b whole (81 Mamba2 layers, 6 shared-block
+applications, full width, bf16) on (2, 2) under ``seq_sharded``, the
+shared block's K/V cache of LONG_S positions (JAX's seq_len + 8) split
+over the two data ranks and its 32 kv heads over the two model ranks
+(``_long_rank``). The cache is seeded, not prefilled (neither package
+prefills 512k tokens on these cards: the chunked scan's intra-chunk fp32
+tensor alone would be 2,048 chunks x 256^2 x 112 heads x 4 B ~ 60 GB):
+its K/V and Mamba2 states are drawn from seeded generators at the scale
+(each application's and layer's rms) that a real 1,024-token prefill of
+the same weights gives them, filled to LONG_FILLED, then LONG_STEPS
+``serve_step``s to 524,288. Decode time does not depend on the values.
+Printed: TPOT (mean, median, range), the byte bound a card ((weights +
+K/V + states on the card) / 3.35 TB/s), all-reduce ms a step, peak GiB a
+card; beside them one process on card 0 at the same shape (whole weights
+and cache) and its TPOT against its own bound. Gates: each
+application's merged decode attention of one step against the
+``decode_attention`` kernel over the cache gathered from the data ranks,
+in one process (ROW_RTOL); Mamba2 layers 1, 40 and 81 against the
+unsharded layer on the same input and state; the logits of the
+LONG_STEPS steps against the one process's, fed the ranks' tokens: sure
+first tokens equal, and within LOGIT_TOL in a first run at 14 layers
+(one shared-block application, LONG_RUNS); whole, within the larger of
+LOGIT_TOL and twice the largest move of the one process's own logits
+when it sums where the ranks split a sum (``_sums_in_halves``): at 81
+layers the seeded model carries a rounding-level change past LOGIT_TOL
+(PERF.md §6). Every number is printed before the gates raise.
 
 ``probe`` (not run by default): where a sharded decode step's all-reduce
 time goes (``_probe_rank``).
@@ -286,6 +315,475 @@ def serve(card):
     cs.log(f"[cards] serve whole: {time.monotonic() - t0:.1f} s")
 
 
+LONG_MESH = (2, 2)
+LONG_S = 524_296                 # JAX's long_500k seq_len + 8
+LONG_FILLED = 524_224            # LONG_STEPS steps end at 524,288
+LONG_STEPS = 64
+LONG_SCALE_PROMPT = 1024         # the prefill whose rms seeds the cache
+LONG_BLOCK = 65_537              # positions a seeded K/V block (S / 8)
+# the depths run: one shared-block application (14 layers), where the
+# logits are gated against one process's at LOGIT_TOL, then whole (81)
+LONG_RUNS = (14, 81)
+
+
+def _gate_layers(n: int):
+    """The Mamba2 layers held against the unsharded layer: the first, the
+    middle and the last (1, 40 and 81 of 81)."""
+    return tuple(sorted({0, max(0, round(n / 2) - 1), n - 1}))
+
+
+def _cache_rms(caches):
+    """{leaf: [rms of each layer or application]} of a prefill's K/V and
+    Mamba2 states: sums of squares and counts summed over every rank (a
+    replicated entry counts once a rank holding it)."""
+    import torch.distributed as dist
+    out = {}
+    for g, leaves in caches.items():
+        for k, v in leaves.items():
+            if k == "length":
+                continue
+            x = v.float().flatten(1)
+            t = torch.stack([x.square().sum(1),
+                             torch.full((x.shape[0],), float(x.shape[1]),
+                                        device=x.device)])
+            dist.all_reduce(t)
+            out[f"{g}.{k}"] = (t[0] / t[1]).sqrt().tolist()
+    return out
+
+
+def _fill_long(caches, cfg, rms, specs, mesh):
+    """Seed the long cache in place: each application's K/V in blocks of
+    LONG_BLOCK positions, block j of leaf k of application g drawn whole
+    (every kv head) from a generator seeded by (k, g, j) at ``rms[k][g]``,
+    and each Mamba2 layer's conv window and SSM state whole at its rms;
+    with ``specs`` (the port's cache layout) a rank draws only the blocks
+    its positions hold and keeps its shards, without (one process) every
+    block. Lengths LONG_FILLED."""
+    from repro_torch import distributed as D
+    from repro_torch import weights
+    from repro_torch.models.sharding import PartitionSpec
+
+    def seeded(shape, sd, key, dtype):
+        gen = torch.Generator(device="cuda").manual_seed(cs._seed_of(*key))
+        return (torch.randn(shape, generator=gen, device="cuda")
+                * sd).to(dtype)
+    attn = caches["attn"]
+    n_loc = attn["k"].shape[2]
+    lo = 0
+    if specs is not None:
+        lo = D.axis(mesh, ("pod", "data")).index * n_loc
+    for k in ("k", "v"):
+        leaf = attn[k]
+        for g in range(leaf.shape[0]):
+            for j in range(LONG_S // LONG_BLOCK):
+                a, b = j * LONG_BLOCK, (j + 1) * LONG_BLOCK
+                if b <= lo or a >= lo + n_loc:
+                    continue
+                block = seeded((1, LONG_BLOCK, cfg.num_kv_heads,
+                                cfg.resolved_head_dim), rms[f"attn.{k}"][g],
+                               ("long", k, g, j), leaf.dtype)
+                if specs is not None:
+                    e = specs["attn"][k]
+                    block = weights.shard_params(
+                        block, PartitionSpec(None, None, e[3], None), mesh)
+                leaf[g, :, a - lo:b - lo] = block
+    attn["length"].fill_(LONG_FILLED)
+    for k, leaf in caches["mamba"].items():
+        for i in range(leaf.shape[0]):
+            whole = seeded(leaf.shape[1:] if specs is None else
+                           _whole_shape(cfg, k), rms[f"mamba.{k}"][i],
+                           ("long", "mamba", k, i), leaf.dtype)
+            if specs is not None:
+                whole = weights.shard_params(
+                    whole, PartitionSpec(*specs["mamba"][k][1:]), mesh)
+            leaf[i] = whole
+
+
+def _whole_shape(cfg, leaf):
+    from repro_torch.models import mamba2 as m2
+    return m2.mamba2_state_spec(cfg, 1)[leaf][0]
+
+
+def _long_rank(rank, world, out_dir, layers):
+    """One rank of ``long`` at ``layers`` of zamba2_7b (see the module
+    docstring); rank 0 then runs the one process on card 0 and writes
+    ``long{layers}.json``."""
+    import gc
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import compat_make_mesh
+    from repro_torch.models import sharding, steps
+    from repro_torch.models import transformer as tf
+    mesh = compat_make_mesh(LONG_MESH, ("data", "model"))
+    rules = sharding.ShardingRules(mesh, seq_sharded=True)
+    cfg = get_config("zamba2_7b").replace(num_layers=layers)
+    t0 = time.perf_counter()
+    params = cs.seeded_params(cfg, cs.DIST_SEED, rules, mesh)
+    torch.cuda.synchronize()
+    out = {"backend": dist.get_backend(),
+           "device": torch.cuda.current_device(),
+           "build_s": time.perf_counter() - t0,
+           "weights_bytes": sum(v.numel() * v.element_size()
+                                for v in cs._leaves(params))}
+    with torch.no_grad():
+        _, small = steps.prefill_step(
+            params, {"tokens": cs._serve_prompts(cfg, 1, LONG_SCALE_PROMPT)},
+            cfg, LONG_SCALE_PROMPT, rules, mesh)
+        rms = _cache_rms(small)
+        del small
+        cspecs = tf.cache_specs(cfg, rules, 1, LONG_S)
+        caches = tf.init_cache(cfg, 1, LONG_S, "cuda", rules, mesh)
+        _fill_long(caches, cfg, rms, cspecs, mesh)
+    out["rms"] = rms
+    out["kv_bytes"] = sum(caches["attn"][k].numel() * 2 for k in ("k", "v"))
+    out["state_bytes"] = sum(v.numel() * v.element_size()
+                             for v in caches["mamba"].values())
+    saved = {k: v.clone() for k, v in caches["mamba"].items()}
+
+    def restore():
+        for k, v in saved.items():
+            caches["mamba"][k].copy_(v)
+        caches["attn"]["length"].fill_(LONG_FILLED)
+    tok0 = torch.tensor([cs._seed_of("long token") % cfg.vocab_size],
+                        dtype=torch.int32, device="cuda")
+    with torch.no_grad():
+        for _ in range(2):                      # warm-up
+            steps.serve_step(params, tok0[:, None], caches, cfg, rules, mesh)
+        restore()
+        gates = _long_gate_step(params, caches, cfg, rules, mesh, tok0)
+        restore()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        tok, fed, logits, step_s = tok0, [], [], []
+        with _allreduce_timed() as ar:
+            for _ in range(LONG_STEPS):
+                fed.append(tok)
+                t0 = time.perf_counter()
+                tok, lg, caches = steps.serve_step(params, tok[:, None],
+                                                   caches, cfg, rules, mesh)
+                torch.cuda.synchronize()
+                step_s.append(time.perf_counter() - t0)
+                logits.append(lg.float().cpu())
+        counts = ops.launch_counts()
+    out.update({
+        "step_s": step_s, "allreduce_ms": _ms(ar) / LONG_STEPS,
+        "allreduces": len(ar) / LONG_STEPS,
+        "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+        "launches": {k: counts[k] for k in ("flash_attention",
+                                            "decode_attention")},
+        "lengths": caches["attn"]["length"].flatten().tolist()})
+    out["mamba_gates"] = _mamba_gates(rank, gates.pop("mamba"), cfg, rules,
+                                      cspecs, mesh)
+    out["attn_gates"] = gates["attn"]
+    del params, caches, saved, gates
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier()
+    if rank == 0:
+        out["one"] = _long_one_process(cfg, rms, fed, logits)
+        with open(Path(out_dir) / f"long{layers}.json", "w") as f:
+            json.dump(out, f)
+    dist.barrier()
+    with open(Path(out_dir) / f"long{layers}_rank{rank}.json", "w") as f:
+        json.dump({k: out[k] for k in ("device", "peak_gib", "launches",
+                                       "weights_bytes", "kv_bytes",
+                                       "state_bytes", "attn_gates",
+                                       "lengths")}, f)
+
+
+def _mamba_gates(rank, captured, cfg, rules, cspecs, mesh):
+    """Each captured Mamba2 layer's weights and state before the step
+    gathered whole, and on rank 0 the unsharded layer on the same input
+    against the sharded output (``compare``, the elementwise bound of the
+    largest entry): {layer (from 1): (max abs error, max row error)}."""
+    from repro_torch import weights
+    from repro_torch.models import mamba2 as m2
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.sharding import PartitionSpec
+    pspecs = tf.param_specs(cfg, rules)
+    out = {}
+    for i, (p, x, state, y) in sorted(captured.items()):
+        p = weights.gather_params(p, {k: PartitionSpec(
+            *pspecs[f"mamba.{k}"][1:]) for k in p}, mesh)
+        state = weights.gather_params(state, {k: PartitionSpec(
+            *cspecs["mamba"][k][1:]) for k in state}, mesh)
+        if rank == 0:
+            with torch.no_grad():
+                want, _ = m2.mamba2_decode(p, x, cfg, state)
+            out[i + 1] = cs.compare(f"zamba2_7b Mamba2 layer {i + 1}", y,
+                                    want, of_max=True)
+    return out
+
+
+def _long_gate_step(params, caches, cfg, rules, mesh, tok):
+    """One ``serve_step`` with its gates captured: each application's
+    merged decode attention against the ``decode_attention`` kernel over
+    the K/V gathered whole from the data ranks (the rank's heads, in this
+    one process; ``compare``), and the input, state before and output of
+    the Mamba2 layers ``_gate_layers``. Returns {"attn": [(max abs error, max
+    row error)], "mamba": {layer: (params, x, state, y)}}."""
+    from repro_torch import distributed as D
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.models import attention as attn
+    from repro_torch.models import mamba2 as m2
+    from repro_torch.models import steps
+    merge, decode = attn.seq_decode_attention, m2.mamba2_decode
+    got = {"attn": [], "mamba": {}}
+    calls = [0]
+
+    def held_merge(q, k_cache, v_cache, lengths, scale, ax):
+        out = merge(q, k_cache, v_cache, lengths, scale, ax)
+        k_all = D.gather(k_cache, 1, ax)
+        v_all = D.gather(v_cache, 1, ax)
+        total = D.all_reduce(lengths.clone(), ax)
+        want = da.decode_attention(q, k_all, v_all, total, scale=scale)
+        got["attn"].append(cs.compare(
+            f"zamba2_7b merged decode attention {len(got['attn'])}", out,
+            want))
+        del k_all, v_all
+        return out
+
+    def held_mamba(p, x, cfg_, state, tp=None):
+        i = calls[0]
+        calls[0] += 1
+        before = ({k: v.clone() for k, v in state.items()}
+                  if i in _gate_layers(cfg.num_layers) else None)
+        y, st = decode(p, x, cfg_, state, tp=tp)
+        if before is not None:
+            got["mamba"][i] = (p, x.clone(), before, y.clone())
+        return y, st
+    attn.seq_decode_attention, m2.mamba2_decode = held_merge, held_mamba
+    try:
+        steps.serve_step(params, tok[:, None], caches, cfg, rules, mesh)
+    finally:
+        attn.seq_decode_attention, m2.mamba2_decode = merge, decode
+    return got
+
+
+def _halves_mm(a, w):
+    """``a @ w`` as two ranks of "model" sum it: each half of the
+    contracted dim's fp32 product, summed in fp32 and rounded once
+    (``Layout.row_parallel``'s arithmetic, in one process)."""
+    from repro_torch.models.layers import mm_fp32
+    n = a.shape[-1] // 2
+    return (mm_fp32(a[..., :n].contiguous(), w[:n])
+            + mm_fp32(a[..., n:].contiguous(), w[n:])).to(a.dtype)
+
+
+@contextlib.contextmanager
+def _sums_in_halves():
+    """While open, the one process sums where the (2, 2) ranks split a sum,
+    in their order: each row-parallel product (Mamba2's ``out_proj``, the
+    shared block's ``wo`` and MLP ``wo``) as two halves (``_halves_mm``),
+    and dense decode attention over the cache's two halves, each with its
+    lse, merged (``attention.merge_stacked``). A rounding-level change at
+    the places the sharded step rounds differently, which shows how far this
+    model at this depth carries such a change to its logits."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops
+    from repro_torch.models import attention as attn
+    from repro_torch.models import layers
+    from repro_torch.models import mamba2 as m2
+    saved = (ops.decode_attention, m2._out, layers._mlp, attn._proj_out)
+
+    def halves(q, k, v, lengths, *, scale=None, return_lse=False):
+        n = k.shape[1] // 2
+        outs, lses = [], []
+        for lo, hi in ((0, n), (n, k.shape[1])):
+            o, lse = saved[0](q, k[:, lo:hi], v[:, lo:hi],
+                              torch.clamp(lengths - lo, 0, hi - lo).to(
+                                  torch.int32), scale=scale, return_lse=True)
+            outs.append(o)
+            lses.append(lse)
+        return attn.merge_stacked(outs, lses)
+
+    def out(params, y, z, x, cfg, tp=None):
+        y = y.reshape(*x.shape[:2], m2._dims(cfg)[0]).to(x.dtype)
+        y = layers.rms_norm(y * F.silu(z), params["norm"], cfg.norm_eps)
+        return _halves_mm(y, params["out_proj"])
+
+    def mlp(params, x, cfg):
+        return _halves_mm(layers._mlp_hidden(params, x, cfg), params["wo"])
+
+    def proj_out(o, w):
+        return _halves_mm(o.flatten(-2), w.reshape(-1, w.shape[-1]))
+    ops.decode_attention, m2._out, layers._mlp, attn._proj_out = (
+        halves, out, mlp, proj_out)
+    try:
+        yield
+    finally:
+        (ops.decode_attention, m2._out, layers._mlp,
+         attn._proj_out) = saved
+
+
+def _long_one_process(cfg, rms, fed, logits):
+    """The same steps in one process on card 0: the whole seeded weights
+    and the whole seeded cache (every block, every kv head), a warm-up,
+    then LONG_STEPS steps fed the ranks' tokens, timed; the logits
+    against the ranks' (``chip_smoke._logit_agreement``). Then the same
+    steps again from the same cache with its sums split where the ranks
+    split them (``_sums_in_halves``): how far a rounding-level change
+    moves this model's logits at this depth (``own``: each step's share
+    of max |logit|). Where it does not fit the card, the reason and the
+    peak instead."""
+    from repro_torch.models import steps
+    from repro_torch.models import transformer as tf
+    torch.cuda.reset_peak_memory_stats()
+    one = {}
+    try:
+        params = cs.seeded_params(cfg, cs.DIST_SEED)
+        caches = tf.init_cache(cfg, 1, LONG_S, "cuda")
+        with torch.no_grad():
+            _fill_long(caches, cfg, rms, None, None)
+    except torch.cuda.OutOfMemoryError as e:
+        return {"fits": False, "why": str(e).splitlines()[0],
+                "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    one["weights_bytes"] = sum(v.numel() * v.element_size()
+                               for v in cs._leaves(params))
+    one["kv_bytes"] = sum(caches["attn"][k].numel() * 2 for k in ("k", "v"))
+    one["state_bytes"] = sum(v.numel() * v.element_size()
+                             for v in caches["mamba"].values())
+    saved = {k: v.clone() for k, v in caches["mamba"].items()}
+
+    def restore():
+        for k, v in saved.items():
+            caches["mamba"][k].copy_(v)
+        caches["attn"]["length"].fill_(LONG_FILLED)
+
+    def run():
+        mine, secs = [], []
+        for tok in fed:
+            t0 = time.perf_counter()
+            _, lg, _ = steps.serve_step(params, tok[:, None], caches, cfg)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            mine.append(lg.float().cpu())
+        restore()
+        return mine, secs
+    with torch.no_grad():
+        for _ in range(2):
+            steps.serve_step(params, fed[0][:, None], caches, cfg)
+        restore()
+        mine, secs = run()
+        with _sums_in_halves():
+            halves, _ = run()
+    one.update(cs._logit_agreement(logits, mine, fed[1:]))
+    one["own"] = [float((a - b).abs().max() / b.abs().max())
+                  for a, b in zip(halves, mine)]
+    one.update(fits=True, step_s=secs,
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    del params, caches, saved
+    torch.cuda.empty_cache()
+    return one
+
+
+def long(card):
+    for layers in LONG_RUNS:
+        _long_run(card, layers)
+
+
+def _long_run(card, layers):
+    """``_long_rank`` at ``layers`` on the four cards, its gates and its
+    lines."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import mesh
+    from repro_torch.models import transformer as tf
+    t0 = time.monotonic()
+    out_dir = _out_dir("dist_cards_long")
+    mesh.spawn(_long_rank, 4, (str(out_dir), layers))
+    r = json.loads((out_dir / f"long{layers}.json").read_text())
+    per = [json.loads((out_dir / f"long{layers}_rank{i}.json").read_text())
+           for i in range(4)]
+    if sorted(x["device"] for x in per) != [0, 1, 2, 3]:
+        raise AssertionError(f"ranks' cards {[x['device'] for x in per]}")
+    cfg = get_config("zamba2_7b").replace(num_layers=layers)
+    apps = tf._n_apps(cfg)
+    whole = layers == get_config("zamba2_7b").num_layers
+    want = {"flash_attention": 0, "decode_attention": apps * LONG_STEPS}
+    one = r["one"]
+    if any(x["launches"] != want for x in per) or \
+            any(len(x["attn_gates"]) != apps for x in per) or \
+            sorted(int(k) for k in r["mamba_gates"]) != [
+                i + 1 for i in _gate_layers(layers)] or \
+            any(x["lengths"] != [LONG_FILLED + LONG_STEPS] * apps
+                for x in per) or not one.get("fits"):
+        raise AssertionError(
+            f"long: launches {[x['launches'] for x in per]} (want {want}), "
+            f"attention gates {[len(x['attn_gates']) for x in per]}, Mamba2 "
+            f"gates {sorted(r['mamba_gates'])}, lengths "
+            f"{[x['lengths'] for x in per]}, one process {one}")
+    steps_ms = np.array(r["step_s"]) * 1e3
+    one_ms = np.array(one["step_s"]) * 1e3
+    gb = lambda x: (x["weights_bytes"] + x["kv_bytes"]  # noqa: E731
+                    + x["state_bytes"])
+    card_bound = max(gb(x) for x in per) / cs.PEAK_BYTES_PER_S * 1e3
+    one_bound = gb(one) / cs.PEAK_BYTES_PER_S * 1e3
+    attn_err = max(max(e for e, _ in x["attn_gates"]) for x in per)
+    attn_row = max(max(rw for _, rw in x["attn_gates"]) for x in per)
+    what = (f"whole ({layers} layers" if whole else
+            f"at {layers} of 81 layers")
+    # the logits gate: LOGIT_TOL at the first depth; whole, where the one
+    # process's own logits move by more with its sums split where the
+    # ranks split them (rounding compounds through 81 layers), twice that
+    tol = (max(cs.LOGIT_TOL, 2 * max(one["own"])) if whole
+           else cs.LOGIT_TOL)
+    cs.log(
+        f"[cards] long_500k: zamba2_7b {what}, {apps} shared-block "
+        f"application(s), full width, bf16), mesh (data, model) = "
+        f"{LONG_MESH} under seq_sharded, 4 ranks, one a card, over "
+        f"{r['backend']}: batch 1, a {LONG_S}-position cache seeded to "
+        f"{LONG_FILLED} at a {LONG_SCALE_PROMPT}-token prefill's rms, "
+        f"{LONG_STEPS} serve_steps to {LONG_FILLED + LONG_STEPS}; TPOT mean "
+        f"{steps_ms.mean():.3f} ms, median {np.median(steps_ms):.3f}, min "
+        f"{steps_ms.min():.3f}, max {steps_ms.max():.3f}; byte bound a card "
+        f"{card_bound:.3f} ms (weights {per[0]['weights_bytes'] / 1e9:.2f} "
+        f"GB + K/V {per[0]['kv_bytes'] / 1e9:.2f} GB + states "
+        f"{per[0]['state_bytes'] / 1e9:.3f} GB on a card, at "
+        f"{cs.PEAK_BYTES_PER_S / 1e12:.2f} TB/s), TPOT / bound "
+        f"{steps_ms.mean() / card_bound:.2f}; all-reduce "
+        f"{r['allreduce_ms']:.3f} ms a step ({r['allreduces']:.0f} calls); "
+        f"peak GiB a card " + " ".join(f"{x['peak_gib']:.2f}" for x in per)
+        + f"; launches a rank {want}; weights made in {r['build_s']:.1f} s "
+        f"on rank 0; gates: merged decode attention of each application vs "
+        f"the kernel over the gathered cache max_abs_err={attn_err:.3g} "
+        f"max_row_rel_err={attn_row:.3g} (atol {cs.ATOL}, rtol {cs.RTOL}, "
+        f"row {cs.ROW_RTOL}); Mamba2 layers "
+        + ", ".join(f"{k}: max_abs_err={e:.3g} max_row_rel_err={rw:.3g}"
+                    for k, (e, rw) in r["mamba_gates"].items())
+        + f" vs the unsharded layer (atol {cs.ATOL} of max); logits vs one "
+        f"process over {LONG_STEPS} steps: largest share of max |logit| "
+        f"{max(one['share']):.4g} (limit {tol:.4g}"
+        + (f": twice the one process's own largest move, past "
+           f"{cs.LOGIT_TOL} at this depth" if tol > cs.LOGIT_TOL else "")
+        + ")"
+        + ", by step " + " ".join(f"{x:.3f}" for x in one["share"])
+        + "; the one process's own move with its sums split where the "
+        "ranks split them, by step " + " ".join(
+            f"{x:.3f}" for x in one["own"])
+        + f"; first tokens {one['first_sure_equal']} of "
+        f"{one['first_sure']} sure rows equal; stream tokens equal "
+        f"{one['stream_equal']}/{one['stream_tokens']}; {card}")
+    cs.log(
+        f"[cards] long_500k on one card (card 0, one process, {layers} "
+        f"layers, the whole weights {one['weights_bytes'] / 1e9:.2f} GB "
+        f"and K/V {one['kv_bytes'] / 1e9:.2f} GB): TPOT mean "
+        f"{one_ms.mean():.3f} ms, median {np.median(one_ms):.3f}, min "
+        f"{one_ms.min():.3f}, max {one_ms.max():.3f}; its byte bound "
+        f"{one_bound:.3f} ms, TPOT / bound {one_ms.mean() / one_bound:.2f}; "
+        f"peak {one['peak_gib']:.2f} GiB; four cards' TPOT / one card's "
+        f"{steps_ms.mean() / one_ms.mean():.3f}; {card}")
+    cs.log(f"[cards] long at {layers} layers: {time.monotonic() - t0:.1f} s")
+    if not one["finite"] or one["first_sure_equal"] != one["first_sure"] \
+            or max(one["share"]) > tol:
+        raise AssertionError(
+            f"long at {layers} layers: logits off one process by "
+            f"{max(one['share'])} of max |logit| (limit {tol}), first "
+            f"tokens {one['first_sure_equal']} of {one['first_sure']} sure "
+            f"rows equal, finite {one['finite']}")
+
+
 PROBE_CALLS = 200
 PROBE_LAYERS, PROBE_STEPS = 16, 3
 
@@ -415,8 +913,8 @@ def probe(card):
 
 def main():
     parts = sys.argv[1:] or ["train", "serve"]
-    if any(p not in ("train", "serve", "probe") for p in parts):
-        raise SystemExit(f"parts: train, serve, probe (got {parts})")
+    if any(p not in ("train", "serve", "long", "probe") for p in parts):
+        raise SystemExit(f"parts: train, serve, long, probe (got {parts})")
     n = torch.cuda.device_count()
     if n < 4:
         raise SystemExit(f"needs four cards, found {n}")
@@ -426,7 +924,8 @@ def main():
     cs.log(card)
     cs.phase_build()
     for part in parts:
-        {"train": train, "serve": serve, "probe": probe}[part](card)
+        {"train": train, "serve": serve, "long": long,
+         "probe": probe}[part](card)
     cs.log("[cards] ok")
 
 
