@@ -163,7 +163,7 @@ raises on failure:
    scale: TRAIN_SHARE), 6 steps of 4 x 1024 tokens, for each of
    TRAIN_RUNS: gemma_2b (18 layers) and hubert_xlarge
    (48) under remat "none" as the launcher trains, minicpm3_4b (62
-   layers), zamba2_7b (26 of 81) and xlstm_1_3b (48) under "full",
+   layers), zamba2_7b (26 of 81) and xlstm_1_3b (16 of 48) under "full",
    deepseek_v2_lite_16b (5 of 27) under "none"; the launch counters reset
    just before and read just after (forward and backward launches =
    attention layers x steps, the forward doubled under "full"), every
@@ -225,13 +225,34 @@ raises on failure:
    (``layer_checks``), launches counted; against one process fed the
    ranks' tokens: each pass's logits within LOGIT_TOL, the sure first
    tokens equal;
-19. the ``kernels`` JSON line (flash's row also holds its MLA shapes and
+19. dist_train_all: training the recurrent families and under FSDP on a
+   mesh, the same 4 gloo ranks, DIST_TRAIN_RUNS at full width, bf16,
+   remat "full" (the configs'): zamba2_7b 14 of 81 layers on (2, 2) (56
+   of 112 Mamba2 heads and 16 of 32 shared-block heads a rank), xlstm_1_3b
+   8 of 48 (7 mLSTM + 1 sLSTM) on (1, 4) at 4 x 512 tokens (its sLSTM
+   loop is host-paced; weights at TRAIN_SHARE), gemma_2b 6 layers and
+   zamba2_7b 14 layers on (2, 2) under ``fsdp=True`` (each leaf's d_model
+   over the data ranks, gathered in each layer's remat body); each rank
+   making only its shards of the seeded weights; 2 steps of 4 x 1024
+   tokens through ``steps.train_step(..., rules=, mesh=)``; dist's gates
+   (flash launches on every rank, every flash call of step 1 held, the
+   replicated metrics equal on every rank, the loss within DIST_LOSS_RTOL
+   against one process, and each gradient leaf's cosine to the one
+   process's >= DIST_COS; for the hybrid, whose bf16 gradient is
+   ill-conditioned, instead the whole gradient's and its Mamba2 B/C
+   pieces' 1 - cosine to the fp32 gradient within DIST_COND_FACTOR x that
+   of the one process's gradient summed from its data shards', with the
+   B and C pieces before their sum over "model" as a control that must
+   fail; single leaves printed),
+   every (leaf, layer) moved on every rank (but TRAIN_STUCK's) and each
+   rank's m and v of its shards' shape;
+20. the ``kernels`` JSON line (flash's row also holds its MLA shapes and
    launches, flash's and dense decode's their zamba2 shape and launches,
    flash's its training launches; dense decode's its long_500k slice; the
    backward's row its other shapes and ptxas report; rows 1 and 7 add
-   phase dist's launches, rows 1 and dense decode's phases dist_serve's
-   and dist_recurrent's), the card line, and the last line
-   ``{"ok": true, "device": {...}}``.
+   phase dist's and dist_train_all's launches, rows 1 and dense decode's
+   phases dist_serve's and dist_recurrent's), the card line, and the last
+   line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -3231,7 +3252,12 @@ BWD_SHAPES = (("gemma_2b", (1, 1024, 8, 1, 256, 256), True),
               ("dv<dq", (1, 512, 16, 16, 192, 128), True),
               ("minicpm3_4b", (4, 1024, 40, 40, 96, 64), True),
               ("deepseek_v2_lite_16b", (4, 1024, 16, 16, 192, 128), True),
-              ("zamba2_7b", (4, 1024, 32, 32, 112, 112), True))
+              ("zamba2_7b", (4, 1024, 32, 32, 112, 112), True),
+              # a rank's share on (2, 2) (phase dist_train_all,
+              # tools/dist_cards.py train_whole): half the batch and
+              # half the heads
+              ("zamba2_7b_rank", (2, 1024, 16, 16, 112, 112), True),
+              ("internlm2_20b_rank", (2, 1024, 24, 4, 128, 128), True))
 # the gradient kernel against its plain version on the same bf16 inputs,
 # each of dq, dk, dv: relative norm per (batch, head) slab <= GRAD_SLAB_RTOL
 # and |err| <= GRAD_TOL (max |plain| + |plain|) elementwise; the plain
@@ -3251,13 +3277,16 @@ LSE_ATOL, LSE_RTOL = 1e-4, 1e-5
 # zamba2's 26 ran out of the card's 80 GB (peaks 76.47 and 77.86 GiB
 # allocated when they failed, an H100 80GB HBM3 at 700 W), so they train
 # under remat "full" (the configs' default), as does xLSTM (48 layers,
-# 40.3 GiB of state, ~0.8 GB of mLSTM chunk states a layer under "none").
+# 40.3 GiB of state, ~0.8 GB of mLSTM chunk states a layer under "none";
+# it trains 16, two mLSTM x 7 + sLSTM groups: its host-paced steps, ~10 s
+# each at 48 layers, leave no room for phase dist_train_all in the
+# script's time limit).
 # The restart runs hubert_xlarge at RESTART_LAYERS of its 48 layers (its
 # checkpoint ~1 GB; Gemma-2B's state would be ~25 GB)
 TRAIN_RUNS = (("gemma_2b", None, "none"), ("hubert_xlarge", None, "none"),
               ("minicpm3_4b", None, "full"),
               ("deepseek_v2_lite_16b", 5, "none"),
-              ("zamba2_7b", 26, "full"), ("xlstm_1_3b", None, "full"))
+              ("zamba2_7b", 26, "full"), ("xlstm_1_3b", 16, "full"))
 TRAIN_ARCHS = tuple(arch for arch, _, _ in TRAIN_RUNS)
 # the share of each weight's scale that perturbs a run's start, where not
 # 1 (phase recurrent's mLSTM step check takes the same weights): at 1
@@ -4110,12 +4139,12 @@ DIST_COS = 0.999
 DIST_SPREAD = 1e-6
 
 
-def _dist_batches(cfg):
+def _dist_batches(cfg, n=DIST_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ):
     from repro_torch.data.pipeline import DataConfig, batch_at
-    dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
-                    global_batch=TRAIN_BATCH)
+    dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                    global_batch=batch)
     return [{k: torch.as_tensor(v, device="cuda")
-             for k, v in batch_at(dc, i).items()} for i in range(DIST_STEPS)]
+             for k, v in batch_at(dc, i).items()} for i in range(n)]
 
 
 def _dist_rank(rank, world, out_dir, mesh_shape=DIST_MESH, runs=DIST_RUNS):
@@ -5144,6 +5173,707 @@ def phase_dist_recurrent(card: str):
     return total, long_row
 
 
+# phase dist_train_all: training the recurrent families and under FSDP,
+# the 4 gloo ranks of phase dist; (arch, layers, mesh (data, model), fsdp,
+# batch, tokens a row). Full width, bf16, depth the only cut (the ranks
+# and the one-process reference share the card's 80 GB), the configs'
+# remat "full"
+DIST_TRAIN_RUNS = (
+    ("zamba2_7b", 14, (2, 2), False, 4, 1024),
+    ("xlstm_1_3b", 8, (1, 4), False, 4, 512),
+    ("gemma_2b", 6, (2, 2), True, 4, 1024),
+    ("zamba2_7b", 14, (2, 2), True, 4, 1024),
+)
+# launch.train's optimizer at 6 steps: at OptConfig's default lr (3e-4,
+# 100 warm-up steps) a first step moves no bf16 weight of O(0.02)
+DIST_TRAIN_OPT = dict(lr=3e-3, warmup_steps=2, total_steps=6)
+# zamba2's bf16 gradient is ill-conditioned at these weights: the one
+# process's own is 0.968-0.999 in cosine to the fp32 gradient at the same
+# weights (Mamba2's D least), so two bf16 gradients that sum in other
+# orders part by more than DIST_COS (0.998 read). For the hybrid family
+# the ranks' gradient is held instead to the fp32 gradient, as a whole
+# ("*") and in all its Mamba2 B and C pieces ("*:BC", what the sum over
+# "model" of ``Plan.reduce_grad`` makes): 1 - cosine within
+# DIST_COND_FACTOR x that of the one process's bf16 gradient summed from
+# its data shards' as the ranks sum theirs (floored at 1e-6); the control,
+# the B and C pieces as a rank holds them before that sum, must fail it.
+# Read over seeds 0-6 by tools/recurrent_step_tol.py --train on an H100
+# 80GB HBM3 at 700 W: "*" 0.99-7.71, "*:BC" <= 5.71, the control
+# 21.3-66.4; a fault planted outside B and C (the gated norms' model sum
+# with the identity backward) reads 13.8 in "*" at seed 0. Single leaves
+# are printed, not gated: at seeds 1 and 6 Mamba2's D reads 35-36 and
+# conv_b up to 16, past the least single-leaf control (11.9). That
+# excess comes with the model split in bf16 (data ranks alone read 1.00;
+# the ranks in fp32 are within 1.3e-8 of the one process), its cause not
+# found (PERF.md section 6)
+DIST_COND_FACTOR = 10.0
+COND_GATED = ("*", "*:BC")
+
+
+@contextlib.contextmanager
+def _allreduce_timed():
+    """CUDA event pairs around each outermost ``distributed.all_reduce``
+    while open (a bf16 sum over more than two ranks calls it again in
+    fp32: counted once)."""
+    from repro_torch import distributed as D
+    saved, pairs, depth = D.all_reduce, [], [0]
+
+    def timed(t, ax, op="sum"):
+        if ax.size == 1 or depth[0]:
+            return saved(t, ax, op)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        depth[0] += 1
+        a.record()
+        try:
+            return saved(t, ax, op)
+        finally:
+            b.record()
+            depth[0] -= 1
+            pairs.append((a, b))
+    D.all_reduce = timed
+    try:
+        yield pairs
+    finally:
+        D.all_reduce = saved
+
+
+def _ms(pairs) -> float:
+    torch.cuda.synchronize()
+    return float(sum(a.elapsed_time(b) for a, b in pairs))
+
+
+def _strided(path, v):
+    """Up to SNAP_ELEMS values of each layer of a stacked leaf (of the leaf
+    elsewhere), one row a layer, strided over the whole layer (an
+    embedding's sampled rows spread over its vocabulary)."""
+    n = v.shape[0] if path.split(".")[0] in STACKED else 1
+    flat = v.reshape(n, -1)
+    return flat[:, ::max(1, flat.shape[1] // SNAP_ELEMS)][
+        :, :SNAP_ELEMS].clone()
+
+
+def _gate_layer_specs(cfg, rules, group):
+    """One layer of the stack ``group``: its leaves' specs, the "scan"
+    entry dropped."""
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.sharding import PartitionSpec
+    return _nested({p[len(group) + 1:]: PartitionSpec(*spec[1:])
+                    for p, spec in tf.param_specs(cfg, rules).items()
+                    if p.startswith(group + ".")})
+
+
+@contextlib.contextmanager
+def _bodies_captured(cfg, which):
+    """(input, output) of the layer bodies of mode "train" (the Mamba2
+    body for the hybrid, the attention block otherwise) whose layer index
+    is in ``which``, at their first call (the forward, not remat's
+    recompute), while open."""
+    from repro_torch.models import transformer as tf
+    name = "_train_mamba" if cfg.family == "hybrid" else "_train_block"
+    saved, got, calls = getattr(tf, name), {}, [0]
+
+    def body(p, x, *args, **kw):
+        out = saved(p, x, *args, **kw)
+        i = calls[0]
+        if i in which and i not in got:
+            y = out[0] if isinstance(out, tuple) else out
+            got[i] = (x.detach().clone(), y.detach().clone())
+        calls[0] = (i + 1) % cfg.num_layers
+        return out
+    setattr(tf, name, body)
+    try:
+        yield got
+    finally:
+        setattr(tf, name, saved)
+
+
+@contextlib.contextmanager
+def _grads_captured():
+    """The gradients ``steps.value_and_grad`` returns while open (a train
+    step's, before AdamW consumes them), in call order."""
+    from repro_torch.models import steps
+    saved, got = steps.value_and_grad, []
+
+    def vg(*args, **kw):
+        out = saved(*args, **kw)
+        got.append(out[1])
+        return out
+    steps.value_and_grad = vg
+    try:
+        yield got
+    finally:
+        steps.value_and_grad = saved
+
+
+def _bc_pieces(spec, g, size: int):
+    """The B and C pieces of a Mamba2 leaf's gradient ``g`` laid out by
+    ``spec`` over a model axis of ``size`` (1: the whole leaf), those
+    every model rank holds whole (``distributed.read_parts``); none for
+    another leaf."""
+    from repro_torch import distributed as D
+    return [p for p, whole in D.read_parts(spec, g, size) if whole]
+
+
+def _cos_terms(pairs):
+    """(sum a.b, sum a.a, sum b.b) in float64 over (a, b) pairs, a slice
+    of each at a time (``optim.slices``)."""
+    from repro_torch.models.optim import slices
+    acc = torch.zeros(3, dtype=torch.float64,
+                      device=pairs[0][0].device if pairs else "cpu")
+    for a, b in pairs:
+        for x, y in zip(slices(a), slices(b)):
+            x, y = x.double(), y.double()
+            acc += torch.stack([(x * y).sum(), (x * x).sum(), (y * y).sum()])
+    return acc
+
+
+def _leaf_cosines(grads, want, specs):
+    """Each leaf's cosine of the whole gradient ``grads`` (flat by path)
+    to ``want``, of a Mamba2 leaf's B and C pieces (``path:BC``), and
+    ``_cosines``' aggregates."""
+    keys, sums = [], []
+    for k, v in grads.items():
+        keys.append(k)
+        sums.append(_cos_terms([(v, want[k])]))
+        spec = specs[k.replace("/", ".")]
+        bc = list(zip(_bc_pieces(spec, v, 1), _bc_pieces(spec, want[k], 1)))
+        if bc:
+            keys.append(f"{k}:BC")
+            sums.append(_cos_terms(bc))
+    return _cosines(keys, torch.stack(sums).tolist())
+
+
+def _cos_of(dot, na, nb) -> float:
+    den = (na * nb) ** 0.5
+    return dot / den if den else float(na == nb)
+
+
+def _cosines(keys, sums):
+    """Each key's cosine from its (dot, |a|^2, |b|^2) sums, and the
+    whole gradient's ("*": every leaf), its B and C pieces' ("*:BC") and
+    their control's ("*:BC control"), each from its keys' summed sums."""
+    out, agg = {}, {}
+    for k, v in zip(keys, sums):
+        out[k] = _cos_of(*v)
+        tail = k.split(":", 1)[1] if ":" in k else ""
+        a = agg.setdefault("*" + (":" + tail if tail else ""), [0.0] * 3)
+        for i in range(3):
+            a[i] += v[i]
+    out.update({k: _cos_of(*v) for k, v in agg.items()})
+    return out
+
+
+def _train_reference(cfg, opt, share, batches, out_dir, fp32, specs, seed,
+                     data):
+    """Rank 0, before the ranks' run: the same seeded weights, batches and
+    steps in this one process, no mesh. Writes step 1's gradient to
+    ``ref_grad.pt`` (host memory, flat by path) and, with ``fp32``, the
+    gradient of the same batch at the same weights in fp32 (plain
+    attention: the kernels take bf16) to ``ref_grad32.pt``, with each
+    leaf's cosine to it (and of a Mamba2 leaf's B and C pieces,
+    ``path:BC``; ``specs``: the leaves' specs, ``_leaf_cosines``) of the
+    bf16 gradient and of the bf16 gradient summed from ``data`` shards of
+    the batch's rows as the ranks' data-axes all-reduce sums theirs (each
+    shard's gradient over the batch's token count, summed in fp32 and
+    rounded once). Returns the losses, step seconds, peak memory and
+    those cosines."""
+    import gc
+    from repro_torch import tree
+    from repro_torch.models import steps
+    from repro_torch.models.optim import init_opt_state
+    params = seeded_params(cfg, seed, share=share)
+    out = {}
+    g32 = None
+    if fp32:
+        cfg32 = cfg.replace(param_dtype="float32", compute_dtype="float32")
+        p32 = tree.map_tree(lambda t: t.float(), params)
+        with plain_attention():
+            _, g = steps.value_and_grad(p32, batches[0], cfg32)
+        del p32
+        g32 = tree.flatten(g)
+        del g
+        torch.save({k: v.cpu() for k, v in g32.items()},
+                   os.path.join(out_dir, "ref_grad32.pt"))
+        split, n = {}, len(batches[0]["labels"]) // data
+        for d in range(data):
+            part = {k: v[d * n:(d + 1) * n] for k, v in batches[0].items()}
+            _, g = steps.value_and_grad(params, part, cfg)
+            for k, v in tree.flatten(g).items():
+                if d:
+                    split[k][0].add_(v.float() / data)
+                else:
+                    split[k] = (v.float() / data, v.dtype)
+            del g
+        split = {k: v.to(dt) for k, (v, dt) in split.items()}
+        out["split_cos32"] = _leaf_cosines(split, g32, specs)
+        del split
+    gc.collect()
+    torch.cuda.empty_cache()
+    state = {"params": params, "opt": init_opt_state(params)}
+    torch.cuda.reset_peak_memory_stats()
+    mets, secs = [], []
+    for i, batch in enumerate(batches):
+        with _grads_captured() as got:
+            t0 = time.perf_counter()
+            state, met = steps.train_step(state, batch, cfg, opt)
+            torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        mets.append({k: float(v) for k, v in met.items()})
+        if i == 0:
+            g = tree.flatten(got[0])
+            torch.save({k: v.cpu() for k, v in g.items()},
+                       os.path.join(out_dir, "ref_grad.pt"))
+            if g32 is not None:
+                out["one_cos32"] = _leaf_cosines(g, g32, specs)
+            del g
+        del got
+    out.update(one_mets=mets, one_secs=secs,
+               one_peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    del state, params, g32
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+@contextlib.contextmanager
+def _partials_captured(plan):
+    """While open, copies of the B and C pieces of each Mamba2 leaf's
+    gradient as this rank holds them when ``Plan.reduce_grad`` is called,
+    summed over the data axes (as the rest) once it closes: the gradient a
+    schedule that forgot their sum over "model" would keep, the control
+    of the hybrid family's gradient gate."""
+    from repro_torch import distributed as D
+    saved, got = plan.reduce_grad, {}
+
+    def reduce(path, g):
+        if plan.model.size > 1:
+            pieces = [p.clone(memory_format=torch.contiguous_format) for p
+                      in _bc_pieces(plan.specs[path], g, plan.model.size)]
+            if pieces:
+                got[path] = pieces
+        return saved(path, g)
+    plan.reduce_grad = reduce
+    try:
+        yield got
+    finally:
+        plan.reduce_grad = saved
+    for path, pieces in got.items():
+        for p in pieces:
+            D.all_reduce(p, plan.rest[path])
+
+
+def _sharded_cosines(grads, plan, specs, mesh, path_file, partials=None):
+    """Each leaf's cosine of the sharded gradient (``grads``: this rank's
+    shards, ``reduce_grad``'s) to a whole gradient saved in
+    ``path_file``, without gathering: every rank cuts its shards of the
+    whole (``weights.shard_params``) and sums its products and squares
+    over what it alone holds (a piece model ranks hold alike on model
+    rank 0 only, a leaf the data ranks hold alike on data rank 0 only),
+    then the sums are all-reduced over the ranks. A Mamba2 leaf's B and
+    C pieces also on their own (``path:BC``), and with ``partials``
+    (``_partials_captured``) those of the control (``path:BC control``)."""
+    import torch.distributed as dist
+    from repro_torch import tree, weights
+    ref_ = torch.load(path_file, mmap=True)
+    flat_specs = tree.flatten(specs)
+    keys, sums = [], []
+    for path, g in tree.flatten(grads).items():
+        dotted = path.replace("/", ".")
+        want = weights.shard_params(ref_[path], flat_specs[path], mesh,
+                                    device=g.device)
+        own_data = dotted in plan.fsdp or plan.data.index == 0
+        own = [(a, b) for (a, whole), (b, _) in zip(plan.parts(dotted, g),
+                                                   plan.parts(dotted, want))
+               if own_data and (not whole or plan.model.index == 0)]
+        keys.append(path)
+        sums.append(_cos_terms(own).to(g.device))
+        spec = plan.specs[dotted]
+        mine = own_data and plan.model.index == 0
+        bc_want = _bc_pieces(spec, want, plan.model.size)
+        if bc_want:
+            keys.append(f"{path}:BC")
+            sums.append(_cos_terms(list(zip(
+                _bc_pieces(spec, g, plan.model.size), bc_want))
+                if mine else []).to(g.device))
+            if partials is not None and dotted in partials:
+                keys.append(f"{path}:BC control")
+                sums.append(_cos_terms(list(zip(partials[dotted], bc_want))
+                                       if mine else []).to(g.device))
+        del want
+    total = torch.stack(sums)
+    dist.all_reduce(total)
+    return _cosines(keys, total.tolist())
+
+
+def _dist_train_rank(rank, world, out_dir, runs=DIST_TRAIN_RUNS,
+                     n_steps=DIST_STEPS, gates=False, seed=DIST_SEED):
+    """One rank of phase dist_train_all (and of ``tools/dist_cards.py
+    train_whole``): for each of ``runs`` at full width, its shards of the
+    seeded weights (``seeded_params``, xlstm's at TRAIN_SHARE) under
+    ``ShardingRules(mesh, fsdp=)``, fresh AdamW moments (each of its
+    shard's shape), then ``n_steps`` sharded train steps with the launch
+    counters reset just before and read just after, every flash forward
+    and backward call of step 1 held against its plain version
+    (``layer_checks``, ``backward_checks``), each step's wall time and
+    all-reduce time, and which (leaf, layer) rows of its shards the steps
+    left unmoved. Without ``gates``, rank 0 first runs the same steps in
+    one process (``_train_reference``, once for runs of the same model,
+    depth and batch; for the hybrid family also the fp32 gradient of step
+    1), and each leaf's cosine of step 1's sharded gradient to the
+    one process's (and to the fp32 one, with the control's:
+    ``_partials_captured``) is summed over the ranks' shards
+    (``_sharded_cosines``). ``seed`` seeds the weights. With ``gates`` (whole models: no
+    one-process reference fits) the layer bodies of layers 1, 40 and the
+    last are captured in step 1's forward and rank 0 runs each unsharded
+    from its gathered weights (gathered before the steps) on rank 0's
+    input (``compare``). Writes ``train_rank{r}.json``."""
+    import gc
+    import torch.distributed as dist
+    from repro_torch import distributed as D
+    from repro_torch import tree, weights
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import compat_make_mesh
+    from repro_torch.models import sharding, steps
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.optim import OptConfig, init_opt_state
+    opt = OptConfig(**DIST_TRAIN_OPT)
+    out = {"backend": dist.get_backend(), "device": torch.cuda.current_device()}
+    refs, ref_key = {}, None
+    for arch, layers, shape, fsdp, batch, seq in runs:
+        mesh = compat_make_mesh(shape, ("data", "model"))
+        rules = sharding.ShardingRules(mesh, fsdp=fsdp)
+        cfg = get_config(arch).replace(num_layers=layers)
+        share = TRAIN_SHARE.get(arch, 1.0)
+        batches = _dist_batches(cfg, n_steps, batch, seq)
+        fp32 = cfg.family == "hybrid"
+        pspecs = tf.param_specs(cfg, rules)
+        r = {}
+        t_run = time.perf_counter()
+        if rank == 0 and not gates:
+            key = (arch, layers, batch, seq, shape[0])
+            if key != ref_key:
+                refs = _train_reference(cfg, opt, share, batches, out_dir,
+                                        fp32, pspecs, seed, shape[0])
+                ref_key = key
+            r.update(refs)
+        dist.barrier()
+        r["ref_s"] = time.perf_counter() - t_run
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params = seeded_params(cfg, seed, rules, mesh, share)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        plan = D.plan(cfg, rules, mesh)
+        specs = _nested(pspecs)
+        group = "mamba" if cfg.family == "hybrid" else "layers"
+        gate_layers = (0, 39, layers - 1) if gates else ()
+        gate_w = {}
+        for i in gate_layers:
+            whole = weights.gather_params(
+                tf.layer_slice(params[group], i),
+                _gate_layer_specs(cfg, rules, group), mesh)
+            if rank == 0:
+                gate_w[i] = tree.map_tree(lambda t: t.cpu(), whole)
+            del whole
+        state = {"params": params, "opt": init_opt_state(params)}
+        shapes = tf.param_shapes(cfg)
+        moments_shaped = all(
+            tuple(t.shape) == D.local_shape(shapes[p], pspecs[p], mesh)
+            for mv in ("m", "v") for p, t in _flat(state["opt"][mv]).items())
+        local = sum(t.numel() for t in _leaves(params))
+        state_bytes = sum(t.numel() * t.element_size()
+                          for part in (params, state["opt"]["m"],
+                                       state["opt"]["v"])
+                          for t in _leaves(part))
+        snap = {k: _strided(k, v) for k, v in _flat(params).items()}
+        staged = D.staged_calls
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        mets, secs, ar_ms, ar_calls = [], [], [], []
+        grads1, partials = [], {}
+
+        def step(b, capture):
+            # step 1's gradient and the control's pieces when compared
+            # with the one process; their copies and all-reduces fall
+            # outside the timed step
+            nonlocal state
+            with (_partials_captured(plan) if capture
+                  else contextlib.nullcontext({})) as bc, \
+                    (_grads_captured() if capture
+                     else contextlib.nullcontext([])) as vg:
+                with _allreduce_timed() as pairs:
+                    t0 = time.perf_counter()
+                    state, met = steps.train_step(state, b, cfg, opt,
+                                                  rules=rules, mesh=mesh)
+                    torch.cuda.synchronize()
+                    secs.append(time.perf_counter() - t0)
+            grads1.extend(vg)
+            partials.update(bc)
+            ar_ms.append(_ms(pairs))
+            ar_calls.append(len(pairs))
+            mets.append({k: float(v) for k, v in met.items()})
+        with layer_checks() as held, backward_checks() as (_, worst), \
+                _bodies_captured(cfg, set(gate_layers)) as got:
+            step(batches[0], not gates)
+        for b in batches[1:]:
+            step(b, False)
+        counts = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        unmoved = [
+            (k, i) for k, v in _flat(state["params"]).items()
+            for i, same in enumerate(
+                (_strided(k, v) == snap[k]).all(dim=1).tolist()) if same]
+        m = torch.tensor([[x[k] for k in ("loss", "aux_loss", "grad_norm")]
+                          for x in mets], device="cuda")
+        hi, lo = m.clone(), -m
+        dist.all_reduce(hi, dist.ReduceOp.MAX)
+        dist.all_reduce(lo, dist.ReduceOp.MAX)
+        r.update({
+            "mets": mets, "secs": secs, "allreduce_ms": ar_ms,
+            "allreduces": ar_calls, "peak_gib": peak, "build_s": build_s,
+            "fwd": counts["flash_attention"],
+            "bwd": counts["flash_attention_bwd"],
+            "fwd_held": held.get("flash_attention", (0, 0.0, 0.0)),
+            "bwd_held": list(worst),
+            "spread": float(((hi + lo) / hi.abs().clamp(min=1e-30)).max()),
+            "staged": D.staged_calls - staged, "unmoved": unmoved,
+            "moments_shaped": moments_shaped, "local_params": local,
+            "state_bytes": state_bytes})
+        del state, params, snap
+        gc.collect()
+        torch.cuda.empty_cache()
+        t_cos = time.perf_counter()
+        if grads1:
+            r["cos"] = _sharded_cosines(grads1[0], plan, specs, mesh,
+                                        os.path.join(out_dir, "ref_grad.pt"))
+            if fp32:
+                r["cos32"] = _sharded_cosines(
+                    grads1[0], plan, specs, mesh,
+                    os.path.join(out_dir, "ref_grad32.pt"), partials)
+        del grads1, partials
+        r["cos_s"] = time.perf_counter() - t_cos
+        if rank == 0 and gates:
+            pos = torch.arange(seq, dtype=torch.int32, device="cuda")[None]
+            gates_out = {}
+            for i in gate_layers:
+                x, y = got[i]
+                w = tree.map_tree(lambda t: t.cuda(), gate_w.pop(i))
+                with torch.no_grad():
+                    want = (tf._train_mamba(w, x, cfg) if group == "mamba"
+                            else tf._train_block(w, x, pos, cfg)[0])
+                gates_out[i + 1] = compare(f"{arch} layer {i + 1}", y, want,
+                                           of_max=True)
+                del w, want
+            r["gates"] = gates_out
+        del batches, got
+        gc.collect()
+        torch.cuda.empty_cache()
+        dist.barrier()
+        r["run_s"] = time.perf_counter() - t_run
+        out[_train_tag(arch, layers, shape, fsdp)] = r
+    with open(os.path.join(out_dir, f"train_rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def cond_ratios(r):
+    """A hybrid run's readings (rank 0's JSON of ``_dist_train_rank``):
+    per leaf, B/C piece and aggregate, (1 - the ranks' cosine to the fp32
+    gradient) / max(1e-6, 1 - that of the one process's gradient summed
+    from its data shards'); and the same of the controls' B/C pieces."""
+    own = r["split_cos32"]
+    ratio, ctrl = {}, {}
+    for k, v in r["cos32"].items():
+        base = k.split(" ")[0]
+        (ctrl if k.endswith(" control") else ratio)[k] = (
+            (1 - v) / max(1e-6, 1 - own[base]))
+    return ratio, ctrl
+
+
+def cond_gate(r):
+    """(the gated ratios' largest (key, ratio), the control's) of a hybrid
+    run (``cond_ratios``; COND_GATED): the ratios must stay within
+    DIST_COND_FACTOR, the control must exceed it."""
+    ratio, ctrl = cond_ratios(r)
+    worst = max(((k, ratio[k]) for k in COND_GATED), key=lambda kv: kv[1])
+    return worst, (("*:BC control", ctrl["*:BC control"])
+                   if "*:BC control" in ctrl else ("none", 0.0))
+
+
+def _train_tag(arch, layers, shape, fsdp) -> str:
+    return f"{arch} {layers} {shape}" + (" fsdp" if fsdp else "")
+
+
+def _attn_launches(cfg):
+    """(flash forward, backward) launches of one train step: an attention
+    call's forward runs again in remat's recompute, but for the hybrid's
+    shared block, which no remat wraps."""
+    n = _attn_layers(cfg)
+    again = cfg.remat != "none" and cfg.family != "hybrid"
+    return n * (2 if again else 1), n
+
+
+def dist_train_report(tag, card, ranks, transport, runs=DIST_TRAIN_RUNS,
+                      n_steps=DIST_STEPS, one_process=True):
+    """Gate and print each run of ``_dist_train_rank`` (``ranks``: each
+    rank's JSON): on every rank the flash forward and backward launch
+    counts (``_attn_launches`` x steps) and step 1's calls all held, the
+    replicated loss, aux and grad norm equal (DIST_SPREAD), finite, every
+    (leaf, layer) of its shards moved (but TRAIN_STUCK's) and its m and v
+    of its shards' shape; with ``one_process``, rank 0's loss of each
+    step within DIST_LOSS_RTOL of the one process's and every gradient
+    leaf's cosine to the one process's >= DIST_COS (the hybrid instead:
+    ``cond_gate``'s ratios within DIST_COND_FACTOR, its control over
+    it); else each captured layer within ``compare``'s bounds
+    (raised in the rank). Every number is printed
+    before a gate raises. Returns the flash forward and backward launches
+    summed over the ranks and the runs."""
+    from repro_torch.configs import get_config
+    fwd = bwd = 0
+    bad = []
+    for arch, layers, shape, fsdp, batch, seq in runs:
+        run = _train_tag(arch, layers, shape, fsdp)
+        cfg = get_config(arch).replace(num_layers=layers)
+        f1, b1 = _attn_launches(cfg)
+        per = [r[run] for r in ranks]
+        r0 = per[0]
+        fwd += sum(r["fwd"] for r in per)
+        bwd += sum(r["bwd"] for r in per)
+        stuck = TRAIN_STUCK.get(arch, set())
+        for i, r in enumerate(per):
+            if (r["fwd"], r["bwd"]) != (f1 * n_steps, b1 * n_steps) or \
+                    (r["fwd_held"][0], r["bwd_held"][0]) != (f1, b1):
+                bad.append(f"{run} rank {i}: flash {r['fwd']}/{r['bwd']} "
+                           f"launches, {r['fwd_held'][0]}/"
+                           f"{r['bwd_held'][0]} held; want "
+                           f"{f1 * n_steps}/{b1 * n_steps}, {f1}/{b1}")
+            if r["spread"] > DIST_SPREAD:
+                bad.append(f"{run}: the replicated metrics differ across "
+                           f"ranks by {r['spread']} of their size")
+            moved = [u for u in r["unmoved"] if u[0] not in stuck]
+            if moved or not r["moments_shaped"] or not all(
+                    np.isfinite(x[k]) for x in r["mets"] for k in x):
+                bad.append(f"{run} rank {i}: unmoved {moved[:8]}, moments "
+                           f"of the shards' shape {r['moments_shaped']}")
+        text = (f"[{tag}] {arch} ({layers} of "
+                f"{get_config(arch).num_layers} layers, full width, bf16, "
+                f"remat {cfg.remat}, mesh (data, model) = {shape}"
+                f"{', fsdp=True' if fsdp else ''}, {batch} x {seq} tokens, "
+                f"{transport}): losses "
+                + " ".join(f"{x['loss']:.5f}" for x in r0["mets"]))
+        if one_process:
+            rel = [abs(a["loss"] - b["loss"]) / abs(b["loss"])
+                   for a, b in zip(r0["mets"], r0["one_mets"])]
+            low = sorted(r0["cos"].items(), key=lambda kv: kv[1])[:2]
+            text += (" vs one process " + " ".join(
+                f"{x['loss']:.5f}" for x in r0["one_mets"])
+                + f" (rel diff {max(rel):.3g}, limit {DIST_LOSS_RTOL}); "
+                f"grad norm " + " ".join(f"{x['grad_norm']:.5f}"
+                                         for x in r0["mets"])
+                + " vs " + " ".join(f"{x['grad_norm']:.5f}"
+                                    for x in r0["one_mets"])
+                + f"; least gradient cosine {low[0][1]:.6f} ({low[0][0]}), "
+                f"next {low[1][1]:.6f} ({low[1][0]}) over "
+                f"{len(r0['cos'])} leaves (limit {DIST_COS})")
+            held_to_fp32 = "cos32" in r0
+            if held_to_fp32:
+                ratio, ctrl = cond_ratios(r0)
+                worst, least = cond_gate(r0)
+                text += (
+                    f" (the hybrid: held to the fp32 gradient instead); "
+                    f"against the fp32 gradient, 1 - cosine of the ranks' "
+                    f"over that of the one process's summed from its "
+                    f"{shape[0]} data shards': whole gradient and B/C "
+                    f"pieces at most {worst[1]:.3f} ({worst[0]}), limit "
+                    f"{DIST_COND_FACTOR}; the control (B and C before "
+                    f"their sum over 'model') {least[1]:.3g}, must exceed "
+                    f"it; single leaves (printed) " + ", ".join(
+                        f"{k} {v:.3f}" for k, v in sorted(
+                            {**ratio, **ctrl}.items()))
+                    + "; cosines (ranks / data shards summed / one process "
+                    "whole batch) " + ", ".join(
+                        f"{k} {v:.5f}/{r0['split_cos32'][k.split(' ')[0]]:.5f}"
+                        f"/{r0['one_cos32'][k.split(' ')[0]]:.5f}"
+                        for k, v in sorted(r0["cos32"].items())))
+                if worst[1] > DIST_COND_FACTOR \
+                        or least[1] <= DIST_COND_FACTOR:
+                    bad.append(f"{run}: fp32-relative gradient ratio "
+                               f"{worst}, control {least}")
+            text += (f"; one process step s " + " ".join(
+                f"{t:.3f}" for t in r0["one_secs"])
+                + f", peak {r0['one_peak_gib']:.2f} GiB")
+            if max(rel) > DIST_LOSS_RTOL or (
+                    low[0][1] < DIST_COS and not held_to_fp32):
+                bad.append(f"{run}: loss rel diff {rel}, least gradient "
+                           f"cosine {low}")
+        else:
+            text += "; grad norm " + " ".join(f"{x['grad_norm']:.5f}"
+                                              for x in r0["mets"])
+            text += "; layers " + ", ".join(
+                f"{k}: max_abs_err={e:.3g} max_row_rel_err={w:.3g}"
+                for k, (e, w) in r0["gates"].items()) + (
+                f" against the unsharded layer on card 0 (atol {ATOL} of "
+                f"max, rtol {RTOL}, row {ROW_RTOL})")
+        log(text + f"; flash {f1 * n_steps}/{b1 * n_steps} launches a "
+            f"rank, step 1's {f1} forward and {b1} backward calls held "
+            f"(worst abs err {max(r['fwd_held'][1] for r in per):.3g} / "
+            f"{max(r['bwd_held'][1] for r in per):.3g}); step s a rank "
+            + "; ".join(" ".join(f"{t:.3f}" for t in r["secs"]) for r in per)
+            + "; all-reduce ms a step (calls) "
+            + " ".join(f"{t:.1f} ({n})" for t, n in zip(r0["allreduce_ms"],
+                                                       r0["allreduces"]))
+            + "; peak GiB a rank " + " ".join(f"{r['peak_gib']:.2f}"
+                                              for r in per)
+            + "; train state (params, m, v) GB a rank "
+            + " ".join(f"{r['state_bytes'] / 1e9:.2f}" for r in per)
+            + f" ({max(r['local_params'] for r in per) / 1e9:.3f}B "
+            f"parameters at most); seconds waiting on the one process "
+            f"{r0['ref_s']:.1f}, comparing gradients "
+            f"{max(r['cos_s'] for r in per):.1f}; unmoved (leaf, layer) "
+            f"{sorted(set(tuple(u) for r in per for u in r['unmoved']))[:6]}"
+            f" (allowed {sorted(stuck)}); weights made in "
+            f"{r0['build_s']:.1f} s; the run {r0['run_s']:.1f} s; "
+            f"collectives staged through host memory {r0['staged']}; "
+            f"{card}")
+    if bad:
+        raise AssertionError("; ".join(bad))
+    return fwd, bwd
+
+
+def phase_dist_train_all(card: str):
+    """Training under a mesh on the one card: ``_dist_train_rank`` in 4
+    processes (mesh ("data", "model") over gloo) for DIST_TRAIN_RUNS
+    (zamba2_7b on (2, 2): 56 of 112 Mamba2 heads and 16 of 32 shared-block
+    heads a rank; xlstm_1_3b on (1, 4): one mLSTM and sLSTM head a rank;
+    gemma_2b and zamba2_7b under ``fsdp=True`` on (2, 2)); each rank's
+    exit code checked (``mesh.spawn``), then ``dist_train_report``'s
+    gates. Times are gloo's, staged through host memory. Returns the
+    ranks' flash forward and backward launches."""
+    import gc
+    import shutil
+    from repro_torch.launch import mesh
+    t0 = time.monotonic()
+    gc.collect()
+    torch.cuda.empty_cache()
+    out_dir = ROOT / "build" / "dist_train_all"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    world = 4
+    mesh.spawn(_dist_train_rank, world, (str(out_dir),))
+    ranks = [json.loads((out_dir / f"train_rank{r}.json").read_text())
+             for r in range(world)]
+    total = dist_train_report(
+        "dist_train_all", card, ranks,
+        f"{world} ranks on one card over gloo ({ranks[0]['backend']}): "
+        f"times gloo-staged, not the card's collectives")
+    log(f"[dist_train_all] phase seconds {time.monotonic() - t0:.1f}; "
+        f"{card}")
+    return total
+
+
 def kernels_line(rows, launches):
     out = []
     for name in KERNELS:
@@ -5243,6 +5973,12 @@ def main() -> int:
     for name, n in counts.items():
         launches[name] += n
     lap("dist_recurrent")
+    # training the recurrent families and under FSDP on a mesh: the
+    # ranks' flash launches
+    fwd, bwd = phase_dist_train_all(line)
+    launches["flash_attention"] += fwd
+    launches["flash_attention_bwd"] += bwd
+    lap("dist_train_all")
     log(f"[done] all phases in {time.monotonic() - t0:.1f}s")
     log(json.dumps(kernels_line(rows, launches)))
     log(line)

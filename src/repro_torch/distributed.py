@@ -26,15 +26,34 @@ refuses a CUDA tensor's all-reduce (a dtype it lacks), ``all_reduce``
 stages it through host memory explicitly, counts the call in
 ``staged_calls`` and prints the first of each kind.
 
+Under autograd the model-axis sums carry gradients: ``Layout.sum_model``
+(every rank reads the whole sum: the gradient is summed over "model"
+too) and ``Layout.row_parallel`` (each rank's fp32 partial product, the
+sum rounded once; the identity backward, as reduce-out's).
+
 ``Plan`` resolves the layout of one config's param tree under
-``ShardingRules`` (each leaf's spec, the dim that "model" shards; the
-port's layout, ``transformer.param_specs``) and refuses what this
-schedule does not run (``check_rules``): FSDP (weights over the data
-axes) and the MoE dispatch einsum with sharded experts in every mode; in
-mode "train" also ``seq_sharded`` and the hybrid and ssm families, and in
-the serving modes MLA under ``seq_sharded``. The serving steps under a
-plan also refuse ``shard_v2`` (its ``cache_seq`` shards the cache's
-sequence) and paged caches (``check_serving``).
+``ShardingRules`` (each leaf's spec, the dim that "model" shards and,
+under FSDP, the dim the data axes shard; the port's layout,
+``transformer.param_specs``) and refuses what this schedule does not run
+(``check_rules``): the MoE dispatch einsum with sharded experts in every
+mode; in mode "train" ``seq_sharded``; in the serving modes FSDP and MLA
+under ``seq_sharded``. The serving steps under a plan also refuse
+``shard_v2`` (its ``cache_seq`` shards the cache's sequence) and paged
+caches (``check_serving``).
+
+Under FSDP (``fsdp=True``, mode "train") a rank holds its slice of each
+weight's ``w_embed`` dim over the data axes, beside its "model" split, and
+AdamW's moments alike. Each layer gathers its leaves whole where it uses
+them (``Layout.gathered``: ``gather`` over the data axes, whose backward
+all-reduces the gradient and keeps the rank's slice, FSDP's
+reduce-scatter), inside its remat body, so that remat "full" gathers them
+again in the backward rather than holding them. Their gradients then skip
+the data-axes all-reduce of the rest (``Plan.reduce_grad``).
+
+A Mamba2 layer's B and C columns of ``in_proj`` (and channels of
+``conv_w`` and ``conv_b``) are whole on every model rank, and each rank
+reads them for its own heads: their gradient is summed over "model"
+before the step (``Plan.reduce_grad``) and counted once in the norm.
 
 Under ``seq_sharded`` (serving only, JAX's long-context rule) the batch is
 replicated and the data axes split the dense caches' sequence instead:
@@ -163,6 +182,18 @@ class _ReduceOut(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return g, None
+
+
+class _SumBoth(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ax):
+        ctx.ax = ax
+        return all_reduce(x.clone(memory_format=torch.contiguous_format), ax)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g.clone(memory_format=torch.contiguous_format),
+                          ctx.ax), None
 
 
 class _Gather(torch.autograd.Function):
@@ -342,6 +373,29 @@ class Mamba2Read:
     def local_size(self, ax: Axis) -> int:
         return sum(n // ax.size if split else n for n, split in self.parts)
 
+    def local_parts(self, size: int):
+        """(offset, size, split) of each part in a rank's slice over a
+        model axis of ``size``."""
+        out, off = [], 0
+        for n, split in self.parts:
+            k = n // size if split else n
+            out.append((off, k, split))
+            off += k
+        return out
+
+
+def read_parts(spec, t: torch.Tensor, size: int):
+    """``t``, laid out by ``spec`` over a model axis of ``size`` (a rank's
+    slice; with ``size`` 1 the whole leaf), cut by the spec's
+    ``Mamba2Read`` entry into (piece, whether every model rank holds it
+    whole): a Mamba2 leaf's B and C are whole on every model rank though
+    each reads them for its own heads. [] for a leaf without one."""
+    for i, e in enumerate(spec):
+        if isinstance(e, Mamba2Read):
+            return [(t.narrow(i, off, n), not split)
+                    for off, n, split in e.local_parts(size)]
+    return []
+
 
 # ---------------------------------------------------------------------------
 # layout
@@ -356,9 +410,9 @@ class Layout:
 
     def __init__(self, dims: Dict[str, Optional[int]], specs: Dict,
                  model: Axis, data: Axis, prefix: str = "",
-                 seq: Optional[Axis] = None):
+                 seq: Optional[Axis] = None, fsdp: Optional[Dict] = None):
         self.dims, self.specs, self.model, self.data = dims, specs, model, data
-        self.prefix, self.seq = prefix, seq
+        self.prefix, self.seq, self.fsdp = prefix, seq, fsdp or {}
 
     def _key(self, name: str) -> str:
         return f"{self.prefix}.{name}" if self.prefix else name
@@ -371,7 +425,21 @@ class Layout:
 
     def sub(self, prefix: str) -> "Layout":
         return Layout(self.dims, self.specs, self.model, self.data,
-                      self._key(prefix), self.seq)
+                      self._key(prefix), self.seq, self.fsdp)
+
+    def gathered(self, p, prefix: str = ""):
+        """The module's leaves ``p`` (a nested dict, or one leaf named
+        ``prefix``) with each leaf FSDP shards over the data axes gathered
+        whole along that dim (``gather``: its gradient all-reduced over
+        those axes and cut to the rank's slice); ``p`` itself without
+        FSDP."""
+        if not self.fsdp:
+            return p
+        if isinstance(p, dict):
+            return {k: self.gathered(v, f"{prefix}.{k}" if prefix else k)
+                    for k, v in p.items()}
+        hit = self.fsdp.get(self._key(prefix))
+        return p if hit is None else gather(p, hit[0], hit[1])
 
     def split(self, names, want, what: str) -> bool:
         """Whether the module whose leaves are ``names`` runs on the
@@ -388,18 +456,23 @@ class Layout:
         return True
 
     def sum_model(self, t: torch.Tensor) -> torch.Tensor:
-        """``t`` summed over the model axis, in place (no gradient)."""
-        return all_reduce(t, self.model)
+        """``t`` summed over the model axis, as a new tensor whose gradient
+        is summed over "model" too, since every rank reads the whole sum
+        (a norm's sum of squares; row-parallel products of which each rank
+        keeps its own heads: the gradient of the sum is then each rank's
+        heads' written into zeros, summed)."""
+        return t if self.model.size == 1 else _SumBoth.apply(t, self.model)
 
     def row_parallel(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         """``x @ w`` where both hold the rank's slice of the contracted dim
-        (no gradient): each rank's partial product kept in fp32 (its
-        accumulator unrounded), summed over "model" in fp32 and rounded
-        to ``x``'s dtype once, as one product over the whole dim rounds
-        its accumulator. A reduce-out of bf16 partials would round each
-        partial and then their sum."""
+        and every rank uses the result whole: each rank's partial product
+        kept in fp32 (its accumulator unrounded), summed over "model" in
+        fp32 and rounded to ``x``'s dtype once, as one product over the
+        whole dim rounds its accumulator. A reduce-out of bf16 partials
+        would round each partial and then their sum. The sum is a
+        reduce-out (the identity backward)."""
         from repro_torch.models.layers import mm_fp32
-        return all_reduce(mm_fp32(x, w), self.model).to(x.dtype)
+        return reduce_out(mm_fp32(x, w), self.model).to(x.dtype)
 
     def copy_in(self, x):
         return copy_in(x, self.model)
@@ -420,57 +493,56 @@ _LATER = ("comes with a later slice of the PyTorch port's distribution "
           "(ROADMAP Queue A, distribution)")
 
 
-def _model_dims(specs: Dict, axes: Dict[str, tuple]):
-    """path -> the per-layer dim "model" shards (or None); raises for a
-    spec that puts a data axis on a weight (FSDP)."""
-    dims = {}
+_DATA = ("pod", "data")
+
+
+def _layout_dims(specs: Dict, axes: Dict[str, tuple]):
+    """(path -> the per-layer dim "model" shards, or None; path -> (the
+    per-layer dim the data axes shard, those axes) for the leaves FSDP
+    shards)."""
+    dims, fsdp = {}, {}
     for path, spec in specs.items():
-        stacked = axes[path][:1] == ("scan",)
-        found = None
+        shift = 1 if axes[path][:1] == ("scan",) else 0
+        dims[path] = None
         for i, e in enumerate(spec):
+            group = (e,) if isinstance(e, str) else e
             if e is None:
                 continue
-            if e != "model" and not isinstance(e, Mamba2Read):
+            if e == "model" or isinstance(e, Mamba2Read):
+                dims[path] = i - shift
+            elif isinstance(group, tuple) and set(group) <= set(_DATA):
+                fsdp[path] = (i - shift, group)
+            else:
                 raise NotImplementedError(
-                    f"{path}: spec {tuple(spec)} shards a weight over the "
-                    f"data axes (fsdp=True); FSDP execution {_LATER}")
-            found = i - 1 if stacked else i
-        dims[path] = found
-    return dims
+                    f"{path}: spec {tuple(spec)} is not run by the sharded "
+                    f"schedule; it {_LATER}")
+    return dims, fsdp
 
 
 def check_rules(cfg, rules, mode: str = "train"):
     """Raise ``NotImplementedError`` for what the sharded schedule does not
-    run in ``mode``: FSDP (``fsdp=True``) and the MoE dispatch einsum with
-    sharded experts in every mode; in mode "train" ``seq_sharded`` (JAX's
-    dry run sets it for decode only) and the hybrid and ssm families; in
-    the serving modes MLA's latent cache under ``seq_sharded``, and a
-    Mamba2 layer whose heads do not divide "model" where JAX's rules put
-    "model" on its channels. Each names a leaf (or activation), its spec
-    and the later slice."""
+    run in ``mode``: the MoE dispatch einsum with sharded experts in every
+    mode; in mode "train" ``seq_sharded`` (JAX's dry run sets it for
+    decode only); in the serving modes FSDP (``fsdp=True``: JAX's dry run
+    sets it for train cells only) and MLA's latent cache under
+    ``seq_sharded``; a Mamba2 layer whose heads do not divide "model"
+    where JAX's rules put "model" on its channels. Each names a leaf (or
+    activation), its spec and the later slice."""
     from repro_torch.models import transformer as tf
     axes = tf.param_axes(cfg)
     shapes = tf.param_shapes(cfg)
-    if rules.fsdp:
+    if rules.fsdp and mode != "train":
         path = "embed"
         raise NotImplementedError(
             f"{path}: spec {tuple(rules.spec(shapes[path], axes[path]))} "
-            f"under fsdp=True shards weights over the data axes; FSDP "
-            f"execution {_LATER}")
+            f"under fsdp=True shards weights over the data axes; FSDP in "
+            f"mode {mode!r} {_LATER}")
     if rules.seq_sharded and mode == "train":
         spec = rules.spec((1, 1, 1), ("batch", "seq", "embed"))
         raise NotImplementedError(
             f"activations ('batch', 'seq', 'embed'): spec {tuple(spec)} "
             f"under seq_sharded=True shards the sequence; sequence-sharded "
             f"training {_LATER}")
-    if cfg.family in ("hybrid", "ssm") and mode == "train":
-        path = next(p for p in axes if p not in ("embed", "head",
-                                                 "frontend_proj")
-                    and not p.startswith("final_norm"))
-        raise NotImplementedError(
-            f"family={cfg.family!r} under a mesh: {path} spec "
-            f"{tuple(rules.spec(shapes[path], axes[path]))}; the "
-            f"{cfg.family} family's sharded train step {_LATER}")
     if rules.seq_sharded and cfg.attn_type == "mla":
         from repro_torch.models import attention as attn
         shape = attn.cache_spec(cfg, 1, 1)["c_kv"][0]
@@ -540,27 +612,34 @@ def local_shape(shape, spec, mesh) -> tuple:
 class Plan:
     """One config's sharded step on this rank: each leaf's spec
     (``specs``, by JAX's dotted path: the port's layout,
-    ``transformer.param_specs``) and model-sharded dim, the rules, and the
-    rank's "model" and data-axes groups; ``seq`` is the data-axes group
-    under ``seq_sharded`` (the caches' sequence split over it, the batch
-    whole on every rank), else None."""
+    ``transformer.param_specs``), model-sharded dim (``dims``) and, under
+    FSDP, data-sharded dim and its axis group (``fsdp``); the rules, and
+    the rank's "model" and data-axes groups; ``seq`` is the data-axes
+    group under ``seq_sharded`` (the caches' sequence split over it, the
+    batch whole on every rank), else None."""
 
     def __init__(self, cfg, rules, mesh):
         from repro_torch.models import transformer as tf
-        check_rules(cfg, rules, "prefill")
         axes = tf.param_axes(cfg)
         self.specs = tf.param_specs(cfg, rules)
-        self.dims = _model_dims(self.specs, axes)
+        self.dims, fsdp = _layout_dims(self.specs, axes)
         if cfg.family == "moe":
             _check_ep(cfg, rules, self.dims, self.specs, "layers.moe.")
         self.model = axis(mesh, ("model",))
-        self.data = axis(mesh, ("pod", "data"))
+        self.data = axis(mesh, _DATA)
         self.seq = self.data if rules.seq_sharded else None
+        self.fsdp = {p: (dim, axis(mesh, group))
+                     for p, (dim, group) in fsdp.items()}
+        # the data axes each leaf's gradient is still summed over after
+        # the backward (those FSDP's gathers do not reduce-scatter)
+        self.rest = {p: axis(mesh, tuple(a for a in _DATA
+                                         if a not in fsdp.get(p, (0, ()))[1]))
+                     for p in self.specs}
         self.cfg, self.rules, self.mesh = cfg, rules, mesh
 
     def block(self, pkey: str) -> Layout:
         return Layout(self.dims, self.specs, self.model, self.data, pkey,
-                      self.seq)
+                      self.seq, self.fsdp)
 
     def rows(self, t):
         """This rank's rows of a global batch tensor (JAX's batch sharding
@@ -573,22 +652,52 @@ class Plan:
                              f"over the data axes ({self.data.size} ranks)")
         return local_slice(t, 0, self.data)
 
+    def parts(self, path: str, g: torch.Tensor):
+        """Leaf ``path``'s gradient ``g`` cut into (piece, whether model
+        ranks hold it whole): a Mamba2 leaf's parts (``read_parts``), else
+        ``g`` itself."""
+        return (self.model.size > 1
+                and read_parts(self.specs[path], g, self.model.size)) \
+            or [(g, self.dims[path] is None)]
+
+    def reduce_grad(self, path: str, g: torch.Tensor) -> torch.Tensor:
+        """Leaf ``path``'s gradient (its rows' share on this rank), in
+        place, made the rank's shard of the whole batch's gradient: summed
+        over the data axes FSDP's gather did not reduce-scatter it over;
+        a Mamba2 leaf's B and C parts summed over "model"."""
+        all_reduce(g, self.rest[path])
+        parts = self.parts(path, g)
+        if len(parts) > 1:                  # a Mamba2 leaf
+            for piece, whole in parts:
+                if whole:
+                    piece.copy_(all_reduce(piece.contiguous(), self.model))
+        return g
+
     def global_norm(self, grads) -> torch.Tensor:
-        """sqrt of the fp32 sum of squares of every leaf of the whole
-        tree: a model-sharded leaf's square sum is summed over the model
-        axis, a replicated leaf counted once."""
+        """sqrt of the fp32 sum of squares of every leaf of the whole tree
+        (``reduce_grad``'s gradients): each share summed over the ranks
+        that hold other shares of it, model-sharded parts over "model" and
+        FSDP leaves over their data axes; what model ranks hold alike
+        (replicated leaves, a Mamba2 leaf's B and C) counted once."""
         from repro_torch import tree
-        sharded, repl = [], []
+        from repro_torch.models.optim import slices
+        buckets: Dict = {}
         for path, g in tree.flatten(grads).items():
-            sq = torch.sum(torch.square(g.float()))
-            (sharded if self.dims[path.replace("/", ".")] is not None
-             else repl).append(sq)
+            path = path.replace("/", ".")
+            data = self.fsdp[path][1] if path in self.fsdp else ONE
+            for piece, whole in self.parts(path, g):
+                # in slices: an fp32 copy of a whole stacked leaf would
+                # be 9 GB (internlm2_20b's wi on (2, 2) under FSDP)
+                buckets.setdefault((not whole, data.names), (data, []))[
+                    1].extend(torch.sum(torch.square(p.float()))
+                              for p in slices(piece))
         dev = tree.leaves(grads)[0].device
         total = torch.zeros((), dtype=torch.float32, device=dev)
-        if sharded:
-            total = all_reduce(sum(sharded).reshape(()).clone(), self.model)
-        if repl:
-            total = total + sum(repl)
+        for (split, _), (data, sqs) in sorted(buckets.items()):
+            t = sum(sqs).reshape(()).clone()
+            if split:
+                t = all_reduce(t, self.model)
+            total = total + all_reduce(t, data)
         return torch.sqrt(total)
 
 
@@ -635,7 +744,7 @@ def moe_layout(cfg, mesh, rules=None) -> Layout:
             axes[prefix] = init.axes[id(t)]
             specs[prefix] = rules.spec(tuple(t.shape), axes[prefix])
     walk(tree, "")
-    dims = _model_dims(specs, axes)
+    dims, _ = _layout_dims(specs, axes)
     _check_ep(cfg, rules, dims, specs, "")
     return Layout(dims, specs, axis(mesh, ("model",)),
                   axis(mesh, ("pod", "data")))

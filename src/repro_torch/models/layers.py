@@ -104,7 +104,8 @@ def rms_norm_split(x, gamma, eps: float, tp=None):
     """``rms_norm`` over a last dim that "model" splits (``tp``: the
     module's ``distributed.Layout``; ``x`` and ``gamma`` the rank's slices
     of it): the rank's fp32 sum of squares summed over "model", divided by
-    the whole dim. ``rms_norm`` itself without ``tp``."""
+    the whole dim (``Layout.sum_model``, with its gradient under
+    autograd). ``rms_norm`` itself without ``tp``."""
     if tp is None:
         return rms_norm(x, gamma, eps)
     dt = x.dtype
@@ -190,17 +191,43 @@ def proj_in(x, w):
     return (x @ w.reshape(w.shape[0], -1)).unflatten(-1, w.shape[1:])
 
 
+class _MmFp32(torch.autograd.Function):
+    """``torch.mm(x, w, out_dtype=torch.float32)`` with the backward of
+    the upcast product ``x.float() @ w.float()``: the fp32 gradient
+    contracted with the other operand, each gradient rounded once to its
+    operand's dtype. The gradient coming in is a bf16 one cast up (the
+    product's consumer rounds to bf16), so the products take it in bf16
+    with fp32 accumulators."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return torch.mm(x, w, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = torch.mm(g.to(w.dtype), w.T, out_dtype=torch.float32
+                          ).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            dw = torch.mm(x.T, g.to(x.dtype), out_dtype=torch.float32
+                          ).to(w.dtype)
+        return dx, dw
+
+
 def mm_fp32(x, w):
     """``x`` (..., k) @ ``w`` (k, n) with the fp32 accumulator returned
     unrounded: on the card bf16 operands go through one product with an
-    fp32 output (``torch.mm(..., out_dtype=torch.float32)``); on the CPU
-    the operands are upcast (exact) and multiplied in fp32."""
+    fp32 output (``_MmFp32``: ``torch.mm(..., out_dtype=torch.float32)``,
+    which has no derivative of its own); on the CPU the operands are
+    upcast (exact) and multiplied in fp32."""
     if x.dtype == w.dtype == torch.float32:
         return x @ w
     if x.is_cuda:
-        flat = torch.mm(x.reshape(-1, x.shape[-1]), w,
-                        out_dtype=torch.float32)
-        return flat.reshape(*x.shape[:-1], w.shape[-1])
+        return _MmFp32.apply(x.reshape(-1, x.shape[-1]), w).reshape(
+            *x.shape[:-1], w.shape[-1])
     return x.float() @ w.float()
 
 

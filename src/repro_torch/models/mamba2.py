@@ -22,7 +22,12 @@ B and C are computed whole on every rank; ``A_log``, ``D``, ``dt_bias``,
 ``norm`` and ``out_proj`` hold the rank's heads. The gated RMSNorm runs
 over the whole d_inner (the rank's sum of squares summed over "model")
 and ``out_proj`` is row-parallel, its partial products summed in fp32
-(``Layout.row_parallel``). No other collective runs.
+(``Layout.row_parallel``). No other collective runs in the forward. Under
+autograd (training) a copy-in goes in front of ``in_proj`` (each rank's
+gradient of the input is its heads' share), the two sums carry their
+gradients, and the gradient of B and C's columns and channels, a partial
+sum over the rank's heads, is summed over "model" after the backward
+(``distributed.Plan.reduce_grad``).
 """
 from __future__ import annotations
 
@@ -205,8 +210,9 @@ def mamba2_forward(params, x, cfg: ModelConfig, return_state: bool = False,
                    tp=None):
     """x: (b, l, d) -> (y (b, l, d), state dict or None); under ``tp``
     (the layer's layout) on the rank's heads, the state the rank's."""
-    z, xh, B, C, dt, A, window = _gates(params, x @ params["in_proj"], cfg,
-                                        tp=tp)
+    xin = tp.copy_in(x) if split_heads(tp) else x
+    z, xh, B, C, dt, A, window = _gates(params, xin @ params["in_proj"],
+                                        cfg, tp=tp)
     y, final = _ssd_chunked(xh, dt, B, C, A, cfg.ssm.chunk_size)
     y = y + params["D"].float()[None, None, :, None] * xh.float()
     out = _out(params, y, z, x, cfg, tp)

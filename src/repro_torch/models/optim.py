@@ -84,7 +84,7 @@ def adamw_update(params, grads, opt_state, opt: OptConfig,
     # JAX's operations in JAX's order, each rounded where JAX rounds it,
     # written in place where a temporary would hold a whole fp32 slice
     def upd(*leaf):
-        for piece in zip(*(_slices(t) for t in leaf)):
+        for piece in zip(*(slices(t) for t in leaf)):
             upd_slice(*piece)
 
     def upd_slice(p, g, m, v):
@@ -100,7 +100,7 @@ def adamw_update(params, grads, opt_state, opt: OptConfig,
                     "step": step}, gnorm
 
 
-def _slices(t):
+def slices(t):
     """Views of ``t`` along its first axis, each of at most SLICE_ELEMS
     entries (one row where a row is larger; ``t`` itself if it is small or
     0-d)."""

@@ -108,8 +108,10 @@ def value_and_grad(params, batch: Dict, cfg: ModelConfig, rules=None,
     """((total, (loss, aux)), grads): ``jax.value_and_grad(loss_fn,
     has_aux=True)``. The gradients come in the parameters' dtypes; a tied
     embedding's sums its lookup and its use as the head. Under a mesh
-    they are this rank's shards of the whole batch's gradient (summed over
-    the data axes)."""
+    they are this rank's shards of the whole batch's gradient
+    (``distributed.Plan.reduce_grad``: summed over the data axes, where
+    FSDP's gathers have not reduce-scattered them already, and a Mamba2
+    leaf's B and C summed over "model")."""
     live = tree.map_tree(lambda t: t.detach().requires_grad_(True), params)
     with torch.enable_grad():
         total, (loss, aux) = loss_fn(live, batch, cfg, rules, mesh)
@@ -118,10 +120,10 @@ def value_and_grad(params, batch: Dict, cfg: ModelConfig, rules=None,
         grads = torch.autograd.grad(total, tree.leaves(live),
                                     allow_unused=True, materialize_grads=True)
     plan = dist_.plan(cfg, rules, mesh)
-    if plan is not None:
-        for g in grads:
-            dist_.all_reduce(g, plan.data)
     flat = dict(zip(tree.flatten(live), grads))
+    if plan is not None:
+        for path, g in flat.items():
+            plan.reduce_grad(path.replace("/", "."), g)
     return ((total.detach(), (loss.detach(), aux.detach())),
             tree.unflatten(params, flat))
 
@@ -136,9 +138,11 @@ def train_step(state: Dict, batch: Dict, cfg: ModelConfig,
     With ``rules``/``mesh`` (JAX's sharded step) every rank calls it with
     its shards of the state (``weights.shard_params`` with
     ``state_specs``) and the global batch: data, tensor and expert
-    parallelism as the rules lay the leaves out. The gradient norm sums
-    each sharded leaf over the ranks that shard it, and AdamW runs on the
-    local shards. A layout this schedule does not run raises
+    parallelism as the rules lay the leaves out, and FSDP under
+    ``fsdp=True`` (the weights and AdamW's moments also split over the
+    data axes on their d_model dim). The gradient norm sums each sharded
+    leaf over the ranks that shard it, and AdamW runs on the local
+    shards. A layout this schedule does not run raises
     ``NotImplementedError`` (``transformer.check_train``)."""
     tf.check_train(cfg, rules, mesh)
     plan = dist_.plan(cfg, rules, mesh)

@@ -41,15 +41,17 @@ families, whose caches are not paged (as in the JAX package). An
 encoder-only config has no decode or cache path: every mode but "train"
 and the cache factories raise ``ValueError``.
 
-Under a mesh (``rules``/``mesh``, JAX's arguments) the attention families
-run sharded in modes "train", "prefill" and "decode", and the hybrid and
-ssm families in modes "prefill" and "decode" (``distributed.Plan``: rows
-over the data axes; heads, ff and vocabulary over "model", the Mamba2,
-mLSTM and sLSTM heads too; experts in the MoE layers), with the params
-laid out by ``param_specs`` and the dense caches and recurrent states by
-``cache_specs``. Under ``seq_sharded`` (serving, GQA caches or none) the
-batch is whole on every rank and the data axes split the caches'
-sequence instead.
+Under a mesh (``rules``/``mesh``, JAX's arguments) every family runs
+sharded in modes "train", "prefill" and "decode" (``distributed.Plan``:
+rows over the data axes; heads, ff and vocabulary over "model", the
+Mamba2, mLSTM and sLSTM heads too; experts in the MoE layers), with the
+params laid out by ``param_specs`` and the dense caches and recurrent
+states by ``cache_specs``. Under FSDP (mode "train") the weights' d_model
+dim is split over the data axes as well, and each layer gathers its
+leaves whole inside its remat body (``Layout.gathered``; the embedding,
+head and ``frontend_proj`` where they are used). Under ``seq_sharded``
+(serving, GQA caches or none) the batch is whole on every rank and the
+data axes split the caches' sequence instead.
 """
 from __future__ import annotations
 
@@ -353,19 +355,26 @@ def _remat(fn, cfg: ModelConfig):
                              use_reentrant=False, **kw)
 
 
+def _gathered(p, tp):
+    """A layer's leaves as its body reads them: under FSDP gathered whole
+    over the data axes (``distributed.Layout.gathered``)."""
+    return p if tp is None else tp.gathered(p)
+
+
 def _train_block(p, x, positions, cfg: ModelConfig, tp=None):
     """One attention block of mode "train": (x, its MoE aux or None);
     under a mesh ``tp`` is the block's ``distributed.Layout``."""
-    x, _, aux = _block_fwd(p, x, positions, cfg, "train", None, tp=tp)
+    x, _, aux = _block_fwd(_gathered(p, tp), x, positions, cfg, "train",
+                           None, tp=tp)
     return x, aux
 
 
-def _train_mamba(p, x, cfg: ModelConfig):
-    return x + m2.mamba2_forward(p, x, cfg)[0]
+def _train_mamba(p, x, cfg: ModelConfig, tp=None):
+    return x + m2.mamba2_forward(_gathered(p, tp), x, cfg, tp=tp)[0]
 
 
-def _train_mlstm(p, x, cfg: ModelConfig):
-    return x + xl.mlstm_forward(p, x, cfg)[0]
+def _train_mlstm(p, x, cfg: ModelConfig, tp=None):
+    return x + xl.mlstm_forward(_gathered(p, tp), x, cfg, tp=tp)[0]
 
 
 def _train_blocks(params, x, positions, cfg: ModelConfig, plan=None):
@@ -425,18 +434,18 @@ def _hybrid(params, x, positions, cfg: ModelConfig, mode: str, caches,
     (no caches, each scan from zeros) each Mamba2 body is under
     ``_remat`` and the shared block is not, as in JAX. Under ``plan`` the
     Mamba2 layers run on the rank's heads and the shared block as the
-    dense families' blocks do."""
+    dense families' blocks do (under FSDP gathered at each
+    application)."""
     state = caches["mamba"] if caches is not None else None
     attn_c = caches.get("attn") if caches is not None else None
+    mtp = None if plan is None else plan.block("mamba")
     if mode == "train":
         body = _remat(_train_mamba, cfg)
         layers = unbind_layers(params["mamba"], cfg.num_layers)
 
         def mamba(x, i):
-            return body(layers[i], x, cfg)
+            return body(layers[i], x, cfg, mtp)
     else:
-        mtp = None if plan is None else plan.block("mamba")
-
         def mamba(x, i):
             return _mamba_layer(params, x, i, cfg, mode, state, mtp)
     stp = None if plan is None else plan.block("shared")
@@ -447,8 +456,8 @@ def _hybrid(params, x, positions, cfg: ModelConfig, mode: str, caches,
         for i in range(idx, idx + per):
             x = mamba(x, i)
         ac = None if attn_c is None else layer_slice(attn_c, g)
-        x, nac, _ = _block_fwd(params["shared"], x, positions, cfg, mode,
-                               ac, tp=stp)
+        x, nac, _ = _block_fwd(_gathered(params["shared"], stp), x,
+                               positions, cfg, mode, ac, tp=stp)
         if nac is not None:
             lengths.append(nac["length"])
         idx += per
@@ -473,20 +482,20 @@ def _ssm(params, x, cfg: ModelConfig, mode: str, caches, plan=None):
     n_groups, n_m_per, n_slstm = _ssm_layout(cfg)
     mstate = caches["mlstm"] if caches is not None else None
     sstate = caches.get("slstm") if caches is not None else None
+    mtp = None if plan is None else plan.block("mlstm")
+    stp = None if plan is None else plan.block("slstm")
     if mode == "train":
         body = _remat(_train_mlstm, cfg)
         layers = unbind_layers(params["mlstm"], n_groups * n_m_per)
         slstms = unbind_layers(params["slstm"], n_slstm) if n_slstm else ()
 
         def mlstm(x, i):
-            return body(layers[i], x, cfg)
+            return body(layers[i], x, cfg, mtp)
 
         def slstm(x, g):
-            return x + xl.slstm_forward(slstms[g], x, cfg)[0]
+            return x + xl.slstm_forward(_gathered(slstms[g], stp), x, cfg,
+                                        tp=stp)[0]
     else:
-        mtp = None if plan is None else plan.block("mlstm")
-        stp = None if plan is None else plan.block("slstm")
-
         def mlstm(x, i):
             p = layer_slice(params["mlstm"], i)
             if mode == "decode":
@@ -624,13 +633,19 @@ def _run(params, cfg: ModelConfig, tokens, embeds, mode: str, caches,
             "carries recurrent state, which is not paged (as in the JAX "
             "package)")
     compute = getattr(torch, cfg.compute_dtype)
+
+    def leaf(path):
+        """A top-level leaf where it is used: under FSDP gathered whole
+        over the data axes at each use."""
+        return (params[path] if plan is None
+                else plan.block("").gathered(params[path], path))
     if embeds is not None:
-        x = embeds.to(compute) @ params["frontend_proj"].to(compute)
+        x = embeds.to(compute) @ leaf("frontend_proj").to(compute)
     else:
         if plan is not None and plan.dims["embed"] == 0:
-            x = _vocab_lookup(params["embed"], tokens, compute, plan.model)
+            x = _vocab_lookup(leaf("embed"), tokens, compute, plan.model)
         else:
-            x = params["embed"].to(compute)[tokens]
+            x = leaf("embed").to(compute)[tokens]
         x = x * embed_scale(cfg)
     s = x.shape[1]
     positions = (None if mode in ("decode", "chunk", "verify") else
@@ -673,7 +688,7 @@ def _run(params, cfg: ModelConfig, tokens, embeds, mode: str, caches,
         # gradient of x sums the ranks' slices)
         x = dist_.copy_in(x, plan.model)
     if cfg.tie_embeddings and mode == "train":
-        logits = x @ params["embed"].to(x.dtype).T
+        logits = x @ leaf("embed").to(x.dtype).T
     elif cfg.tie_embeddings:
         # (E x^T)^T keeps the embedding in its (vocab, d) layout; on the
         # CPU x E^T takes another kernel at some row counts, and then a
@@ -683,7 +698,7 @@ def _run(params, cfg: ModelConfig, tokens, embeds, mode: str, caches,
         logits = (params["embed"].to(x.dtype) @ flat.T).T.reshape(
             *x.shape[:-1], -1)
     else:
-        logits = x @ params["head"].to(x.dtype)
+        logits = x @ leaf("head").to(x.dtype)
     logits = logits.to(getattr(torch, cfg.logits_dtype))
     logits = softcap(logits, cfg.logits_softcap)
     if plan is not None and mode != "train":

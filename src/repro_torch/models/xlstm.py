@@ -26,8 +26,14 @@ heads' pre-activations, ``r`` and ``b`` are its heads', and its loop over
 time runs with no collective; y is gathered whole for the norm over d,
 and the FFN tail is column- then row-parallel where "model" splits
 ``ff`` (whole on every rank where it does not).
-These serving paths run without autograd (the recurrent families do not
-train under a mesh yet).
+Under autograd (training) a copy-in goes in front of each
+column-parallel product (``up``, ``wx``, ``ff_wi``), and the sums carry
+their gradients (``Layout.sum_model``, ``row_parallel``): the mLSTM's
+q | k | v | if sum, of which each rank keeps its heads, takes the sum of
+every rank's heads' gradients, written into zeros, as each partial
+product's. The sLSTM's gathered y feeds what every rank computes alike,
+so its gradient is whole on every rank already: the gather's backward
+only keeps the rank's slice.
 
 Under autograd the chunked mLSTM's denominator floor ``exp(-m)`` has the
 gradient 0 where it overflows to inf (``_exp_floor``): the output there is
@@ -171,12 +177,15 @@ def _mlstm_in(params, x, cfg: ModelConfig, tp=None):
     """(q, k, v (b, l, h, p), li, lf (b, l, h) fp32, gate); under ``tp``
     the rank's heads and its slice of the gate."""
     d_in, nh, hd = _mlstm_dims(cfg)
-    h2 = proj_in(x, params["up"])
+    split = mlstm_split(tp)
+    h2 = proj_in(tp.copy_in(x) if split else x, params["up"])
     core_in, gate = h2[..., 0, :], h2[..., 1, :]
-    if mlstm_split(tp):
+    if split:
         # row-parallel: the rank's fp32 partial products q | k | v |
         # if-gates summed over "model" in one all-reduce and rounded once
         # (``Layout.row_parallel``'s arithmetic), then its heads' columns
+        # (under autograd the sum's gradient is summed over "model": every
+        # rank's heads' written into zeros)
         m, r = tp.model.size, tp.model.index
         wif = params["wif"]
         full = tp.sum_model(torch.cat(
@@ -331,7 +340,8 @@ def slstm_forward(params, x, cfg: ModelConfig, state=None,
     split = slstm_split(tp)
     nh = params["r"].shape[0]
     hd = d // cfg.num_heads
-    gx = proj_in(x, params["wx"])                          # (b,l,4,nh hd)
+    # (b, l, 4, nh hd)
+    gx = proj_in(tp.copy_in(x) if split else x, params["wx"])
     if state is None:
         zeros = x.new_zeros((b, nh, hd), dtype=torch.float32)
         carry = (zeros, zeros, zeros, torch.full_like(zeros, NEG_INF))
@@ -345,14 +355,17 @@ def slstm_forward(params, x, cfg: ModelConfig, state=None,
         hs.append(carry[2])
     y = torch.stack(hs, 1).reshape(b, l, nh * hd).to(x.dtype)
     if split:
-        y = tp.gather(y, -1)
+        # what follows is computed alike on every rank: y's gradient is
+        # whole on each
+        y = tp.gather(y, -1, reduce_grad=False)
     y = rms_norm(y, params["norm"], cfg.norm_eps)
     # gated FFN tail (proj_factor_slstm); under ``tp`` column- then
     # row-parallel where "model" splits ff
-    hff = proj_in(y, params["ff_wi"])
+    ff_split = tp is not None and tp.split(
+        ("ff_wi", "ff_wo"), (2, 0), "the sLSTM's FFN shards its ff dim")
+    hff = proj_in(tp.copy_in(y) if ff_split else y, params["ff_wi"])
     h = gelu(hff[..., 0, :]) * hff[..., 1, :]
-    if tp is not None and tp.split(("ff_wi", "ff_wo"), (2, 0),
-                                   "the sLSTM's FFN shards its ff dim"):
+    if ff_split:
         y = tp.row_parallel(h, params["ff_wo"])
     else:
         y = h @ params["ff_wo"]

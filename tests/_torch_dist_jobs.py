@@ -95,29 +95,44 @@ def job_train(rank, d, spec):
     """Two sharded train steps from the given state (their metrics), the
     state after step 1 gathered, and step 2 again from JAX's state after
     step 1 (its metrics and the state after it, gathered). Also the round
-    trip of the initial state through shard_params / gather_params."""
+    trip of the initial state through shard_params / gather_params, and
+    whether every rank's m and v have the shapes of its shards. Inputs
+    are ``{spec["data"]}_*.npz`` (default the case's name), JAX's state
+    ``{spec["ref"]}_jstate1.npz`` (default the data's); ``spec["fsdp"]``
+    sets the rules' flag. The params are laid out by
+    ``transformer.param_specs``."""
+    from repro_torch import distributed as D
     from repro_torch import tree as T
     from repro_torch import weights
     from repro_torch.models import optim, sharding, steps
     from repro_torch.models import transformer as tf
     name = spec["name"]
+    data = spec.get("data", name)
     mesh, member = _mesh(tuple(spec["mesh"]), tuple(spec["axes"]))
     if not member:
         return
     cfg = _cfg(spec)
-    rules = sharding.ShardingRules(mesh)
-    pspecs = sharding.tree_specs(rules, tf.param_shapes(cfg),
-                                 tf.param_axes(cfg))
+    rules = sharding.ShardingRules(mesh, fsdp=spec.get("fsdp", False))
+    pspecs = tf.param_specs(cfg, rules)
     sspecs = steps.state_specs(_nest(pspecs))
-    full = load_tree(f"{d}/{name}_state0.npz")
+    full = load_tree(f"{d}/{data}_state0.npz")
     full["opt"]["step"] = full["opt"]["step"].to(torch.int32)
     opt = optim.OptConfig(**spec["opt"])
-    batches = [load_tree(f"{d}/{name}_batch{i}.npz") for i in range(2)]
+    batches = [load_tree(f"{d}/{data}_batch{i}.npz") for i in range(2)]
     state = weights.shard_params(full, sspecs, mesh)
     back = weights.gather_params(state, sspecs, mesh)
     out = {"roundtrip": torch.tensor(float(all(
         torch.equal(a, T.flatten(full)[k])
         for k, a in T.flatten(back).items())))}
+    shapes = tf.param_shapes(cfg)
+    bad = torch.tensor([float(not all(
+        tuple(t.shape) == D.local_shape(shapes[k.replace("/", ".")],
+                                        pspecs[k.replace("/", ".")], mesh)
+        for mv in ("m", "v") for k, t in T.flatten(state["opt"][mv]).items()
+    ))])
+    for ax in (("model",), ("pod", "data")):
+        D.all_reduce(bad, D.axis(mesh, ax), "max")
+    out["moments_shaped"] = 1.0 - bad[0]
     for i, batch in enumerate(batches):
         state, met = steps.train_step(state, batch, cfg, opt, rules=rules,
                                       mesh=mesh)
@@ -127,7 +142,7 @@ def job_train(rank, d, spec):
             out["state1"] = weights.gather_params(state, sspecs, mesh)
     # step 2 again from JAX's state after step 1, which the JAX process
     # writes while the ranks run
-    path = f"{d}/{name}_jstate1.npz"
+    path = f"{d}/{spec.get('ref', data)}_jstate1.npz"
     for _ in range(3000):
         if os.path.exists(path):
             break

@@ -1159,6 +1159,37 @@ def test_family_train_step_on_the_card(cuda, arch, remat):
     assert (float(metrics["aux_loss"]) > 0) == (cfg.family == "moe")
 
 
+def test_fp32_accumulated_product_gradient_on_the_card(cuda):
+    """``layers.mm_fp32`` (one product with an fp32 output, the partial
+    product a row-parallel sum takes) under autograd on bf16 operands:
+    its output and both gradients against autograd of the upcast product
+    ``x.float() @ w.float()``, given the gradient a bf16 consumer hands
+    back (the product rounded to bf16, as ``Layout.row_parallel``
+    rounds it). The output is the upcast product's within fp32 rounding;
+    the gradients within the bf16 rounding of each."""
+    from repro_torch.models.layers import mm_fp32
+    gen = torch.Generator(device=cuda).manual_seed(70)
+    x = torch.randn(3, 40, 96, generator=gen, device=cuda).to(
+        torch.bfloat16)
+    w = (torch.randn(96, 72, generator=gen, device=cuda) * 0.1).to(
+        torch.bfloat16)
+    g = torch.randn(3, 40, 72, generator=gen, device=cuda).to(torch.bfloat16)
+    xg, wg = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+    y = mm_fp32(xg, wg)
+    assert y.dtype == torch.float32 and y.grad_fn is not None
+    y.to(torch.bfloat16).backward(g)
+    xr, wr = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+    yr = xr.float() @ wr.float()
+    yr.to(torch.bfloat16).backward(g)
+    torch.testing.assert_close(y, yr.detach(), atol=1e-4, rtol=1e-5)
+    assert xg.grad.dtype == wg.grad.dtype == torch.bfloat16
+    torch.testing.assert_close(xg.grad, xr.grad, atol=1e-2, rtol=1e-2)
+    torch.testing.assert_close(wg.grad, wr.grad, atol=2e-2, rtol=1e-2)
+    # no gradient asked for: the plain call, no graph
+    with torch.no_grad():
+        assert mm_fp32(xg, wg).grad_fn is None
+
+
 # the sharded step against one process on the same card, bf16: the
 # loss's relative difference and each gradient leaf's cosine (phase dist's
 # gates, chip_smoke.DIST_LOSS_RTOL and DIST_COS)

@@ -29,7 +29,9 @@ devices, as ``tests/test_distributed.py`` runs them. Held:
     AdamW's normalised step);
 (g) unequal masks across data ranks give JAX's global mean;
 (h) the layouts the schedule does not run raise, naming leaf and spec
-    (serving under a mesh: ``tests/test_torch_dist_serve.py``).
+    (serving under a mesh: ``tests/test_torch_dist_serve.py``; the
+    recurrent families and FSDP train: ``tests/test_torch_dist_train_
+    recurrent.py``).
 
 The aux under data shards is a reference fact: JAX's sharded step leaves
 each data shard's own aux on its devices (``out_specs`` ``P()`` with the
@@ -366,28 +368,30 @@ def test_shrink_rule_matches_jax(n, monkeypatch):
 # (h): the refusals (no ranks: they raise before any collective)
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("what", ["fsdp", "seq_sharded", "zamba2_7b",
-                                  "xlstm_1_3b", "dispatch_einsum"])
+@pytest.mark.parametrize("what", ["seq_sharded", "zamba2_7b_seq_sharded",
+                                  "xlstm_1_3b_seq_sharded",
+                                  "dispatch_einsum", "fsdp_dispatch_einsum"])
 def test_unrun_layouts_raise_naming_leaf_and_spec(what):
-    """The audio family trains under a mesh (``tests/test_torch_dist_
-    serve.py``); the MoE dispatch einsum with sharded experts still
-    raises."""
-    arch = {"dispatch_einsum": "deepseek_v2_lite_16b"}.get(
-        what, what if what in ARCH_IDS else "internlm2_20b")
+    """The audio, hybrid and ssm families and FSDP train under a mesh
+    (``tests/test_torch_dist_serve.py``, ``tests/test_torch_dist_train_
+    recurrent.py``); ``seq_sharded`` in mode "train" (also for the
+    hybrid and ssm families) and the MoE dispatch einsum with sharded
+    experts (also under FSDP) still raise."""
+    arch = next((a for a in ARCH_IDS if what.startswith(a)),
+                "deepseek_v2_lite_16b" if "dispatch" in what
+                else "internlm2_20b")
     cfg = get_reduced_config(arch)
-    if what == "dispatch_einsum":
+    if what.endswith("dispatch_einsum"):
         cfg = cfg.replace(moe=dataclasses.replace(cfg.moe,
                                                   impl="dispatch_einsum"))
-    kw = {what: True} if what in ("fsdp", "seq_sharded") else {}
+    kw = {k: True for k in ("fsdp", "seq_sharded") if k in what}
     rules = tsharding.ShardingRules(
         _StubMesh((2, 2), ("data", "model")), **kw)
     with pytest.raises(NotImplementedError) as e:
         tsteps.train_step(None, None, cfg, rules=rules, mesh=rules.mesh)
     msg = str(e.value)
     assert "spec (" in msg and "later slice" in msg, msg
-    want = {"fsdp": "embed: spec (", "seq_sharded": "'seq'",
-            "dispatch_einsum": "layers.moe.wi: spec ("}.get(
-        what, f"family={cfg.family!r}")
+    want = "'seq'" if "seq_sharded" in what else "layers.moe.wi: spec ("
     assert want in msg, msg
 
 

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """The sharded steps on four cards, one rank a card over NCCL:
 
-    python3 tools/dist_cards.py [train] [serve] [long] [probe]
+    python3 tools/dist_cards.py [train] [serve] [long] [probe] [train_whole]
 
 With no argument it runs train and serve.
 
@@ -65,6 +65,28 @@ layers the seeded model carries a rounding-level change past LOGIT_TOL
 ``probe`` (not run by default): where a sharded decode step's all-reduce
 time goes (``_probe_rank``).
 
+``train_whole`` (not run by default): training whole models that one card
+cannot hold, on (2, 2), bf16, remat "full", one NCCL rank a card, each
+rank making only its own shards of the seeded weights
+(``chip_smoke._dist_train_rank``): zamba2_7b (81 layers, 6 shared-block
+applications; 6.747e9 parameters, 81.0 GB of train state at 12 B a
+parameter) without FSDP, as JAX's dry run gives a train cell under 30e9
+parameters, and internlm2_20b (48 layers; 19.86e9 parameters, 238 GB)
+under ``fsdp=True`` (each leaf's d_model over the data ranks, gathered in
+each layer's remat body: 59.6 GB a card, 119 GB without it). First a run
+at a depth one card holds (zamba2_7b 14 layers, internlm2_20b 8), with
+phase dist_train_all's gates against the same steps in one process on
+card 0 (``chip_smoke.dist_train_report``); then whole, TRAIN_WHOLE_STEPS
+steps of 4 x 1024 tokens: step s (median of steps 2-6), tokens/s, TFLOP/s
+and its share of 989 (``chip_smoke._train_flops``), peak GiB a card,
+all-reduce ms a step, the train state's bytes a card beside what one card
+would need; gated: the replicated loss and grad norm equal on every rank,
+every (leaf, layer) moved (but ``chip_smoke.TRAIN_STUCK``'s), flash
+launches on every rank, each rank's m and v of its shards' shape, and
+layers 1, 40 and the last, each body's forward of step 1 against the
+unsharded layer on card 0 from its gathered weights on the same input
+(``compare``).
+
 Every number is printed beside the card's name and power limit: these
 are the card's collective times (phase dist's and dist_serve's gloo ranks
 stage every collective through host memory). Needs four cards.
@@ -89,39 +111,6 @@ SERVE_MESH = (1, 4)
 CHECK_RUNS = (("llama3_70b", 16, SERVE_MESH, False),)
 SERVE_LAYERS, SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 80, 8, 1024, 64
 GATE_LAYERS = (0, 39, 79)
-
-
-@contextlib.contextmanager
-def _allreduce_timed():
-    """CUDA event pairs around each outermost ``distributed.all_reduce``
-    while open (a bf16 sum over more than two ranks calls it again in
-    fp32: counted once)."""
-    from repro_torch import distributed as D
-    saved, pairs, depth = D.all_reduce, [], [0]
-
-    def timed(t, ax, op="sum"):
-        if ax.size == 1 or depth[0]:
-            return saved(t, ax, op)
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        depth[0] += 1
-        a.record()
-        try:
-            return saved(t, ax, op)
-        finally:
-            b.record()
-            depth[0] -= 1
-            pairs.append((a, b))
-    D.all_reduce = timed
-    try:
-        yield pairs
-    finally:
-        D.all_reduce = saved
-
-
-def _ms(pairs) -> float:
-    torch.cuda.synchronize()
-    return float(sum(a.elapsed_time(b) for a, b in pairs))
 
 
 @contextlib.contextmanager
@@ -178,14 +167,14 @@ def _serve_rank(rank, world, out_dir):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         ops.reset_launches()
-        with _allreduce_timed() as pre_ar:
+        with cs._allreduce_timed() as pre_ar:
             t0 = time.perf_counter()
             lg, caches = steps.prefill_step(params, {"tokens": prompts}, cfg,
                                             max_len, rules, mesh)
             torch.cuda.synchronize()
             ttft = time.perf_counter() - t0
         step_s, logits = [], [lg]
-        with _allreduce_timed() as dec_ar:
+        with cs._allreduce_timed() as dec_ar:
             for _ in range(SERVE_NEW):
                 tok = torch.argmax(lg, -1).to(torch.int32)
                 t0 = time.perf_counter()
@@ -197,9 +186,9 @@ def _serve_rank(rank, world, out_dir):
         counts = ops.launch_counts()
         out.update({
             "ttft_s": ttft, "step_s": step_s,
-            "prefill_allreduce_ms": _ms(pre_ar),
+            "prefill_allreduce_ms": cs._ms(pre_ar),
             "prefill_allreduces": len(pre_ar),
-            "decode_allreduce_ms": _ms(dec_ar) / SERVE_NEW,
+            "decode_allreduce_ms": cs._ms(dec_ar) / SERVE_NEW,
             "decode_allreduces": len(dec_ar) / SERVE_NEW,
             "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
             "launches": {k: counts[k] for k in ("flash_attention",
@@ -457,7 +446,7 @@ def _long_rank(rank, world, out_dir, layers):
         torch.cuda.reset_peak_memory_stats()
         ops.reset_launches()
         tok, fed, logits, step_s = tok0, [], [], []
-        with _allreduce_timed() as ar:
+        with cs._allreduce_timed() as ar:
             for _ in range(LONG_STEPS):
                 fed.append(tok)
                 t0 = time.perf_counter()
@@ -468,7 +457,7 @@ def _long_rank(rank, world, out_dir, layers):
                 logits.append(lg.float().cpu())
         counts = ops.launch_counts()
     out.update({
-        "step_s": step_s, "allreduce_ms": _ms(ar) / LONG_STEPS,
+        "step_s": step_s, "allreduce_ms": cs._ms(ar) / LONG_STEPS,
         "allreduces": len(ar) / LONG_STEPS,
         "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
         "launches": {k: counts[k] for k in ("flash_attention",
@@ -911,10 +900,74 @@ def probe(card):
            + f"; {card}")
 
 
+CHECK_TRAIN_RUNS = (("zamba2_7b", 14, (2, 2), False, 4, 1024),
+                    ("internlm2_20b", 8, (2, 2), True, 4, 1024))
+WHOLE_TRAIN_RUNS = (("zamba2_7b", 81, (2, 2), False, 4, 1024),
+                    ("internlm2_20b", 48, (2, 2), True, 4, 1024))
+TRAIN_WHOLE_STEPS = 6
+
+
+def _train_ranks(runs, n_steps, gates):
+    from repro_torch.launch import mesh
+    out_dir = _out_dir("dist_cards_train")
+    mesh.spawn(cs._dist_train_rank, 4, (str(out_dir), runs, n_steps, gates))
+    ranks = [json.loads((out_dir / f"train_rank{r}.json").read_text())
+             for r in range(4)]
+    if sorted(r["device"] for r in ranks) != [0, 1, 2, 3]:
+        raise AssertionError(f"ranks' cards {[r['device'] for r in ranks]}")
+    return ranks
+
+
+def train_whole(card):
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tf
+    t0 = time.monotonic()
+    ranks = _train_ranks(CHECK_TRAIN_RUNS, cs.DIST_STEPS, False)
+    cs.dist_train_report("cards train_whole check", card, ranks,
+                         f"4 ranks, one a card, over {ranks[0]['backend']}",
+                         CHECK_TRAIN_RUNS)
+    cs.log(f"[cards] train_whole check: {time.monotonic() - t0:.1f} s")
+    for run in WHOLE_TRAIN_RUNS:
+        t0 = time.monotonic()
+        arch, layers, shape, fsdp, b, s = run
+        ranks = _train_ranks((run,), TRAIN_WHOLE_STEPS, True)
+        per = [r[cs._train_tag(*run[:4])] for r in ranks]
+        cfg = get_config(arch).replace(num_layers=layers)
+        n = sum(int(np.prod(v)) for v in tf.param_shapes(cfg).values())
+        step_s = float(np.median([x for r in per for x in r["secs"][1:]]))
+        flops = cs._train_flops(cfg, b, s)
+        tflops = flops / step_s / 1e12 / 4
+        ar = float(np.median([x for r in per for x in r["allreduce_ms"][1:]]))
+        cs.log(
+            f"[cards] {arch} whole ({layers} layers, {n / 1e9:.3f}B "
+            f"parameters, full width, bf16, remat {cfg.remat}, mesh (data, "
+            f"model) = {shape}{', fsdp=True' if fsdp else ''}, 4 ranks, one "
+            f"a card, over {ranks[0]['backend']}, {TRAIN_WHOLE_STEPS} steps "
+            f"of {b} x {s}): step s {step_s:.4f} (median of steps 2-"
+            f"{TRAIN_WHOLE_STEPS} over the ranks); tokens/s "
+            f"{b * s / step_s:.1f}; TFLOP/s a card {tflops:.1f} (share of "
+            f"989: {tflops / 989:.3f}); all-reduce ms a step {ar:.1f} "
+            f"(median; calls {per[0]['allreduces'][1]}); peak GiB a card "
+            + " ".join(f"{r['peak_gib']:.2f}" for r in per)
+            + "; train state (params, m, v) GB a card "
+            + " ".join(f"{r['state_bytes'] / 1e9:.2f}" for r in per)
+            + ", with a bf16 gradient " + " ".join(
+                f"{(r['state_bytes'] + 2 * r['local_params']) / 1e9:.2f}"
+                for r in per)
+            + f" (one card would need {12 * n / 1e9:.1f} GB at 12 B a "
+            f"parameter)")
+        cs.dist_train_report(f"cards {arch} whole", card, ranks,
+                             f"4 ranks, one a card, over "
+                             f"{ranks[0]['backend']}", (run,),
+                             TRAIN_WHOLE_STEPS, one_process=False)
+        cs.log(f"[cards] {arch} whole: {time.monotonic() - t0:.1f} s")
+
+
 def main():
     parts = sys.argv[1:] or ["train", "serve"]
-    if any(p not in ("train", "serve", "long", "probe") for p in parts):
-        raise SystemExit(f"parts: train, serve, long, probe (got {parts})")
+    known = ("train", "serve", "long", "probe", "train_whole")
+    if any(p not in known for p in parts):
+        raise SystemExit(f"parts: {', '.join(known)} (got {parts})")
     n = torch.cuda.device_count()
     if n < 4:
         raise SystemExit(f"needs four cards, found {n}")
@@ -924,8 +977,8 @@ def main():
     cs.log(card)
     cs.phase_build()
     for part in parts:
-        {"train": train, "serve": serve, "long": long,
-         "probe": probe}[part](card)
+        {"train": train, "serve": serve, "long": long, "probe": probe,
+         "train_whole": train_whole}[part](card)
     cs.log("[cards] ok")
 
 
