@@ -185,7 +185,8 @@ raises on failure:
    checked: gemma_2b (6 of 18 layers: its one kv head's head dim split
    over "model", the tied vocabulary split, flash forward and backward on
    4 of 8 heads a rank) and deepseek_v2_lite_16b (3 of 27: MLA on 8 of 16
-   heads a rank, its MoE layers on 32 of 64 experts a rank) at full
+   heads a rank, its MoE layers on 32 of 64 experts a rank; again with
+   the MoE dispatch einsum, its slots the whole batch's) at full
    width, 2 steps of 4 x 1024 tokens through ``steps.train_step(...,
    rules=, mesh=)`` from seeded perturbed weights; flash launches counted
    on every rank, every flash call of step 1 held (``layer_checks``,
@@ -195,12 +196,20 @@ raises on failure:
    one-process gradient >= DIST_COS (MoE: with the ranks' routing, the
    free routing's cosine and flipped rows printed); each rank's step time
    and peak memory, gloo-staged (not the card's collectives);
-17. dist_serve: serving under a mesh, 4 ranks on the one card over gloo
-   as phase dist runs them, DIST_SERVE_RUNS at full width (gemma_2b 6 of
-   18 layers on (2, 2): its one kv head whole on every model rank;
-   llama3_70b 4 of 80 on (1, 4): 16 of 64 query heads and 2 of 8 kv heads
-   a rank; deepseek_v2_lite_16b 3 of 27 on (2, 2), naive and absorbed:
-   the whole latent, 32 of 64 experts a rank), each rank making only its
+17. dist_serve: dense decode with its lse output at one rank's slice of
+   gemma_2b's decode_32k cell under ``shard_v2`` (64, 16,384, 8/1 heads,
+   d 256) against its plain version, timed beside the bound and sdpa
+   (``phase_v2_kernel``); then serving under a mesh, 4 ranks on the one
+   card over gloo as phase dist runs them, DIST_SERVE_RUNS at full width
+   (gemma_2b 6 of 18 layers on (2, 2): its one kv head whole on every
+   model rank; llama3_70b 4 of 80 on (1, 4): 16 of 64 query heads and 2
+   of 8 kv heads a rank; deepseek_v2_lite_16b 3 of 27 on (2, 2), naive and
+   absorbed: the whole latent, 32 of 64 experts a rank; and gemma_2b
+   under ``shard_v2`` (the cache's positions over the model ranks, the
+   query heads gathered for the decode), v2-lite under ``seq_sharded``
+   (its latent cache's positions over the data ranks), v2-lite with the
+   dispatch einsum and gemma_2b under ``fsdp=True`` (each layer's weights
+   gathered in every pass), 8 steps each), each rank making only its
    shards of the seeded weights (``seeded_params``); ``prefill_step`` of 8
    x 512 tokens and 32 ``serve_step``s under ``rules``/``mesh``, the
    prefill's and first step's flash and ``decode_attention`` calls held
@@ -248,7 +257,8 @@ raises on failure:
    rank's m and v of its shards' shape;
 20. the ``kernels`` JSON line (flash's row also holds its MLA shapes and
    launches, flash's and dense decode's their zamba2 shape and launches,
-   flash's its training launches; dense decode's its long_500k slice; the
+   flash's its training launches; dense decode's its long_500k and
+   shard_v2 slices; the
    backward's row its other shapes and ptxas report; rows 1 and 7 add
    phase dist's and dist_train_all's launches, rows 1 and dense decode's
    phases dist_serve's and dist_recurrent's), the card line, and the last
@@ -4123,7 +4133,9 @@ def phase_train(card: str):
 # their CUDA contexts share the card's 80 GB: gemma_2b's 18 layers and
 # v2-lite's 27 would not fit beside it)
 DIST_MESH = (2, 2)
-DIST_RUNS = (("gemma_2b", 6), ("deepseek_v2_lite_16b", 3))
+DIST_RUNS = (("gemma_2b", 6), ("deepseek_v2_lite_16b", 3),
+             # the GShard dispatch einsum with its experts over "model"
+             ("deepseek_v2_lite_16b", 3, "dispatch"))
 DIST_STEPS, DIST_SEED = 2, 7
 # the sharded step's loss against the one-process step's (bf16, the same
 # weights and batch; other reduction orders): relative, per step. Read
@@ -4171,8 +4183,8 @@ def _dist_rank(rank, world, out_dir, mesh_shape=DIST_MESH, runs=DIST_RUNS):
     rules = sharding.ShardingRules(mesh)
     opt = OptConfig()
     out = {"backend": dist.get_backend(), "device": torch.cuda.current_device()}
-    for arch, layers in runs:
-        cfg = get_config(arch).replace(num_layers=layers, remat="none")
+    for arch, layers, *flags in runs:
+        cfg = _serve_cfg(arch, layers, flags=flags).replace(remat="none")
         full = full_width_params(cfg, DIST_SEED)
         specs = sharding.tree_specs(rules, full, tf.param_axes(cfg))
         params = weights.shard_params(full, specs, mesh)
@@ -4236,7 +4248,7 @@ def _dist_rank(rank, world, out_dir, mesh_shape=DIST_MESH, runs=DIST_RUNS):
             r.update(_dist_one_process(cfg, opt, gathered, routes))
         del gathered
         dist.barrier()
-        out[arch] = r
+        out[" ".join((arch, *flags))] = r
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
         json.dump(out, f)
 
@@ -4348,18 +4360,19 @@ def dist_report(tag, card, mesh_shape, ranks, transport):
     backward launches summed over the ranks."""
     from repro_torch.configs import get_config
     fwd = bwd = 0
-    for arch, layers in DIST_RUNS:
+    for arch, layers, *flags in DIST_RUNS:
         want = layers * DIST_STEPS
-        per = [r[arch] for r in ranks]
+        name = " ".join((arch, *flags))
+        per = [r[name] for r in ranks]
         for i, r in enumerate(per):
             if (r["fwd"], r["bwd"]) != (want, want) or \
                     r["fwd_held"][0] != layers or r["bwd_held"][0] != layers:
                 raise AssertionError(
-                    f"{tag} {arch} rank {i}: flash {r['fwd']}/{r['bwd']} "
+                    f"{tag} {name} rank {i}: flash {r['fwd']}/{r['bwd']} "
                     f"launches, {r['fwd_held'][0]}/{r['bwd_held'][0]} held; "
                     f"want {want}/{want}, {layers}/{layers}")
             if r["spread"] > DIST_SPREAD:
-                raise AssertionError(f"{tag} {arch}: the replicated metrics "
+                raise AssertionError(f"{tag} {name}: the replicated metrics "
                                      f"differ across ranks by "
                                      f"{r['spread']} of their size")
         fwd += sum(r["fwd"] for r in per)
@@ -4372,9 +4385,9 @@ def dist_report(tag, card, mesh_shape, ranks, transport):
         if max(rel) > DIST_LOSS_RTOL or low[0][1] < DIST_COS or not all(
                 np.isfinite(x[k]) for x in r0["mets"] for k in x):
             raise AssertionError(
-                f"{tag} {arch}: loss rel diff {rel}, least gradient cosine "
+                f"{tag} {name}: loss rel diff {rel}, least gradient cosine "
                 f"{low} (free routing {free})")
-        log(f"[{tag}] {arch} ({layers} of {get_config(arch).num_layers} "
+        log(f"[{tag}] {name} ({layers} of {get_config(arch).num_layers} "
             f"layers, "
             f"full width, bf16, mesh (data, model) = {mesh_shape}, "
             f"{transport}): losses "
@@ -4383,7 +4396,8 @@ def dist_report(tag, card, mesh_shape, ranks, transport):
                                             for x in r0["one_mets"])
             + f" (rel diff {max(rel):.3g}); aux "
             + " ".join(f"{x['aux_loss']:.6g}" for x in r0["mets"])
-            + " (mean of the data shards') vs one process "
+            + (" (the whole batch's)" if "dispatch" in flags
+               else " (mean of the data shards')") + " vs one process "
             + " ".join(f"{x['aux_loss']:.6g}" for x in r0["one_mets"])
             + "; grad norm " + " ".join(f"{x['grad_norm']:.5f}"
                                         for x in r0["mets"])
@@ -4417,7 +4431,9 @@ def phase_dist(card: str):
     gathered before rope, the tied vocabulary split over "model", flash
     forward and backward on 4 of 8 heads a rank) and
     deepseek_v2_lite_16b (MLA on 8 of 16 heads a rank, its MoE layers on
-    32 of 64 experts a rank); DIST_STEPS steps of TRAIN_BATCH x TRAIN_SEQ
+    32 of 64 experts a rank; again with the dispatch einsum, whose slots
+    are the whole batch's: the lower data rank's assignments counted
+    before a rank's own); DIST_STEPS steps of TRAIN_BATCH x TRAIN_SEQ
     tokens through ``steps.train_step(..., rules=, mesh=)``; each rank's
     exit code checked (``mesh.spawn``), then ``dist_report``'s gates. The
     ranks' times and memory are gloo's, which stages CUDA tensors through
@@ -4451,7 +4467,22 @@ def phase_dist(card: str):
 DIST_SERVE_RUNS = (("gemma_2b", 6, (2, 2), False),
                    ("llama3_70b", 4, (1, 4), False),
                    ("deepseek_v2_lite_16b", 3, (2, 2), False),
-                   ("deepseek_v2_lite_16b", 3, (2, 2), True))
+                   ("deepseek_v2_lite_16b", 3, (2, 2), True),
+                   # and the layouts that split the caches' positions or
+                   # the weights (a run's fifth and sixth entries: its
+                   # flags and serve_steps, ``_serve_flags``):
+                   # gemma_2b's one kv head leaves "model" to shard_v2's
+                   # cache_seq (the positions over the model ranks);
+                   # v2-lite's latent cache's positions over the data
+                   # ranks; the dispatch einsum with its experts over
+                   # "model"; FSDP in serving. 8 steps: gloo stages FSDP's
+                   # gathers of every weight through host memory
+                   ("gemma_2b", 6, (2, 2), False, ("shard_v2",), 8),
+                   ("deepseek_v2_lite_16b", 3, (2, 2), False,
+                    ("seq_sharded",), 8),
+                   ("deepseek_v2_lite_16b", 3, (2, 2), False,
+                    ("dispatch",), 8),
+                   ("gemma_2b", 6, (2, 2), False, ("fsdp",), 8))
 DIST_SERVE_BATCH, DIST_SERVE_PROMPT, DIST_SERVE_STEPS = 8, 512, 32
 # seeded weights are drawn in blocks of at most this many values, each
 # block from its own generator (``seeded_params``)
@@ -4569,17 +4600,57 @@ def seeded_params(cfg, seed: int, rules=None, mesh=None, share: float = 1.0):
     return _nested(flat)
 
 
-def _serve_cfg(arch, layers, absorb=False):
+def _serve_cfg(arch, layers, absorb=False, flags=()):
+    """The config of a serving run: ``flags`` may name "shard_v2" (JAX's
+    v2 cache layout) and "dispatch" (the MoE dispatch einsum)."""
     import dataclasses
     from repro_torch.configs import get_config
-    cfg = get_config(arch).replace(num_layers=layers)
+    cfg = get_config(arch).replace(num_layers=layers,
+                                   shard_v2="shard_v2" in flags)
     if absorb:
         cfg = cfg.replace(mla=dataclasses.replace(cfg.mla, absorb=True))
+    if "dispatch" in flags:
+        cfg = cfg.replace(moe=dataclasses.replace(cfg.moe,
+                                                  impl="dispatch_einsum"))
     return cfg
 
 
-def _serve_tag(arch, absorb) -> str:
-    return arch + (" absorbed" if absorb else "")
+def _serve_rules(mesh, flags=()):
+    """The rules of a serving run: ``flags`` may name "seq_sharded" and
+    "fsdp"."""
+    from repro_torch.models import sharding
+    return sharding.ShardingRules(mesh, seq_sharded="seq_sharded" in flags,
+                                  fsdp="fsdp" in flags)
+
+
+def _serve_flags(run):
+    """(arch, layers, mesh, absorbed, flags, serve_steps) of a
+    DIST_SERVE_RUNS entry (flags () and DIST_SERVE_STEPS where it has no
+    fifth and sixth entries)."""
+    arch, layers, shape, absorb, *rest = run
+    return (arch, layers, shape, absorb, tuple(rest[0]) if rest else (),
+            rest[1] if len(rest) > 1 else DIST_SERVE_STEPS)
+
+
+def _serve_tag(arch, absorb, flags=()) -> str:
+    return " ".join((arch + (" absorbed" if absorb else ""), *flags))
+
+
+class _StubMesh:
+    """A mesh as ``ShardingRules`` reads it (axis names and a device
+    array's shape), for the layout a report states without ranks."""
+
+    def __init__(self, shape, names=("data", "model")):
+        self.axis_names = tuple(names)
+        self.devices = np.empty(shape, dtype=object)
+
+
+def _rows_whole(cfg, rules) -> bool:
+    """Whether every rank holds every row of the batch (``seq_sharded``):
+    what a rank records of them is then not gathered over the data
+    ranks."""
+    from repro_torch import distributed as D
+    return not D.cache_groups(cfg, rules)[0]
 
 
 def _serve_prompts(cfg, batch=DIST_SERVE_BATCH, n=DIST_SERVE_PROMPT):
@@ -4645,37 +4716,41 @@ def _dist_serve_rank(rank, world, out_dir, runs=DIST_SERVE_RUNS):
     from repro_torch.models import transformer as tf
     out = {"backend": dist.get_backend(),
            "device": torch.cuda.current_device()}
-    for arch, layers, shape, absorb in runs:
+    for run in runs:
+        arch, layers, shape, absorb, flags, n_steps = _serve_flags(run)
         mesh = compat_make_mesh(shape, ("data", "model"))
-        rules = sharding.ShardingRules(mesh)
-        cfg = _serve_cfg(arch, layers, absorb)
+        D.axis(mesh, ("pod", "data", "model"))   # every rank, in order
+        rules = _serve_rules(mesh, flags)
+        cfg = _serve_cfg(arch, layers, absorb, flags)
         params = seeded_params(cfg, DIST_SEED, rules, mesh)
         prompts = _serve_prompts(cfg)
-        max_len = DIST_SERVE_PROMPT + DIST_SERVE_STEPS
+        max_len = DIST_SERVE_PROMPT + n_steps
         staged = D.staged_calls
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         ops.reset_launches()
-        with _routes_recorded() as routes, _block_inputs() as xs:
+        with _routes_recorded() as routes, _block_inputs() as xs, \
+                _allreduce_timed() as ar:
             logits, fed, caches, secs, held = _serve_passes(
-                cfg, params, prompts, max_len, DIST_SERVE_STEPS, rules,
-                mesh)
+                cfg, params, prompts, max_len, n_steps, rules, mesh)
         counts = ops.launch_counts()
         r = {"secs": secs, "staged": D.staged_calls - staged,
              "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
              "launches": {k: counts[k] for k in ("flash_attention",
                                                  "decode_attention")},
-             "held": dict(held)}
+             "held": dict(held), "allreduce_ms": _ms(ar),
+             "allreduces": len(ar)}
         whole = weights.gather_params(
             caches, tf.cache_specs(cfg, rules, DIST_SERVE_BATCH, max_len),
             mesh)
-        routes = [weights.gather_params(i, (("pod", "data"), None),
-                                        mesh).cpu() for i in routes]
-        # each layer's input over the passes, the whole batch
+        # the routes and each layer's input over the passes, the whole
+        # batch (every rank holds it under seq_sharded)
+        rows = None if _rows_whole(cfg, rules) else ("pod", "data")
+        routes = [weights.gather_params(i, (rows, None), mesh).cpu()
+                  for i in routes]
         n = sum(k for _, _, k in tf._groups(cfg))
-        xs = [torch.cat([weights.gather_params(
-            x, (("pod", "data"), None, None), mesh)
-            for x in xs[j::n]], dim=1).cpu() for j in range(n)]
+        xs = [torch.cat([weights.gather_params(x, (rows, None, None), mesh)
+                         for x in xs[j::n]], dim=1).cpu() for j in range(n)]
         whole = {g: {k: v.cpu() for k, v in c.items()}
                  for g, c in whole.items()} if rank == 0 else None
         del params, caches
@@ -4684,10 +4759,10 @@ def _dist_serve_rank(rank, world, out_dir, runs=DIST_SERVE_RUNS):
         dist.barrier()
         if rank == 0:
             r.update(_serve_one_process(cfg, prompts, logits, fed, whole,
-                                        routes, xs))
+                                        routes, xs, n_steps))
         del whole, logits, xs
         dist.barrier()
-        out[_serve_tag(arch, absorb)] = r
+        out[_serve_tag(arch, absorb, flags)] = r
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
         json.dump(out, f)
 
@@ -4736,7 +4811,8 @@ def _layer_caches(cfg, params, xs):
     return out
 
 
-def _serve_one_process(cfg, prompts, logits, fed, caches, routes, xs):
+def _serve_one_process(cfg, prompts, logits, fed, caches, routes, xs,
+                       n_steps=DIST_SERVE_STEPS):
     """The same passes in this one process from the whole seeded weights,
     fed the ranks' tokens, MoE routed as the ranks routed (``routes``):
     each pass's largest logit difference as a share of the largest logit,
@@ -4753,8 +4829,8 @@ def _serve_one_process(cfg, prompts, logits, fed, caches, routes, xs):
     ctx = _routed_as(routes) if routes else contextlib.nullcontext()
     with ctx:
         one, _, one_caches, secs, _ = _serve_passes(
-            cfg, params, prompts, DIST_SERVE_PROMPT + DIST_SERVE_STEPS,
-            DIST_SERVE_STEPS, feed=fed, checked=False)
+            cfg, params, prompts, DIST_SERVE_PROMPT + n_steps, n_steps,
+            feed=fed, checked=False)
     agree = _logit_agreement(logits, one, fed)
     drift, worst = {}, {}
     with torch.no_grad():
@@ -4813,16 +4889,22 @@ def dist_serve_report(tag, card, ranks, transport, runs=DIST_SERVE_RUNS):
     the first token equal wherever the one process's margin is sure.
     Returns the flash and decode_attention launches summed over the
     ranks."""
+    from repro_torch import distributed as D
     from repro_torch.configs import get_config
     total = {"flash_attention": 0, "decode_attention": 0}
-    for arch, layers, shape, absorb in runs:
-        name = _serve_tag(arch, absorb)
+    for run in runs:
+        arch, layers, shape, absorb, flags, n_steps = _serve_flags(run)
+        name = _serve_tag(arch, absorb, flags)
         mla = get_config(arch).attn_type == "mla"
         want = {"flash_attention": layers,
-                "decode_attention": 0 if mla else layers * DIST_SERVE_STEPS}
+                "decode_attention": 0 if mla else layers * n_steps}
         held = {"flash_attention": layers}
         if not mla:
             held["decode_attention"] = layers
+            # where the positions split, each merged decode too
+            if D.cache_groups(_serve_cfg(arch, layers, absorb, flags),
+                              _serve_rules(_StubMesh(shape), flags))[1]:
+                held["seq_decode_attention"] = layers
         per = [r[name] for r in ranks]
         for i, r in enumerate(per):
             got_held = {k: n for k, (n, _, _) in r["held"].items()}
@@ -4845,8 +4927,9 @@ def dist_serve_report(tag, card, ranks, transport, runs=DIST_SERVE_RUNS):
         step = [float(np.mean(r["secs"][2:])) for r in per]
         log(f"[{tag}] {name} ({layers} of {get_config(arch).num_layers} "
             f"layers, full width, bf16, mesh (data, model) = {shape}, "
+            f"{_layout_text(arch, layers, absorb, shape, flags)}, "
             f"{transport}): prefill {DIST_SERVE_BATCH} x "
-            f"{DIST_SERVE_PROMPT} + {DIST_SERVE_STEPS} serve_steps; logits "
+            f"{DIST_SERVE_PROMPT} + {n_steps} serve_steps; logits "
             f"vs one process: largest share of max |logit| "
             f"{max(r0['share']):.4g} (limit {LOGIT_TOL}; prefill "
             f"{r0['share'][0]:.4g}); first tokens equal "
@@ -4868,9 +4951,21 @@ def dist_serve_report(tag, card, ranks, transport, runs=DIST_SERVE_RUNS):
             + " ".join(f"{t:.4f}" for t in step)
             + f" vs one process {np.mean(r0['one_secs'][2:]):.4f}; peak "
             f"GiB a rank " + " ".join(f"{r['peak_gib']:.2f}" for r in per)
-            + f"; collectives staged through host memory {r0['staged']}; "
+            + f"; all-reduce {r0.get('allreduce_ms', 0.0):.1f} ms in "
+            f"{r0.get('allreduces', 0)} calls over the passes on rank 0; "
+            f"collectives staged through host memory {r0['staged']}; "
             f"{card}")
     return total
+
+
+def _layout_text(arch, layers, absorb, shape, flags) -> str:
+    """The rows' and the attention caches' positions' axes of a serving
+    run, and its flags, for a log line."""
+    from repro_torch import distributed as D
+    rows, seq = D.cache_groups(_serve_cfg(arch, layers, absorb, flags),
+                               _serve_rules(_StubMesh(shape), flags))
+    return (f"rows over {rows or 'no axis'}, cache positions over "
+            f"{seq or 'no axis'}" + (f", {'+'.join(flags)}" if flags else ""))
 
 
 def phase_dist_serve(card: str):
@@ -4879,16 +4974,27 @@ def phase_dist_serve(card: str):
     head whole on every model rank, the tied vocabulary split),
     llama3_70b (16 of 64 query heads and 2 of 8 kv heads a rank on
     (1, 4)), deepseek_v2_lite_16b naive and absorbed (MLA on 8 of 16
-    heads and the whole latent, 32 of 64 experts a rank); each rank's
-    exit code checked (``mesh.spawn``), then ``dist_serve_report``'s
-    gates. Times are gloo's, staged through host memory. Returns the
-    flash and decode_attention launches of the ranks' passes."""
+    heads and the whole latent, 32 of 64 experts a rank), and the
+    layouts that split the positions or the weights: gemma_2b under
+    shard_v2 (the cache's positions over the model ranks, every query
+    head gathered for the decode and merged by the lse), v2-lite's
+    latent cache under seq_sharded (over the data
+    ranks, the whole batch on each), v2-lite with the dispatch einsum
+    and gemma_2b under FSDP in serving (each layer's weights gathered over
+    the data ranks in every pass); first dense decode with its lse at one
+    rank's slice of gemma_2b's decode_32k cell under shard_v2
+    (``phase_v2_kernel``); each rank's exit code checked
+    (``mesh.spawn``), then ``dist_serve_report``'s gates. Times are
+    gloo's, staged through host memory. Returns (the flash and
+    decode_attention launches of the ranks' passes, the shard_v2
+    kernels-line entry)."""
     import gc
     import shutil
     from repro_torch.launch import mesh
     t0 = time.monotonic()
     gc.collect()
     torch.cuda.empty_cache()
+    v2_row = phase_v2_kernel()
     out_dir = ROOT / "build" / "dist_serve"
     shutil.rmtree(out_dir, ignore_errors=True)
     out_dir.mkdir(parents=True)
@@ -4901,7 +5007,52 @@ def phase_dist_serve(card: str):
         f"{world} ranks on one card over gloo ({ranks[0]['backend']}): "
         f"times gloo-staged, not the card's collectives")
     log(f"[dist_serve] phase seconds {time.monotonic() - t0:.1f}; {card}")
-    return total
+    return total, v2_row
+
+
+# one model rank's slice of gemma_2b's decode_32k cell (batch 128 over 2
+# data ranks, 32,768 positions over 2 model ranks) under shard_v2: every
+# query head over the rank's positions of its one kv head
+V2_SLICE = (64, 16_384, 8, 1, 256)
+
+
+def phase_v2_kernel():
+    """Dense decode with its lse at one rank's slice of the decode_32k
+    cell under shard_v2 (V2_SLICE, every row at the slice's length):
+    against its plain version (output rows and lse), ``out`` ``torch.
+    equal`` to the call without the lse, and timed with the host queue
+    held beside its plain version, one scaled_dot_product_attention call
+    on the same slice and the byte bound. Returns the kernels-line
+    entry."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import ref
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    b, S, h, kvh, d = V2_SLICE
+    q, k, v, lens = _dense_case(gen, b, S, h, kvh, d, [S] * b)
+    out, lse = da.decode_attention(q, k, v, lens, return_lse=True)
+    want, wlse = ref.decode_attention(q, k, v, lens, return_lse=True)
+    e, r = _check_rows("decode_attention shard_v2 slice", out, want, [S] * b)
+    le = _check_lse("decode_attention shard_v2 slice lse", lse, wlse,
+                    [S] * b)
+    if not torch.equal(out, da.decode_attention(q, k, v, lens)):
+        raise AssertionError("decode_attention: out with the lse differs "
+                             "from out without it")
+    del want, wlse
+    nbytes, ops_ = _decode_work([S] * b, h, kvh, d, S)
+    t = _decode_times(
+        f"decode_attention with lse, shard_v2 slice ({b}, {S}, {h}/{kvh}, "
+        f"{d})", lambda: da.decode_attention(q, k, v, lens, return_lse=True),
+        lambda: ref.decode_attention(q, k, v, lens, return_lse=True),
+        _sdpa_dense(q, k, v, lens), (nbytes + 4 * h * b, ops_))
+    bound_ms, by = bound(*t.pop("bound"), PEAK_BF16_FLOPS)
+    log(f"[dist_serve] decode_attention with lse at the shard_v2 slice: "
+        f"max_abs_err={e:.3g} max_row_rel_err={r:.3g}, lse max |err| "
+        f"{le:.3g} (limit {LSE_RTOL} of max(1, |lse|)); out torch.equal "
+        f"to the call without the lse")
+    del q, k, v
+    torch.cuda.empty_cache()
+    return dict(shape=list(V2_SLICE), max_abs_err=e, max_row_rel_err=r,
+                lse_max_abs_err=le, bound_ms=bound_ms, bound_by=by, **t)
 
 
 # phase dist_recurrent: the recurrent families served under a mesh, 4
@@ -5097,9 +5248,21 @@ def dist_recurrent_report(tag, card, ranks, transport,
             + " ".join(f"{t:.4f}" for t in step)
             + f" vs one process {np.mean(r0['one_secs'][2:]):.4f}; peak "
             f"GiB a rank " + " ".join(f"{r['peak_gib']:.2f}" for r in per)
-            + f"; collectives staged through host memory {r0['staged']}; "
+            + f"; all-reduce {r0.get('allreduce_ms', 0.0):.1f} ms in "
+            f"{r0.get('allreduces', 0)} calls over the passes on rank 0; "
+            f"collectives staged through host memory {r0['staged']}; "
             f"{card}")
     return total
+
+
+def _layout_text(arch, layers, absorb, shape, flags) -> str:
+    """The rows' and the attention caches' positions' axes of a serving
+    run, and its flags, for a log line."""
+    from repro_torch import distributed as D
+    rows, seq = D.cache_groups(_serve_cfg(arch, layers, absorb, flags),
+                               _serve_rules(_StubMesh(shape), flags))
+    return (f"rows over {rows or 'no axis'}, cache positions over "
+            f"{seq or 'no axis'}" + (f", {'+'.join(flags)}" if flags else ""))
 
 
 def phase_long_kernel():
@@ -5893,7 +6056,7 @@ def kernels_line(rows, launches):
         out[-1].update({k: r[k] for k in ("mla_shapes", "mla_launches",
                                           "zamba2_shape", "zamba2_launches",
                                           "train_launches", "shapes",
-                                          "ptxas", "long_500k")
+                                          "ptxas", "long_500k", "shard_v2")
                         if k in r})
     return {"kernels": out}
 
@@ -5962,8 +6125,10 @@ def main() -> int:
     launches["flash_attention"] += fwd
     launches["flash_attention_bwd"] += bwd
     lap("dist")
-    # serving under a mesh: the ranks' flash and dense decode launches
-    for name, n in phase_dist_serve(line).items():
+    # serving under a mesh: the ranks' flash and dense decode launches;
+    # dense decode with its lse at a rank's shard_v2 slice
+    counts, rows["decode_attention"]["shard_v2"] = phase_dist_serve(line)
+    for name, n in counts.items():
         launches[name] += n
     lap("dist_serve")
     # the recurrent families under a mesh: the ranks' flash and dense

@@ -35,32 +35,33 @@ sum rounded once; the identity backward, as reduce-out's).
 ``ShardingRules`` (each leaf's spec, the dim that "model" shards and,
 under FSDP, the dim the data axes shard; the port's layout,
 ``transformer.param_specs``) and refuses what this schedule does not run
-(``check_rules``): the MoE dispatch einsum with sharded experts in every
-mode; in mode "train" ``seq_sharded``; in the serving modes FSDP and MLA
-under ``seq_sharded``. The serving steps under a plan also refuse
-``shard_v2`` (its ``cache_seq`` shards the cache's sequence) and paged
-caches (``check_serving``).
+(``check_rules``): in mode "train" ``seq_sharded``, and a Mamba2 layer
+whose heads do not divide "model". The serving steps under a plan also
+refuse paged caches (``check_serving``).
 
-Under FSDP (``fsdp=True``, mode "train") a rank holds its slice of each
+Under FSDP (``fsdp=True``, in every mode) a rank holds its slice of each
 weight's ``w_embed`` dim over the data axes, beside its "model" split, and
 AdamW's moments alike. Each layer gathers its leaves whole where it uses
 them (``Layout.gathered``: ``gather`` over the data axes, whose backward
 all-reduces the gradient and keeps the rank's slice, FSDP's
 reduce-scatter), inside its remat body, so that remat "full" gathers them
-again in the backward rather than holding them. Their gradients then skip
-the data-axes all-reduce of the rest (``Plan.reduce_grad``).
+again in the backward rather than holding them; in serving, in every
+prefill and decode pass, and frees them after the layer. Their gradients
+then skip the data-axes all-reduce of the rest (``Plan.reduce_grad``).
 
 A Mamba2 layer's B and C columns of ``in_proj`` (and channels of
 ``conv_w`` and ``conv_b``) are whole on every model rank, and each rank
 reads them for its own heads: their gradient is summed over "model"
 before the step (``Plan.reduce_grad``) and counted once in the norm.
 
-Under ``seq_sharded`` (serving only, JAX's long-context rule) the batch is
-replicated and the data axes split the dense caches' sequence instead:
-data rank r holds positions [r S / n, (r + 1) S / n). Every data rank runs
-the whole batch alike; a decode step attends over each rank's slice and
-merges the slices by their log-sum-exp with all-reduces over the data
-axes (``attention.merge_slices``).
+The attention caches' positions split over the axis group that their
+leaf's spec names (``cache_groups``): the data axes under ``seq_sharded``
+(serving only, JAX's long-context rule, which also leaves the batch whole
+on every rank), "model" under ``shard_v2`` where the kv heads do not take
+it (its ``cache_seq``), ("data", "model") under both. Rank r of that
+group holds positions [r S / n, (r + 1) S / n); a decode step attends over
+each rank's slice and merges the slices by their log-sum-exp with
+all-reduces over the group (``attention.merge_slices``).
 
 A spec entry is a mesh axis, a tuple of them, None, ``HeadsRead`` (the kv
 heads a rank's query heads read, the port's layout of a GQA cache where
@@ -405,14 +406,18 @@ class Layout:
     """The model-axis layout of one block (or one module) of the tree:
     ``dim(name)`` is the dim of the per-layer leaf ``name`` (its "scan"
     dim dropped) that "model" shards, or None; ``model`` and ``data`` are
-    this rank's axis groups; ``seq`` is the data axes' group where they
-    split the caches' sequence (``seq_sharded``), else None."""
+    this rank's axis groups; ``batch`` the group the batch's rows split
+    over (``data``, or one rank where the batch is whole on every rank:
+    ``seq_sharded``); ``seq`` the group the attention caches' positions
+    split over (``cache_groups``), else None."""
 
     def __init__(self, dims: Dict[str, Optional[int]], specs: Dict,
                  model: Axis, data: Axis, prefix: str = "",
-                 seq: Optional[Axis] = None, fsdp: Optional[Dict] = None):
+                 seq: Optional[Axis] = None, fsdp: Optional[Dict] = None,
+                 batch: Optional[Axis] = None):
         self.dims, self.specs, self.model, self.data = dims, specs, model, data
         self.prefix, self.seq, self.fsdp = prefix, seq, fsdp or {}
+        self.batch = data if batch is None else batch
 
     def _key(self, name: str) -> str:
         return f"{self.prefix}.{name}" if self.prefix else name
@@ -425,7 +430,7 @@ class Layout:
 
     def sub(self, prefix: str) -> "Layout":
         return Layout(self.dims, self.specs, self.model, self.data,
-                      self._key(prefix), self.seq, self.fsdp)
+                      self._key(prefix), self.seq, self.fsdp, self.batch)
 
     def gathered(self, p, prefix: str = ""):
         """The module's leaves ``p`` (a nested dict, or one leaf named
@@ -521,36 +526,19 @@ def _layout_dims(specs: Dict, axes: Dict[str, tuple]):
 
 def check_rules(cfg, rules, mode: str = "train"):
     """Raise ``NotImplementedError`` for what the sharded schedule does not
-    run in ``mode``: the MoE dispatch einsum with sharded experts in every
-    mode; in mode "train" ``seq_sharded`` (JAX's dry run sets it for
-    decode only); in the serving modes FSDP (``fsdp=True``: JAX's dry run
-    sets it for train cells only) and MLA's latent cache under
-    ``seq_sharded``; a Mamba2 layer whose heads do not divide "model"
+    run in ``mode``: in mode "train" ``seq_sharded`` (JAX's dry run sets it
+    for decode only), and a Mamba2 layer whose heads do not divide "model"
     where JAX's rules put "model" on its channels. Each names a leaf (or
     activation), its spec and the later slice."""
     from repro_torch.models import transformer as tf
     axes = tf.param_axes(cfg)
     shapes = tf.param_shapes(cfg)
-    if rules.fsdp and mode != "train":
-        path = "embed"
-        raise NotImplementedError(
-            f"{path}: spec {tuple(rules.spec(shapes[path], axes[path]))} "
-            f"under fsdp=True shards weights over the data axes; FSDP in "
-            f"mode {mode!r} {_LATER}")
     if rules.seq_sharded and mode == "train":
         spec = rules.spec((1, 1, 1), ("batch", "seq", "embed"))
         raise NotImplementedError(
             f"activations ('batch', 'seq', 'embed'): spec {tuple(spec)} "
             f"under seq_sharded=True shards the sequence; sequence-sharded "
             f"training {_LATER}")
-    if rules.seq_sharded and cfg.attn_type == "mla":
-        from repro_torch.models import attention as attn
-        shape = attn.cache_spec(cfg, 1, 1)["c_kv"][0]
-        ax = attn.cache_axes(cfg)["c_kv"]
-        raise NotImplementedError(
-            f"attn.c_kv: spec {tuple(rules.spec(shape, ax))} of axes {ax} "
-            f"under seq_sharded=True (the latent cache's sequence over the "
-            f"data axes); MLA under seq_sharded {_LATER}")
     if cfg.family == "hybrid":
         from repro_torch.models import mamba2 as m2
         d_in, nh = m2._dims(cfg)[:2]
@@ -562,32 +550,13 @@ def check_rules(cfg, rules, mode: str = "train"):
                 f"{path}: spec {tuple(spec)}: {nh} Mamba2 heads on a "
                 f"'model' axis of {m}; the Mamba2 layer runs with its heads "
                 f"split over 'model', and this layout {_LATER}")
-    if cfg.family == "moe" and cfg.moe.impl == "dispatch_einsum":
-        path = "layers.moe.wi"
-        spec = rules.spec(shapes[path], axes[path])
-        if any(e is not None for e in spec):
-            raise NotImplementedError(
-                f"{path}: spec {tuple(spec)} with moe.impl "
-                f"'dispatch_einsum' (the port's expert parallelism is the "
-                f"ragged path's); {_LATER}")
 
 
-def check_serving(cfg, rules, mode: str, caches=None):
+def check_serving(mode: str, caches=None):
     """Raise ``NotImplementedError`` for what the serving steps under a
-    mesh do not run: ``cfg.shard_v2`` (JAX's v2 cache layout, whose
-    ``cache_seq`` shards the cache's sequence), and paged caches, which
-    modes "chunk" and "verify" take (JAX gives their pools no logical
-    axes and runs none of them sharded). Each names the cache leaf, its
-    spec and the later slice."""
-    from repro_torch.models import attention as attn
-    if cfg.shard_v2:
-        axes = attn.cache_axes(cfg)
-        name = "c_kv" if cfg.attn_type == "mla" else "k"
-        shape = attn.cache_spec(cfg, 1, 1)[name][0]
-        raise NotImplementedError(
-            f"attn.{name}: spec {tuple(rules.spec(shape, axes[name]))} of "
-            f"axes {axes[name]} under shard_v2 (cache_seq shards the "
-            f"cache's sequence); the v2 cache layout under a mesh {_LATER}")
+    mesh do not run: paged caches, which modes "chunk" and "verify" take
+    (JAX gives their pools no logical axes and runs none of them
+    sharded). It names the cache leaf, its spec and the later slice."""
     paged = [k for k, c in (caches or {}).items()
              if isinstance(c, dict) and "k_pool" in c]
     if paged or mode in ("chunk", "verify"):
@@ -595,6 +564,33 @@ def check_serving(cfg, rules, mode: str, caches=None):
             f"{(paged or ['attn'])[0]}.k_pool: spec None (JAX gives paged "
             f"pools no logical axes) in mode {mode!r}; paged caches, "
             f"chunk_step and verify_step under a mesh {_LATER}")
+
+
+def group_of(entry) -> Tuple[str, ...]:
+    """A spec entry's mesh axes: () for None, (name,) for one axis."""
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def cache_groups(cfg, rules):
+    """(the axes the batch's rows split over, the axes the attention
+    caches' positions split over) as JAX's rules resolve a cache leaf
+    (``attention.cache_axes``) whose batch and length divide every mesh
+    axis group: the data axes and (), or under ``seq_sharded`` () and the
+    data axes; under ``shard_v2`` ``cache_seq`` takes "model" where the kv
+    heads do not, and under both flags ("data", "model") or nothing. A
+    cache whose length the positions' group does not divide is refused
+    where it is made (``transformer.init_cache``)."""
+    from repro_torch.models import attention as attn
+    n = math.prod(rules.axis_sizes.values())
+    batch = group_of(rules.spec((n,), ("batch",))[0])
+    if cfg.attn_type not in ("gqa", "mla") or cfg.encoder_only:
+        return batch, ()
+    name = "c_kv" if cfg.attn_type == "mla" else "k"
+    spec = rules.spec(attn.cache_spec(cfg, n, n)[name][0],
+                      attn.cache_axes(cfg)[name])
+    return group_of(spec[0]), group_of(spec[1])
 
 
 def local_shape(shape, spec, mesh) -> tuple:
@@ -627,7 +623,9 @@ class Plan:
             _check_ep(cfg, rules, self.dims, self.specs, "layers.moe.")
         self.model = axis(mesh, ("model",))
         self.data = axis(mesh, _DATA)
-        self.seq = self.data if rules.seq_sharded else None
+        batch, seq = cache_groups(cfg, rules)
+        self.batch = axis(mesh, batch)
+        self.seq = axis(mesh, seq) if seq else None
         self.fsdp = {p: (dim, axis(mesh, group))
                      for p, (dim, group) in fsdp.items()}
         # the data axes each leaf's gradient is still summed over after
@@ -639,18 +637,18 @@ class Plan:
 
     def block(self, pkey: str) -> Layout:
         return Layout(self.dims, self.specs, self.model, self.data, pkey,
-                      self.seq, self.fsdp)
+                      self.seq, self.fsdp, self.batch)
 
     def rows(self, t):
         """This rank's rows of a global batch tensor (JAX's batch sharding
         over ("pod", "data")); the batch must divide over them. Under
         ``seq_sharded`` the batch is replicated: ``t`` itself."""
-        if t is None or self.seq is not None:
+        if t is None or self.batch.size == 1:
             return t
-        if t.shape[0] % self.data.size:
+        if t.shape[0] % self.batch.size:
             raise ValueError(f"a batch of {t.shape[0]} rows does not divide "
-                             f"over the data axes ({self.data.size} ranks)")
-        return local_slice(t, 0, self.data)
+                             f"over the data axes ({self.batch.size} ranks)")
+        return local_slice(t, 0, self.batch)
 
     def parts(self, path: str, g: torch.Tensor):
         """Leaf ``path``'s gradient ``g`` cut into (piece, whether model
@@ -716,7 +714,7 @@ def plan(cfg, rules, mesh, mode: str = "train", caches=None
         rules = ShardingRules(mesh)
     check_rules(cfg, rules, mode)
     if mode != "train":
-        check_serving(cfg, rules, mode, caches)
+        check_serving(mode, caches)
     key = (cfg, id(rules), id(mesh if mesh is not None else rules.mesh))
     if key not in _PLANS:
         _PLANS[key] = (rules, mesh, Plan(cfg, rules, mesh if mesh is not None

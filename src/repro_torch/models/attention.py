@@ -12,12 +12,17 @@ the new tokens' K/V into the layer's slice of the cache with index writes,
 which saves a whole-cache copy per layer per step. The returned cache dict
 still names the (same) tensors, so callers read like the JAX package's.
 
-Under ``seq_sharded`` (a layout's ``seq``) a rank's GQA cache holds its
-data rank's slice of the positions: prefill writes the rank's slice of
-the prompt's K/V, and decode writes the new token where its position
-falls, attends over the rank's slice (``ops.decode_attention`` with the
-row's log-sum-exp) and merges the slices over the data axes
-(``merge_slices``).
+Where a layout splits the caches' positions (its ``seq``: the data axes
+under ``seq_sharded``, "model" or ("data", "model") under ``shard_v2``;
+``distributed.cache_groups``) a rank's cache holds its slice of the
+positions: prefill writes the rank's slice of the prompt's K/V (or
+latent), and decode writes the new token on the rank whose slice holds its
+position, attends over the rank's slice (``ops.decode_attention`` with the
+rows' log-sum-exp; MLA's einsums with theirs) and merges the slices over
+the group (``merge_slices``). Where the group holds "model", every model
+rank holds every kv head of its positions: each gathers the query heads
+over "model", attends them all and keeps its own heads' merged output for
+the row-parallel ``wo``.
 
 MLA prefill also goes through ``ops.flash_attention``, with query and key
 at ``qk_nope + qk_rope`` and value at ``v_head_dim`` (dq != dv); its decode
@@ -101,7 +106,7 @@ def _attn_split(tp) -> Optional[str]:
     return "heads" if dims[0] == 1 else "whole"
 
 
-def _qkv(params, x, positions, cfg: ModelConfig, tp=None):
+def _qkv(params, x, positions, cfg: ModelConfig, tp=None, take=True):
     """q, k, v ``(b, s, heads, hd)``, rope applied at ``positions``.
 
     Under a mesh (``tp``: the block's ``attn`` layout) on the rank's
@@ -112,7 +117,9 @@ def _qkv(params, x, positions, cfg: ModelConfig, tp=None):
     query heads), on the head dim (gathered along it before rope, which
     rotates across its halves) or whole (copy-in). With "whole" (JAX's
     sequence-sharded layout there changes no value) q, k and v are whole
-    on every rank, gathered along the head dim."""
+    on every rank, gathered along the head dim. With ``take`` False k and
+    v keep every kv head (the cache of a rank whose positions split over
+    "model" holds them all; ``_heads_read`` cuts them for attention)."""
     split = _attn_split(tp)
     if split is None:
         q = proj_in(x, params["wq"])
@@ -140,13 +147,63 @@ def _qkv(params, x, positions, cfg: ModelConfig, tp=None):
     (k, k_local), (v, v_local) = proj("wk"), proj("wv")
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    if split == "heads":
+    if split == "heads" and take:
         read = HeadsRead(cfg.num_heads, cfg.num_kv_heads)
         if not k_local:
             k = read.take(k, 2, tp.model)
         if not v_local:
             v = read.take(v, 2, tp.model)
     return q, k, v
+
+
+def _heads_read(t, cfg: ModelConfig, tp):
+    """The kv heads of ``t`` (every kv head) that the rank's query heads
+    read, where its attention runs on its heads."""
+    if _attn_split(tp) != "heads":
+        return t
+    return HeadsRead(cfg.num_heads, cfg.num_kv_heads).take(t, 2, tp.model)
+
+
+def _seq_split(tp):
+    """(the axis group the layout's caches split their positions over, or
+    None; whether it holds "model")."""
+    seq = None if tp is None else tp.seq
+    if seq is None or seq.size == 1:
+        return None, False
+    return seq, "model" in seq.names
+
+
+def _prompt_slice(n_loc: int, s: int, seq):
+    """(the first prompt position of the rank's cache slice, how many of
+    the ``s`` prompt positions fall in it) for a slice of ``n_loc``
+    positions over ``seq`` (None: the whole cache)."""
+    if seq is None:
+        return 0, s
+    lo = seq.index * n_loc
+    return lo, max(0, min(s - lo, n_loc))
+
+
+def _write_token(bufs, news, lengths, seq):
+    """Write each row's new entry (``news``, one ``(b, ...)`` a buffer) into
+    the cache buffers ``bufs`` ``(b, S_loc, ...)`` in place at its position
+    ``min(length, S - 1)`` (JAX's clamp over the whole cache of ``S``
+    positions): with positions split over ``seq``, only on the rank whose
+    slice holds it. Returns the rank's first position."""
+    n_loc = bufs[0].shape[1]
+    rows = torch.arange(lengths.shape[0], device=lengths.device)
+    if seq is None:
+        at = torch.clamp(lengths, max=n_loc - 1).long()
+        for buf, new in zip(bufs, news):
+            buf[rows, at] = new.to(buf.dtype)
+        return 0
+    start = seq.index * n_loc
+    at = torch.clamp(lengths, max=n_loc * seq.size - 1).long() - start
+    mine = (at >= 0) & (at < n_loc)
+    at = torch.clamp(at, 0, n_loc - 1)
+    for buf, new in zip(bufs, news):
+        keep = mine.reshape(-1, *([1] * (new.dim() - 1)))
+        buf[rows, at] = torch.where(keep, new.to(buf.dtype), buf[rows, at])
+    return start
 
 
 def _attn_out(out, params, tp=None):
@@ -175,20 +232,20 @@ def gqa_prefill(params, x, positions, cfg: ModelConfig,
     (``_qkv``) and the cache is the rank's (``transformer.cache_specs``:
     its rows, and the kv heads its query heads read, or whole where
     attention runs whole). Under ``seq_sharded`` (``tp.seq``) every data
-    rank computes the whole prompt and keeps its slice of the positions."""
+    rank computes the whole prompt and keeps its slice of the positions;
+    where the positions split over a group holding "model" (``shard_v2``)
+    every kv head of them."""
     hd = cfg.resolved_head_dim
-    q, k, v = _qkv(params, x, positions, cfg, tp)
-    out = ops.flash_attention(q, k, v, causal=not cfg.encoder_only,
+    seq, seq_model = _seq_split(tp)
+    q, k, v = _qkv(params, x, positions, cfg, tp, take=not seq_model)
+    kq, vq = ((_heads_read(k, cfg, tp), _heads_read(v, cfg, tp))
+              if seq_model else (k, v))
+    out = ops.flash_attention(q, kq, vq, causal=not cfg.encoder_only,
                               scale=hd ** -0.5)
     new_cache = None
     if cache is not None:
         s = k.shape[1]
-        lo, n = 0, s
-        seq = None if tp is None else tp.seq
-        if seq is not None and seq.size > 1:
-            n_loc = cache["k"].shape[1]
-            lo = seq.index * n_loc
-            n = max(0, min(s - lo, n_loc))
+        lo, n = _prompt_slice(cache["k"].shape[1], s, seq)
         cache["k"][:, :n] = k[:, lo:lo + n]
         cache["v"][:, :n] = v[:, lo:lo + n]
         new_cache = {"k": cache["k"], "v": cache["v"],
@@ -208,40 +265,35 @@ def gqa_decode(params, x, cfg: ModelConfig, cache: Dict, tp=None
     Under a mesh (``tp``) the rank's rows, heads and cache, as
     ``gqa_prefill``: the kernel sees the rank's query heads over the kv
     heads they read, and the new K/V goes into the rank's own cache.
-    Under ``seq_sharded`` (``tp.seq``) the rank holding global position
-    ``min(length, S - 1)`` (JAX's clamp over the whole cache) writes the
-    new K/V; each rank attends over its slice, with its local lengths
-    ``clamp(length + 1 - start, 0, S / n)``, and ``merge_slices`` merges
-    the slices.
+    Where the positions split (``tp.seq``) the rank holding global
+    position ``min(length, S - 1)`` (JAX's clamp over the whole cache)
+    writes the new K/V; each rank attends over its slice, with its local
+    lengths ``clamp(length + 1 - start, 0, S / n)``, and ``merge_slices``
+    merges the slices; over a group holding "model" with the query heads
+    gathered, the rank's own heads kept after the merge.
     """
     if "k_pool" in cache:
         return gqa_decode_paged(params, x, cfg, cache)
     hd = cfg.resolved_head_dim
     lengths = cache["length"]
     k_cache, v_cache = cache["k"], cache["v"]
-    q, k, v = _qkv(params, x, lengths[:, None], cfg, tp)
-    rows = torch.arange(x.shape[0], device=x.device)
-    seq = None if tp is None else tp.seq
-    if seq is None or seq.size == 1:
-        at = torch.clamp(lengths, max=k_cache.shape[1] - 1).long()
-        k_cache[rows, at] = k[:, 0].to(k_cache.dtype)
-        v_cache[rows, at] = v[:, 0].to(v_cache.dtype)
+    seq, seq_model = _seq_split(tp)
+    q, k, v = _qkv(params, x, lengths[:, None], cfg, tp, take=not seq_model)
+    start = _write_token((k_cache, v_cache), (k[:, 0], v[:, 0]), lengths,
+                         seq)
+    if seq is None:
         out = ops.decode_attention(q, k_cache, v_cache, lengths + 1,
                                    scale=hd ** -0.5)
     else:
-        n_loc = k_cache.shape[1]
-        start = seq.index * n_loc
-        at = (torch.clamp(lengths, max=n_loc * seq.size - 1).long()
-              - start)
-        mine = ((at >= 0) & (at < n_loc))[:, None, None]
-        at = torch.clamp(at, 0, n_loc - 1)
-        k_cache[rows, at] = torch.where(mine, k[:, 0].to(k_cache.dtype),
-                                        k_cache[rows, at])
-        v_cache[rows, at] = torch.where(mine, v[:, 0].to(v_cache.dtype),
-                                        v_cache[rows, at])
-        local = torch.clamp(lengths + 1 - start, 0, n_loc).to(torch.int32)
+        heads = seq_model and _attn_split(tp) == "heads"
+        if heads:
+            q = tp.gather(q, 2)
+        local = torch.clamp(lengths + 1 - start, 0,
+                            k_cache.shape[1]).to(torch.int32)
         out = seq_decode_attention(q, k_cache, v_cache, local, hd ** -0.5,
                                    seq)
+        if heads:
+            out = local_slice(out, 2, tp.model)
     return _attn_out(out, params, tp), {"k": k_cache, "v": v_cache,
                                         "length": lengths + 1}
 
@@ -493,7 +545,8 @@ def mla_prefill(params, x, positions, cfg: ModelConfig,
     kv_lora)`` / ``(b, S, rope)`` layer slice), the latent and the rope key
     are written into its first ``s`` positions in place. Under a mesh
     (``tp``) it runs on the rank's heads and rows (``_mla_inputs``); the
-    cache holds the rank's rows of the whole latent."""
+    cache holds the rank's rows of the whole latent, and of its positions
+    where the layout splits them (``tp.seq``)."""
     m = cfg.mla
     q_nope, q_rope, c_kv, k_rope = _mla_inputs(params, x, positions, cfg,
                                                tp)
@@ -507,8 +560,9 @@ def mla_prefill(params, x, positions, cfg: ModelConfig,
     new_cache = None
     if cache is not None:
         s = c_kv.shape[1]
-        cache["c_kv"][:, :s] = c_kv
-        cache["k_rope"][:, :s] = k_rope[:, :, 0]
+        lo, n = _prompt_slice(cache["c_kv"].shape[1], s, _seq_split(tp)[0])
+        cache["c_kv"][:, :n] = c_kv[:, lo:lo + n]
+        cache["k_rope"][:, :n] = k_rope[:, lo:lo + n, 0]
         new_cache = {"c_kv": cache["c_kv"], "k_rope": cache["k_rope"],
                      "length": torch.full_like(cache["length"], s)}
     return _mla_out(out, params, tp), new_cache
@@ -525,35 +579,65 @@ def mla_decode(params, x, cfg: ModelConfig, cache: Dict, tp=None
     dtype, the mask and softmax in fp32, the probabilities cast back.
     Under a mesh (``tp``) the einsums run on the rank's heads against
     the rank's rows of the whole latent, written from the gathered
-    projection."""
+    projection. Where the layout splits the positions (``tp.seq``) the
+    owning rank writes the new entry, each rank's einsums run over its
+    slice and return the rows' log-sum-exp beside the output (the latent
+    output ``o_lat`` when absorbed), and ``merge_slices`` merges them; over
+    a group holding "model" with every head (the queries, or naive's
+    ``wuk``/``wuv``, gathered over "model"), the rank's own heads kept after
+    the merge."""
     m = cfg.mla
     lengths = cache["length"]
     pos = lengths[:, None]
     q_nope, q_rope, c_new, kr_new = _mla_inputs(params, x, pos, cfg, tp)
     c_kv, k_rope = cache["c_kv"], cache["k_rope"]
-    rows = torch.arange(x.shape[0], device=x.device)
-    at = torch.clamp(lengths, max=c_kv.shape[1] - 1).long()
-    c_kv[rows, at] = c_new[:, 0].to(c_kv.dtype)
-    k_rope[rows, at] = kr_new[:, 0, 0].to(k_rope.dtype)
+    seq, seq_model = _seq_split(tp)
+    start = _write_token((c_kv, k_rope), (c_new[:, 0], kr_new[:, 0, 0]),
+                         lengths, seq)
     S = c_kv.shape[1]
-    valid = (torch.arange(S, device=x.device)[None, :]
+    valid = (torch.arange(S, device=x.device)[None, :] + start
              < (lengths + 1)[:, None])                     # (b, S)
     scale = _mla_scale(cfg)
+    wuk, wuv = params["wuk"], params["wuv"]
+    heads = seq_model and tp.dim("wuq") == 1
+    if heads:
+        # every head's queries over the rank's positions
+        q_rope = tp.gather(q_rope, 2)
+        if m.absorb:
+            q_nope = _einsum("bsnh,lnh->bsnl", q_nope, wuk)
+        else:
+            wuk, wuv = tp.gather(wuk, 1), tp.gather(wuv, 1)
+        q_nope = tp.gather(q_nope, 2)
+
+    def softmax(scores):
+        scores = torch.where(valid[:, None, :], scores.float(), NEG_INF)
+        probs = torch.softmax(scores, dim=-1)
+        if seq is None:
+            return probs, None
+        lse = torch.where(valid.any(-1)[:, None],
+                          torch.logsumexp(scores, dim=-1), -torch.inf)
+        return probs, lse
     rope = _einsum("bsnh,bSh->bnS", q_rope, k_rope)
     if m.absorb:
-        q_lat = _einsum("bsnh,lnh->bsnl", q_nope, params["wuk"])
-        scores = (_einsum("bsnl,bSl->bnS", q_lat, c_kv) + rope) * scale
-        scores = torch.where(valid[:, None, :], scores.float(), NEG_INF)
-        probs = torch.softmax(scores, dim=-1).to(c_kv.dtype)
-        o_lat = _einsum("bnS,bSl->bnl", probs, c_kv)
-        out = _einsum("bnl,lnh->bnh", o_lat, params["wuv"])[:, None]
+        q_lat = q_nope if heads else _einsum("bsnh,lnh->bsnl", q_nope, wuk)
+        probs, lse = softmax((_einsum("bsnl,bSl->bnS", q_lat, c_kv) + rope)
+                             * scale)
+        o_lat = _einsum("bnS,bSl->bnl", probs.to(c_kv.dtype), c_kv)[:, None]
+        if seq is not None:
+            o_lat = merge_slices(o_lat, lse, seq)
+            if heads:
+                o_lat = local_slice(o_lat, 2, tp.model)
+        out = _einsum("bsnl,lnh->bsnh", o_lat, wuv)
     else:
-        k_nope = _einsum("bSl,lnh->bSnh", c_kv, params["wuk"])
-        v = _einsum("bSl,lnh->bSnh", c_kv, params["wuv"])
-        scores = (_einsum("bsnh,bSnh->bnS", q_nope, k_nope) + rope) * scale
-        scores = torch.where(valid[:, None, :], scores.float(), NEG_INF)
-        probs = torch.softmax(scores, dim=-1).to(v.dtype)
-        out = _einsum("bnS,bSnh->bnh", probs, v)[:, None]
+        k_nope = _einsum("bSl,lnh->bSnh", c_kv, wuk)
+        v = _einsum("bSl,lnh->bSnh", c_kv, wuv)
+        probs, lse = softmax((_einsum("bsnh,bSnh->bnS", q_nope, k_nope)
+                              + rope) * scale)
+        out = _einsum("bnS,bSnh->bnh", probs.to(v.dtype), v)[:, None]
+        if seq is not None:
+            out = merge_slices(out, lse, seq)
+            if heads:
+                out = local_slice(out, 2, tp.model)
     return _mla_out(out, params, tp), {"c_kv": c_kv, "k_rope": k_rope,
                                        "length": lengths + 1}
 

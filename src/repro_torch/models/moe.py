@@ -19,7 +19,10 @@ SlotEngine's decode pass that runs them captures as a CUDA graph. Each
 row's routed outputs are summed over its ``k`` choices in a fixed order (a
 scatter of distinct rows, then a sum), not with atomics, so two runs agree
 bit for bit. Under a mesh ``moe_ragged`` runs expert parallelism (JAX's
-``shard_map`` over the "model" axis) on the rank's shards.
+``shard_map`` over the "model" axis) on the rank's shards, and
+``moe_dispatch_einsum`` runs the one program JAX's compiler lays out: the
+groups, the slots and the capacity of the whole batch, each model rank
+computing its experts' slots.
 ``moe_reference`` is the dense loop-over-experts oracle, for tests.
 """
 from __future__ import annotations
@@ -233,7 +236,7 @@ def moe_ragged(params, x, cfg: ModelConfig, mesh=None, tp=None
     shape = x.shape
     x2d = x.reshape(-1, shape[-1])
     T = x2d.shape[0]
-    if tp is None or (tp.model.size == 1 and tp.data.size == 1):
+    if tp is None or (tp.model.size == 1 and tp.batch.size == 1):
         weights, idx, aux = _router(params, x2d, cfg)
         cap = _capacity(T, m.top_k, m.num_experts, m.num_experts,
                         m.capacity_slack)
@@ -242,13 +245,8 @@ def moe_ragged(params, x, cfg: ModelConfig, mesh=None, tp=None
         return out.reshape(shape).to(x.dtype), aux
     M = tp.model.size
     if M > 1:
-        if (m.num_experts % M or tp.dim("wi") != 0 or tp.dim("wo") != 0
-                or tp.dim("router") != 1):
-            tp.refuse("wi", "expert parallelism needs the experts split "
-                      "over 'model'")
         num_local = m.num_experts // M
-        xin = tp.copy_in(x2d)
-        logits = tp.gather(xin.float() @ params["router"].float(), -1)
+        xin, logits = _ep_logits(params, x2d, cfg, tp)
         weights, idx, aux = _route(logits, cfg)
         cap = _capacity(T, m.top_k, m.num_experts, num_local,
                         m.capacity_slack)
@@ -259,53 +257,120 @@ def moe_ragged(params, x, cfg: ModelConfig, mesh=None, tp=None
         aux = dist_.grad_scale(aux, 1.0 / M)
         return tp.reduce_out(out).reshape(shape).to(x.dtype), aux
     weights, idx, aux = _route(x2d.float() @ params["router"].float(), cfg,
-                               tp.data)
-    cap = _capacity(T * tp.data.size, m.top_k, m.num_experts, m.num_experts,
+                               tp.batch)
+    cap = _capacity(T * tp.batch.size, m.top_k, m.num_experts, m.num_experts,
                     m.capacity_slack)
     out = _moe_global_cut(x2d, params["wi"], params["wo"], weights, idx, cfg,
-                          cap, tp.data)
+                          cap, tp.batch)
     # the aux is the whole batch's on every data rank; the loss averages
     # it over them, so each rank's share of its gradient is scaled back
     return (out.reshape(shape).to(x.dtype),
-            dist_.grad_scale(aux, float(tp.data.size)))
+            dist_.grad_scale(aux, float(tp.batch.size)))
+
+
+def _ep_logits(params, x2d, cfg: ModelConfig, tp):
+    """(the rows as the experts' products take them, the router's fp32
+    logits over every expert) under expert parallelism (``tp.model`` >
+    1): the rank's experts' logits gathered along them, as JAX's shard map
+    takes the router whole. Refuses a layout whose experts are not split
+    over "model"."""
+    m = cfg.moe
+    if (m.num_experts % tp.model.size or tp.dim("wi") != 0
+            or tp.dim("wo") != 0 or tp.dim("router") != 1):
+        tp.refuse("wi", "expert parallelism needs the experts split "
+                  "over 'model'")
+    xin = tp.copy_in(x2d)
+    return xin, tp.gather(xin.float() @ params["router"].float(), -1)
+
+
+def _dispatch_groups(rows: int, ranks: int, index: int, group_size: int):
+    """JAX's groups of the whole batch's ``rows * ranks`` rows (of
+    ``group_size``, or one group when they do not divide), seen from the
+    rank ``index`` of ``ranks`` holding global rows ``[index * rows,
+    (index + 1) * rows)``: (group size, the number of groups, the first
+    group the rank's rows fall in, how many groups they span, the global
+    rows of that first group before the rank's)."""
+    total = rows * ranks
+    g_sz = min(group_size, total)
+    if total % g_sz:
+        g_sz = total
+    off = index * rows
+    first = off // g_sz
+    return (g_sz, total // g_sz, first,
+            (off + rows - 1) // g_sz - first + 1, off - first * g_sz)
 
 
 def moe_dispatch_einsum(params, x, cfg: ModelConfig, mesh=None,
-                        group_size: int = 4096
+                        group_size: int = 4096, tp=None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The GShard dispatch/combine formulation: each expert takes at most
     ``cap_per_e`` of a group's assignments, in (token, choice) order.
-    ``mesh`` is taken and not used, as in JAX (whose compiler lays the
-    einsums out)."""
+    ``mesh`` alone is taken and not used, as in JAX (whose compiler lays
+    the einsums out).
+
+    Under a mesh (``tp``, the module's ``distributed.Layout``) ``params``
+    and ``x`` are the rank's shards and rows, and the values are those of
+    JAX's one program over the whole batch: the groups come from the
+    global row count, ``cap_per_e`` from the global group size, and an
+    assignment's slot counts the assignments to its expert before it in
+    its group on every rank (this rank's rows in order, after an exclusive
+    prefix over the lower ranks of the rows' group: one all-reduce of a
+    (ranks, groups, experts) count grid). The rank's rows are laid into
+    the groups they fall in (zero rows elsewhere, which take no slot).
+    With experts split over "model" a rank computes the dispatch, the
+    products and the combine of its experts only, and the contributions
+    are summed over "model" (reduce-out). The router's aux is the whole
+    batch's (its means over every row, as one program takes them)."""
+    if tp is None and mesh is not None:
+        tp = dist_.moe_layout(cfg, mesh)
     m = cfg.moe
+    E, k = m.num_experts, m.top_k
     shape = x.shape
     x2d = x.reshape(-1, shape[-1])
     T, d = x2d.shape
-    weights, idx, aux = _router(params, x2d, cfg)
+    M = 1 if tp is None else tp.model.size
+    rows = dist_.ONE if tp is None else tp.batch
+    if M > 1:
+        x2d, logits = _ep_logits(params, x2d, cfg, tp)
+        weights, idx, aux = _route(logits, cfg, rows)
+    elif rows.size > 1:
+        weights, idx, aux = _route(x2d.float() @ params["router"].float(),
+                                   cfg, rows)
+    else:
+        weights, idx, aux = _router(params, x2d, cfg)
+    # each rank's share of the aux's gradient: the model ranks each hold
+    # the whole aux (the gather's backward sums their gradients), and the
+    # loss averages the rows' ranks' equal values
+    aux = dist_.grad_scale(aux, rows.size / M)
+    g_sz, n_all, first, n_groups, lead = _dispatch_groups(
+        T, rows.size, rows.index, group_size)
+    pad = n_groups * g_sz - lead - T
+    xg = F.pad(x2d, (0, 0, lead, pad)).reshape(n_groups, g_sz, d)
+    wg = F.pad(weights, (0, 0, lead, pad)).reshape(n_groups, g_sz, k)
+    # -1 marks the rows of other ranks: they meet no expert
+    ig = F.pad(idx, (0, 0, lead, pad), value=-1).reshape(n_groups, g_sz, k)
 
-    g_sz = min(group_size, T)
-    n_groups = T // g_sz if T % g_sz == 0 else 1
-    if T % g_sz != 0:
-        g_sz = T
-    xg = x2d.reshape(n_groups, g_sz, d)
-    wg = weights.reshape(n_groups, g_sz, m.top_k)
-    ig = idx.reshape(n_groups, g_sz, m.top_k)
-
-    mean_load = g_sz * m.top_k / m.num_experts
+    mean_load = g_sz * k / E
     cap_per_e = min(max(int(math.ceil(mean_load * m.capacity_slack)), 4),
-                    g_sz * m.top_k)
+                    g_sz * k)
 
-    a_sz = g_sz * m.top_k
-    onehot = _one_hot(ig.reshape(n_groups, a_sz), m.num_experts)  # (g,a,e)
-    pos = torch.cumsum(onehot, dim=1) - onehot                   # slot per e
-    posidx = torch.sum(pos * onehot, dim=-1)                     # (g,a)
+    a_sz = g_sz * k
+    onehot = _one_hot(ig.reshape(n_groups, a_sz), E)            # (g,a,e)
+    pos = torch.cumsum(onehot, dim=1) - onehot                  # slot per e
+    if rows.size > 1:
+        grid = onehot.new_zeros(rows.size, n_all, E)
+        grid[rows.index, first:first + n_groups] = onehot.sum(1)
+        dist_.all_reduce(grid, rows)
+        pos = pos + grid[:rows.index, first:first + n_groups].sum(0)[:, None]
+    posidx = torch.sum(pos * onehot, dim=-1)                    # (g,a)
     keep = (posidx < cap_per_e).float()
-    slot = _one_hot(posidx, cap_per_e)                           # (g,a,c)
-    disp_a = onehot[:, :, :, None] * slot[:, :, None, :] * keep[:, :, None,
-                                                                None]
-    disp_a = disp_a.reshape(n_groups, g_sz, m.top_k, m.num_experts,
-                            cap_per_e)
-    dispatch = torch.sum(disp_a, dim=2)                          # (g,s,e,c)
+    slot = _one_hot(posidx, cap_per_e)                          # (g,a,c)
+    lo = 0 if tp is None else tp.model.index * (E // M)
+    local = onehot[:, :, lo:lo + E // M]
+    disp_a = local[:, :, :, None] * slot[:, :, None, :] * keep[:, :, None,
+                                                               None]
+    disp_a = disp_a.reshape(n_groups, g_sz, k, E // M, cap_per_e)
+    dispatch = torch.sum(disp_a, dim=2)                         # (g,s,e,c)
     combine = torch.einsum("gskec,gsk->gsec", disp_a, wg.float())
 
     xd = torch.einsum("gsec,gsd->gecd", dispatch.to(x.dtype), xg)
@@ -313,6 +378,9 @@ def moe_dispatch_einsum(params, x, cfg: ModelConfig, mesh=None,
     h = _activate(h, cfg)
     y = torch.einsum("gecf,efd->gecd", h, params["wo"])
     out = torch.einsum("gsec,gecd->gsd", combine.to(y.dtype), y)
+    out = out.reshape(-1, d)[lead:lead + T]
+    if M > 1:
+        out = tp.reduce_out(out)
     return out.reshape(shape).to(x.dtype), aux
 
 
@@ -321,7 +389,7 @@ def apply_moe(params, x, cfg: ModelConfig, mesh=None, tp=None
     if tp is None and mesh is not None:
         tp = dist_.moe_layout(cfg, mesh)
     if cfg.moe.impl == "dispatch_einsum":
-        out, aux = moe_dispatch_einsum(params, x, cfg, mesh)
+        out, aux = moe_dispatch_einsum(params, x, cfg, mesh, tp=tp)
     else:
         out, aux = moe_ragged(params, x, cfg, mesh, tp)
     if cfg.moe.num_shared_experts:

@@ -415,7 +415,7 @@ def _mamba_layer(params, x, i: int, cfg: ModelConfig, mode: str, state,
     """Mamba2 layer ``i`` with its residual; its state (``state``: the
     ``mamba`` cache, or None) is written in place. ``tp``: the layer's
     layout under a mesh."""
-    p = layer_slice(params["mamba"], i)
+    p = _gathered(layer_slice(params["mamba"], i), tp)
     if mode == "decode":
         y, _ = m2.mamba2_decode(p, x, cfg, layer_slice(state, i), tp=tp)
     else:
@@ -497,7 +497,7 @@ def _ssm(params, x, cfg: ModelConfig, mode: str, caches, plan=None):
                                         tp=stp)[0]
     else:
         def mlstm(x, i):
-            p = layer_slice(params["mlstm"], i)
+            p = _gathered(layer_slice(params["mlstm"], i), mtp)
             if mode == "decode":
                 y, _ = xl.mlstm_decode(p, x, cfg, layer_slice(mstate, i),
                                        tp=mtp)
@@ -511,8 +511,9 @@ def _ssm(params, x, cfg: ModelConfig, mode: str, caches, plan=None):
 
         def slstm(x, g):
             ss = None if sstate is None else layer_slice(sstate, g)
-            y, new_ss = xl.slstm_forward(layer_slice(params["slstm"], g), x,
-                                         cfg, state=ss, tp=stp)
+            y, new_ss = xl.slstm_forward(
+                _gathered(layer_slice(params["slstm"], g), stp), x, cfg,
+                state=ss, tp=stp)
             if ss is not None:
                 _put(ss, new_ss)
             return x + y
@@ -556,9 +557,9 @@ def forward(params, cfg: ModelConfig, *, tokens=None, embeds=None,
     ``param_specs``) and the global ``tokens``/``embeds``: mode "train" as
     ``train_forward`` says; modes "prefill" and "decode" over the rank's
     dense caches and states (``init_cache(..., rules, mesh)``), their
-    logits whole on every rank (``whole_logits``). Paged caches, modes
-    "chunk" and "verify" and ``shard_v2`` raise ``NotImplementedError``
-    there (``distributed.check_serving``), as do the layouts
+    logits whole on every rank (``whole_logits``). Paged caches and modes
+    "chunk" and "verify" raise ``NotImplementedError`` there
+    (``distributed.check_serving``), as do the layouts
     ``distributed.check_rules`` names.
     """
     plan = dist_.plan(cfg, rules, mesh, mode, caches)
@@ -609,9 +610,7 @@ def whole_logits(logits, cfg: ModelConfig, plan):
     row already)."""
     if vocab_sharded(cfg, plan):
         logits = dist_.gather(logits, -1, plan.model)
-    if plan.seq is not None:
-        return logits
-    return dist_.gather(logits, 0, plan.data)
+    return dist_.gather(logits, 0, plan.batch)
 
 
 def _run(params, cfg: ModelConfig, tokens, embeds, mode: str, caches,
@@ -634,11 +633,17 @@ def _run(params, cfg: ModelConfig, tokens, embeds, mode: str, caches,
             "package)")
     compute = getattr(torch, cfg.compute_dtype)
 
+    whole = {}
+
     def leaf(path):
         """A top-level leaf where it is used: under FSDP gathered whole
-        over the data axes at each use."""
-        return (params[path] if plan is None
-                else plan.block("").gathered(params[path], path))
+        over the data axes at each use (in the serving modes once a pass:
+        a tied embedding's lookup and head share one gather)."""
+        if plan is None:
+            return params[path]
+        if mode == "train" or path not in whole:
+            whole[path] = plan.block("").gathered(params[path], path)
+        return whole[path]
     if embeds is not None:
         x = embeds.to(compute) @ leaf("frontend_proj").to(compute)
     else:
@@ -667,9 +672,9 @@ def _run(params, cfg: ModelConfig, tokens, embeds, mode: str, caches,
             lengths = []
             for i in range(n):
                 cache_i = None if c is None else layer_slice(c, i)
-                x, nc, _ = _block_fwd(layer_slice(params[pkey], i), x,
-                                      positions, cfg, mode, cache_i, q_valid,
-                                      tp)
+                x, nc, _ = _block_fwd(_gathered(layer_slice(params[pkey], i),
+                                                tp), x, positions, cfg, mode,
+                                      cache_i, q_valid, tp)
                 if nc is not None:
                     lengths.append(nc["length"])
             if c is not None:
@@ -695,7 +700,7 @@ def _run(params, cfg: ModelConfig, tokens, embeds, mode: str, caches,
         # row's logits depend on how many rows the pass has (verify vs
         # decode)
         flat = x.reshape(-1, x.shape[-1])
-        logits = (params["embed"].to(x.dtype) @ flat.T).T.reshape(
+        logits = (leaf("embed").to(x.dtype) @ flat.T).T.reshape(
             *x.shape[:-1], -1)
     else:
         logits = x @ leaf("head").to(x.dtype)
@@ -813,10 +818,14 @@ def cache_specs(cfg: ModelConfig, rules, batch: int, max_len: int):
         for k, (shape, _) in leaves.items():
             ax = axes[g][k]
             entries = list(rules.spec(shape, ax))
+            seq_model = any("model" in dist_.group_of(e)
+                            for e, a in zip(entries, ax)
+                            if a in ("seq", "cache_seq"))
             for i, a in enumerate(ax):
                 if a in ("head_dim_shard", "kv_lora"):
                     entries[i] = None
-                elif a == "kv_heads" and entries[i] is None:
+                elif a == "kv_heads" and entries[i] is None \
+                        and not seq_model:
                     entries[i] = read
                 elif (g, k) == ("mamba", "conv") and entries[i] == "model":
                     entries[i] = conv
@@ -831,20 +840,27 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda",
     (``ValueError``). Under ``rules``/``mesh`` ``batch`` is the global
     batch and the caches are this rank's (``cache_specs``: its rows, its
     kv heads or whole ones, the whole latent; its heads' recurrent
-    states; under ``seq_sharded`` every row and its slice of the
-    positions, which must then divide over the data axes); ``shard_v2``
-    raises (``distributed.check_serving``)."""
+    states; where the layout splits the positions (``seq_sharded``,
+    ``shard_v2``: ``distributed.cache_groups``) its slice of them, whose
+    group must then divide ``max_len``: JAX's rules fall back to fewer
+    axes there, and the port raises ``ValueError``)."""
     check_family(cfg)
     check_serving(cfg)
     spec, _ = init_cache_spec(cfg, batch, max_len)
+    if rules is not None or mesh is not None:
+        from repro_torch.models.sharding import ShardingRules
+        r = rules if rules is not None else ShardingRules(mesh)
+        specs = cache_specs(cfg, r, batch, max_len)
+        _, want = dist_.cache_groups(cfg, r)
+        for g, leaves in specs.items():
+            first = next(iter(leaves.values()))    # (scan, batch, seq, ..)
+            if g in ("attn", "dense_attn") and want and \
+                    dist_.group_of(first[2]) != want:
+                raise ValueError(
+                    f"a cache of {max_len} positions does not divide over "
+                    f"the axes {want} that its positions split over")
     plan = dist_.plan(cfg, rules, mesh, "prefill")
     if plan is not None:
-        if plan.seq is not None and max_len % plan.seq.size \
-                and "attn" in spec:
-            raise ValueError(
-                f"seq_sharded: a cache of {max_len} positions does not "
-                f"divide over the data axes ({plan.seq.size} ranks)")
-        specs = cache_specs(cfg, plan.rules, batch, max_len)
         spec = {g: {k: (dist_.local_shape(shape, specs[g][k], plan.mesh),
                         dt) for k, (shape, dt) in leaves.items()}
                 for g, leaves in spec.items()}

@@ -48,12 +48,15 @@ def _cfg(spec):
 
 def _mesh(shape, axes):
     """The mesh over ranks 0 .. prod(shape) - 1, its axis groups made on
-    every rank (a rank outside it gets None)."""
+    every rank (a rank outside it gets None): "model", the data axes, and
+    all of them (the caches' positions under ``shard_v2`` with
+    ``seq_sharded``)."""
     from repro_torch import distributed as D
     from repro_torch.launch.mesh import compat_make_mesh
     mesh = compat_make_mesh(shape, axes, device="cpu")
     model = D.axis(mesh, ("model",))
     data = D.axis(mesh, ("pod", "data"))
+    D.axis(mesh, ("pod", "data", "model"))   # a positions group
     return mesh, model is not None and data is not None
 
 
@@ -66,7 +69,10 @@ def _moe_specs(layout, tree, prefix=""):
 
 def job_ep(rank, d, spec):
     """apply_moe on the rank's shards: EP on (2, 4) at each capacity
-    slack, and every expert on 8 data ranks (mesh ("data",)) at each."""
+    slack, and every expert on 8 data ranks (mesh ("data",)) at each; the
+    dispatch einsum alike at each of ``spec["groups"]`` (its group size:
+    one group of the whole batch, or groups that a rank's rows fill or
+    straddle)."""
     from repro_torch import distributed as D
     from repro_torch import weights
     from repro_torch.models import moe
@@ -80,13 +86,19 @@ def job_ep(rank, d, spec):
             cfg = _cfg({**spec, "moe": {"capacity_slack": slack}})
             lay = D.moe_layout(cfg, mesh)
             local = weights.shard_params(p, _moe_specs(lay, p), mesh)
+            rows = D.local_slice(x, 0, lay.data)
             with torch.no_grad():
-                y, aux = moe.apply_moe(local, D.local_slice(x, 0, lay.data),
-                                       cfg, mesh=mesh)
-                y = D.gather(y, 0, lay.data)
-                auxes = D.gather(aux.reshape(1), 0, lay.data)
-            out[f"{tag}_{slack}_y"] = y
-            out[f"{tag}_{slack}_aux"] = auxes
+                y, aux = moe.apply_moe(local, rows, cfg, mesh=mesh)
+                out[f"{tag}_{slack}_y"] = D.gather(y, 0, lay.data)
+                out[f"{tag}_{slack}_aux"] = D.gather(aux.reshape(1), 0,
+                                                     lay.data)
+                for g in spec["groups"]:
+                    y, aux = moe.moe_dispatch_einsum(local, rows, cfg,
+                                                     group_size=g, tp=lay)
+                    out[f"{tag}_dispatch_{g}_{slack}_y"] = D.gather(
+                        y, 0, lay.data)
+                    out[f"{tag}_dispatch_{g}_{slack}_aux"] = D.gather(
+                        aux.reshape(1), 0, lay.data)
     if rank == 0:
         save_tree(f"{d}/out_ep.npz", out)
 
@@ -232,13 +244,14 @@ def job_mask(rank, d, spec):
         save_tree(f"{d}/out_mask.npz", {"loss": loss})
 
 
-def _local_params(d, name, cfg, mesh, seq_sharded=False, full=None):
+def _local_params(d, name, cfg, mesh, rules_kw=None, full=None):
     """(rules, this rank's shards of ``{name}_params.npz``, or of
-    ``full``, laid out by ``transformer.param_specs``)."""
+    ``full``, laid out by ``transformer.param_specs``); ``rules_kw``: the
+    rules' flags (``seq_sharded``, ``fsdp``)."""
     from repro_torch import weights
     from repro_torch.models import sharding
     from repro_torch.models import transformer as tf
-    rules = sharding.ShardingRules(mesh, seq_sharded=seq_sharded)
+    rules = sharding.ShardingRules(mesh, **(rules_kw or {}))
     pspecs = _nest(tf.param_specs(cfg, rules))
     if full is None:
         full = load_tree(f"{d}/{name}_params.npz")
@@ -263,7 +276,8 @@ def job_serve(rank, d, spec):
     (``gather_params`` with ``cache_specs``) after the prefill and after
     the last step; whether the params' shards gather back to the whole
     leaves bit for bit. Inputs are ``{spec["data"]}_*.npz`` (default the
-    case's name); ``spec["seq_sharded"]`` sets the rules' flag."""
+    case's name); ``spec["rules"]`` holds the rules' flags, and
+    ``spec["seq_sharded"]`` sets that one."""
     from repro_torch import tree as T
     from repro_torch import weights
     from repro_torch.models import steps
@@ -275,8 +289,10 @@ def job_serve(rank, d, spec):
     cfg = _cfg(spec)
     data = spec.get("data", name)
     full = load_tree(f"{d}/{data}_params.npz")
-    rules, local = _local_params(d, data, cfg, mesh,
-                                 spec.get("seq_sharded", False), full)
+    rules_kw = dict(spec.get("rules", {}))
+    if spec.get("seq_sharded"):
+        rules_kw["seq_sharded"] = True
+    rules, local = _local_params(d, data, cfg, mesh, rules_kw, full)
     back = weights.gather_params(local, _nest(tf.param_specs(cfg, rules)),
                                  mesh)
     flat = T.flatten(full)

@@ -274,17 +274,23 @@ def test_param_layout_is_jaxs_but_the_mamba2_entry(arch, seq):
                 assert reads == 3, (reduced, shape)
 
 
+@pytest.mark.parametrize("v2", [False, True])
 @pytest.mark.parametrize("seq", [False, True])
 @pytest.mark.parametrize("arch", RECURRENT)
-def test_cache_layout_is_jaxs_but_the_port_entries(arch, seq):
+def test_cache_layout_is_jaxs_but_the_port_entries(arch, seq, v2):
     """``transformer.cache_specs`` == JAX's ``tree_specs`` of its
     ``init_cache_spec``, but the Mamba2 conv window's channels
     (``Mamba2Read``) and the shared block's kv heads where JAX splits the
     head dim (``HeadsRead``, as for the dense families); under
     ``seq_sharded`` the batch is replicated and the shared block's K/V
-    sequence is on the data axes."""
+    sequence is on the data axes; under ``shard_v2`` (its ``cache_seq``)
+    also on "model" where the kv heads do not take it, every kv head then
+    whole on a model rank, as in JAX."""
     for reduced in (True, False):
         jcfg, tcfg = _pair(arch, reduced)
+        if v2:
+            jcfg, tcfg = jcfg.replace(shard_v2=True), tcfg.replace(
+                shard_v2=True)
         jspec, jaxes = jtf.init_cache_spec(jcfg, BATCH, SEQ_LEN)
         for shape, names in MESHES.items():
             jr = jsharding.ShardingRules(_StubMesh(shape, names),
@@ -303,10 +309,13 @@ def test_cache_layout_is_jaxs_but_the_port_entries(arch, seq):
                     _port_entry_matches(tuple(spec), w, (arch, shape, path))
                 if seq:
                     assert spec[1] is None, path       # the batch whole
-            if seq and arch == "zamba2_7b":
+            if seq and arch == "zamba2_7b" and not v2:
                 data = tuple(a for a in ("pod", "data") if a in names)
                 want_seq = data if len(data) > 1 else data[0]
                 assert got["attn/k"][2] == want_seq
+            if arch == "zamba2_7b" and "model" in D.group_of(
+                    got["attn/k"][2]):
+                assert got["attn/k"][3] is None       # every kv head
 
 
 def test_mamba2_read_takes_a_ranks_heads():

@@ -4,8 +4,8 @@ against the JAX package.
 
 As in ``tests/test_torch_distributed.py`` the sharded runs are gloo ranks
 spawned once for the module (``repro_torch.launch.mesh.spawn`` running
-``_torch_dist_jobs.run``), beside one JAX subprocess with 8 host devices
-that computes every reference: JAX's single-device steps and, for what
+``_torch_dist_jobs.run``), beside JAX subprocesses with 8 host devices
+that compute every reference: JAX's single-device steps and, for what
 needs JAX's own sharding (its ``shard_map`` MoE dropping rows past each
 data shard's capacity), its sharded steps. Held:
 
@@ -27,9 +27,25 @@ data shard's capacity), its sharded steps. Held:
 (d) v2-lite at capacity slack 1.0, where each data shard drops rows past
     its own capacity: the sharded steps == JAX's sharded steps, and apart
     from its single-device ones;
-(e) what serving under a mesh does not run raises, naming leaf and spec
-    (the recurrent families and ``seq_sharded`` run: their tests are in
-    ``tests/test_torch_dist_recurrent.py``).
+(e) what serving under a mesh does not run raises, naming leaf and spec:
+    paged caches, ``chunk_step`` and ``verify_step`` (the recurrent
+    families and ``seq_sharded`` run: their tests are in
+    ``tests/test_torch_dist_recurrent.py``); a cache whose length its
+    positions' group does not divide raises ``ValueError``;
+(f) the layouts that split the caches' positions or shard the weights
+    over the data axes in serving, each == JAX's sharded steps on the
+    case's mesh and rules (its params placed by JAX's ``tree_shardings``),
+    as (b): gemma_2b (one kv head) on (2, 2) and llama3_70b (2 kv heads
+    on "model" 4) on (2, 4) under ``shard_v2`` (the positions over
+    "model", every kv head on each model rank, the query heads gathered),
+    ``seq_sharded`` (over the data axes) and both (over ("data",
+    "model")); v2-lite's MLA, naive and absorbed, under the same three;
+    zamba2_7b under ``shard_v2`` (2 kv heads on "model" 4) and under
+    FSDP; gemma_2b and v2-lite (expert parallelism) under FSDP; v2-lite
+    with the dispatch einsum (experts over "model", capacity slack 1.0:
+    the slots of the whole batch), without and with FSDP; and
+    ``attn_in_seqshard``, JAX's layout hint, which moves no value: the
+    port's steps with it on and off are bit for bit equal.
 
 Both packages' ``prefill_step`` allocate bf16 caches; at fp32 one ulp of
 a K/V entry can round it to the other bf16 neighbour. So the JAX
@@ -39,6 +55,7 @@ fp32 leaves (``_torch_dist_jobs._fp32_caches``).
 """
 import dataclasses
 import functools
+import itertools
 import json
 import os
 import subprocess
@@ -71,6 +88,10 @@ MESHES = {(16, 16): ("data", "model"), (2, 16, 16): ("pod", "data", "model"),
           (2, 2, 2): ("pod", "data", "model"), (2, 4): ("data", "model")}
 MESH22 = dict(mesh=[2, 2], axes=["data", "model"])
 NO_DROPS = {"capacity_slack": 8.0}
+MESH24 = dict(mesh=[2, 4], axes=["data", "model"])
+V2, SEQ, FSDP = {"shard_v2": True}, {"seq_sharded": True}, {"fsdp": True}
+ABSORB = {"absorb": True}
+DISPATCH = {"impl": "dispatch_einsum", "capacity_slack": 1.0}
 SERVE = {
     "gemma_2b": dict(arch="gemma_2b", **MESH22),
     "llama3_70b_222": dict(arch="llama3_70b", mesh=[2, 2, 2],
@@ -88,6 +109,53 @@ SERVE = {
         arch="deepseek_v2_lite_16b", moe={"capacity_slack": 1.0},
         sharded=True, **MESH22),
 }
+# (f): each held against JAX's sharded steps only; "data" names the case
+# whose weights and prompts it takes (default its own)
+LAYOUTS = {
+    # a 10-token prompt: the steps cross from model rank 0's 12 positions
+    # into rank 1's
+    "gemma_2b_v2": dict(arch="gemma_2b", cfg=V2, prompt=10, **MESH22),
+    "gemma_2b_seq": dict(arch="gemma_2b", rules=SEQ, data="gemma_2b",
+                         **MESH22),
+    "gemma_2b_v2_seq": dict(arch="gemma_2b", cfg=V2, rules=SEQ,
+                            data="gemma_2b", **MESH22),
+    "llama3_70b_v2": dict(arch="llama3_70b", cfg=V2, data="llama3_70b_24",
+                          **MESH24),
+    "llama3_70b_seq": dict(arch="llama3_70b", rules=SEQ,
+                           data="llama3_70b_24", **MESH24),
+    "llama3_70b_v2_seq": dict(arch="llama3_70b", cfg=V2, rules=SEQ,
+                              data="llama3_70b_24", **MESH24),
+    **{f"deepseek_v2_lite_16b_{tag}{'_absorbed' if mla else ''}": dict(
+        arch="deepseek_v2_lite_16b", moe=NO_DROPS, mla=mla, cfg=cfg,
+        rules=rules, data="deepseek_v2_lite_16b", **MESH22)
+       for tag, cfg, rules in (("v2", V2, {}), ("seq", {}, SEQ),
+                               ("v2_seq", V2, SEQ))
+       for mla in ({}, ABSORB)},
+    "zamba2_7b_v2": dict(arch="zamba2_7b", cfg={**V2, "num_kv_heads": 2},
+                         **MESH24),
+    "zamba2_7b_fsdp": dict(arch="zamba2_7b", rules=FSDP, **MESH22),
+    "gemma_2b_fsdp": dict(arch="gemma_2b", rules=FSDP, data="gemma_2b",
+                          **MESH22),
+    "deepseek_v2_lite_16b_fsdp": dict(arch="deepseek_v2_lite_16b",
+                                      moe=NO_DROPS, rules=FSDP,
+                                      data="deepseek_v2_lite_16b", **MESH22),
+    "deepseek_v2_lite_16b_dispatch": dict(arch="deepseek_v2_lite_16b",
+                                          moe=DISPATCH, **MESH22),
+    "deepseek_v2_lite_16b_dispatch_fsdp": dict(
+        arch="deepseek_v2_lite_16b", moe=DISPATCH, rules=FSDP,
+        data="deepseek_v2_lite_16b_dispatch", **MESH22),
+    # 6 query heads on "model" 4: JAX's attn_in_seqshard constrains the
+    # attention's input there
+    "llama3_70b_qseq": dict(arch="llama3_70b", cfg={
+        "num_heads": 6, "attn_in_seqshard": True}, mesh=[1, 4],
+        axes=["data", "model"]),
+    "llama3_70b_qseq_off": dict(arch="llama3_70b", cfg={"num_heads": 6},
+                                mesh=[1, 4], axes=["data", "model"],
+                                data="llama3_70b_qseq", jax=False),
+}
+# the JAX references are computed by this many subprocesses side by side,
+# each taking every JAX_PARTS-th job (their compiles dominate the module)
+JAX_PARTS = 3
 ENCODER = dict(name="hubert_xlarge", arch="hubert_xlarge",
                opt=dict(lr=3e-3, warmup_steps=2, total_steps=3), **MESH22)
 
@@ -119,19 +187,20 @@ def _perturbed_params(tcfg, seed):
             for k, v in _flat(ttf.init_model(tcfg, gen, "cpu")).items()}
 
 
-# JAX's references, in one subprocess with 8 host devices: for each
-# serving case its single-device steps (and, with "sharded", its sharded
-# steps on the case's mesh), and the encoder's prefill_step and train step
+# JAX's references, in JAX_PARTS subprocesses with 8 host devices: for
+# each serving case its single-device steps (and, with "sharded", its
+# sharded steps on the case's mesh and rules), and the encoder's
+# prefill_step and train step
 _JAX = """
 import dataclasses, json, sys
 import jax, jax.numpy as jnp, numpy as np
 from jax.sharding import Mesh
 from repro.configs import get_reduced_config
 from repro.models import optim, steps, transformer as tf
-from repro.models.sharding import ShardingRules
+from repro.models.sharding import ShardingRules, tree_shardings
 
-d = sys.argv[1]
-specs = json.load(open(f"{d}/jobs.json"))
+d, part, parts = sys.argv[1], int(sys.argv[2]), int(sys.argv[3])
+specs = json.load(open(f"{d}/jobs.json"))[part::parts]
 
 def load(path):
     out = {}
@@ -159,6 +228,12 @@ def cfg_of(spec):
                 getattr(cfg, sub), **spec[sub])})
     return cfg
 
+def placed(params, cfg, rules):
+    # the params laid out by JAX's rules (FSDP's data axes among them)
+    abstract, axes = tf.abstract_model(cfg)
+    return jax.device_put(params, tree_shardings(
+        rules, abstract, tf.axes_tree(abstract, axes)))
+
 def serve(cfg, params, batch, spec, rules=None, mesh=None):
     # prefill_step's body over fp32 caches, then serve_steps fed their own
     # greedy tokens
@@ -184,16 +259,20 @@ out = {}
 devs = np.array(jax.devices())
 for spec in specs:
     name, cfg = spec["name"], cfg_of(spec)
-    params = load(f"{d}/{name}_params.npz")
-    batch = load(f"{d}/{name}_batch.npz")
+    data = spec.get("data", name)
+    params = load(f"{d}/{data}_params.npz")
+    batch = load(f"{d}/{data}_batch.npz")
     if spec["job"] == "serve":
-        got = {"single": serve(cfg, params, batch, spec)}
+        got = {}
+        if spec.get("single", True):
+            got["single"] = serve(cfg, params, batch, spec)
         if spec.get("sharded"):
             n = int(np.prod(spec["mesh"]))
             mesh = Mesh(devs[:n].reshape(spec["mesh"]), tuple(spec["axes"]))
+            rules = ShardingRules(mesh, **spec.get("rules", {}))
             with mesh:
-                got["sharded"] = serve(cfg, params, batch, spec,
-                                       ShardingRules(mesh), mesh)
+                got["sharded"] = serve(cfg, placed(params, cfg, rules),
+                                       batch, spec, rules, mesh)
     else:
         pre, _ = steps.prefill_step(params, {"embeds": batch["embeds"]}, cfg,
                                     spec["max_len"])
@@ -207,7 +286,7 @@ for spec in specs:
     for tag, res in got.items():
         out.update({f"{name}/{tag}/{k}": np.asarray(v)
                     for k, v in res.items()})
-np.savez(f"{d}/jax.npz", **out)
+np.savez(f"{d}/jax{part}.npz", **out)
 """
 
 
@@ -217,18 +296,24 @@ def world(tmp_path_factory):
     torch ranks side by side. Returns (directory, JAX's results)."""
     d = str(tmp_path_factory.mktemp("dist_serve"))
     specs = []
-    for seed, (name, case) in enumerate(SERVE.items()):
-        tcfg = jobs._cfg({**case, "replace": FP32})
-        np.savez(f"{d}/{name}_params.npz", **_perturbed_params(tcfg, seed))
-        rng = np.random.default_rng(100 + seed)
-        batch = ({"embeds": rng.standard_normal(
-            (BATCH, PROMPT, tcfg.frontend_dim)).astype(np.float32)}
-            if case.get("embeds") else
-            {"tokens": rng.integers(0, tcfg.vocab_size, (BATCH, PROMPT)
-                                    ).astype(np.int32)})
-        np.savez(f"{d}/{name}_batch.npz", **batch)
-        specs.append({"job": "serve", "name": name, "replace": FP32,
-                      "max_len": MAX_LEN, "steps": STEPS, **case})
+    layouts = {k: {**c, "single": False, "sharded": c.get("jax", True)}
+               for k, c in LAYOUTS.items()}
+    for seed, (name, case) in enumerate({**SERVE, **layouts}.items()):
+        replace = {**FP32, **case.get("cfg", {})}
+        if "data" not in case:
+            tcfg = jobs._cfg({**case, "replace": replace})
+            np.savez(f"{d}/{name}_params.npz",
+                     **_perturbed_params(tcfg, seed))
+            rng = np.random.default_rng(100 + seed)
+            prompt = case.get("prompt", PROMPT)
+            batch = ({"embeds": rng.standard_normal(
+                (BATCH, prompt, tcfg.frontend_dim)).astype(np.float32)}
+                if case.get("embeds") else
+                {"tokens": rng.integers(0, tcfg.vocab_size, (BATCH, prompt)
+                                        ).astype(np.int32)})
+            np.savez(f"{d}/{name}_batch.npz", **batch)
+        specs.append({"job": "serve", "name": name, "max_len": MAX_LEN,
+                      "steps": STEPS, **case, "replace": replace})
     tcfg = get_reduced_config("hubert_xlarge").replace(**FP32)
     np.savez(f"{d}/hubert_xlarge_params.npz", **_perturbed_params(tcfg, 50))
     rng = np.random.default_rng(51)
@@ -244,15 +329,20 @@ def world(tmp_path_factory):
     env = dict(os.environ, JAX_PLATFORMS="cpu",
                XLA_FLAGS="--xla_force_host_platform_device_count=8",
                PYTHONPATH=os.path.join(ROOT, "src"))
-    proc = subprocess.Popen([sys.executable, "-c", _JAX, d], env=env,
-                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                            text=True)
+    procs = [subprocess.Popen([sys.executable, "-c", _JAX, d, str(i),
+                               str(JAX_PARTS)], env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for i in range(JAX_PARTS)]
     try:
         tmesh.spawn(jobs.run, 8, (d,), device="cpu")
     finally:
-        err = proc.communicate(timeout=300)[1]
-    assert proc.returncode == 0, err[-4000:]
-    return d, dict(np.load(f"{d}/jax.npz"))
+        errs = [p.communicate(timeout=300)[1] for p in procs]
+    for p, err in zip(procs, errs):
+        assert p.returncode == 0, err[-4000:]
+    ref = {}
+    for i in range(JAX_PARTS):
+        ref.update(np.load(f"{d}/jax{i}.npz"))
+    return d, ref
 
 
 def _sub(flat, prefix):
@@ -324,16 +414,20 @@ def test_cache_spec_and_axes_equal_jax(arch):
 @pytest.mark.parametrize("arch", ARCH_IDS)
 def test_cache_specs_under_rules_equal_jax(arch):
     """JAX's ``tree_specs`` of its cache spec == the port's
-    ``ShardingRules`` on the same axes; the port's layout
-    (``cache_specs``) == it but where it keeps a dim whole: "model" taken
-    off the head dim and the latent, and put on the kv heads as
-    ``HeadsRead`` where the query heads divide "model"."""
+    ``ShardingRules`` on the same axes, with and without ``seq_sharded``;
+    the port's layout (``cache_specs``) == it but where it keeps a dim
+    whole: "model" taken off the head dim and the latent, and put on the
+    kv heads as ``HeadsRead`` where the query heads divide "model" and
+    the positions do not take it (``shard_v2``'s ``cache_seq`` does where
+    the kv heads do not: every kv head is then whole on a model rank, as
+    in JAX)."""
     for reduced, v2 in _variants():
         (j, jaxes, jspec, jaxes_tree), (t, taxes), tcfg = _specs(
             arch, reduced, v2)
-        for shape, names in MESHES.items():
-            jr = jsharding.ShardingRules(_StubMesh(shape, names))
-            tr = tsharding.ShardingRules(_StubMesh(shape, names))
+        for (shape, names), kw in itertools.product(
+                MESHES.items(), ({}, {"seq_sharded": True})):
+            jr = jsharding.ShardingRules(_StubMesh(shape, names), **kw)
+            tr = tsharding.ShardingRules(_StubMesh(shape, names), **kw)
             want = _flat(jsharding.tree_specs(jr, jspec, jaxes_tree))
             shapes = {g: {k: s for k, (s, _) in leaves.items()}
                       for g, leaves in ttf.init_cache_spec(
@@ -342,20 +436,48 @@ def test_cache_specs_under_rules_equal_jax(arch):
                 k.replace("/", "."): a for k, a in taxes.items()}))
             assert {k: tuple(v) for k, v in got.items()} == \
                 {k: tuple(v) for k, v in want.items()}, (arch, shape)
-            if v2 or tcfg.family in ("hybrid", "ssm"):
-                continue     # no layout: they do not serve under a mesh
+            if tcfg.family in ("hybrid", "ssm"):
+                continue     # tests/test_torch_dist_recurrent.py
             m = shape[-1]
             layout = _flat(ttf.cache_specs(tcfg, tr, BATCH, MAX_LEN))
             for path, spec in layout.items():
+                seq_model = any("model" in D.group_of(w) for w, a in zip(
+                    want[path], taxes[path]) if a in ("seq", "cache_seq"))
                 for e, w, a in zip(spec, want[path], taxes[path]):
                     if a in ("head_dim_shard", "kv_lora"):
                         assert e is None
                     elif a == "kv_heads" and w is None \
-                            and tcfg.num_heads % m == 0:
+                            and tcfg.num_heads % m == 0 and not seq_model:
                         assert e == D.HeadsRead(tcfg.num_heads,
                                                 tcfg.num_kv_heads)
                     else:
                         assert e == w, (arch, shape, path)
+
+
+def test_cache_groups_follow_the_cache_leaf_spec():
+    """``distributed.cache_groups``, the axes the rows and the attention
+    caches' positions split over, as JAX's rules resolve the cache leaf:
+    gemma_2b's one kv head leaves "model" to ``shard_v2``'s ``cache_seq``;
+    llama3_70b's 2 kv heads take it on (2, 2) and not on (2, 4); MLA's
+    ``cache_seq`` comes before its ``kv_lora``."""
+    def groups(arch, shape, v2, **kw):
+        cfg = get_reduced_config(arch).replace(shard_v2=v2)
+        rules = tsharding.ShardingRules(_StubMesh(
+            shape, ("data", "model")), **kw)
+        return D.cache_groups(cfg, rules)
+    seq = {"seq_sharded": True}
+    assert groups("gemma_2b", (2, 2), False) == (("data",), ())
+    assert groups("gemma_2b", (2, 2), True) == (("data",), ("model",))
+    assert groups("gemma_2b", (2, 2), False, **seq) == ((), ("data",))
+    assert groups("gemma_2b", (2, 2), True, **seq) == (
+        (), ("data", "model"))
+    assert groups("llama3_70b", (2, 2), True) == (("data",), ())
+    assert groups("llama3_70b", (2, 2), True, **seq) == ((), ())
+    assert groups("llama3_70b", (2, 4), True) == (("data",), ("model",))
+    assert groups("deepseek_v2_lite_16b", (2, 2), True) == (
+        ("data",), ("model",))
+    assert groups("deepseek_v2_lite_16b", (2, 2), False, **seq) == (
+        (), ("data",))
 
 
 def test_cache_layouts_of_the_served_cases():
@@ -404,51 +526,29 @@ def test_heads_read_meets_each_query_heads_kv_head(nh, kvh, m):
 # ---------------------------------------------------------------------------
 
 def _raising(what):
-    """(config, rules, a call that must raise, what the message names).
-    ``what`` names the layout, and for "mla_seq_sharded" (MLA under
-    ``seq_sharded``), "hybrid_shard_v2" and "hybrid_fsdp" also the
-    family's config."""
-    arch = {"hybrid_shard_v2": "zamba2_7b", "hybrid_fsdp": "zamba2_7b",
-            "mla_seq_sharded": "deepseek_v2_lite_16b",
-            "dispatch_einsum": "deepseek_v2_lite_16b"}.get(what, "llama3_70b")
-    cfg = get_reduced_config(arch)
-    what = {"hybrid_shard_v2": "shard_v2", "hybrid_fsdp": "fsdp",
-            "mla_seq_sharded": "seq_sharded"}.get(what, what)
-    if what == "shard_v2":
-        cfg = cfg.replace(shard_v2=True)
-    if what == "dispatch_einsum":
-        cfg = cfg.replace(moe=dataclasses.replace(cfg.moe,
-                                                  impl="dispatch_einsum"))
-    kw = {what: True} if what in ("fsdp", "seq_sharded") else {}
-    rules = tsharding.ShardingRules(_StubMesh((2, 2), ("data", "model")),
-                                    **kw)
+    """(a call that must raise, what the message names) for the paged
+    layouts: a paged cache in ``serve_step``, ``chunk_step`` and
+    ``verify_step``."""
+    cfg = get_reduced_config("llama3_70b")
+    rules = tsharding.ShardingRules(_StubMesh((2, 2), ("data", "model")))
     tokens = torch.zeros((4, 1), dtype=torch.int32)
-    if what in ("paged", "chunk_step", "verify_step"):
-        paged = ttf.init_paged_cache(cfg, 4, 8, 4, 4, "cpu")
-        q_valid = torch.ones(4, dtype=torch.int32)
-        call = {"paged": lambda: tsteps.serve_step(None, tokens, paged, cfg,
-                                                   rules),
-                "chunk_step": lambda: tsteps.chunk_step(
-                    None, tokens, q_valid, paged, cfg, rules),
-                "verify_step": lambda: tsteps.verify_step(
-                    None, tokens, q_valid, paged, cfg, rules)}[what]
-        return call, "attn.k_pool: spec None"
-    names = {"fsdp": "embed: spec (", "seq_sharded": "attn.c_kv: spec (",
-             "shard_v2": "attn.k: spec (", "dispatch_einsum":
-             "layers.moe.wi: spec ("}
-    return (lambda: tsteps.prefill_step(None, {"tokens": tokens}, cfg, 8,
-                                        rules),
-            names.get(what, f"family={cfg.family!r}"))
+    paged = ttf.init_paged_cache(cfg, 4, 8, 4, 4, "cpu")
+    q_valid = torch.ones(4, dtype=torch.int32)
+    call = {"paged": lambda: tsteps.serve_step(None, tokens, paged, cfg,
+                                               rules),
+            "chunk_step": lambda: tsteps.chunk_step(
+                None, tokens, q_valid, paged, cfg, rules),
+            "verify_step": lambda: tsteps.verify_step(
+                None, tokens, q_valid, paged, cfg, rules)}[what]
+    return call, "attn.k_pool: spec None"
 
 
-@pytest.mark.parametrize("what", ["fsdp", "mla_seq_sharded", "shard_v2",
-                                  "hybrid_shard_v2", "hybrid_fsdp",
-                                  "dispatch_einsum", "paged", "chunk_step",
-                                  "verify_step"])
+@pytest.mark.parametrize("what", ["paged", "chunk_step", "verify_step"])
 def test_unrun_serving_layouts_raise_naming_leaf_and_spec(what):
-    """The recurrent families and ``seq_sharded`` serve under a mesh
-    (``tests/test_torch_dist_recurrent.py``); MLA under ``seq_sharded``,
-    ``shard_v2`` and FSDP, with the hybrid too, still raise."""
+    """The recurrent families, ``seq_sharded``, ``shard_v2``, FSDP and the
+    dispatch einsum serve under a mesh ((f), and
+    ``tests/test_torch_dist_recurrent.py``); the paged layouts, which JAX
+    runs sharded nowhere, still raise."""
     call, want = _raising(what)
     with pytest.raises(NotImplementedError) as e:
         call()
@@ -457,11 +557,19 @@ def test_unrun_serving_layouts_raise_naming_leaf_and_spec(what):
     assert want in msg, msg
 
 
-def test_cache_factory_refuses_shard_v2_under_a_mesh():
-    cfg = get_reduced_config("gemma_2b").replace(shard_v2=True)
-    rules = tsharding.ShardingRules(_StubMesh((2, 2), ("data", "model")))
-    with pytest.raises(NotImplementedError, match="cache_seq"):
-        ttf.init_cache(cfg, 4, 8, "cpu", rules)
+@pytest.mark.parametrize("arch,kw,v2", [
+    ("gemma_2b", {}, True), ("gemma_2b", {"seq_sharded": True}, True),
+    ("deepseek_v2_lite_16b", {"seq_sharded": True}, False)])
+def test_cache_factory_refuses_a_length_its_group_does_not_divide(arch, kw,
+                                                                  v2):
+    """A cache of 7 positions over a positions group of 2 or 4 ranks: JAX's
+    rules fall back to fewer axes there; ``init_cache`` raises before any
+    collective."""
+    cfg = get_reduced_config(arch).replace(shard_v2=v2)
+    rules = tsharding.ShardingRules(_StubMesh((2, 2), ("data", "model")),
+                                    **kw)
+    with pytest.raises(ValueError, match="does not divide"):
+        ttf.init_cache(cfg, 4, 7, "cpu", rules)
 
 
 # ---------------------------------------------------------------------------
@@ -536,3 +644,50 @@ def test_encoder_train_step_matches_jax(world):
         np.testing.assert_allclose(got[f"params/{k}"][sure], w[sure],
                                    rtol=0, atol=RTOL * np.abs(w).max(),
                                    err_msg=k)
+
+
+# ---------------------------------------------------------------------------
+# (f): the layouts that split the positions or FSDP-shard the weights
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("name", [n for n, c in LAYOUTS.items()
+                                  if c.get("jax", True)])
+def test_split_and_fsdp_layouts_match_jax_sharded_steps(world, name):
+    d, ref = world
+    out = _out(d, name)
+    assert float(out["roundtrip"]) == 1.0
+    _serving_close(out, _sub(ref, f"{name}/sharded"), name)
+
+
+def test_split_positions_caches_hold_the_ranks_slices(world):
+    """(L, rows, positions, kv heads, head dim) of rank 0's K cache (MLA:
+    its latent): the positions over "model" (2 or 4 ranks), the data axes
+    or both; every kv head where "model" splits the positions (gemma's
+    one, llama3's and zamba2's two), the kv heads its query heads read
+    otherwise."""
+    d, _ = world
+    want = {"gemma_2b_v2": [2, 2, 12, 1, 16],
+            "gemma_2b_seq": [2, 4, 12, 1, 16],
+            "gemma_2b_v2_seq": [2, 4, 6, 1, 16],
+            "llama3_70b_v2": [2, 2, 6, 2, 8],
+            "llama3_70b_seq": [2, 4, 12, 1, 8],
+            "llama3_70b_v2_seq": [2, 4, 3, 2, 8],
+            "deepseek_v2_lite_16b_v2": [2, 2, 12, 32],
+            "deepseek_v2_lite_16b_seq": [2, 4, 12, 32],
+            "deepseek_v2_lite_16b_v2_seq": [2, 4, 6, 32],
+            "zamba2_7b_v2": [2, 2, 6, 2, 16],
+            "deepseek_v2_lite_16b_dispatch_fsdp": [2, 2, MAX_LEN, 32]}
+    for name, shape in want.items():
+        assert _out(d, name)["local_k_shape"].tolist() == shape, name
+
+
+def test_attn_in_seqshard_moves_no_value(world):
+    """JAX's ``attn_in_seqshard`` constrains the layout of the attention's
+    input where the query heads do not divide "model" (6 on 4 here); the
+    port's steps with it on equal those with it off bit for bit (and
+    JAX's sharded steps with it on: the parametrized test above)."""
+    d, _ = world
+    on, off = _out(d, "llama3_70b_qseq"), _out(d, "llama3_70b_qseq_off")
+    assert sorted(on) == sorted(off)
+    for k in on:
+        np.testing.assert_array_equal(on[k], off[k], err_msg=k)

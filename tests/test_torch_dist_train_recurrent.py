@@ -21,7 +21,10 @@ loss; grad norms alike to 6 digits). Held:
     ``tests/test_torch_train_families.py`` for the ill-conditioned
     zamba2 and xlstm), params by ``_params_close`` and m and v within
     STEP_RTOL of each leaf's largest entry (read: 4.5e-6 at most), after
-    step 1 and after a step 2 taken from JAX's state after step 1;
+    step 1 and after a step 2 taken from JAX's state after step 1; and
+    v2-lite with the dispatch einsum under FSDP (its experts over
+    "model", rows dropped at capacity slack 1.0) == JAX's sharded step
+    under ``fsdp=True``, its state laid out by JAX's rules;
 (b) under FSDP every rank's m and v have its shard's shape, and every
     rank's shards gather back to the whole leaves bit for bit;
 (c) the FSDP layout: ``transformer.param_specs`` under ``fsdp=True`` ==
@@ -63,6 +66,7 @@ MESH222 = dict(mesh=[2, 2, 2], axes=["pod", "data", "model"])
 SEEDS = {"zamba2_7b": 60, "xlstm_1_3b": 61, "internlm2_20b": 62,
          "deepseek_v2_lite_16b": 63}
 SLACK = {"deepseek_v2_lite_16b": {"capacity_slack": 8.0}}
+DISPATCH = {"capacity_slack": 1.0, "impl": "dispatch_einsum"}
 # (a): each case's arch, mesh, FSDP and remat; the inputs are the arch's
 TRAIN = {
     "zamba2_7b_22": dict(arch="zamba2_7b", **MESH22),
@@ -78,12 +82,19 @@ TRAIN = {
     "xlstm_1_3b_22_fsdp": dict(arch="xlstm_1_3b", fsdp=True, **MESH22),
     "zamba2_7b_22_fsdp_full": dict(arch="zamba2_7b", fsdp=True,
                                    remat="full", **MESH22),
+    # the dispatch einsum with its experts over "model" under FSDP, rows
+    # dropped at capacity slack 1.0: held against JAX's sharded step
+    # under fsdp=True
+    "deepseek_v2_lite_16b_22_dispatch_fsdp": dict(
+        arch="deepseek_v2_lite_16b", fsdp=True, moe=DISPATCH, **MESH22),
 }
 
 
 def _ref(case) -> str:
-    """The name of a case's JAX reference: one per arch and remat."""
-    return f"{case['arch']}_{case.get('remat', 'none')}"
+    """The name of a case's JAX reference: one per arch and remat, and one
+    for each case whose MoE differs from the arch's."""
+    return (f"{case['arch']}_{case.get('remat', 'none')}"
+            + ("_dispatch" if "moe" in case else ""))
 
 
 # JAX's single-device references in one subprocess: two train steps from
@@ -96,6 +107,8 @@ import json, os, sys
 import jax, jax.numpy as jnp, numpy as np
 from repro.configs import get_reduced_config
 from repro.models import optim, steps, transformer as tf
+from repro.models.sharding import ShardingRules, tree_shardings
+from jax.sharding import Mesh
 import dataclasses
 
 d = sys.argv[1]
@@ -137,6 +150,30 @@ def shard_aux_step(cfg, opt, n_data):
                                          "grad_norm": gn}
     return step
 
+def placed(tree, cfg, rules):
+    abstract, axes = tf.abstract_model(cfg)
+    return jax.device_put(tree, tree_shardings(
+        rules, abstract, tf.axes_tree(abstract, axes)))
+
+def sharded_step(cfg, opt, ref, state):
+    # JAX's sharded step on the case's mesh under fsdp=True, the state
+    # laid out by its rules (the dispatch einsum is one program over the
+    # whole batch: its aux is the whole batch's)
+    n = int(np.prod(ref["mesh"]))
+    mesh = Mesh(np.array(jax.devices()[:n]).reshape(ref["mesh"]),
+                tuple(ref["axes"]))
+    rules = ShardingRules(mesh, fsdp=True)
+    state = {"params": placed(state["params"], cfg, rules),
+             "opt": {**state["opt"], "m": placed(state["opt"]["m"], cfg,
+                                                 rules),
+                     "v": placed(state["opt"]["v"], cfg, rules)}}
+    step = jax.jit(lambda s, b: steps.train_step(s, b, cfg, opt,
+                                                 rules=rules, mesh=mesh))
+    def run(s, b):
+        with mesh:
+            return step(s, b)
+    return run, state
+
 out = {}
 for ref in refs:
     cfg = get_reduced_config(ref["arch"]).replace(**ref["replace"])
@@ -145,9 +182,12 @@ for ref in refs:
     opt = optim.OptConfig(**ref["opt"])
     state = load(f"{d}/{ref['data']}_state0.npz")
     state["opt"]["step"] = state["opt"]["step"].astype(jnp.int32)
-    step = jax.jit(shard_aux_step(cfg, opt, ref["n_data"])
-                   if cfg.family == "moe"
-                   else lambda s, b: steps.train_step(s, b, cfg, opt))
+    if ref.get("sharded"):
+        step, state = sharded_step(cfg, opt, ref, state)
+    else:
+        step = jax.jit(shard_aux_step(cfg, opt, ref["n_data"])
+                       if cfg.family == "moe"
+                       else lambda s, b: steps.train_step(s, b, cfg, opt))
     name = ref["name"]
     for i in range(2):
         state, met = step(state, load(f"{d}/{ref['data']}_batch{i}.npz"))
@@ -194,10 +234,12 @@ def world(tmp_path_factory):
                     k: rng.integers(0, tcfg.vocab_size, BATCH).astype(
                         np.int32) for k in ("tokens", "labels")})
         replace = {**FP32, "remat": case.get("remat", "none")}
-        moe = SLACK.get(arch, {})
+        moe = case.get("moe", SLACK.get(arch, {}))
         refs[_ref(case)] = dict(name=_ref(case), arch=arch, data=arch,
                                 replace=replace, opt=OPT, moe=moe,
-                                n_data=int(np.prod(case["mesh"][:-1])))
+                                n_data=int(np.prod(case["mesh"][:-1])),
+                                sharded="moe" in case, mesh=case["mesh"],
+                                axes=case["axes"])
         specs.append({"job": "train", "name": name, "arch": arch,
                       "data": arch, "ref": _ref(case), "replace": replace,
                       "mesh": case["mesh"], "axes": case["axes"],
@@ -208,6 +250,7 @@ def world(tmp_path_factory):
     with open(f"{d}/jax_refs.json", "w") as f:
         json.dump(list(refs.values()), f)
     env = dict(os.environ, JAX_PLATFORMS="cpu",
+               XLA_FLAGS="--xla_force_host_platform_device_count=8",
                PYTHONPATH=os.path.join(ROOT, "src"))
     proc = subprocess.Popen([sys.executable, "-c", _JAX, d], env=env,
                             stdout=subprocess.PIPE, stderr=subprocess.PIPE,

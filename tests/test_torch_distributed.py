@@ -19,18 +19,23 @@ devices, as ``tests/test_distributed.py`` runs them. Held:
 (e) ``apply_moe`` with expert parallelism on (2, 4) == JAX's single
     device (no drops, 2e-3 as JAX's test and 1e-5 here), == JAX's
     ``shard_map`` at capacity slack 1.0 (drops), and every expert over 8
-    data ranks == JAX's single device with its one capacity cut;
+    data ranks == JAX's single device with its one capacity cut; the
+    dispatch einsum alike == JAX's one program at group sizes 4096 and
+    32 (groups that a rank's rows fill or straddle);
 (f) the sharded ``train_step`` == JAX's single-device one over 2 steps on
     reduced internlm2_20b (2, 2, 2), gemma_2b (MQA: K/V on the head dim,
-    tied vocabulary) and deepseek_v2_lite_16b (MLA + EP + aux) on (2, 2):
+    tied vocabulary) and deepseek_v2_lite_16b (MLA + EP + aux) on (2, 2),
+    and == JAX's sharded one for v2-lite with the dispatch einsum (its
+    experts over "model", rows dropped at capacity slack 1.0; its aux the
+    whole batch's on every device):
     loss, grad norm and aux within 1e-5, m and v within 1e-5 of each
     leaf's largest entry, params within ``tests/test_torch_train_families
     .py``'s rule (1e-5 plus what the m and v differences make through
     AdamW's normalised step);
 (g) unequal masks across data ranks give JAX's global mean;
-(h) the layouts the schedule does not run raise, naming leaf and spec
-    (serving under a mesh: ``tests/test_torch_dist_serve.py``; the
-    recurrent families and FSDP train: ``tests/test_torch_dist_train_
+(h) ``seq_sharded`` in training raises, naming leaf and spec (serving
+    under a mesh: ``tests/test_torch_dist_serve.py``; the recurrent
+    families and FSDP train: ``tests/test_torch_dist_train_
     recurrent.py``).
 
 The aux under data shards is a reference fact: JAX's sharded step leaves
@@ -81,7 +86,18 @@ TRAIN = {
                      mask=True),
     "deepseek_v2_lite_16b": dict(mesh=[2, 2], axes=["data", "model"],
                                  batch=(4, 16), moe={"capacity_slack": 8.0}),
+    # the dispatch einsum with its experts over "model" at capacity slack
+    # 1.0 (rows dropped past the slots of the whole batch's one group),
+    # held against JAX's sharded step
+    "deepseek_v2_lite_16b_dispatch": dict(
+        arch="deepseek_v2_lite_16b", mesh=[2, 2], axes=["data", "model"],
+        batch=(4, 16), moe={"capacity_slack": 1.0,
+                            "impl": "dispatch_einsum"}, jax_sharded=True),
 }
+# the dispatch einsum's group sizes in (e): one group of the whole batch
+# (128 rows), and groups of 32 that a rank's rows fill (2 data ranks) or
+# straddle (8)
+GROUPS = (4096, 32)
 
 
 class _StubMesh:
@@ -138,7 +154,7 @@ import jax, jax.numpy as jnp, numpy as np
 from jax.sharding import Mesh
 from repro.configs import get_reduced_config
 from repro.models import moe as moe_mod, optim, steps, transformer as tf
-from repro.models.sharding import ShardingRules
+from repro.models.sharding import ShardingRules, tree_shardings
 
 d, mode = sys.argv[1], sys.argv[2]
 specs = json.load(open(f"{d}/jobs.json"))
@@ -160,6 +176,12 @@ def flat(tree, prefix=""):
         p = f"{prefix}/{k}" if prefix else k
         out.update(flat(v, p) if isinstance(v, dict) else {p: np.asarray(v)})
     return out
+
+def placed(tree, cfg, rules):
+    # a params-shaped tree laid out by JAX's rules
+    abstract, axes = tf.abstract_model(cfg)
+    return jax.device_put(tree, tree_shardings(
+        rules, abstract, tf.axes_tree(abstract, axes)))
 
 def cfg_of(spec, **moe):
     cfg = get_reduced_config(spec["arch"]).replace(**spec["replace"])
@@ -202,6 +224,11 @@ for spec in sorted(specs, key=lambda s: s["job"] != "train"):
                 continue
             run = jax.jit(lambda p, x: moe_mod.apply_moe(p, x, cfg))
             out[f"single_{slack}_y"], out[f"single_{slack}_aux"] = run(p, x)
+            for g in spec["groups"]:
+                out[f"dispatch_{g}_{slack}_y"], out[
+                    f"dispatch_{g}_{slack}_aux"] = jax.jit(
+                    lambda p, x: moe_mod.moe_dispatch_einsum(
+                        p, x, cfg, group_size=g))(p, x)
             # each data shard's aux on (2, 4), as the shard map routes it
             out[f"shard_{slack}_aux"] = jnp.stack(
                 [run(p, x[4 * i:4 * i + 4])[1] for i in range(2)])
@@ -211,6 +238,34 @@ for spec in sorted(specs, key=lambda s: s["job"] != "train"):
         state = load(f"{d}/{name}_state0.npz")
         state["opt"]["step"] = state["opt"]["step"].astype(jnp.int32)
         batches = [load(f"{d}/{name}_batch{i}.npz") for i in range(2)]
+        if spec.get("jax_sharded"):
+            # the chain itself is JAX's sharded step (the "single" process
+            # leaves it to this one)
+            if mode != "sharded":
+                continue
+            mesh = Mesh(devs[:4].reshape(2, 2), ("data", "model"))
+            rules = ShardingRules(mesh)
+            step = jax.jit(lambda s, b: steps.train_step(
+                s, b, cfg, opt, rules=rules, mesh=mesh))
+            state = {"params": placed(state["params"], cfg, rules),
+                     "opt": {**state["opt"],
+                             "m": placed(state["opt"]["m"], cfg, rules),
+                             "v": placed(state["opt"]["v"], cfg, rules)}}
+            with mesh:
+                for i, b in enumerate(batches):
+                    state, met = step(state, b)
+                    out.update({f"{name}_met{i}_{k}": v
+                                for k, v in met.items()})
+                    out.update({f"{name}_state{i + 1}/{k}": v
+                                for k, v in flat(state).items()})
+                    if i == 0:
+                        out[f"{name}_aux_devices"] = np.array(
+                            [float(x.data) for x in
+                             met["aux_loss"].addressable_shards])
+                        np.savez(f"{d}/{name}_tmp.npz", **flat(state))
+                        os.replace(f"{d}/{name}_tmp.npz",
+                                   f"{d}/{name}_jstate1.npz")
+            continue
         if mode == "sharded":
             if cfg.family != "moe":
                 continue
@@ -263,18 +318,21 @@ def world(tmp_path_factory):
     np.save(f"{d}/ep_x.npy", rng.standard_normal(
         (8, 16, tcfg.d_model)).astype(np.float32))
     specs.append({"job": "ep", "arch": "deepseek_v2_lite_16b",
-                  "replace": FP32, "slacks": [8.0, 1.0]})
+                  "replace": FP32, "slacks": [8.0, 1.0],
+                  "groups": list(GROUPS)})
     # (f) the sharded train step
-    for seed, (arch, t) in enumerate(TRAIN.items()):
+    for seed, (name, t) in enumerate(TRAIN.items()):
+        arch = t.get("arch", name)
         tcfg = get_reduced_config(arch).replace(**FP32)
-        np.savez(f"{d}/{arch}_state0.npz", **_perturbed_state(tcfg, 30 + seed))
+        np.savez(f"{d}/{name}_state0.npz", **_perturbed_state(tcfg, 30 + seed))
         for i in range(2):
-            np.savez(f"{d}/{arch}_batch{i}.npz", **_batch(
+            np.savez(f"{d}/{name}_batch{i}.npz", **_batch(
                 tcfg, 40 + seed * 2 + i, *t["batch"],
                 mask=t.get("mask", False)))
-        specs.append({"job": "train", "name": arch, "arch": arch,
+        specs.append({"job": "train", "name": name, "arch": arch,
                       "replace": FP32, "mesh": t["mesh"], "axes": t["axes"],
-                      "opt": OPT, **({"moe": t["moe"]} if "moe" in t else {})})
+                      "opt": OPT, "jax_sharded": t.get("jax_sharded", False),
+                      **({"moe": t["moe"]} if "moe" in t else {})})
     # (g) the global mean under unequal masks
     tcfg = get_reduced_config("internlm2_20b").replace(**FP32)
     state = _perturbed_state(tcfg, 50)
@@ -369,30 +427,23 @@ def test_shrink_rule_matches_jax(n, monkeypatch):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("what", ["seq_sharded", "zamba2_7b_seq_sharded",
-                                  "xlstm_1_3b_seq_sharded",
-                                  "dispatch_einsum", "fsdp_dispatch_einsum"])
+                                  "xlstm_1_3b_seq_sharded"])
 def test_unrun_layouts_raise_naming_leaf_and_spec(what):
-    """The audio, hybrid and ssm families and FSDP train under a mesh
-    (``tests/test_torch_dist_serve.py``, ``tests/test_torch_dist_train_
-    recurrent.py``); ``seq_sharded`` in mode "train" (also for the
-    hybrid and ssm families) and the MoE dispatch einsum with sharded
-    experts (also under FSDP) still raise."""
+    """The audio, hybrid and ssm families, FSDP and the MoE dispatch einsum
+    with sharded experts train under a mesh (here, ``tests/test_torch_
+    dist_serve.py``, ``tests/test_torch_dist_train_recurrent.py``);
+    ``seq_sharded`` in mode "train" (also for the hybrid and ssm
+    families), which JAX's dry run sets for decode only, still raises."""
     arch = next((a for a in ARCH_IDS if what.startswith(a)),
-                "deepseek_v2_lite_16b" if "dispatch" in what
-                else "internlm2_20b")
+                "internlm2_20b")
     cfg = get_reduced_config(arch)
-    if what.endswith("dispatch_einsum"):
-        cfg = cfg.replace(moe=dataclasses.replace(cfg.moe,
-                                                  impl="dispatch_einsum"))
-    kw = {k: True for k in ("fsdp", "seq_sharded") if k in what}
     rules = tsharding.ShardingRules(
-        _StubMesh((2, 2), ("data", "model")), **kw)
+        _StubMesh((2, 2), ("data", "model")), seq_sharded=True)
     with pytest.raises(NotImplementedError) as e:
         tsteps.train_step(None, None, cfg, rules=rules, mesh=rules.mesh)
     msg = str(e.value)
     assert "spec (" in msg and "later slice" in msg, msg
-    want = "'seq'" if "seq_sharded" in what else "layers.moe.wi: spec ("
-    assert want in msg, msg
+    assert "'seq'" in msg, msg
 
 
 # ---------------------------------------------------------------------------
@@ -438,6 +489,31 @@ def test_every_expert_over_data_ranks_cuts_like_one_program(world):
                                    rtol=EP_TOL)
 
 
+@pytest.mark.parametrize("group", GROUPS)
+def test_dispatch_einsum_over_ranks_is_one_program(world, group):
+    """The dispatch einsum on the ranks' rows == JAX's one program over the
+    whole batch (``moe_dispatch_einsum`` at the same group size), with its
+    experts split over "model" on (2, 4) and every expert over 8 data
+    ranks, with and without drops: each assignment's slot counts the
+    assignments of the lower ranks in its group; the aux is the whole
+    batch's on every rank."""
+    d, single, _ = world
+    out = _out(d, "ep")
+    for tag in ("ep", "cut"):
+        for slack in (8.0, 1.0):
+            key = f"dispatch_{group}_{slack}"
+            np.testing.assert_allclose(out[f"{tag}_{key}_y"],
+                                       single[f"{key}_y"], atol=EP_TOL,
+                                       rtol=0, err_msg=f"{tag} {key}")
+            np.testing.assert_allclose(out[f"{tag}_{key}_aux"],
+                                       np.full(out[f"{tag}_{key}_aux"].shape,
+                                               single[f"{key}_aux"]),
+                                       rtol=EP_TOL, err_msg=f"{tag} {key}")
+    # slack 1.0 drops rows, so the slots of the lower ranks matter
+    assert np.abs(single[f"dispatch_{group}_1.0_y"]
+                  - single[f"dispatch_{group}_8.0_y"]).max() > 1e-3
+
+
 def _close_to_max(got, want, rtol, what):
     for k, w in want.items():
         np.testing.assert_allclose(got[k], w, rtol=0,
@@ -471,28 +547,32 @@ def _params_close(got, want, got_before, want_before, step, what):
         assert not bad.any(), (what, k, int(bad.sum()), float(err.max()))
 
 
-@pytest.mark.parametrize("arch", list(TRAIN))
-def test_sharded_train_step_matches_jax(world, arch):
+@pytest.mark.parametrize("name", list(TRAIN))
+def test_sharded_train_step_matches_jax(world, name):
     """Two steps of each package's chain from the same state: loss, grad
     norm and aux at each step; params, m and v after step 1, and after a
     step 2 taken from JAX's state after step 1 (carried across, as
     ``tests/test_torch_train.py`` does: AdamW's normalised step turns the
     fp32 noise of near-zero gradients into steps of order lr, so two
-    chains part at a few entries)."""
-    d, single, _ = world
-    out = _out(d, arch)
-    state0 = dict(np.load(f"{d}/{arch}_state0.npz"))
+    chains part at a few entries). The dispatch einsum's chain is JAX's
+    sharded step."""
+    d, single, sharded = world
+    arch = TRAIN[name].get("arch", name)
+    out = _out(d, name)
+    state0 = dict(np.load(f"{d}/{name}_state0.npz"))
+    if TRAIN[name].get("jax_sharded"):
+        single = sharded
     for i in range(2):
         for k in ("loss", "grad_norm", "aux_loss"):
-            want = single[f"{arch}_met{i}_{k}"]
+            want = single[f"{name}_met{i}_{k}"]
             np.testing.assert_allclose(out[f"chain{i}_{k}"], want,
                                        rtol=STEP_RTOL, err_msg=f"{k} {i}")
             if i == 1:
                 np.testing.assert_allclose(out[f"carried_{k}"], want,
                                            rtol=STEP_RTOL, err_msg=k)
         got = _sub(out, f"state{i + 1}")
-        want = _sub(single, f"{arch}_state{i + 1}")
-        before = state0 if i == 0 else _sub(single, f"{arch}_state1")
+        want = _sub(single, f"{name}_state{i + 1}")
+        before = state0 if i == 0 else _sub(single, f"{name}_state1")
         _params_close(got, want, before, before, i + 1, f"params {i + 1}")
         for m in ("m", "v"):
             _close_to_max(_sub(got, f"opt/{m}"), _sub(want, f"opt/{m}"),
@@ -500,7 +580,7 @@ def test_sharded_train_step_matches_jax(world, arch):
         assert int(got["opt/step"]) == int(want["opt/step"]) == i + 1
     # the layouts this model exercises, as JAX's rules give them
     rules = tsharding.ShardingRules(_StubMesh(
-        tuple(TRAIN[arch]["mesh"]), TRAIN[arch]["axes"]))
+        tuple(TRAIN[name]["mesh"]), TRAIN[name]["axes"]))
     cfg = get_reduced_config(arch)
     specs = tsharding.tree_specs(rules, ttf.param_shapes(cfg),
                                  ttf.param_axes(cfg))
@@ -510,7 +590,21 @@ def test_sharded_train_step_matches_jax(world, arch):
     if arch == "deepseek_v2_lite_16b":
         assert tuple(specs["layers.attn.wdkv"]) == (None, None, "model")
         assert tuple(specs["layers.moe.router"]) == (None, None, "model")
+        assert tuple(specs["layers.moe.wi"]) == (None, "model", None, None)
         assert float(out["chain0_aux_loss"]) > 0
+
+
+def test_dispatch_einsum_aux_is_the_whole_batchs_on_every_device(world):
+    """Reference fact: JAX's dispatch einsum is one program over the whole
+    batch (no shard map), so its sharded step's aux is the whole batch's
+    and the same on every device, unlike the ragged path's per-shard aux
+    below; the port's sharded dispatch reports that one value."""
+    d, _, sharded = world
+    name = "deepseek_v2_lite_16b_dispatch"
+    per_device = sharded[f"{name}_aux_devices"]
+    assert len(per_device) == 4 and (per_device == per_device[0]).all()
+    np.testing.assert_allclose(_out(d, name)["chain0_aux_loss"],
+                               per_device[0], rtol=STEP_RTOL)
 
 
 def test_aux_under_data_shards_is_the_mean_of_jax_devices(world):

@@ -2,6 +2,7 @@
 """The sharded steps on four cards, one rank a card over NCCL:
 
     python3 tools/dist_cards.py [train] [serve] [long] [probe] [train_whole]
+        [v2] [long_mla] [dispatch] [fsdp]
 
 With no argument it runs train and serve.
 
@@ -86,6 +87,36 @@ launches on every rank, each rank's m and v of its shards' shape, and
 layers 1, 40 and the last, each body's forward of step 1 against the
 unsharded layer on card 0 from its gathered weights on the same input
 (``compare``).
+
+``v2``, ``long_mla``, ``dispatch``, ``fsdp`` (not run by default;
+``layouts``):
+the layouts that split the caches' positions, FSDP and the dispatch
+einsum in serving, on (2, 2), bf16, full width, each rank making only
+its shards of the seeded weights.
+``v2``: JAX's decode_32k cell (128 rows, 32,768 positions) for gemma_2b
+under ``shard_v2``, whose ``cache_seq`` puts the cache's positions on the
+model ranks (its one kv head cannot take "model"): the K/V cache seeded
+as ``long`` seeds it (at the rms of an 8 x 1024 prefill under the mesh,
+``_seed_cache``), then 32 ``serve_step``s; at 4 layers against one process
+on card 0 (17.2 GB of cache; logits within LOGIT_TOL), then whole (18
+layers, 19.3 GB of K/V a card). ``long_mla``: JAX's long_500k cell on
+deepseek_v2_lite_16b, naive MLA, under ``seq_sharded`` (the latent
+cache's 524,288 positions over the data ranks, the batch of 1 whole on
+each), seeded, 64 steps; at 4 layers (one process's logits printed, not
+gated: rounding re-routes MoE tokens), then whole (27). ``dispatch``:
+deepseek_v2_lite_16b with the dispatch einsum (its experts over "model",
+the slots of the whole batch's groups), first at 6 layers with phase
+dist_serve's gates against one process (``DISPATCH_CHECK``), then whole:
+a real prefill of 8 x 1024 tokens (TTFT) and 32 steps. ``fsdp``: gemma_2b
+whole served alike without and with ``fsdp=True``, what FSDP's gathers
+cost a step in serving. Each prints TPOT
+(mean, median, range), all-reduce ms and calls a step, peak GiB a card,
+the launches, and the byte bound a card: the weights a step reads (the
+ragged MoE path only the local experts its rows route to; the dispatch
+einsum every local expert) and the card's cache, over 3.35 TB/s; and
+holds three blocks of one step (the first, the middle, the last) against
+the unsharded block on card 0 from their gathered weights, cache and
+input, routed as the ranks routed (``_layout_gates``).
 
 Every number is printed beside the card's name and power limit: these
 are the card's collective times (phase dist's and dist_serve's gloo ranks
@@ -963,9 +994,431 @@ def train_whole(card):
         cs.log(f"[cards] {arch} whole: {time.monotonic() - t0:.1f} s")
 
 
+# v2, long_mla, dispatch, fsdp: those layouts over four cards, (2, 2),
+# one NCCL rank a card. A run: (name, arch, layers, flags, batch, cache
+# positions, positions seeded (0: a real prefill of ``prompt`` tokens
+# instead), prompt, steps, seeding block, compared with one process)
+LAYOUT_GATES = 3                 # layers held against the unsharded block
+V2 = ("gemma_2b", ("shard_v2",), 128, 32_768, 32_736, 1024, 32, 4_096)
+LONG_MLA = ("deepseek_v2_lite_16b", ("seq_sharded",), 1, 524_288, 524_224,
+            1024, 64, 65_536)
+LAYOUT_RUNS = {
+    # JAX's decode_32k cell (batch 128, 32,768 positions): gemma_2b's one
+    # kv head leaves "model" to cache_seq, so each model rank holds half
+    # the positions of its data rank's 64 rows
+    "v2": (("v2", V2[0], 4, *V2[1:], True),
+           ("v2", V2[0], 18, *V2[1:], False)),
+    # JAX's long_500k cell on an MLA arch (naive): the latent cache's
+    # positions over the data ranks, the batch of 1 whole on each
+    "long_mla": (("long_mla", LONG_MLA[0], 4, *LONG_MLA[1:], True),
+                 ("long_mla", LONG_MLA[0], 27, *LONG_MLA[1:], False)),
+    # v2-lite whole with the dispatch einsum (experts over "model"): a real
+    # prefill of 8 x 1024 (two groups of 4096, one a data rank), 32 steps
+    "dispatch": (("dispatch", "deepseek_v2_lite_16b", 27, ("dispatch",), 8,
+                  1056, 0, 1024, 32, 0, False),),
+    # FSDP in serving: gemma_2b whole, 8 x 1024 then 32 steps, without and
+    # with fsdp=True (each layer's weights gathered over the data ranks in
+    # every pass): the difference is what the gathers cost a step
+    "fsdp": (("fsdp", "gemma_2b", 18, (), 8, 1056, 0, 1024, 32, 0, False),
+             ("fsdp", "gemma_2b", 18, ("fsdp",), 8, 1056, 0, 1024, 32, 0,
+              False)),
+}
+# the dispatch einsum first at a depth one card holds, against one process
+# (phase dist_serve's gates): 8 x 512 prompts, one group of 4096 over both
+# data ranks (the lower rank's slots counted first)
+DISPATCH_CHECK = (("deepseek_v2_lite_16b", 6, (2, 2), False, ("dispatch",)),)
+
+
+def _seed_cache(caches, cfg, rms, cspecs, mesh, run):
+    """Seed the attention caches in place: each leaf's layer i in blocks of
+    the run's block positions, block j drawn whole (every row, kv head or
+    latent channel) from a generator seeded by (run, group, leaf, i, j) at
+    ``rms``; with ``cspecs`` (the port's layout) a rank draws only the
+    blocks its positions hold and keeps its rows and heads, without (one
+    process) every block. Lengths: the positions seeded."""
+    from repro_torch import distributed as D
+    from repro_torch import weights
+    from repro_torch.models import attention as attn
+    from repro_torch.models.sharding import PartitionSpec
+    name, _, _, _, batch, S, filled, _, _, block, _ = run
+    whole = attn.cache_spec(cfg, batch, S)
+    for g, leaves in caches.items():
+        for k, leaf in leaves.items():
+            if k == "length":
+                continue
+            spec = None if cspecs is None else cspecs[g][k]
+            n_loc = leaf.shape[2]
+            lo = 0
+            if spec is not None and spec[2] is not None:
+                lo = D.axis(mesh, D.group_of(spec[2])).index * n_loc
+            for i in range(leaf.shape[0]):
+                for j in range(S // block):
+                    a, b = j * block, (j + 1) * block
+                    if b <= lo or a >= lo + n_loc:
+                        continue
+                    gen = torch.Generator(device="cuda").manual_seed(
+                        cs._seed_of(name, g, k, i, j))
+                    blk = (torch.randn((batch, block, *whole[k][0][2:]),
+                                       generator=gen, device="cuda")
+                           * rms[f"{g}.{k}"][i]).to(leaf.dtype)
+                    if spec is not None:
+                        blk = weights.shard_params(
+                            blk, PartitionSpec(spec[1], None, *spec[3:]),
+                            mesh)
+                    leaf[i, :, a - lo:b - lo] = blk
+        leaves["length"].fill_(filled)
+
+
+def _attn_layers(cfg):
+    """(params key, cache key, index) of each attention block, in forward
+    order."""
+    from repro_torch.models import transformer as tf
+    return [(pkey, ckey, i) for pkey, ckey, n in tf._groups(cfg)
+            for i in range(n)]
+
+
+def _layout_gates(rank, params, caches, cfg, rules, mesh, tok, which):
+    """One ``serve_step`` with the blocks ``which`` (forward order)
+    captured: each one's input, output, its cache before the step and its
+    MoE routing; then, gathered whole, rank 0 runs the unsharded block on
+    card 0 (routed as the ranks routed) against the ranks' output
+    (``compare``, the elementwise bound of the largest entry). Returns
+    {block (from 1): (max abs error, max row error)}."""
+    from repro_torch import weights
+    from repro_torch.kernels import ops
+    from repro_torch.models import steps
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.sharding import PartitionSpec
+    layers = _attn_layers(cfg)
+    pspecs = tf.param_specs(cfg, rules)
+    cspecs = tf.cache_specs(cfg, rules, tok.shape[0],
+                            _global_len(cfg, rules, caches))
+    before = {j: {k: v[layers[j][2]].clone()
+                  for k, v in caches[layers[j][1]].items()} for j in which}
+    rows = None if cs._rows_whole(cfg, rules) else ("pod", "data")
+    with _blocks_captured(which) as got, cs._routes_recorded() as routes:
+        steps.serve_step(params, tok[:, None], caches, cfg, rules, mesh)
+    moe_at = [j for j, (pkey, _, _) in enumerate(layers)
+              if pkey == "layers" and cfg.family == "moe"]
+    out = {}
+    for j in which:
+        pkey, ckey, i = layers[j]
+        p = weights.gather_params(tf.layer_slice(params[pkey], i), cs._nested({
+            path[len(pkey) + 1:]: PartitionSpec(*pspecs[path][1:])
+            for path in pspecs if path.startswith(pkey + ".")}), mesh)
+        c = weights.gather_params(before.pop(j), {
+            k: PartitionSpec(*cspecs[ckey][k][1:]) for k in cspecs[ckey]},
+            mesh)
+        x, y = (weights.gather_params(t, (rows, None, None), mesh)
+                for t in got[j])
+        route = ([weights.gather_params(routes[moe_at.index(j)],
+                                        (rows, None), mesh)]
+                 if j in moe_at else None)
+        if rank == 0:
+            ctx = (cs._routed_as(route) if route
+                   else contextlib.nullcontext())
+            n0 = ops.launch_counts()
+            with torch.no_grad(), ctx:
+                want = tf._block_fwd(p, x, None, cfg, "decode", c)[0]
+            # the reference's launches are not the run's
+            n1 = ops.launch_counts()
+            ops.add_launches({k: n1[k] - n0[k] for k in n1}, -1)
+            out[j + 1] = cs.compare(f"{cfg.name} block {j + 1}", y, want,
+                                    of_max=True)
+        del p, c, x, y
+    return out
+
+
+def _global_len(cfg, rules, caches):
+    """The whole cache's positions from a rank's (its positions' group)."""
+    from repro_torch import distributed as D
+    leaf = caches["attn"]["c_kv" if cfg.attn_type == "mla" else "k"]
+    seq = D.cache_groups(cfg, rules)[1]
+    n = int(np.prod([rules.axis_sizes[a] for a in seq])) if seq else 1
+    return leaf.shape[2] * n
+
+
+def _cache_bytes(caches):
+    return sum(v.numel() * v.element_size() for g in caches.values()
+               for k, v in g.items() if k != "length")
+
+
+def _layout_rank(rank, world, out_dir, run):
+    """One rank of a run of LAYOUT_RUNS (see ``layouts``); rank 0 writes
+    ``{name}{layers}.json`` (with, where the run says, one process on card
+    0 fed the ranks' tokens), every rank ``{name}{layers}_rank{r}.json``."""
+    import gc
+    import torch.distributed as dist
+    from repro_torch import distributed as D
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import compat_make_mesh
+    from repro_torch.models import steps
+    from repro_torch.models import transformer as tf
+    name, arch, layers, flags, batch, S, filled, prompt, n_steps, block, \
+        one = run
+    mesh = compat_make_mesh((2, 2), ("data", "model"))
+    D.axis(mesh, ("pod", "data", "model"))
+    rules = cs._serve_rules(mesh, flags)
+    cfg = cs._serve_cfg(arch, layers, flags=flags)
+    t0 = time.perf_counter()
+    params = cs.seeded_params(cfg, cs.DIST_SEED, rules, mesh)
+    torch.cuda.synchronize()
+    out = {"backend": dist.get_backend(),
+           "device": torch.cuda.current_device(),
+           "build_s": time.perf_counter() - t0,
+           "weights_bytes": sum(v.numel() * v.element_size()
+                                for v in cs._leaves(params))}
+    prompts = cs._serve_prompts(cfg, batch if not filled else
+                                min(batch, 8), prompt)
+    with torch.no_grad():
+        # warm-up: cuBLAS, NCCL and the kernels' first launches
+        lg, small = steps.prefill_step(params, {"tokens": prompts[:, :128]},
+                                       cfg, 256, rules, mesh)
+        steps.serve_step(params, torch.argmax(lg, -1).to(torch.int32)[
+            :, None], small, cfg, rules, mesh)
+        del small
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        with cs._allreduce_timed() as pre_ar:
+            t0 = time.perf_counter()
+            lg, caches = steps.prefill_step(
+                params, {"tokens": prompts}, cfg, prompt if filled else S,
+                rules, mesh)
+            torch.cuda.synchronize()
+            out["ttft_s"] = time.perf_counter() - t0
+        out["prefill_allreduce_ms"] = cs._ms(pre_ar)
+        out["prefill_allreduces"] = len(pre_ar)
+        out["prefill_tokens"] = list(prompts.shape)
+        if filled:
+            # the cache seeded at the rms this prefill gives it
+            rms = _cache_rms(caches)
+            del caches
+            caches = tf.init_cache(cfg, batch, S, "cuda", rules, mesh)
+            _seed_cache(caches, cfg, rms, tf.cache_specs(
+                cfg, rules, batch, S), mesh, run)
+            tok = torch.tensor([cs._seed_of(name, "token", r) % cfg.vocab_size
+                                for r in range(batch)], dtype=torch.int32,
+                               device="cuda")
+        else:
+            rms = None
+            tok = torch.argmax(lg, -1).to(torch.int32)
+        start = filled or prompt
+        out["cache_bytes"] = _cache_bytes(caches)
+        gates = _layout_gates(rank, params, caches, cfg, rules, mesh, tok,
+                              _gate_blocks(cfg))
+        for g in caches.values():
+            g["length"].fill_(start)
+        fed, logits, step_s = [], [], []
+        with cs._allreduce_timed() as ar, cs._routes_recorded() as routes:
+            for _ in range(n_steps):
+                fed.append(tok)
+                t0 = time.perf_counter()
+                tok, lg, caches = steps.serve_step(params, tok[:, None],
+                                                   caches, cfg, rules, mesh)
+                torch.cuda.synchronize()
+                step_s.append(time.perf_counter() - t0)
+                logits.append(lg.float().cpu())
+        counts = ops.launch_counts()
+    out["read_bytes"] = _weights_read(params, cfg, mesh, routes, n_steps,
+                                      out["weights_bytes"])
+    out.update({
+        "step_s": step_s, "allreduce_ms": cs._ms(ar) / n_steps,
+        "allreduces": len(ar) / n_steps, "gates": gates,
+        "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+        "launches": {k: counts[k] for k in ("flash_attention",
+                                            "decode_attention")},
+        "lengths": caches["attn"]["length"].flatten().tolist()[:4],
+        "finite": all(bool(torch.isfinite(x).all()) for x in logits)})
+    del params, caches
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier()
+    if rank == 0:
+        if one:
+            out["one"] = _layout_one_process(cfg, run, rms, fed, logits)
+        with open(Path(out_dir) / f"{name}{layers}.json", "w") as f:
+            json.dump(out, f)
+    dist.barrier()
+    with open(Path(out_dir) / f"{name}{layers}_rank{rank}.json", "w") as f:
+        json.dump({k: out[k] for k in ("device", "peak_gib", "launches",
+                                       "weights_bytes", "read_bytes",
+                                       "cache_bytes", "lengths")}, f)
+
+
+def _weights_read(params, cfg, mesh, routes, n_steps, weights_bytes):
+    """The weight bytes a decode step reads on a card: every local weight,
+    but for the ragged MoE path only the local experts that the step's
+    rows route to (``routes``: each MoE layer's expert choices of the
+    rank's rows in the timed steps); the dispatch einsum reads every local
+    expert."""
+    from repro_torch import distributed as D
+    if cfg.family != "moe" or cfg.moe.impl == "dispatch_einsum":
+        return weights_bytes
+    wi, wo = params["layers"]["moe"]["wi"], params["layers"]["moe"]["wo"]
+    n_loc = wi.shape[1]
+    lo = D.axis(mesh, ("model",)).index * n_loc
+    per_expert = (wi[0, 0].numel() * wi.element_size()
+                  + wo[0, 0].numel() * wo.element_size())
+    hit = sum(int(torch.unique(idx[(idx >= lo) & (idx < lo + n_loc)])
+                  .numel()) for idx in routes)
+    return (weights_bytes - per_expert * n_loc * wi.shape[0]
+            + per_expert * hit / n_steps)
+
+
+def _gate_blocks(cfg):
+    """The attention blocks held against the unsharded block: the first,
+    one in the middle and the last, LAYOUT_GATES of them at most."""
+    n = cfg.num_layers
+    return tuple(sorted({0, n // 2, n - 1}))[:LAYOUT_GATES]
+
+
+def _layout_one_process(cfg, run, rms, fed, logits):
+    """The same steps in one process on card 0: the whole seeded weights,
+    the whole cache seeded alike, the ranks' tokens fed; the logits
+    against the ranks' (``chip_smoke._logit_agreement``), the steps
+    timed."""
+    from repro_torch.models import steps
+    from repro_torch.models import transformer as tf
+    _, _, _, _, batch, S, filled, _, _, _, _ = run
+    torch.cuda.reset_peak_memory_stats()
+    params = cs.seeded_params(cfg, cs.DIST_SEED)
+    caches = tf.init_cache(cfg, batch, S, "cuda")
+    with torch.no_grad():
+        _seed_cache(caches, cfg, rms, None, None, run)
+        mine, secs = [], []
+        for tok in fed:
+            t0 = time.perf_counter()
+            _, lg, _ = steps.serve_step(params, tok[:, None], caches, cfg)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            mine.append(lg.float().cpu())
+    one = cs._logit_agreement(logits, mine, fed[1:])
+    one.update(step_s=secs, cache_bytes=_cache_bytes(caches),
+               weights_bytes=sum(v.numel() * v.element_size()
+                                 for v in cs._leaves(params)),
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    del params, caches
+    torch.cuda.empty_cache()
+    return one
+
+
+def layouts(card, names=("v2", "long_mla", "dispatch", "fsdp")):
+    """The runs of LAYOUT_RUNS named, each at its depths (the dispatch
+    einsum first at DISPATCH_CHECK's depth with phase dist_serve's gates);
+    gated: launches, the blocks against the unsharded block, finite
+    logits, and where the run compares with one process (GQA) its logits
+    within LOGIT_TOL and its sure first tokens equal; MoE runs print the
+    one process's logits, not gated (rounding re-routes tokens)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import mesh
+    for name in names:
+        if name == "dispatch":
+            t0 = time.monotonic()
+            out_dir = _out_dir("dist_cards_dispatch")
+            mesh.spawn(cs._dist_serve_rank, 4, (str(out_dir),
+                                                 DISPATCH_CHECK))
+            ranks = [json.loads((out_dir / f"rank{r}.json").read_text())
+                     for r in range(4)]
+            cs.dist_serve_report("cards dispatch", card, ranks,
+                                 f"4 ranks, one a card, over "
+                                 f"{ranks[0]['backend']}", DISPATCH_CHECK)
+            cs.log(f"[cards] dispatch at 6 layers: "
+                   f"{time.monotonic() - t0:.1f} s")
+        for run in LAYOUT_RUNS[name]:
+            t0 = time.monotonic()
+            _, arch, layers, flags, batch, S, filled, prompt, n_steps, _, \
+                one = run
+            out_dir = _out_dir(f"dist_cards_{name}")
+            mesh.spawn(_layout_rank, 4, (str(out_dir), run))
+            r = json.loads((out_dir / f"{name}{layers}.json").read_text())
+            per = [json.loads((out_dir / f"{name}{layers}_rank{i}.json"
+                               ).read_text()) for i in range(4)]
+            cfg = cs._serve_cfg(arch, layers, flags=flags)
+            mla = cfg.attn_type == "mla"
+            # the prefill's flash calls, and the dense decode calls of the
+            # gate step and the timed steps
+            want = {"flash_attention": layers,
+                    "decode_attention": 0 if mla else layers * (n_steps + 1)}
+            end = (filled or prompt) + n_steps
+            ok = (sorted(x["device"] for x in per) == [0, 1, 2, 3]
+                  and all(x["launches"] == want for x in per)
+                  and all(x["lengths"] == [end] * len(x["lengths"])
+                          for x in per) and r["finite"]
+                  and sorted(int(k) for k in r["gates"]) == [
+                      i + 1 for i in _gate_blocks(cfg)])
+            steps_ms = np.array(r["step_s"]) * 1e3
+            # what a decode step reads on a card: its weights and its
+            # cache (every entry of its slice: the rows are at their ends)
+            bound = (max(x["read_bytes"] + x["cache_bytes"] for x in per)
+                     / cs.PEAK_BYTES_PER_S * 1e3)
+            whole = layers == get_config(arch).num_layers
+            one = r.get("one")
+            cs.log(
+                f"[cards] {name}: {arch} "
+                + (f"whole ({layers} layers" if whole else
+                   f"at {layers} of {get_config(arch).num_layers} layers")
+                + f", full width, bf16), mesh (data, model) = (2, 2), "
+                f"{cs._layout_text(arch, layers, False, (2, 2), flags)}, 4 "
+                f"ranks, one a card, over {r['backend']}: batch {batch}, a "
+                f"{S}-position cache "
+                + (f"seeded to {filled} at the rms of a "
+                   f"{r['prefill_tokens'][0]} x {r['prefill_tokens'][1]} "
+                   f"prefill (its wall time {r['ttft_s']:.4f} s)"
+                   if filled else
+                   f"prefilled with {batch} x {prompt} tokens: TTFT "
+                   f"{r['ttft_s']:.4f} s, all-reduce "
+                   f"{r['prefill_allreduce_ms']:.2f} ms of it "
+                   f"({r['prefill_allreduces']} calls)")
+                + f", {n_steps} serve_steps to {end}; TPOT mean "
+                f"{steps_ms.mean():.3f} ms, median {np.median(steps_ms):.3f}, "
+                f"min {steps_ms.min():.3f}, max {steps_ms.max():.3f}; byte "
+                f"bound a card {bound:.3f} ms (weights read "
+                f"{per[0]['read_bytes'] / 1e9:.2f} GB of "
+                f"{per[0]['weights_bytes'] / 1e9:.2f} + cache "
+                f"{per[0]['cache_bytes'] / 1e9:.2f} GB on a card at "
+                f"{cs.PEAK_BYTES_PER_S / 1e12:.2f} TB/s), TPOT / bound "
+                f"{steps_ms.mean() / bound:.2f}; all-reduce "
+                f"{r['allreduce_ms']:.3f} ms a step ({r['allreduces']:.0f} "
+                f"calls); peak GiB a card "
+                + " ".join(f"{x['peak_gib']:.2f}" for x in per)
+                + f"; launches a rank {per[0]['launches']} (want {want}); "
+                f"weights made in {r['build_s']:.1f} s on rank 0; blocks "
+                + ", ".join(f"{k}: max_abs_err={e:.3g} max_row_rel_err="
+                            f"{rw:.3g}" for k, (e, rw) in r["gates"].items())
+                + f" against the unsharded block on card 0 (atol {cs.ATOL} "
+                f"of max, rtol {cs.RTOL}, row {cs.ROW_RTOL})"
+                + ("" if not one else
+                   f"; logits vs one process (card 0, whole weights "
+                   f"{one['weights_bytes'] / 1e9:.2f} GB and cache "
+                   f"{one['cache_bytes'] / 1e9:.2f} GB, TPOT mean "
+                   f"{np.mean(one['step_s']) * 1e3:.3f} ms, peak "
+                   f"{one['peak_gib']:.2f} GiB) over {n_steps} steps: "
+                   f"largest share of max |logit| {max(one['share']):.4g}"
+                   + (f" (limit {cs.LOGIT_TOL})" if not mla else
+                      " (not gated: rounding re-routes MoE tokens)")
+                   + f"; first tokens {one['first_sure_equal']} of "
+                   f"{one['first_sure']} sure rows equal; stream tokens "
+                   f"equal {one['stream_equal']}/{one['stream_tokens']}")
+                + f"; {card}")
+            cs.log(f"[cards] {name} at {layers} layers: "
+                   f"{time.monotonic() - t0:.1f} s")
+            if not ok or (one and not mla and (
+                    max(one["share"]) > cs.LOGIT_TOL
+                    or one["first_sure_equal"] != one["first_sure"])):
+                raise AssertionError(
+                    f"{name} at {layers} layers: cards "
+                    f"{[x['device'] for x in per]}, launches "
+                    f"{[x['launches'] for x in per]} (want {want}), lengths "
+                    f"{[x['lengths'] for x in per]} (want {end}), finite "
+                    f"{r['finite']}, gates {sorted(r['gates'])}, one "
+                    f"process {one and max(one['share'])}")
+
+
 def main():
     parts = sys.argv[1:] or ["train", "serve"]
-    known = ("train", "serve", "long", "probe", "train_whole")
+    known = ("train", "serve", "long", "probe", "train_whole",
+             *LAYOUT_RUNS)
     if any(p not in known for p in parts):
         raise SystemExit(f"parts: {', '.join(known)} (got {parts})")
     n = torch.cuda.device_count()
@@ -977,6 +1430,9 @@ def main():
     cs.log(card)
     cs.phase_build()
     for part in parts:
+        if part in LAYOUT_RUNS:
+            layouts(card, (part,))
+            continue
         {"train": train, "serve": serve, "long": long, "probe": probe,
          "train_whole": train_whole}[part](card)
     cs.log("[cards] ok")
