@@ -67,6 +67,19 @@ raises on failure:
    CUDA graph replayed against the same function run eagerly over the same
    static inputs: logits, tokens and written K/V ``torch.equal``, at
    seeded inputs and after rewriting the inputs; warm-up and capture time;
+   then the dry run (``phase_dryrun``): ``launch.dryrun.run_cell`` at full
+   size for deepseek_v2_236b ``train_4k`` and nemotron_4_340b
+   ``decode_32k`` on the (16, 16) mesh of a fake process group (each in a
+   subprocess started after the build, ``start_dryrun``: the group is
+   global to a process), every term finite and positive; gemma_2b's
+   decode at the SlotEngine's shape (8 rows, 2048 positions) on a (1, 1)
+   mesh, its ``arg_bytes_per_dev`` equal to the
+   bytes of the params, caches and tokens on the card and within the
+   caching allocator's rounding of what ``torch.cuda.memory_allocated``
+   grows by when they are made, its terms printed beside the graphed slot
+   decode pass's replay; the ridge fits of ``perfmodel.regression`` fitted
+   on the card and held against the CPU's fit (predictions against the
+   float64 fit within ``RIDGE_FACTOR`` x the CPU's own error);
 6. serve: the paged ``Engine`` at the full width of ``gemma_2b.CONFIG``
    (18 layers, random seeded weights, every weight perturbed) over 16
    requests, with the launch counters reset just before and read just
@@ -1879,7 +1892,7 @@ def phase_graphs(cfg, params):
                                     max_len=2048, device="cuda")))
     rng = np.random.default_rng(19)
     gen = torch.Generator(device="cuda").manual_seed(19)
-    seen = []
+    seen, times = [], {}
     for tag, make in makers:
         eng = make()
         trim = slice(None) if tag == "slot" else slice(None, -1)
@@ -1916,10 +1929,180 @@ def phase_graphs(cfg, params):
                 f"{ms:.3f} ms of device time (host queue held), bound of its "
                 f"matrix products {bound_ms:.3f} ms ({by})")
             seen.append(f"{tag}.{name}")
+            times[f"{tag}.{name}"] = ms
         del eng
         torch.cuda.empty_cache()
     del draft
     log(f"[graphs] {len(seen)} passes graphed == eager: {seen}")
+    return times
+
+
+# the dry run's full-size cells on the (16, 16) mesh, and the SlotEngine's
+# decode (its rows and cache length, phase graphs' "slot.decode") on (1, 1)
+DRYRUN_CELLS = (("deepseek_v2_236b", "train_4k"),
+                ("nemotron_4_340b", "decode_32k"))
+DRYRUN_SLOT = (8, 2048)
+# a fit's largest prediction error (of the largest float64 prediction)
+# over the CPU fit's: the CPU tests hold torch's fp32 fit to 4x JAX's on
+# the analytical grid and 16x on traces (tests/test_torch_perfmodel.py);
+# the card sums XᵀX in yet another order
+RIDGE_FACTOR = 16.0
+RIDGE_ARCHS = ("gemma_2b", "llama3_70b", "deepseek_v2_236b", "zamba2_7b")
+
+_DRYRUN = """
+import json, sys
+from repro_torch.launch import dryrun as dr
+kind, what, out = json.loads(sys.argv[1])
+if kind == "cell":
+    row = dr.run_cell(*what, dr.production_mesh(False), False)
+else:
+    from repro_torch.launch.mesh import compat_make_mesh
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    b, max_len = what
+    dr.fake_world(1)
+    mesh = compat_make_mesh((1, 1), ("data", "model"), device="cpu")
+    cfg = get_config("gemma_2b")
+    shape = ShapeConfig("slot", max_len - 8, b, "decode")
+    fn, args, arg_bytes = dr.build_cell(cfg, shape, mesh)
+    cost = dr._measure(fn, args)
+    row = {"arch": "gemma_2b", "shape": "slot", "arg_bytes_per_dev":
+           arg_bytes, "bytes": cost["bytes"], **dr.terms(cfg, shape, cost, 1)}
+with open(out, "w") as f:
+    json.dump(row, f)
+"""
+
+
+def _fit_errors(fit, cfg, cluster, device):
+    """A ridge fit (``fit_decode_model`` or ``fit_prefill_model``) on
+    ``device``: its largest prediction error over the float64 fit's at
+    its own points, of the largest float64 prediction."""
+    from repro_torch.perfmodel import analytical as ana
+    from repro_torch.perfmodel import regression as reg
+    m = fit(cfg, cluster, device=device)
+    if fit is reg.fit_decode_model:
+        b = np.tile([1, 2, 4, 8, 16, 32, 64, 128], 6)
+        p = np.repeat([128, 512, 1024, 2048, 4096, 8192], 8)
+        y = [ana.decode_step_time(cfg, cluster, int(x), int(c)).time
+             for x, c in zip(b, p)]
+        args = (b, p)
+        X = np.stack([np.ones_like(b), b, p, b * p, b * b, p * p], -1)
+    else:
+        grid = np.array([(p_, n_, b_) for p_ in (0, 512, 2048, 8192)
+                         for n_ in (64, 128, 256, 512, 1024, 2048, 4096)
+                         for b_ in (1, 2, 4, 8)])
+        args = tuple(grid.T)
+        pa, na, ba = args
+        y = [ana.prefill_time(cfg, cluster, int(n_), int(b_),
+                              past_tokens=int(p_)).time for p_, n_, b_ in grid]
+        X = np.stack([np.ones_like(pa), pa, na, ba, na * na, pa * na,
+                      ba * na], -1)
+    X, y = X.astype(np.float64), np.asarray(y)
+    want = X @ np.linalg.solve(X.T @ X + 1e-6 * np.eye(X.shape[1]), X.T @ y)
+    got = m.predict(*args).double().cpu().numpy()
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+def start_dryrun():
+    """Start the dry run's cells (``_DRYRUN``: the full-size cells of
+    ``DRYRUN_CELLS`` and gemma_2b's decode at ``DRYRUN_SLOT`` on (1, 1)),
+    each in a subprocess of its own (the fake process group is global to
+    a process), all at once: they need no card and run on the host's CPU
+    beside the kernel phases until ``phase_dryrun`` collects them. Any
+    still running when this process exits are stopped."""
+    import atexit
+    (ROOT / "build").mkdir(exist_ok=True)
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    jobs = [("cell", c) for c in DRYRUN_CELLS] + [("slot", DRYRUN_SLOT)]
+    outs = [ROOT / "build" / f"dryrun{i}.json" for i in range(len(jobs))]
+    procs = [subprocess.Popen([sys.executable, "-c", _DRYRUN,
+                               json.dumps([kind, what, str(out)])], env=env)
+             for (kind, what), out in zip(jobs, outs)]
+    atexit.register(lambda: [p.kill() for p in procs if p.poll() is None])
+    return procs, outs
+
+
+def phase_dryrun(cfg, params, graphed, started):
+    """The dry run under the torch that runs this script: the rows of
+    the cells ``start_dryrun`` started (``started``), every term finite
+    and positive; the slot decode's ``arg_bytes_per_dev`` against the params
+    (``params``), caches and tokens made on the card, its terms beside the
+    graphed slot decode's replay (``graphed``, phase graphs'); the ridge
+    fits on the card against the CPU's (``RIDGE_FACTOR``)."""
+    from repro_torch.models import transformer as tf
+    from repro_torch.perfmodel import hardware as hw
+    from repro_torch.perfmodel import regression as reg
+    from repro_torch.configs import get_config
+    t0 = time.monotonic()
+    procs, outs = started
+    worst = []
+    try:
+        for arch in RIDGE_ARCHS:
+            c = get_config(arch)
+            cluster = hw.ClusterSpec(hw.H100, 8, 8)
+            for fit in (reg.fit_decode_model, reg.fit_prefill_model):
+                card = _fit_errors(fit, c, cluster, "cuda")
+                cpu = _fit_errors(fit, c, cluster, "cpu")
+                worst.append(card / max(cpu, 1e-6))
+                if card > RIDGE_FACTOR * max(cpu, 1e-6):
+                    raise AssertionError(
+                        f"dryrun {arch} {fit.__name__} on the card: error "
+                        f"{card:.3g} against the CPU fit's {cpu:.3g}")
+        for p in procs:
+            if p.wait(timeout=300):
+                raise AssertionError(f"dryrun: a cell exited {p.returncode}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    rows = [json.loads(out.read_text()) for out in outs]
+    for r in rows[:-1]:
+        terms = [r[k] for k in ("compute_term_s", "memory_term_s",
+                                "memory_term_flash_s", "collective_term_s",
+                                "flops_per_dev", "bytes_per_dev")]
+        if not all(np.isfinite(terms)) or min(terms) <= 0 \
+                or r["arg_bytes_per_dev"] <= 0:
+            raise AssertionError(f"dryrun {r['arch']} {r['shape']}: {r}")
+        log(f"[dryrun] {r['arch']} {r['shape']} 16x16 ({r['compile_s']} s): "
+            f"C {r['compute_term_s'] * 1e3:.3f} ms, M "
+            f"{r['memory_term_s'] * 1e3:.3f} ms, Mf "
+            f"{r['memory_term_flash_s'] * 1e3:.3f} ms, N "
+            f"{r['collective_term_s'] * 1e3:.3f} ms ({r['dominant']}; "
+            f"{r['collective_calls']['all-reduce']} all-reduces), args "
+            f"{r['arg_bytes_per_dev'] / 1e9:.2f} GB, temp "
+            f"{r['temp_bytes_per_dev'] / 1e9:.2f} GB a device")
+    slot = rows[-1]
+    b, max_len = DRYRUN_SLOT
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    made = [t.clone() for t in _leaves(params)]
+    made += list(_leaves(tf.init_cache(cfg, b, max_len, "cuda")))
+    made.append(torch.zeros((b, 1), dtype=torch.int32, device="cuda"))
+    torch.cuda.synchronize()
+    grown = torch.cuda.memory_allocated() - before
+    exact = sum(t.numel() * t.element_size() for t in made)
+    # the caching allocator rounds each block up to a multiple of 512 bytes
+    if slot["arg_bytes_per_dev"] != exact or not 0 <= grown - exact \
+            < 512 * len(made):
+        raise AssertionError(
+            f"dryrun slot: arg_bytes_per_dev {slot['arg_bytes_per_dev']}, "
+            f"the card's leaves {exact} B, memory_allocated grew {grown} B")
+    del made
+    torch.cuda.empty_cache()
+    log(f"[dryrun] gemma_2b decode at ({b}, {max_len}) on (1, 1): "
+        f"arg_bytes_per_dev {slot['arg_bytes_per_dev']} == the card's params, "
+        f"caches and tokens (memory_allocated grew {grown} B, "
+        f"{grown - exact} B of block rounding); C "
+        f"{slot['compute_term_s'] * 1e3:.4f} ms, M "
+        f"{slot['memory_term_s'] * 1e3:.4f} ms (eager bytes "
+        f"{slot['bytes'] / 1e9:.3f} GB), Mf "
+        f"{slot['memory_term_flash_s'] * 1e3:.4f} ms, N "
+        f"{slot['collective_term_s'] * 1e3:.4f} ms; graphed slot decode "
+        f"replay {graphed['slot.decode']:.3f} ms")
+    log(f"[dryrun] ridge fits on the card: prediction error over the CPU "
+        f"fit's at most {max(worst):.3f}x ({len(worst)} fits, limit "
+        f"{RIDGE_FACTOR}x); phase {time.monotonic() - t0:.1f} s (the cells "
+        f"started at the build)")
 
 
 def _requests(cfg, n=16):
@@ -6076,6 +6259,7 @@ def main() -> int:
             f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated")
     line = phase_device()
     phase_build()
+    dryrun = start_dryrun()
     # the Python stack of every live allocation, for phase train's report
     # of what the serving phases leave allocated (``_memory_report``)
     torch.cuda.memory._record_memory_history(
@@ -6090,8 +6274,10 @@ def main() -> int:
     log(f"[params] {sum(v.numel() for v in _leaves(params)) / 1e9:.3f}B "
         f"parameters on the card")
     phase_logits(cfg, params)
-    phase_graphs(cfg, params)
+    graphed = phase_graphs(cfg, params)
     lap("logits and graphs")
+    phase_dryrun(cfg, params, graphed, dryrun)
+    lap("dryrun")
     launches, prompts, streams, whole = phase_serve(cfg, params)
     launches["pq_scan"] = rag_launches
     phase_preemption(cfg, params, prompts)

@@ -76,6 +76,9 @@ from typing import Dict, Optional, Tuple
 import torch
 
 staged_calls = 0
+# while a list (``launch.dryrun`` sets it), every all-reduce that leaves
+# this rank appends (op, payload bytes, group size) to it
+collective_log: Optional[list] = None
 _staged_kinds: set = set()
 _refused: set = set()
 
@@ -139,6 +142,8 @@ def all_reduce(t: torch.Tensor, ax: Axis, op: str = "sum") -> torch.Tensor:
     if op == "sum" and t.dtype in (torch.bfloat16, torch.float16) \
             and ax.size > 2:
         return t.copy_(all_reduce(t.float(), ax, op))
+    if collective_log is not None:
+        collective_log.append((op, t.numel() * t.element_size(), ax.size))
     import torch.distributed as dist
     red = dist.ReduceOp.SUM if op == "sum" else dist.ReduceOp.MAX
     kind = (t.dtype, op)

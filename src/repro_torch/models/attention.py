@@ -501,7 +501,7 @@ def _mla_inputs(params, x, positions, cfg: ModelConfig, tp=None):
     heads' gradients, so the norm's gamma gets the whole one); the shared
     rope key is whole (copy-in). So ``c_kv`` and ``k_rope`` are whole on
     every rank, the latent cache's layout under a mesh."""
-    if tp is None:
+    if _mla_whole(tp):
         return (*_mla_q(params, x, positions, cfg),
                 *_mla_latent(params, x, positions, cfg))
     m = cfg.mla
@@ -531,9 +531,20 @@ def _mla_inputs(params, x, positions, cfg: ModelConfig, tp=None):
     return q_nope, q_rope, latent("wdkv", "kv_norm"), k_rope
 
 
+_MLA_LEAVES = ("wdq", "wuq", "wdkv", "wkr", "wuk", "wuv", "wo")
+
+
+def _mla_whole(tp) -> bool:
+    """Whether MLA runs whole on the rank (one process, or a layout that
+    keeps every attention leaf whole: heads that do not divide "model",
+    ``transformer.param_specs``)."""
+    return tp is None or all(tp.dims.get(tp._key(n)) is None
+                             for n in _MLA_LEAVES)
+
+
 def _mla_out(out, params, tp=None):
     out = _proj_out(out, params["wo"])
-    return out if tp is None else tp.reduce_out(out)
+    return out if _mla_whole(tp) else tp.reduce_out(out)
 
 
 def mla_prefill(params, x, positions, cfg: ModelConfig,

@@ -56,7 +56,7 @@ data axes split the caches' sequence instead.
 from __future__ import annotations
 
 import functools
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 import torch.utils.checkpoint
@@ -765,16 +765,39 @@ def init_cache_spec(cfg: ModelConfig, batch: int, max_len: int):
              for _, ckey, _ in _groups(cfg)})
 
 
+def _whole_blocks(cfg: ModelConfig, rules) -> Tuple[str, ...]:
+    """The path prefixes of the blocks that run whole on every model rank
+    (``param_specs``): MLA's attention, and the ssm family's mLSTM and
+    sLSTM layers, where their heads do not divide "model"."""
+    m = rules.axis_sizes.get("model", 1)
+    if m == 1 or cfg.num_heads % m == 0:
+        return ()
+    if cfg.attn_type == "mla":
+        return ("layers.attn.", "dense_layers.attn.")
+    if cfg.family == "ssm":
+        return ("mlstm.", "slstm.")
+    return ()
+
+
 def param_specs(cfg: ModelConfig, rules) -> Dict[str, PartitionSpec]:
     """The port's layout of the param tree under ``rules``, by JAX's
-    dotted path (``param_axes``'s): JAX's specs, but for the Mamba2
-    leaves whose concatenated channels JAX's rules split over "model"
-    (``in_proj``, ``conv_w``, ``conv_b``): JAX splits them contiguously,
-    which does not follow the heads, and the port lays them out as a
-    rank's heads read them (``distributed.Mamba2Read``: its z, x and dt
-    channels, and B and C whole on every model rank)."""
+    dotted path (``param_axes``'s): JAX's specs, but for two kinds of
+    leaves. The Mamba2 leaves whose concatenated channels JAX's rules
+    split over "model" (``in_proj``, ``conv_w``, ``conv_b``): JAX splits
+    them contiguously, which does not follow the heads, and the port lays
+    them out as a rank's heads read them (``distributed.Mamba2Read``: its
+    z, x and dt channels, and B and C whole on every model rank). And the
+    blocks whose heads do not divide "model" (``_whole_blocks``: MLA's
+    attention, the mLSTM and sLSTM layers), where JAX's rules put "model"
+    on the latents' rank dims or the inner channels, which no rank's
+    heads follow: the port keeps their leaves whole and runs the block
+    whole on every model rank, as GQA's attention runs whole there."""
     axes, shapes = param_axes(cfg), param_shapes(cfg)
     out = {p: rules.spec(shapes[p], axes[p]) for p in axes}
+    for path in out:
+        if path.startswith(_whole_blocks(cfg, rules)):
+            out[path] = PartitionSpec(*(None if e == "model" else e
+                                        for e in out[path]))
     if cfg.family == "hybrid":
         d_in, nh, n = m2._dims(cfg)[:3]
         for name, read in (("in_proj", dist_.Mamba2Read.in_proj(d_in, n, nh)),

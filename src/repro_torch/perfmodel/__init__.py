@@ -1,3 +1,4 @@
-"""The port's copy of what it needs from ``repro.perfmodel``: the IVF-PQ
-deployment sizes, ``LinkSpec`` and the link fit of timed handoffs. The cost
-functions stay in the shared simulator."""
+"""The port's copy of ``repro.perfmodel``: the hardware specs, the
+analytical (GenZ-style) cost model, the IVF-PQ retrieval costs, and the
+ridge fits of pass runtimes in torch beside the link fit of timed
+handoffs."""

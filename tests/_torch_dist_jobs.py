@@ -226,6 +226,72 @@ def job_heads(rank, d, spec):
         save_tree(f"{d}/out_heads.npz", out)
 
 
+def job_whole(rank, d, spec):
+    """A config whose heads do not divide "model" (its MLA attention or
+    mLSTM/sLSTM layers run whole on every model rank,
+    ``transformer.param_specs``): the sharded ``value_and_grad`` and the
+    sharded ``prefill_step`` + ``spec["steps"]`` ``serve_step``s against
+    the one-process port's on the same weights and inputs; with the
+    whole blocks' leaves' specs (none may name "model")."""
+    from repro_torch import tree as T
+    from repro_torch import weights
+    from repro_torch.models import sharding, steps
+    from repro_torch.models import transformer as tf
+    mesh, member = _mesh(tuple(spec["mesh"]), tuple(spec["axes"]))
+    if not member:
+        return
+    cfg = _cfg(spec)
+    gen = torch.Generator().manual_seed(spec["seed"])
+    p = tf.init_model(cfg, gen, "cpu")
+    p = T.map_tree(lambda t: t + 0.1 * torch.randn(t.shape, generator=gen),
+                   p)
+    batch = {k: torch.randint(0, cfg.vocab_size, (4, spec["seq"]),
+                              generator=gen) for k in ("tokens", "labels")}
+    rules = sharding.ShardingRules(mesh)
+    flat_specs = tf.param_specs(cfg, rules)
+    pspecs = _nest(flat_specs)
+    local = weights.shard_params(p, pspecs, mesh)
+    (_, (loss, _)), g = steps.value_and_grad(local, batch, cfg, rules, mesh)
+    g = T.flatten(weights.gather_params(g, pspecs, mesh))
+    with torch.no_grad():
+        prompt = {"tokens": batch["tokens"]}
+        logits, caches = steps.prefill_step(local, prompt, cfg,
+                                            spec["max_len"], rules, mesh)
+        outs = [logits]
+        tok = torch.argmax(logits, -1).to(torch.int32)
+        for _ in range(spec["steps"]):
+            tok, logits, caches = steps.serve_step(local, tok[:, None],
+                                                   caches, cfg, rules, mesh)
+            outs.append(logits)
+    if rank != 0:
+        return
+    (_, (loss1, _)), g1 = steps.value_and_grad(p, batch, cfg)
+    g1 = T.flatten(g1)
+    with torch.no_grad():
+        logits, caches = steps.prefill_step(p, prompt, cfg, spec["max_len"])
+        ones = [logits]
+        tok = torch.argmax(logits, -1).to(torch.int32)
+        for _ in range(spec["steps"]):
+            tok, logits, caches = steps.serve_step(p, tok[:, None], caches,
+                                                   cfg)
+            ones.append(logits)
+    whole = [k for k in flat_specs if k.startswith(tuple(spec["whole"]))]
+    save_tree(f"{d}/out_whole_{spec['name']}.npz", {
+        "loss": torch.stack([loss, loss1]),
+        "grad_err": torch.tensor(max(
+            float((a - g1[k]).abs().max() / g1[k].abs().max().clamp(
+                min=1e-30)) for k, a in g.items())),
+        "logit_err": torch.tensor(max(
+            float((a - b).abs().max() / b.abs().max())
+            for a, b in zip(outs, ones))),
+        "whole_leaves": torch.tensor(len(whole)),
+        "whole_model": torch.tensor(sum("model" in flat_specs[k]
+                                        for k in whole)),
+        "split_model": torch.tensor(sum("model" in v for k, v in
+                                        flat_specs.items()
+                                        if k not in whole))})
+
+
 def job_mask(rank, d, spec):
     """loss_fn on a batch whose masks differ across the data ranks."""
     from repro_torch.models import sharding, steps
