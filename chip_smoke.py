@@ -79,7 +79,15 @@ raises on failure:
    grows by when they are made, its terms printed beside the graphed slot
    decode pass's replay; the ridge fits of ``perfmodel.regression`` fitted
    on the card and held against the CPU's fit (predictions against the
-   float64 fit within ``RIDGE_FACTOR`` x the CPU's own error);
+   float64 fit within ``RIDGE_FACTOR`` x the CPU's own error); then the
+   fleet simulator ``repro_torch.core`` (``phase_sim``): llama3_70b on 4
+   clients, ``SIM_RUNS`` (the regular, rag, kv and reasoning pipelines)
+   priced by the ridge fits on the card, each run's summary ``==`` the
+   same run with fast-forward off and with the fleet index off; every
+   point priced on the card against the CPU fit's prediction of it
+   (``RIDGE_FACTOR``); wall seconds, memo misses and µs a miss on the card
+   and on the CPU; and ``examples/serve_e2e_torch.py`` whole, its measured
+   TTFT and TPOT p50 beside the simulator's;
 6. serve: the paged ``Engine`` at the full width of ``gemma_2b.CONFIG``
    (18 layers, random seeded weights, every weight perturbed) over 16
    requests, with the launch counters reset just before and read just
@@ -1973,32 +1981,47 @@ with open(out, "w") as f:
 """
 
 
-def _fit_errors(fit, cfg, cluster, device):
-    """A ridge fit (``fit_decode_model`` or ``fit_prefill_model``) on
-    ``device``: its largest prediction error over the float64 fit's at
-    its own points, of the largest float64 prediction."""
+def _ridge64(kind, cfg, cluster):
+    """The float64 ridge fit of ``perfmodel.regression``'s ``kind``
+    ("decode" or "prefill") on its own grid: its weights, its features in
+    numpy and the grid's arguments."""
     from repro_torch.perfmodel import analytical as ana
-    from repro_torch.perfmodel import regression as reg
-    m = fit(cfg, cluster, device=device)
-    if fit is reg.fit_decode_model:
+    if kind == "decode":
         b = np.tile([1, 2, 4, 8, 16, 32, 64, 128], 6)
         p = np.repeat([128, 512, 1024, 2048, 4096, 8192], 8)
         y = [ana.decode_step_time(cfg, cluster, int(x), int(c)).time
              for x, c in zip(b, p)]
         args = (b, p)
-        X = np.stack([np.ones_like(b), b, p, b * p, b * b, p * p], -1)
+
+        def feats(b, p):
+            b, p = np.asarray(b, np.float64), np.asarray(p, np.float64)
+            return np.stack([np.ones_like(b), b, p, b * p, b * b, p * p], -1)
     else:
         grid = np.array([(p_, n_, b_) for p_ in (0, 512, 2048, 8192)
                          for n_ in (64, 128, 256, 512, 1024, 2048, 4096)
                          for b_ in (1, 2, 4, 8)])
         args = tuple(grid.T)
-        pa, na, ba = args
         y = [ana.prefill_time(cfg, cluster, int(n_), int(b_),
                               past_tokens=int(p_)).time for p_, n_, b_ in grid]
-        X = np.stack([np.ones_like(pa), pa, na, ba, na * na, pa * na,
-                      ba * na], -1)
-    X, y = X.astype(np.float64), np.asarray(y)
-    want = X @ np.linalg.solve(X.T @ X + 1e-6 * np.eye(X.shape[1]), X.T @ y)
+
+        def feats(p, n, b):
+            p, n, b = (np.asarray(v, np.float64) for v in (p, n, b))
+            return np.stack([np.ones_like(p), p, n, b, n * n, p * n, b * n],
+                            -1)
+    X, y = feats(*args), np.asarray(y)
+    w = np.linalg.solve(X.T @ X + 1e-6 * np.eye(X.shape[1]), X.T @ y)
+    return w, feats, args
+
+
+def _fit_errors(fit, cfg, cluster, device):
+    """A ridge fit (``fit_decode_model`` or ``fit_prefill_model``) on
+    ``device``: its largest prediction error over the float64 fit's at
+    its own points, of the largest float64 prediction."""
+    from repro_torch.perfmodel import regression as reg
+    m = fit(cfg, cluster, device=device)
+    kind = "decode" if fit is reg.fit_decode_model else "prefill"
+    w, feats, args = _ridge64(kind, cfg, cluster)
+    want = feats(*args) @ w
     got = m.predict(*args).double().cpu().numpy()
     return float(np.abs(got - want).max() / np.abs(want).max())
 
@@ -2103,6 +2126,173 @@ def phase_dryrun(cfg, params, graphed, started):
         f"fit's at most {max(worst):.3f}x ({len(worst)} fits, limit "
         f"{RIDGE_FACTOR}x); phase {time.monotonic() - t0:.1f} s (the cells "
         f"started at the build)")
+
+
+# the fleet simulator's runs (phase sim): llama3_70b on 4 clients at
+# 2 requests/s, seed 0, each pipeline with the SystemSpec flag it needs
+SIM_RUNS = (("regular", 100), ("rag", 100), ("kv", 100), ("reasoning", 50))
+
+
+class _TimedFit:
+    """Stands in for one of a ``ClientPerf``'s ridge models: counts its
+    predictions (the memo misses that reach it), records each point's
+    value and times each call with its copy to the host, the sync that
+    ``ClientPerf``'s ``float()`` would make (the values are unchanged)."""
+
+    def __init__(self, model):
+        self.model = model
+        self.points = {}
+        self.calls = 0
+        self.clashes = 0
+        self.seconds = 0.0
+
+    def predict(self, *args):
+        t0 = time.perf_counter()
+        out = self.model.predict(*args).cpu()
+        self.seconds += time.perf_counter() - t0
+        self.calls += 1
+        v = float(out[0])
+        self.clashes += self.points.setdefault(
+            tuple(int(a[0]) for a in args), v) != v
+        return out
+
+
+def _sim_run(pipeline, n, device, fast_forward=True, fleet_index=True):
+    """One seeded run of ``repro_torch.core`` with regression pricing on
+    ``device``: its summary, the two timed models, wall seconds of the
+    fits and of the run."""
+    from repro_torch.core import (SystemSpec, WorkloadConfig, build_system,
+                                  generate)
+    from repro_torch.core.client import LLMClient
+    from repro_torch.core.llm_scheduler import SchedulerLimits
+    t0 = time.perf_counter()
+    coord = build_system(SystemSpec(
+        model="llama3_70b", n_llm_clients=4, use_regression=True,
+        with_rag=pipeline == "rag", with_kv_retrieval=pipeline == "kv",
+        fleet_index=fleet_index,
+        limits=SchedulerLimits(fast_forward=fast_forward)), device=device)
+    perf = next(c.scheduler.perf for c in coord.clients.values()
+                if isinstance(c, LLMClient))
+    perf.decode_model = _TimedFit(perf.decode_model)
+    perf.prefill_model = _TimedFit(perf.prefill_model)
+    t1 = time.perf_counter()
+    coord.submit(generate(WorkloadConfig(rate=2.0, n_requests=n, seed=0,
+                                         pipeline=pipeline)))
+    summary = coord.run().summary(total_energy=coord.total_energy)
+    t2 = time.perf_counter()
+    if summary["n_serviced"] != n:
+        raise AssertionError(f"sim {pipeline} on {device}: "
+                             f"{summary['n_serviced']} of {n} serviced")
+    return summary, (perf.decode_model, perf.prefill_model), t1 - t0, t2 - t1
+
+
+def _same(a, b) -> bool:
+    """``==`` with NaN equal to NaN, through dicts."""
+    if isinstance(a, dict) and isinstance(b, dict):
+        return a.keys() == b.keys() and all(_same(a[k], b[k]) for k in a)
+    if isinstance(a, float) and isinstance(b, float):
+        return a == b or (np.isnan(a) and np.isnan(b))
+    return a == b
+
+
+def _sim_priced_errors(fits, cpu_models, cfg, cluster):
+    """The card's predictions at the points the run priced against the
+    CPU fit's prediction of each (one row a call, as the simulator asks):
+    each one's largest error over the float64 fit's, of the largest
+    float64 prediction, per kind."""
+    out = {}
+    for kind, fit, cpu in zip(("decode", "prefill"), fits, cpu_models):
+        w, feats, _ = _ridge64(kind, cfg, cluster)
+        pts = list(fit.points)
+        want = feats(*zip(*pts)) @ w
+        card = np.array([fit.points[p] for p in pts])
+        host = np.array([float(cpu.predict(*[[v] for v in p])[0])
+                         for p in pts])
+        scale = np.abs(want).max()
+        out[kind] = (float(np.abs(card - want).max() / scale),
+                     float(np.abs(host - want).max() / scale), len(pts))
+    return out
+
+
+def phase_sim(card: str):
+    """The fleet simulator ``repro_torch.core`` (host code: an event heap
+    and numpy's seeded generators) with its regression pricing on the
+    card: for each of ``SIM_RUNS``, the run with fast-forward and the
+    fleet index on, then off in turn, summaries ``==`` (NaN-aware), and
+    every point priced the same float in every run; the card's
+    predictions against the CPU fit's (``RIDGE_FACTOR``, the dryrun
+    gate); the same run priced on the CPU for its timings; then
+    ``examples/serve_e2e_torch.py`` whole (the port's paged Engine at
+    gemma_2b's full width, then its schedule replayed in the simulator)."""
+    import importlib.util
+    from repro_torch.configs import get_config
+    from repro_torch.core.llm_scheduler import ClientPerf
+    from repro_torch.perfmodel import hardware as hw
+    t0 = time.monotonic()
+    cfg = get_config("llama3_70b")
+    cluster = hw.ClusterSpec(hw.H100, n_chips=2, tp=2, intra_link=hw.NVLINK)
+    cpu_perf = ClientPerf(cfg, cluster, use_regression=True, device="cpu")
+    cpu_models = (cpu_perf.decode_model, cpu_perf.prefill_model)
+    log(f"[sim] {card}; llama3_70b, 4 clients (2 x H100 TP2 each), 2 "
+        "requests/s, seed 0, ridge-fit pricing")
+    for pipeline, n in SIM_RUNS:
+        runs = {arm: _sim_run(pipeline, n, "cuda", **kw) for arm, kw in (
+            ("on", {}), ("ff_off", dict(fast_forward=False)),
+            ("index_off", dict(fleet_index=False)))}
+        ref, fits, fit_s, wall = runs["on"]
+        for arm in ("ff_off", "index_off"):
+            if not _same(runs[arm][0], ref):
+                diff = [k for k in ref if not _same(runs[arm][0][k], ref[k])]
+                raise AssertionError(f"sim {pipeline} on the card: summary "
+                                     f"with {arm} differs at {diff[:5]}")
+            for a, b in zip(runs[arm][1], fits):
+                clash = [p for p in set(a.points) & set(b.points)
+                         if a.points[p] != b.points[p]]
+                if clash or a.clashes or b.clashes:
+                    raise AssertionError(
+                        f"sim {pipeline}: points priced differently on the "
+                        f"card, across runs {clash[:3]}, within runs "
+                        f"{a.clashes + b.clashes}")
+        errs = _sim_priced_errors(fits, cpu_models, cfg, cluster)
+        for kind, (card_err, cpu_err, npts) in errs.items():
+            if card_err > RIDGE_FACTOR * max(cpu_err, 1e-6):
+                raise AssertionError(
+                    f"sim {pipeline} {kind}: the card's error {card_err:.3g} "
+                    f"against the CPU fit's {cpu_err:.3g} at {npts} points")
+        host, host_fits, host_fit_s, host_wall = _sim_run(pipeline, n, "cpu")
+        for dev, fs, f_s, w_s, s in (("cuda", fits, fit_s, wall, ref),
+                                     ("cpu", host_fits, host_fit_s,
+                                      host_wall, host)):
+            misses = sum(f.calls for f in fs)
+            miss_s = sum(f.seconds for f in fs)
+            log(f"[sim] {pipeline} x {n} on {dev}: wall {w_s:.3f} s (fits "
+                f"{f_s:.3f} s), {misses} memo misses, "
+                f"{miss_s / max(misses, 1) * 1e6:.1f} us a miss "
+                f"({miss_s:.3f} s), ttft_p50 {s['ttft_p50'] * 1e3:.2f} ms, "
+                f"tpot_p50 {s['tpot_p50'] * 1e3:.3f} ms")
+        log(f"[sim] {pipeline}: fast-forward off == on, fleet index off == "
+            f"on (ff off {runs['ff_off'][3]:.3f} s, index off "
+            f"{runs['index_off'][3]:.3f} s); the card's error over the "
+            f"float64 fit's against the CPU's: " + ", ".join(
+                f"{k} {c:.3g} / {h:.3g} ({m} points)"
+                for k, (c, h, m) in errs.items()))
+    spec = importlib.util.spec_from_file_location(
+        "serve_e2e_torch", ROOT / "examples" / "serve_e2e_torch.py")
+    e2e = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(e2e)
+    done, s = e2e.main([])
+    ttft = float(np.median([r.ttft for r in done]))
+    tpot = float(np.median([r.tpot for r in done if r.tpot]))
+    sims = (s["ttft_p50"], s["tpot_p50"])
+    if len(done) != 10 or s["n_serviced"] != 10 \
+            or not np.all(np.isfinite((ttft, tpot) + sims)):
+        raise AssertionError(f"sim serve_e2e_torch: {len(done)} served, "
+                             f"{s['n_serviced']} simulated, {ttft}, {tpot}, "
+                             f"{sims}")
+    log(f"[sim] serve_e2e_torch on {card}: measured ttft p50 "
+        f"{ttft * 1e3:.2f} ms, tpot p50 {tpot * 1e3:.3f} ms; simulated "
+        f"{sims[0] * 1e3:.2f} ms, {sims[1] * 1e3:.3f} ms; phase "
+        f"{time.monotonic() - t0:.1f} s")
 
 
 def _requests(cfg, n=16):
@@ -6278,6 +6468,8 @@ def main() -> int:
     lap("logits and graphs")
     phase_dryrun(cfg, params, graphed, dryrun)
     lap("dryrun")
+    phase_sim(line)
+    lap("sim")
     launches, prompts, streams, whole = phase_serve(cfg, params)
     launches["pq_scan"] = rag_launches
     phase_preemption(cfg, params, prompts)

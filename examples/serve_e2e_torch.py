@@ -1,9 +1,9 @@
 """End-to-end example on the PyTorch port (the twin of
 ``examples/serve_e2e.py``): the port's paged ``Engine`` serves 10 batched
 requests at ``gemma_2b``'s full width on the card, then the same schedule
-(10 requests) is replayed in the shared simulator (``repro.core``, which
-imports no JAX), and the measured TTFT and TPOT are printed beside the
-simulated ones.
+(10 requests) is replayed in the port's simulator (``repro_torch.core``,
+its regression pricing off, so ``--device`` goes unused there), and the
+measured TTFT and TPOT are printed beside the simulated ones.
 
     PYTHONPATH=src python examples/serve_e2e_torch.py             # card
     PYTHONPATH=src python examples/serve_e2e_torch.py --device cpu --reduced
@@ -20,8 +20,9 @@ import time
 import numpy as np
 import torch
 
-from repro.core import SystemSpec, WorkloadConfig, build_system, generate
 from repro_torch.configs import get_config, get_reduced_config
+from repro_torch.core import (SystemSpec, WorkloadConfig, build_system,
+                              generate)
 from repro_torch.engine.runner import Engine
 
 
@@ -72,7 +73,8 @@ def main(argv=None):
           f"p50={np.median(tpots) * 1e3:.2f}ms")
 
     print("[2] simulator replay of an equivalent system")
-    coord = build_system(SystemSpec(n_llm_clients=1, with_pre_post=False))
+    coord = build_system(SystemSpec(n_llm_clients=1, with_pre_post=False),
+                         device=args.device)
     wl = WorkloadConfig(rate=100.0, n_requests=n_requests, seed=0,
                         postprocess=False)
     coord.submit(generate(wl))

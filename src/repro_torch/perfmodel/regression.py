@@ -118,6 +118,18 @@ def fit_from_trace(rows, kind: str = "decode", device="cuda") -> FittedModel:
     return _fit(X, rows[:, 3], _poly_features_prefill)
 
 
+def fitted_from_numpy(weights, kind: str, device="cuda") -> FittedModel:
+    """A ``FittedModel`` over given ridge weights (another fit's, as a
+    numpy array of 6 for ``kind`` "decode" or 7 for "prefill"), so that two
+    predictors price from the same weights. Its ``mse`` is unknown: NaN."""
+    fn = {"decode": _poly_features_decode,
+          "prefill": _poly_features_prefill}[kind]
+    w = torch.as_tensor(np.array(weights, np.float32), device=device)
+    if w.shape != (6 if kind == "decode" else 7,):
+        raise ValueError(f"{kind} weights of shape {tuple(w.shape)}")
+    return FittedModel(w, fn, float("nan"))
+
+
 def batched_decode_predict(model: FittedModel, batch_arr, past_arr):
     """Predictions of a decode model over arrays of (batch, past): one
     product of the features with the weights, on the weights' device."""

@@ -297,3 +297,7 @@ def test_port_sources_never_name_jax_or_repro_imports():
     tools = [str(p) for p in (SRC.parent / "tools").glob("*.py")
              if pat.search(p.read_text())]
     assert tools == []
+    # the port's examples (serve_e2e_torch.py replays in repro_torch.core)
+    examples = sorted((SRC.parent / "examples").glob("*_torch.py"))
+    assert examples
+    assert [str(p) for p in examples if pat.search(p.read_text())] == []
