@@ -51,7 +51,10 @@ raises on failure:
    its defaults with int32 and with uint8 codes, the launch counter reset
    just before and read just after, whose top-5 ids must equal the plain
    version's and whose scan, rerun on the same inputs, is held against it
-   row by row and bit for bit; then one query's scan at ``IVFPQConfig``'s
+   row by row and bit for bit; ``examples/rag_pipeline_torch.py`` whole,
+   its scan's distances at the ids it prints held against the plain
+   version's and its top-5 equal to the plain top-5 but at ties within
+   that rounding (``_rag_example``); then one query's scan at ``IVFPQConfig``'s
    sizes (250,000 rows x 16 uint8 codes, K = 256) timed cold beside the
    plain version and one ``embedding_bag`` call, and warm, and cold with
    int32 codes; then a shard-scale scan of 2^28 rows (4 GiB of codes) with
@@ -1381,11 +1384,49 @@ def phase_rag():
             raise AssertionError(f"rag: {c} top-5 ids differ from the plain "
                                  f"version's")
         del codes, lut, want
+    launches += _rag_example()
     log(f"[rag] pq_scan launches on the path: {launches}")
 
     row = _pq_timed(gen)
     _pq_shard(gen)
     return row, launches
+
+
+def _rag_example() -> int:
+    """``examples/rag_pipeline_torch.py`` whole on the card: its live scan
+    through the pq_scan kernel, the distances at the ids it prints held
+    against the plain version's (``compare_fp32``), its top-5 equal to the
+    plain top-5 but where two distances tie within that rounding. Returns
+    the kernel's launches in it."""
+    import importlib.util
+    from repro_torch.kernels import pq_scan as pq
+    from repro_torch.kernels import ref
+    from repro_torch.launch import rag
+    spec = importlib.util.spec_from_file_location(
+        "rag_pipeline_torch", ROOT / "examples" / "rag_pipeline_torch.py")
+    ex = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ex)
+    before = pq.launches
+    ids, dist = ex.main([])
+    torch.cuda.synchronize()
+    launches = pq.launches - before
+    codes, lut = rag.make_inputs(ex.N, ex.M, ex.K, seed=0)
+    want = ref.pq_scan(codes, lut)
+    at = torch.tensor(ids, device=want.device)
+    e = compare_fp32("rag_pipeline_torch distances at its top-5",
+                     dist[at], want[at])
+    plain = rag.nearest(want)
+    ties = [(a, b) for a, b in zip(ids, plain) if a != b]
+    if launches <= 0 or any(
+            abs(float(want[a] - want[b])) > PQ_ATOL + PQ_RTOL * abs(
+                float(want[b])) for a, b in ties):
+        raise AssertionError(f"rag_pipeline_torch: {launches} launches, "
+                             f"top-5 {ids} against the plain {plain}")
+    log(f"[rag] examples/rag_pipeline_torch.py on the card: top-5 ids {ids}, "
+        f"plain version {plain} ({len(ties)} places differ within a tie); "
+        f"distances there max_abs_err={e:.3g} (atol {PQ_ATOL}, rtol "
+        f"{PQ_RTOL}); {launches} pq_scan launches")
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -3106,10 +3147,14 @@ def phase_families(card: str):
 # ---------------------------------------------------------------------------
 
 # flash at MLA prefill's shapes: (name, query/key head dim qk_nope +
-# qk_rope, value head dim v_head_dim, heads), as many kv heads as heads
+# qk_rope, value head dim v_head_dim, heads[, batch, 1 if not given]), as
+# many kv heads as heads; the last, a rank's share of deepseek_v2_236b's
+# train step on (2, 2) (tools/dist_cards.py train_236b): half the batch
+# of 4 and half the heads
 MLA_SHAPES = (("reduced", 24, 16, 4), ("minicpm3_4b", 96, 64, 40),
               ("deepseek_v2_lite_16b", 192, 128, 16),
-              ("deepseek_v2_236b", 192, 128, 128))
+              ("deepseek_v2_236b", 192, 128, 128),
+              ("deepseek_v2_236b_rank", 192, 128, 64, 2))
 # (arch, layers served), every config at full width: MiniCPM3-4B (62
 # layers, 8.1 GB) and DeepSeek-V2-Lite (27, 31.4 GB) whole; DeepSeek-V2-236B
 # cut to its dense layer and 4 of its 59 MoE layers (a MoE layer is 7.9 GB,
@@ -3140,7 +3185,8 @@ def phase_latent_kernels(gen):
         for ln in _ptxas_lines("flash_attention", mangled):
             log(f"[latent] flash_attention ptxas at {what}: {ln}")
     rows = []
-    for arch, dq, dv, nh in MLA_SHAPES:
+    for arch, dq, dv, nh, *batch in MLA_SHAPES:
+        b = batch[0] if batch else 1
         worst = [0.0, 0.0]
         for s in FLASH_S:
             q, k, v = _mla_case(gen, 2, s, nh, dq, dv)
@@ -3148,24 +3194,24 @@ def phase_latent_kernels(gen):
                            fa.flash_attention(q, k, v),
                            ref.flash_attention(q, k, v))
             worst = [max(worst[0], e), max(worst[1], r)]
-        q, k, v = _mla_case(gen, 1, 1024, nh, dq, dv)
-        e, r = compare(f"flash_attention {arch} s=1024",
+        q, k, v = _mla_case(gen, b, 1024, nh, dq, dv)
+        e, r = compare(f"flash_attention {arch} ({b}, 1024)",
                        fa.flash_attention(q, k, v),
                        ref.flash_attention(q, k, v))
         ms = cuda_time_ms(lambda: fa.flash_attention(q, k, v), hold=True)
         plain = cuda_time_ms(lambda: ref.flash_attention(q, k, v), hold=True)
         lib = cuda_time_ms(_sdpa_flash(q, k, v), hold=True)
-        bound_ms, by = bound(*_flash_work(1, 1024, nh, nh, dq, dv),
+        bound_ms, by = bound(*_flash_work(b, 1024, nh, nh, dq, dv),
                              PEAK_BF16_FLOPS)
         log(f"[latent] flash_attention {arch} dq/dv {dq}/{dv}, {nh}/{nh} "
             f"heads, causal: b=2 s in {FLASH_S} max_abs_err={worst[0]:.3g} "
-            f"max_row_rel_err={worst[1]:.3g}; (1, 1024): max_abs_err="
+            f"max_row_rel_err={worst[1]:.3g}; ({b}, 1024): max_abs_err="
             f"{e:.3g} max_row_rel_err={r:.3g} (atol {ATOL}, rtol {RTOL}, row "
             f"{ROW_RTOL}); host queue held: kernel {ms:.4f} ms, plain "
             f"{plain:.4f} ms, sdpa {lib:.4f} ms, bound {bound_ms:.4f} ms "
             f"({by}); kernel / sdpa {ms / lib:.2f}, bound / kernel "
             f"{bound_ms / ms:.3f}")
-        rows.append(dict(shape=[1, 1024, nh, nh, dq, dv], arch=arch,
+        rows.append(dict(shape=[b, 1024, nh, nh, dq, dv], arch=arch,
                          max_abs_err=max(worst[0], e),
                          max_row_rel_err=max(worst[1], r), ms=ms,
                          plain_ms=plain, library_ms=lib, bound_ms=bound_ms,
@@ -3640,7 +3686,9 @@ BWD_SHAPES = (("gemma_2b", (1, 1024, 8, 1, 256, 256), True),
               # tools/dist_cards.py train_whole): half the batch and
               # half the heads
               ("zamba2_7b_rank", (2, 1024, 16, 16, 112, 112), True),
-              ("internlm2_20b_rank", (2, 1024, 24, 4, 128, 128), True))
+              ("internlm2_20b_rank", (2, 1024, 24, 4, 128, 128), True),
+              # tools/dist_cards.py train_236b
+              ("deepseek_v2_236b_rank", (2, 1024, 64, 64, 192, 128), True))
 # the gradient kernel against its plain version on the same bf16 inputs,
 # each of dq, dk, dv: relative norm per (batch, head) slab <= GRAD_SLAB_RTOL
 # and |err| <= GRAD_TOL (max |plain| + |plain|) elementwise; the plain
@@ -4669,6 +4717,13 @@ def _routed_as(routes):
         moe._router = saved
 
 
+def _flipped(free, routes) -> int:
+    """Tokens whose set of experts differs between two recordings of the
+    same router calls (``_routes_recorded``)."""
+    return sum(int((a.sort(-1).values != b.to(a.device).sort(-1).values)
+                   .any(-1).sum()) for a, b in zip(free, routes))
+
+
 def _dist_one_process(cfg, opt, gathered, routes):
     """The same weights, batches and steps in this one process, no mesh:
     the gradient of step 1 (each leaf's cosine to the sharded one,
@@ -4700,9 +4755,7 @@ def _dist_one_process(cfg, opt, gathered, routes):
             _, grads = steps.value_and_grad(params, batches[0], cfg)
         out["cos_routed"] = cosines(grads)
         del grads
-        out["flipped"] = sum(
-            int((a.sort(-1).values != b.to(a.device).sort(-1).values)
-                .any(-1).sum()) for a, b in zip(free, routes))
+        out["flipped"] = _flipped(free, routes)
         out["routed_rows"] = sum(int(a.shape[0]) for a in free)
     gc.collect()
     torch.cuda.empty_cache()
@@ -5779,6 +5832,43 @@ def _ms(pairs) -> float:
     return float(sum(a.elapsed_time(b) for a, b in pairs))
 
 
+@contextlib.contextmanager
+def _adamw_timed():
+    """CUDA event pairs around each AdamW update of ``steps.train_step``
+    while open (after the gradient's global norm, which the sharded step
+    all-reduces before it)."""
+    from repro_torch.models import steps
+    saved, pairs = steps.adamw_update, []
+
+    def timed(*args, **kw):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        try:
+            return saved(*args, **kw)
+        finally:
+            b.record()
+            pairs.append((a, b))
+    steps.adamw_update = timed
+    try:
+        yield pairs
+    finally:
+        steps.adamw_update = saved
+
+
+def _train_gate_layers(cfg):
+    """(layer index in forward order, its stack, its index there) of the
+    layers a whole run holds against the unsharded layer: 1, 40 and the
+    last of the one stack (the Mamba2 layers for the hybrid); for the moe
+    family its first dense layer and its first and last MoE layers."""
+    if cfg.family == "moe":
+        kd, n = cfg.moe.first_k_dense, cfg.num_layers
+        return ((0, "dense_layers", 0), (kd, "layers", 0),
+                (n - 1, "layers", n - 1 - kd))
+    group = "mamba" if cfg.family == "hybrid" else "layers"
+    return tuple((i, group, i) for i in (0, 39, cfg.num_layers - 1))
+
+
 def _strided(path, v):
     """Up to SNAP_ELEMS values of each layer of a stacked leaf (of the leaf
     elsewhere), one row a layer, strided over the whole layer (an
@@ -5901,26 +5991,46 @@ def _cosines(keys, sums):
 
 
 def _train_reference(cfg, opt, share, batches, out_dir, fp32, specs, seed,
-                     data):
-    """Rank 0, before the ranks' run: the same seeded weights, batches and
-    steps in this one process, no mesh. Writes step 1's gradient to
-    ``ref_grad.pt`` (host memory, flat by path) and, with ``fp32``, the
-    gradient of the same batch at the same weights in fp32 (plain
-    attention: the kernels take bf16) to ``ref_grad32.pt``, with each
-    leaf's cosine to it (and of a Mamba2 leaf's B and C pieces,
-    ``path:BC``; ``specs``: the leaves' specs, ``_leaf_cosines``) of the
-    bf16 gradient and of the bf16 gradient summed from ``data`` shards of
-    the batch's rows as the ranks' data-axes all-reduce sums theirs (each
-    shard's gradient over the batch's token count, summed in fp32 and
-    rounded once). Returns the losses, step seconds, peak memory and
-    those cosines."""
+                     data, routes=None, whole_g=None):
+    """Rank 0: the same seeded weights, batches and steps in this one
+    process, no mesh. Writes step 1's gradient to ``ref_grad.pt`` (host
+    memory, flat by path) and, with ``fp32``, the gradient of the same
+    batch at the same weights in fp32 (plain attention: the kernels take
+    bf16) to ``ref_grad32.pt``, with each leaf's cosine to it (and of a
+    Mamba2 leaf's B and C pieces, ``path:BC``; ``specs``: the leaves'
+    specs, ``_leaf_cosines``) of the bf16 gradient and of the bf16
+    gradient summed from ``data`` shards of the batch's rows as the ranks'
+    data-axes all-reduce sums theirs (each shard's gradient over the
+    batch's token count, summed in fp32 and rounded once). With
+    ``routes`` (a MoE model, after the ranks' run with their state freed:
+    step i's expert choices over the data ranks, in call order, remat's
+    recompute too) every router call of step i takes the experts the
+    ranks chose in that call (``_routed_as``), and step 1's gradient is
+    held here against the ranks' (``whole_g``, flat on the host) instead
+    of written: each leaf's cosine routed (``cos``) and routed freely
+    (``cos_free``, with the forward's tokens whose free choice differs
+    from the ranks', ``flipped`` of ``routed_rows``). Returns the losses,
+    step seconds, peak memory and those cosines."""
     import gc
     from repro_torch import tree
     from repro_torch.models import steps
     from repro_torch.models.optim import init_opt_state
+
+    def cosines(grads):
+        return {path: _cos_of(*_cos_terms([(g, whole_g[path].to(g.device))
+                                           ]).tolist())
+                for path, g in tree.flatten(grads).items()}
     params = seeded_params(cfg, seed, share=share)
     out = {}
     g32 = None
+    if routes:
+        n_moe = cfg.num_layers - cfg.moe.first_k_dense
+        with _routes_recorded() as free:
+            _, g = steps.value_and_grad(params, batches[0], cfg)
+        out.update(cos_free=cosines(g),
+                   flipped=_flipped(free[:n_moe], routes[0]),
+                   routed_rows=sum(int(a.shape[0]) for a in free[:n_moe]))
+        del g, free
     if fp32:
         cfg32 = cfg.replace(param_dtype="float32", compute_dtype="float32")
         p32 = tree.map_tree(lambda t: t.float(), params)
@@ -5950,13 +6060,16 @@ def _train_reference(cfg, opt, share, batches, out_dir, fp32, specs, seed,
     torch.cuda.reset_peak_memory_stats()
     mets, secs = [], []
     for i, batch in enumerate(batches):
-        with _grads_captured() as got:
+        with (_routed_as(routes[i]) if routes
+              else contextlib.nullcontext()), _grads_captured() as got:
             t0 = time.perf_counter()
             state, met = steps.train_step(state, batch, cfg, opt)
             torch.cuda.synchronize()
         secs.append(time.perf_counter() - t0)
         mets.append({k: float(v) for k, v in met.items()})
-        if i == 0:
+        if i == 0 and routes:
+            out["cos"] = cosines(got[0])
+        elif i == 0:
             g = tree.flatten(got[0])
             torch.save({k: v.cpu() for k, v in g.items()},
                        os.path.join(out_dir, "ref_grad.pt"))
@@ -6056,7 +6169,8 @@ def _dist_train_rank(rank, world, out_dir, runs=DIST_TRAIN_RUNS,
     left unmoved. Without ``gates``, rank 0 first runs the same steps in
     one process (``_train_reference``, once for runs of the same model,
     depth and batch; for the hybrid family also the fp32 gradient of step
-    1), and each leaf's cosine of step 1's sharded gradient to the
+    1; for the moe family after the ranks, routed as they routed, with
+    step 1's gradient gathered to rank 0's host), and each leaf's cosine of step 1's sharded gradient to the
     one process's (and to the fp32 one, with the control's:
     ``_partials_captured``) is summed over the ranks' shards
     (``_sharded_cosines``). ``seed`` seeds the weights. With ``gates`` (whole models: no
@@ -6084,10 +6198,13 @@ def _dist_train_rank(rank, world, out_dir, runs=DIST_TRAIN_RUNS,
         share = TRAIN_SHARE.get(arch, 1.0)
         batches = _dist_batches(cfg, n_steps, batch, seq)
         fp32 = cfg.family == "hybrid"
+        # MoE: the one process runs after the ranks, routed as they routed
+        moe = cfg.family == "moe"
+        routed = moe and not gates
         pspecs = tf.param_specs(cfg, rules)
         r = {}
         t_run = time.perf_counter()
-        if rank == 0 and not gates:
+        if rank == 0 and not gates and not moe:
             key = (arch, layers, batch, seq, shape[0])
             if key != ref_key:
                 refs = _train_reference(cfg, opt, share, batches, out_dir,
@@ -6103,12 +6220,11 @@ def _dist_train_rank(rank, world, out_dir, runs=DIST_TRAIN_RUNS,
         build_s = time.perf_counter() - t0
         plan = D.plan(cfg, rules, mesh)
         specs = _nested(pspecs)
-        group = "mamba" if cfg.family == "hybrid" else "layers"
-        gate_layers = (0, 39, layers - 1) if gates else ()
+        gate_at = _train_gate_layers(cfg) if gates else ()
         gate_w = {}
-        for i in gate_layers:
+        for i, group, j in gate_at:
             whole = weights.gather_params(
-                tf.layer_slice(params[group], i),
+                tf.layer_slice(params[group], j),
                 _gate_layer_specs(cfg, rules, group), mesh)
             if rank == 0:
                 gate_w[i] = tree.map_tree(lambda t: t.cpu(), whole)
@@ -6129,19 +6245,21 @@ def _dist_train_rank(rank, world, out_dir, runs=DIST_TRAIN_RUNS,
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         ops.reset_launches()
-        mets, secs, ar_ms, ar_calls = [], [], [], []
-        grads1, partials = [], {}
+        mets, secs, ar_ms, ar_calls, opt_ms = [], [], [], [], []
+        grads1, partials, routes = [], {}, []
 
         def step(b, capture):
             # step 1's gradient and the control's pieces when compared
             # with the one process; their copies and all-reduces fall
-            # outside the timed step
+            # outside the timed step. MoE: each step's expert choices
             nonlocal state
             with (_partials_captured(plan) if capture
                   else contextlib.nullcontext({})) as bc, \
                     (_grads_captured() if capture
-                     else contextlib.nullcontext([])) as vg:
-                with _allreduce_timed() as pairs:
+                     else contextlib.nullcontext([])) as vg, \
+                    (_routes_recorded() if moe
+                     else contextlib.nullcontext([])) as rt:
+                with _allreduce_timed() as pairs, _adamw_timed() as adamw:
                     t0 = time.perf_counter()
                     state, met = steps.train_step(state, b, cfg, opt,
                                                   rules=rules, mesh=mesh)
@@ -6149,11 +6267,13 @@ def _dist_train_rank(rank, world, out_dir, runs=DIST_TRAIN_RUNS,
                     secs.append(time.perf_counter() - t0)
             grads1.extend(vg)
             partials.update(bc)
+            routes.append(rt)
             ar_ms.append(_ms(pairs))
             ar_calls.append(len(pairs))
+            opt_ms.append(_ms(adamw))
             mets.append({k: float(v) for k, v in met.items()})
         with layer_checks() as held, backward_checks() as (_, worst), \
-                _bodies_captured(cfg, set(gate_layers)) as got:
+                _bodies_captured(cfg, {i for i, _, _ in gate_at}) as got:
             step(batches[0], not gates)
         for b in batches[1:]:
             step(b, False)
@@ -6170,7 +6290,8 @@ def _dist_train_rank(rank, world, out_dir, runs=DIST_TRAIN_RUNS,
         dist.all_reduce(lo, dist.ReduceOp.MAX)
         r.update({
             "mets": mets, "secs": secs, "allreduce_ms": ar_ms,
-            "allreduces": ar_calls, "peak_gib": peak, "build_s": build_s,
+            "allreduces": ar_calls, "adamw_ms": opt_ms, "peak_gib": peak,
+            "build_s": build_s,
             "fwd": counts["flash_attention"],
             "bwd": counts["flash_attention_bwd"],
             "fwd_held": held.get("flash_attention", (0, 0.0, 0.0)),
@@ -6183,7 +6304,29 @@ def _dist_train_rank(rank, world, out_dir, runs=DIST_TRAIN_RUNS,
         gc.collect()
         torch.cuda.empty_cache()
         t_cos = time.perf_counter()
-        if grads1:
+        if routed:
+            # step 1's gradient and every step's routing on rank 0's host
+            # (the routes over the data ranks, in call order), then the
+            # one process on rank 0's card with the ranks' state freed
+            flat_specs = tree.flatten(specs)
+            whole_g = {}
+            for path, g in tree.flatten(grads1.pop()).items():
+                whole = weights.gather_params(g, flat_specs[path], mesh)
+                if rank == 0:
+                    whole_g[path] = whole.cpu()
+                del whole
+            routes = [[weights.gather_params(i, (("pod", "data"), None),
+                                             mesh).cpu() for i in rt]
+                      for rt in routes]
+            gc.collect()
+            torch.cuda.empty_cache()
+            if rank == 0:
+                r.update(_train_reference(cfg, opt, share, batches, out_dir,
+                                          fp32, pspecs, seed, shape[0],
+                                          routes, whole_g))
+            del whole_g
+            dist.barrier()
+        elif grads1:
             r["cos"] = _sharded_cosines(grads1[0], plan, specs, mesh,
                                         os.path.join(out_dir, "ref_grad.pt"))
             if fp32:
@@ -6193,19 +6336,24 @@ def _dist_train_rank(rank, world, out_dir, runs=DIST_TRAIN_RUNS,
         del grads1, partials
         r["cos_s"] = time.perf_counter() - t_cos
         if rank == 0 and gates:
+            # a MoE layer unsharded routes as rank 0 routed its rows in
+            # step 1's forward (the forward's calls come first)
             pos = torch.arange(seq, dtype=torch.int32, device="cuda")[None]
             gates_out = {}
-            for i in gate_layers:
+            for i, group, j in gate_at:
                 x, y = got[i]
                 w = tree.map_tree(lambda t: t.cuda(), gate_w.pop(i))
-                with torch.no_grad():
+                ctx = (_routed_as([routes[0][j]])
+                       if moe and group == "layers"
+                       else contextlib.nullcontext())
+                with torch.no_grad(), ctx:
                     want = (tf._train_mamba(w, x, cfg) if group == "mamba"
                             else tf._train_block(w, x, pos, cfg)[0])
                 gates_out[i + 1] = compare(f"{arch} layer {i + 1}", y, want,
                                            of_max=True)
                 del w, want
             r["gates"] = gates_out
-        del batches, got
+        del batches, got, routes
         gc.collect()
         torch.cuda.empty_cache()
         dist.barrier()
@@ -6237,6 +6385,25 @@ def cond_gate(r):
     worst = max(((k, ratio[k]) for k in COND_GATED), key=lambda kv: kv[1])
     return worst, (("*:BC control", ctrl["*:BC control"])
                    if "*:BC control" in ctrl else ("none", 0.0))
+
+
+def _capacity_text(cfg, shape, tokens) -> str:
+    """The MoE layers' capacities (``moe._capacity``) against the rows
+    routed to them, on a rank (its data shard's rows, its model rank's
+    experts) and in one process: the rows either drops."""
+    from repro_torch.models import moe
+    m = cfg.moe
+    rank_t, local = tokens // shape[0], m.num_experts // shape[1]
+    cap = moe._capacity(rank_t, m.top_k, m.num_experts, local,
+                        m.capacity_slack)
+    one = moe._capacity(tokens, m.top_k, m.num_experts, m.num_experts,
+                        m.capacity_slack)
+    return (f"capacity slack {m.capacity_slack}: a rank takes {cap} of its "
+            f"{rank_t * m.top_k} routed rows at most (any rows routed to "
+            f"its {local} experts), one process {one} of "
+            f"{tokens * m.top_k}: rows dropped "
+            f"{max(0, rank_t * m.top_k - cap)} and "
+            f"{max(0, tokens * m.top_k - one)} at most")
 
 
 def _train_tag(arch, layers, shape, fsdp) -> str:
@@ -6314,6 +6481,14 @@ def dist_train_report(tag, card, ranks, transport, runs=DIST_TRAIN_RUNS,
                 + f"; least gradient cosine {low[0][1]:.6f} ({low[0][0]}), "
                 f"next {low[1][1]:.6f} ({low[1][0]}) over "
                 f"{len(r0['cos'])} leaves (limit {DIST_COS})")
+            if "cos_free" in r0:
+                free = min(r0["cos_free"].items(), key=lambda kv: kv[1])
+                text += (
+                    f", the one process routed as the ranks routed (free "
+                    f"routing: least cosine {free[1]:.6f} ({free[0]}), "
+                    f"{r0['flipped']} of {r0['routed_rows']} tokens of "
+                    f"step 1's forward chose other experts); "
+                    + _capacity_text(cfg, shape, batch * seq))
             held_to_fp32 = "cos32" in r0
             if held_to_fp32:
                 ratio, ctrl = cond_ratios(r0)
@@ -6361,6 +6536,9 @@ def dist_train_report(tag, card, ranks, transport, runs=DIST_TRAIN_RUNS,
             + "; all-reduce ms a step (calls) "
             + " ".join(f"{t:.1f} ({n})" for t, n in zip(r0["allreduce_ms"],
                                                        r0["allreduces"]))
+            + "; AdamW ms a step (share of the step) " + " ".join(
+                f"{t:.1f} ({t / 1e3 / w:.3f})"
+                for t, w in zip(r0["adamw_ms"], r0["secs"]))
             + "; peak GiB a rank " + " ".join(f"{r['peak_gib']:.2f}"
                                               for r in per)
             + "; train state (params, m, v) GB a rank "

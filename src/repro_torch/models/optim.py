@@ -60,8 +60,11 @@ def init_opt_state(params) -> Dict:
 
 def global_norm(grads) -> torch.Tensor:
     """sqrt of the sum over every leaf of its fp32 sum of squares (leaves in
-    the JAX package's order)."""
-    return torch.sqrt(sum(torch.sum(torch.square(g.float()))
+    the JAX package's order). A leaf is summed in ``slices``: its fp32
+    square whole would be 20 GB of temporaries at deepseek_v2_236b's
+    experts of one MoE layer."""
+    return torch.sqrt(sum(sum(torch.sum(torch.square(p.float()))
+                              for p in slices(g))
                           for g in tree.leaves(grads)))
 
 
@@ -101,10 +104,14 @@ def adamw_update(params, grads, opt_state, opt: OptConfig,
 
 
 def slices(t):
-    """Views of ``t`` along its first axis, each of at most SLICE_ELEMS
-    entries (one row where a row is larger; ``t`` itself if it is small or
-    0-d)."""
+    """Views of ``t``, each of at most SLICE_ELEMS entries: ``t`` itself if
+    it is small or 0-d, else along its first axis, and a row larger than
+    SLICE_ELEMS sliced so in turn (a stacked leaf of one layer is one row:
+    deepseek_v2_236b's experts' ``wi`` of one MoE layer has 2.5e9
+    entries)."""
     if t.ndim == 0 or t.numel() <= SLICE_ELEMS:
         return (t,)
-    rows = max(1, SLICE_ELEMS // (t.numel() // t.shape[0]))
-    return torch.split(t, rows)
+    row = t.numel() // t.shape[0]
+    if row > SLICE_ELEMS and t.ndim > 1:
+        return tuple(p for r in t for p in slices(r))
+    return torch.split(t, max(1, SLICE_ELEMS // row))

@@ -15,8 +15,10 @@ loss; grad norms alike to 6 digits). Held:
     4) (one head a rank); under ``fsdp=True`` internlm2_20b on (2, 2, 2),
     zamba2_7b, deepseek_v2_lite_16b (expert parallelism with FSDP; JAX's
     reference step takes the routers' aux as the mean over the data
-    shards, the reference fact of ``tests/test_torch_distributed.py``)
-    and xlstm_1_3b on (2, 2); zamba2_7b under FSDP with remat "full":
+    shards, the reference fact of ``tests/test_torch_distributed.py``),
+    deepseek_v2_236b (the same, with q-LoRA MLA: ``wdq``, the query norm
+    and ``wuq`` on 2 of 4 heads a model rank) and xlstm_1_3b on (2, 2);
+    zamba2_7b under FSDP with remat "full":
     loss, grad norm and aux within STEP_RTOL (x ``FP32_COND`` of
     ``tests/test_torch_train_families.py`` for the ill-conditioned
     zamba2 and xlstm), params by ``_params_close`` and m and v within
@@ -64,8 +66,9 @@ NOISE = 0.02
 MESH22 = dict(mesh=[2, 2], axes=["data", "model"])
 MESH222 = dict(mesh=[2, 2, 2], axes=["pod", "data", "model"])
 SEEDS = {"zamba2_7b": 60, "xlstm_1_3b": 61, "internlm2_20b": 62,
-         "deepseek_v2_lite_16b": 63}
-SLACK = {"deepseek_v2_lite_16b": {"capacity_slack": 8.0}}
+         "deepseek_v2_lite_16b": 63, "deepseek_v2_236b": 64}
+SLACK = {"deepseek_v2_lite_16b": {"capacity_slack": 8.0},
+         "deepseek_v2_236b": {"capacity_slack": 8.0}}
 DISPATCH = {"capacity_slack": 1.0, "impl": "dispatch_einsum"}
 # (a): each case's arch, mesh, FSDP and remat; the inputs are the arch's
 TRAIN = {
@@ -79,6 +82,10 @@ TRAIN = {
     "zamba2_7b_22_fsdp": dict(arch="zamba2_7b", fsdp=True, **MESH22),
     "deepseek_v2_lite_16b_22_fsdp": dict(arch="deepseek_v2_lite_16b",
                                          fsdp=True, **MESH22),
+    # q-LoRA MLA (wdq, the query norm, wuq) with 2 of 4 heads a model
+    # rank, experts over "model", FSDP: JAX's rule for the full config
+    "deepseek_v2_236b_22_fsdp": dict(arch="deepseek_v2_236b", fsdp=True,
+                                     **MESH22),
     "xlstm_1_3b_22_fsdp": dict(arch="xlstm_1_3b", fsdp=True, **MESH22),
     "zamba2_7b_22_fsdp_full": dict(arch="zamba2_7b", fsdp=True,
                                    remat="full", **MESH22),
@@ -318,8 +325,7 @@ def test_sharded_train_step_matches_jax(world, name):
             _close_to_max(_sub(got, f"opt/{m}"), _sub(want, f"opt/{m}"),
                           STEP_RTOL, m)
         assert int(got["opt/step"]) == int(want["opt/step"]) == i + 1
-    assert (float(out["chain0_aux_loss"]) > 0) == (
-        case["arch"] == "deepseek_v2_lite_16b")
+    assert (float(out["chain0_aux_loss"]) > 0) == (case["arch"] in SLACK)
 
 
 @pytest.mark.parametrize("name", list(TRAIN))
@@ -338,7 +344,7 @@ def test_shards_gather_back_and_moments_are_the_shards(world, name):
 # ---------------------------------------------------------------------------
 
 FSDP_ARCHS = ("zamba2_7b", "xlstm_1_3b", "internlm2_20b",
-              "deepseek_v2_lite_16b")
+              "deepseek_v2_lite_16b", "deepseek_v2_236b")
 FSDP_MESHES = {(2, 2): ("data", "model"),
                (2, 2, 2): ("pod", "data", "model")}
 

@@ -310,7 +310,9 @@ def test_remat_dots_recomputes_no_product(arch):
 
 def test_adamw_slices_equal_whole_leaves(monkeypatch):
     """AdamW walked in slices of a leaf gives the whole leaf's update bit
-    for bit (fp32 and bf16 leaves, 0-d, a row larger than a slice)."""
+    for bit (fp32 and bf16 leaves, 0-d, a row larger than a slice), and
+    the global norm summed in slices the whole leaves' within fp32
+    rounding."""
     gen = torch.Generator().manual_seed(41)
 
     def make():
@@ -324,9 +326,10 @@ def test_adamw_slices_equal_whole_leaves(monkeypatch):
     opt = optim.OptConfig(lr=1e-2, warmup_steps=1, total_steps=4)
     for _ in range(2):
         monkeypatch.setattr(optim, "SLICE_ELEMS", 7)
-        optim.adamw_update(params, grads, st, opt)
+        *_, norm = optim.adamw_update(params, grads, st, opt)
         monkeypatch.setattr(optim, "SLICE_ELEMS", 1 << 25)
-        optim.adamw_update(whole, grads, st_whole, opt)
+        *_, norm_whole = optim.adamw_update(whole, grads, st_whole, opt)
+        torch.testing.assert_close(norm, norm_whole, rtol=1e-6, atol=0)
     for got, want in ((params, whole), (st["m"], st_whole["m"]),
                       (st["v"], st_whole["v"])):
         for k, w in tree.flatten(want).items():

@@ -2,7 +2,7 @@
 """The sharded steps on four cards, one rank a card over NCCL:
 
     python3 tools/dist_cards.py [train] [serve] [long] [probe] [train_whole]
-        [v2] [long_mla] [dispatch] [fsdp]
+        [train_236b] [v2] [long_mla] [dispatch] [fsdp]
 
 With no argument it runs train and serve.
 
@@ -87,6 +87,23 @@ launches on every rank, each rank's m and v of its shards' shape, and
 layers 1, 40 and the last, each body's forward of step 1 against the
 unsharded layer on card 0 from its gathered weights on the same input
 (``compare``).
+
+``train_236b`` (not run by default): deepseek_v2_236b at full width
+(5120 wide, 128 heads, q-LoRA MLA, 160 routed experts top-6 + 2 shared,
+vocabulary 102,400) under JAX's rule for its train cell, ``fsdp=True``,
+the experts over "model" (ragged expert parallelism, capacity slack
+2.0), remat "full", bf16, on (2, 2), one NCCL rank a card. First
+CHECK_236B, 2 layers (1 dense + 1 MoE) for 2 steps of 4 x 1024 with
+phase dist_train_all's gates against one process on card 0 which runs
+after the ranks (their state freed), each of its MoE calls routed as the
+ranks routed them in that step (``chip_smoke._train_reference`` given
+the routes: the ranks' free routing of bf16 sums in other orders parts
+from one process's at near ties); then RUN_236B, 5 layers (1 dense + 4 MoE, the
+depth four cards hold: 207 GB of train state whole, 52 GB a card) for
+TRAIN_WHOLE_STEPS steps, printed and gated as ``train_whole``'s runs,
+the dense layer and the first and last MoE layers held against the
+unsharded layer on card 0 (a MoE layer routed as rank 0 routed), and
+AdamW's share of the step.
 
 ``v2``, ``long_mla``, ``dispatch``, ``fsdp`` (not run by default;
 ``layouts``):
@@ -949,49 +966,82 @@ def _train_ranks(runs, n_steps, gates):
     return ranks
 
 
-def train_whole(card):
+def _train_check(card, name, runs):
+    """``runs`` over four cards against one process on card 0
+    (``chip_smoke.dist_train_report``'s gates)."""
+    t0 = time.monotonic()
+    ranks = _train_ranks(runs, cs.DIST_STEPS, False)
+    cs.dist_train_report(f"cards {name} check", card, ranks,
+                         f"4 ranks, one a card, over {ranks[0]['backend']}",
+                         runs)
+    cs.log(f"[cards] {name} check: {time.monotonic() - t0:.1f} s")
+
+
+def _train_at_depth(card, run):
+    """One run of TRAIN_WHOLE_STEPS steps over four cards with the layer
+    gates (``gates=True``): its numbers printed, then gated."""
     from repro_torch.configs import get_config
     from repro_torch.models import transformer as tf
     t0 = time.monotonic()
-    ranks = _train_ranks(CHECK_TRAIN_RUNS, cs.DIST_STEPS, False)
-    cs.dist_train_report("cards train_whole check", card, ranks,
-                         f"4 ranks, one a card, over {ranks[0]['backend']}",
-                         CHECK_TRAIN_RUNS)
-    cs.log(f"[cards] train_whole check: {time.monotonic() - t0:.1f} s")
+    arch, layers, shape, fsdp, b, s = run
+    ranks = _train_ranks((run,), TRAIN_WHOLE_STEPS, True)
+    per = [r[cs._train_tag(*run[:4])] for r in ranks]
+    full = get_config(arch)
+    cfg = full.replace(num_layers=layers)
+    depth = ("whole" if layers == full.num_layers
+             else f"at {layers} of {full.num_layers} layers")
+    n = sum(int(np.prod(v)) for v in tf.param_shapes(cfg).values())
+    step_s = float(np.median([x for r in per for x in r["secs"][1:]]))
+    flops = cs._train_flops(cfg, b, s)
+    tflops = flops / step_s / 1e12 / 4
+    ar = float(np.median([x for r in per for x in r["allreduce_ms"][1:]]))
+    opt = float(np.median([x for r in per for x in r["adamw_ms"][1:]]))
+    cs.log(
+        f"[cards] {arch} {depth} ({layers} layers, {n / 1e9:.3f}B "
+        f"parameters, full width, bf16, remat {cfg.remat}, mesh (data, "
+        f"model) = {shape}{', fsdp=True' if fsdp else ''}, 4 ranks, one "
+        f"a card, over {ranks[0]['backend']}, {TRAIN_WHOLE_STEPS} steps "
+        f"of {b} x {s}): step s {step_s:.4f} (median of steps 2-"
+        f"{TRAIN_WHOLE_STEPS} over the ranks); tokens/s "
+        f"{b * s / step_s:.1f}; TFLOP/s a card {tflops:.1f} (share of "
+        f"989: {tflops / 989:.3f}); all-reduce ms a step {ar:.1f} "
+        f"(median; calls {per[0]['allreduces'][1]}); AdamW ms a step "
+        f"{opt:.1f} (median; share of the step {opt / 1e3 / step_s:.3f}); "
+        f"peak GiB a card " + " ".join(f"{r['peak_gib']:.2f}" for r in per)
+        + "; train state (params, m, v) GB a card "
+        + " ".join(f"{r['state_bytes'] / 1e9:.2f}" for r in per)
+        + ", with a bf16 gradient " + " ".join(
+            f"{(r['state_bytes'] + 2 * r['local_params']) / 1e9:.2f}"
+            for r in per)
+        + f" (one card would need {12 * n / 1e9:.1f} GB at 12 B a "
+        f"parameter); {card}")
+    cs.dist_train_report(f"cards {arch} {depth}", card, ranks,
+                         f"4 ranks, one a card, over "
+                         f"{ranks[0]['backend']}", (run,),
+                         TRAIN_WHOLE_STEPS, one_process=False)
+    cs.log(f"[cards] {arch} {depth}: {time.monotonic() - t0:.1f} s")
+
+
+def train_whole(card):
+    _train_check(card, "train_whole", CHECK_TRAIN_RUNS)
     for run in WHOLE_TRAIN_RUNS:
-        t0 = time.monotonic()
-        arch, layers, shape, fsdp, b, s = run
-        ranks = _train_ranks((run,), TRAIN_WHOLE_STEPS, True)
-        per = [r[cs._train_tag(*run[:4])] for r in ranks]
-        cfg = get_config(arch).replace(num_layers=layers)
-        n = sum(int(np.prod(v)) for v in tf.param_shapes(cfg).values())
-        step_s = float(np.median([x for r in per for x in r["secs"][1:]]))
-        flops = cs._train_flops(cfg, b, s)
-        tflops = flops / step_s / 1e12 / 4
-        ar = float(np.median([x for r in per for x in r["allreduce_ms"][1:]]))
-        cs.log(
-            f"[cards] {arch} whole ({layers} layers, {n / 1e9:.3f}B "
-            f"parameters, full width, bf16, remat {cfg.remat}, mesh (data, "
-            f"model) = {shape}{', fsdp=True' if fsdp else ''}, 4 ranks, one "
-            f"a card, over {ranks[0]['backend']}, {TRAIN_WHOLE_STEPS} steps "
-            f"of {b} x {s}): step s {step_s:.4f} (median of steps 2-"
-            f"{TRAIN_WHOLE_STEPS} over the ranks); tokens/s "
-            f"{b * s / step_s:.1f}; TFLOP/s a card {tflops:.1f} (share of "
-            f"989: {tflops / 989:.3f}); all-reduce ms a step {ar:.1f} "
-            f"(median; calls {per[0]['allreduces'][1]}); peak GiB a card "
-            + " ".join(f"{r['peak_gib']:.2f}" for r in per)
-            + "; train state (params, m, v) GB a card "
-            + " ".join(f"{r['state_bytes'] / 1e9:.2f}" for r in per)
-            + ", with a bf16 gradient " + " ".join(
-                f"{(r['state_bytes'] + 2 * r['local_params']) / 1e9:.2f}"
-                for r in per)
-            + f" (one card would need {12 * n / 1e9:.1f} GB at 12 B a "
-            f"parameter)")
-        cs.dist_train_report(f"cards {arch} whole", card, ranks,
-                             f"4 ranks, one a card, over "
-                             f"{ranks[0]['backend']}", (run,),
-                             TRAIN_WHOLE_STEPS, one_process=False)
-        cs.log(f"[cards] {arch} whole: {time.monotonic() - t0:.1f} s")
+        _train_at_depth(card, run)
+
+
+# train_236b: deepseek_v2_236b at full width under JAX's rule for a train
+# cell over 30e9 parameters (fsdp=True), its experts over "model"
+# (ragged EP, capacity slack 2.0), remat "full". The check: 2 layers (1
+# dense + 1 MoE; 5.359B parameters, 64.3 GB of train state, which one card
+# holds alone) against one process on card 0, routed as the ranks routed.
+# The run: 5 layers (1 dense + 4 MoE; 17.275B parameters, 207.3 GB of
+# train state, 51.8 GB a card): the depth four cards hold
+CHECK_236B = (("deepseek_v2_236b", 2, (2, 2), True, 4, 1024),)
+RUN_236B = ("deepseek_v2_236b", 5, (2, 2), True, 4, 1024)
+
+
+def train_236b(card):
+    _train_check(card, "train_236b", CHECK_236B)
+    _train_at_depth(card, RUN_236B)
 
 
 # v2, long_mla, dispatch, fsdp: those layouts over four cards, (2, 2),
@@ -1417,7 +1467,7 @@ def layouts(card, names=("v2", "long_mla", "dispatch", "fsdp")):
 
 def main():
     parts = sys.argv[1:] or ["train", "serve"]
-    known = ("train", "serve", "long", "probe", "train_whole",
+    known = ("train", "serve", "long", "probe", "train_whole", "train_236b",
              *LAYOUT_RUNS)
     if any(p not in known for p in parts):
         raise SystemExit(f"parts: {', '.join(known)} (got {parts})")
@@ -1434,7 +1484,7 @@ def main():
             layouts(card, (part,))
             continue
         {"train": train, "serve": serve, "long": long, "probe": probe,
-         "train_whole": train_whole}[part](card)
+         "train_whole": train_whole, "train_236b": train_236b}[part](card)
     cs.log("[cards] ok")
 
 

@@ -15,7 +15,8 @@ at 32,768; ``long_mla`` deepseek_v2_lite_16b whole under ``seq_sharded``,
 decode at 524,288; ``dispatch`` v2-lite whole with the dispatch einsum,
 prefill 8 x 1024 and decode at 1,056; ``fsdp`` gemma_2b whole without and
 with FSDP, the same; ``train_whole`` zamba2_7b whole and internlm2_20b
-whole under FSDP, a train step of 4 x 1024.
+whole under FSDP, a train step of 4 x 1024; ``train_236b``
+deepseek_v2_236b at 5 layers (1 dense + 4 MoE) under FSDP, the same.
 """
 from __future__ import annotations
 
@@ -48,6 +49,8 @@ RUNS = (
     ("fsdp", "gemma_2b", (2, 2), "decode", 8, 1048, {}, True),
     ("train_whole", "zamba2_7b", (2, 2), "train", 4, 1024, {}, False),
     ("train_whole", "internlm2_20b", (2, 2), "train", 4, 1024, {}, True),
+    ("train_236b", "deepseek_v2_236b", (2, 2), "train", 4, 1024,
+     {"num_layers": 5}, True),
 )
 
 
